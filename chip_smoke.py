@@ -1,0 +1,548 @@
+"""Drive the torch port's main path once on one CUDA card, and check it.
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own lines; any failure raises and the
+script exits non-zero:
+
+1. card: no CUDA device is a failure; prints the device and nvidia-smi's
+   name and power limit.
+2. build: compiles `redisearch_tpu_torch/csrc/intersect.cu` with nvcc for
+   sm_90a and prints the seconds and ptxas' register/spill report.
+3. kernel vs plain: random posting windows at the serving buckets (pivot
+   2048/8192/32768, members up to 131072), the AND/NOT/OPT/OR families,
+   tag-aux and dense-tag plans, k = 1/16/64, multi-phase ORs, and
+   batches larger than the kernel's grid.  Docs and counts must be
+   equal, scores within rtol 1e-6.
+4. main path: `Client.ft_create` with bench.py's BM25 schema, a 1M-doc
+   FTSB-enwiki-shaped corpus (4+20 zipf(1.25) tokens over a 200k vocab,
+   seed 0) through `add_documents`, then `ft_search_many` at batch 8192,
+   k=10 on seven query families.  Every served query must count under
+   "kernel" and the kernel must have launched; every query of each
+   family is recomputed with `intersect_plain` on the card and must
+   agree, as must the raw lanes of the largest and2 group; a few and2
+   counts are checked against numpy set intersections of the
+   host-copied postings.  QPS, memory and the kernel's time against the
+   plain version's are printed for information.
+5. profile, for information: per family, the host stages of one batch
+   and the device's busy share from torch.profiler.
+6. the last three lines: nvidia-smi's name and power limit, the
+   kernels' JSON record, then {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+import redisearch_tpu_torch as rt
+from redisearch_tpu_torch.ops import _build
+from redisearch_tpu_torch.ops import intersect as IK
+from redisearch_tpu_torch.query import engine as E
+
+N_DOCS = 1_000_000
+BATCH = 8192
+K = 10
+SCORE_RTOL = 1e-6
+KERNEL_SRC = "redisearch_tpu_torch/csrc/intersect.cu"
+KERNEL_REPLACES = "redisearch_tpu/ops/intersect.py:295"
+
+# bench.py's seven intersection-kernel families (phrase is kernel B2)
+FAMILIES = {
+    "and2": lambda qt, i: f"{qt[(2*i) % 500]} {qt[(2*i+1) % 500]}",
+    "and2_tag": lambda qt, i: (f"{qt[(2*i) % 500]} {qt[(2*i+1) % 500]} "
+                               f"@cat:{{cat{i % 16:02d}}}"),
+    "and3": lambda qt, i: (f"{qt[(3*i) % 500]} {qt[(3*i+1) % 500]} "
+                           f"{qt[(3*i+2) % 500]}"),
+    "or2": lambda qt, i: f"{qt[(2*i) % 500]}|{qt[(2*i+1) % 500]}",
+    "not2": lambda qt, i: f"{qt[(2*i) % 500]} -{qt[(2*i+1) % 500]}",
+    "opt2": lambda qt, i: f"{qt[(2*i) % 500]} ~{qt[(2*i+1) % 500]}",
+    "fields2": lambda qt, i: (f"@title:{qt[(2*i) % 500]} "
+                              f"@body:{qt[(2*i+1) % 500]}"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------- phase 1
+def phase_card() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("phase card: FAILED — torch.cuda.is_available() "
+                         "is false")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+    log(f"phase card: {name}, device_count={torch.cuda.device_count()}, "
+        f"torch {torch.__version__}, cuda {torch.version.cuda}")
+    log(f"phase card: nvidia-smi: {smi}")
+    return smi
+
+
+# ---------------------------------------------------------------- phase 2
+def phase_build():
+    _build.load()
+    info = _build.BUILD_INFO
+    log(f"phase build: {info['path']} built={info['built']} "
+        f"seconds={info['seconds']:.2f}")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"phase build: ptxas: {line.strip()}")
+
+
+# ---------------------------------------------------------------- phase 3
+def make_windows(rng, B, Ws, n_docs=2_000_000, overlap=0.5):
+    """Random doc-sorted posting windows sharing a per-query doc pool (so
+    slots genuinely intersect), at arbitrary offsets of flat arrays —
+    the layout of tests/test_pallas_interpret.py's _make_windows."""
+    T = len(Ws)
+    total = B * sum(w + 128 for w in Ws) + 4096
+    doc_ids = np.full(total, 2**31 - 1, np.int32)
+    freqs = np.zeros(total, np.float32)
+    masks = np.zeros(total, np.int32)
+    dl = (np.abs(rng.normal(24.0, 6.0, total)) + 1.0).astype(np.float32)
+    meta = np.zeros((B, 3 * T), np.int32)
+    fmeta = np.zeros((B, T + 1), np.float32)
+    at = 0
+    for b in range(B):
+        pool = np.unique(rng.integers(0, n_docs, 2 * max(Ws)))
+        for t, W in enumerate(Ws):
+            live = int(rng.integers(max(1, W // 2), W + 1))
+            shared = pool[rng.random(len(pool)) < overlap][:live]
+            extra = rng.integers(0, n_docs, live)
+            docs = np.unique(np.concatenate([shared, extra]))[:live]
+            live = len(docs)
+            doc_ids[at:at + live] = docs
+            freqs[at:at + live] = rng.integers(1, 8, live)
+            masks[at:at + live] = np.where(rng.random(live) < 0.9, 3, 4)
+            meta[b, t], meta[b, T + t], meta[b, 2 * T + t] = at, live, 3
+            at += W + int(rng.integers(0, 128))
+        fmeta[b, :T] = rng.uniform(0.5, 4.0, T)
+        fmeta[b, T] = 24.0
+    return meta, fmeta, doc_ids, freqs, masks, dl
+
+
+def kernel_cases(rng, B=48):
+    """(label, numpy args, plan kwargs) at the serving buckets, B queries
+    each."""
+    R, N, O = IK.REQ, IK.NOT, IK.OPT
+    plain = [
+        ("and2", (2048, 8192), ((R, (0,)), (R, (1,))), 16),
+        ("and2-k1", (2048, 8192), ((R, (0,)), (R, (1,))), 1),
+        ("and2-k64", (8192, 32768), ((R, (0,)), (R, (1,))), 64),
+        ("not", (2048, 32768), ((R, (0,)), (N, (1,))), 16),
+        ("opt", (8192, 2048), ((R, (0,)), (O, (1,))), 16),
+        ("or2", (2048, 2048), ((R, (0, 1)),), 16),
+        ("and2not-member131072", (2048, 8192, 131072),
+         ((R, (0,)), (R, (1,)), (N, (2,))), 16),
+        ("pivot32768", (32768, 131072), ((R, (0,)), (R, (1,))), 16),
+        ("or3-3phase", (2048, 2048, 8192), ((R, (0, 1, 2)),), 16),
+        ("or2-and-not", (2048, 2048, 8192, 8192),
+         ((R, (0, 1)), (R, (2,)), (N, (3,))), 64),
+    ]
+    out = []
+    for label, Ws, groups, k in plain:
+        args = make_windows(rng, B, Ws)
+        out.append((label, args, dict(T=len(Ws), Ws=Ws, groups=groups,
+                                      k=k)))
+    # more queries than the kernel's grid: blocks serve q, q + grid, ...
+    # and reuse their scratch row and shared state
+    B_big = IK._MAX_GRID + 517
+    for label, Ws, groups in (
+            ("and2-gridstride", (2048, 2048), ((R, (0,)), (R, (1,)))),
+            ("or2-gridstride", (2048, 2048), ((R, (0, 1)),))):
+        args = make_windows(rng, B_big, Ws)
+        out.append((label, args, dict(T=2, Ws=Ws, groups=groups, k=16)))
+    # TAG member slots streamed from an aux doc-window array
+    Ws = (2048, 8192)
+    meta, fmeta, d, f, m, dl = make_windows(rng, B, Ws)
+    aux = np.full(B * 8193 + 4096, 2**31 - 1, np.int32)
+    at = 0
+    for b in range(B):
+        live = int(rng.integers(4096, 8193))
+        docs = np.unique(rng.integers(0, 2_000_000, live))
+        aux[at:at + len(docs)] = docs
+        meta[b, 1], meta[b, 3] = at, len(docs)
+        at += 8192 + 1
+    out.append(("tag-aux", (meta, fmeta, d, f, m, dl, aux),
+                dict(T=2, Ws=Ws, groups=((R, (0,), -1), (R, (1,), 0)),
+                     k=16)))
+    # dense posting-aligned code predicates (REQ with 2 values, NOT)
+    meta, fmeta, d, f, m, dl = make_windows(rng, B, Ws)
+    codes = rng.integers(0, 8, d.shape[0]).astype(np.int32)
+    q = rng.integers(-1, 10, (B, 3)).astype(np.int32)
+    q[rng.random(B) < 0.3, 1] = -2          # unbound value slots
+    meta = np.concatenate([meta, q], axis=1)
+    fmeta = np.concatenate(
+        [fmeta, rng.uniform(0.5, 4.0, (B, 2)).astype(np.float32)], 1)
+    out.append(("dense-tag", (meta, fmeta, d, f, m, dl, codes),
+                dict(T=2, Ws=Ws, groups=((R, (0,), -1), (R, (1,), -1)),
+                     k=16, dense=((R, 0, 2), (N, 0, 1)))))
+    return out
+
+
+def compare(kd, ks, kc, pd, ps, pc, what):
+    """Kernel vs plain outputs: docs and counts equal, scores rtol 1e-6.
+    Returns the max abs score difference over live lanes."""
+    kd, ks, kc = kd.cpu().numpy(), ks.cpu().numpy(), kc.cpu().numpy()
+    pd, ps, pc = pd.cpu().numpy(), ps.cpu().numpy(), pc.cpu().numpy()
+    if not np.array_equal(kc, pc):
+        raise AssertionError(f"{what}: counts differ at "
+                             f"{np.flatnonzero(kc != pc)[:5]}")
+    if not np.array_equal(kd, pd):
+        bad = np.argwhere(kd != pd)[:5]
+        raise AssertionError(f"{what}: docs differ at {bad.tolist()}")
+    np.testing.assert_allclose(ks, ps, rtol=SCORE_RTOL, atol=0,
+                               err_msg=what)
+    live = ps > -3.3e38
+    return float(np.abs(ks[live] - ps[live]).max()) if live.any() else 0.0
+
+
+def phase_kernel_vs_plain(dev, B: int = 48) -> float:
+    rng = np.random.default_rng(7)
+    err = 0.0
+    for label, args, kw in kernel_cases(rng, B):
+        t = [torch.as_tensor(a, device=dev) for a in args]
+        kout = IK.intersect_batch(*t, **kw)
+        pout = IK.intersect_plain(*t, **kw)
+        torch.cuda.synchronize()
+        e = compare(*kout, *pout, f"kernel vs plain [{label}]")
+        err = max(err, e)
+        n_hit = int((pout[1] > -3.3e38).sum())
+        log(f"phase kernel-vs-plain: {label} Ws={kw['Ws']} k={kw['k']} "
+            f"B={args[0].shape[0]} live lanes={n_hit} "
+            f"matches={int(pout[2].sum())} max_abs_err={e:.3g} ok")
+    torch.cuda.synchronize()
+    return err
+
+
+# ---------------------------------------------------------------- phase 4
+def make_corpus(n_docs: int, seed: int = 0):
+    """bench.py's corpus: 4+20 zipf(1.25) tokens over a 200k vocab."""
+    rng = np.random.default_rng(seed)
+    vocab = 200_000
+    words = np.array(["w%06d" % i for i in range(vocab)])
+    zipf = np.clip(rng.zipf(1.25, size=(n_docs, 24)) - 1, 0, vocab - 1)
+    cats = np.array(["cat%02d" % i for i in range(16)])
+    cat2 = np.array(["g%04d" % i for i in range(1000)])
+    price = rng.integers(1, 10_000, n_docs)
+    docs = [(f"d{i}", {"title": " ".join(words[zipf[i, :4]]),
+                       "body": " ".join(words[zipf[i, 4:]]),
+                       "cat": cats[i % 16],
+                       "grp": cat2[i % 1000],
+                       "price": float(price[i])})
+            for i in range(n_docs)]
+    qt = ["w%06d" % i for i in rng.integers(20, 5000, size=512)]
+    return docs, qt
+
+
+def bm25_fields():
+    F, T = rt.Field, rt.FieldType
+    return [F("title", T.TEXT, weight=2.0), F("body", T.TEXT),
+            F("cat", T.TAG), F("grp", T.TAG, sortable=True),
+            F("price", T.NUMERIC, sortable=True)]
+
+
+def kernel_eligible(ix, seg, q: str) -> bool:
+    cq = ix.prepare(q, None, E.QueryOptions(k=K), 2)
+    _row, ent = cq.bind_row(seg)
+    k_pad = int(min(E.next_pow2(K), seg.n_pad))
+    return E._kernel_plan(cq, seg, ent[4], k_pad) is not None
+
+
+def plain_results(ix, seg, queries):
+    """The engine's kernel branch for `queries`, with `intersect_plain`
+    in place of the kernel: ([(idx, scores, count)] per query, the size
+    of the largest group)."""
+    cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2) for q in queries]
+    out = [None] * len(cqs)
+    subs = E._prep_subs(cqs, seg, K)
+    for idxs, entry, seg_args, rows in subs:
+        stacked = E._device_unpack_rows(
+            entry.layout, torch.from_numpy(rows).to(seg.device))
+        meta, fmeta, aux = E._kernel_batched_inputs(
+            stacked, seg_args, entry.descs, entry.aux_keys, entry.dmeta)
+        docs, scores, count = IK.intersect_plain(
+            meta, fmeta, seg_args["doc_ids"], seg_args["freqs"],
+            seg_args["field_masks"], seg_args["posting_dl"], *aux,
+            T=len(entry.descs), Ws=entry.Ws, groups=entry.groups,
+            pivot_g=entry.pivot_g, k=entry.k_pad, dense=entry.dense)
+        vals, sel = IK.iter_topk(scores, docs, entry.ke)
+        idx = torch.gather(docs, 1, sel)
+        idx = torch.where(vals > -3e38, idx, IK.INT32_MAX)
+        idx, vals, count = (idx.cpu().numpy(), vals.cpu().numpy(),
+                            count.cpu().numpy())
+        for j, i in enumerate(idxs):
+            out[i] = (idx[j], vals[j], int(count[j]))
+    return out, max(len(s[0]) for s in subs)
+
+
+def numpy_and2_count(seg, ix, q: str) -> int:
+    """Match count of an and2 query from the host-copied postings: the
+    doc sets of each token group (the token and its expansions, field
+    mask tested) intersected with numpy."""
+    cq = ix.prepare(q, None, E.QueryOptions(k=K), 2)
+    binding, _P = cq.bind(seg)
+    dyn = binding.dyn
+    sets = []
+    for leaf, _idx in cq.leaves():
+        docs = []
+        for s in range(leaf.lo, leaf.hi):
+            a, n = int(dyn["tstarts"][s]), int(dyn["tlens"][s])
+            d = seg.text.doc_ids[a:a + n].cpu().numpy()
+            m = seg.text.field_masks[a:a + n].cpu().numpy()
+            docs.append(d[(m & int(dyn["tmasks"][s])) != 0])
+        sets.append(np.unique(np.concatenate(docs)) if docs
+                    else np.zeros(0, np.int32))
+    return int(len(np.intersect1d(sets[0], sets[1])))
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def phase_main_path(dev, n_docs: int, batch: int):
+    """Returns (launches, max_abs_err, kernel ms, plain ms)."""
+    t0 = time.perf_counter()
+    docs, qt = make_corpus(n_docs)
+    log(f"phase main-path: corpus {n_docs} docs generated in "
+        f"{time.perf_counter() - t0:.1f}s")
+    client = rt.Client(device=dev)
+    ix = client.ft_create("bm25", bm25_fields())
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ix.add_documents(docs)
+    torch.cuda.synchronize(dev)
+    ingest_s = time.perf_counter() - t0
+    del docs
+    seg = ix.segments[0]
+    log(f"phase main-path: ingest {n_docs} docs in {ingest_s:.1f}s "
+        f"({n_docs / ingest_s:.0f} docs/s), segment nnz={seg.text.nnz} "
+        f"device bytes={seg.memory_bytes()}")
+
+    batches = {}
+    for fam, fn in FAMILIES.items():
+        qs = [fn(qt, i) for i in range(batch)]
+        ok = [q for q in qs if kernel_eligible(ix, seg, q)]
+        batches[fam] = ok
+        log(f"phase main-path: {fam}: {len(ok)}/{len(qs)} kernel-eligible "
+            f"({100.0 * len(ok) / len(qs):.2f}%)")
+        if not ok:
+            raise AssertionError(f"{fam}: no kernel-eligible query")
+    seg.tag_pcodes("cat")     # set-up: the dense code column, built once
+
+    # the counted main-path run: counters zeroed just before, read after
+    E.QUERY_PATH_STATS.clear()
+    IK.LAUNCHES = 0
+    results = {fam: client.ft_search_many("bm25", qs, k=K)
+               for fam, qs in batches.items()}
+    torch.cuda.synchronize(dev)
+    launches = IK.LAUNCHES
+    stats = dict(E.QUERY_PATH_STATS)
+    served = sum(len(qs) for qs in batches.values())
+    log(f"phase main-path: kernel launches={launches}, path stats={stats}, "
+        f"served={served}")
+    if launches <= 0:
+        raise AssertionError("the intersect kernel never launched")
+    if stats.get("kernel", 0) != served or sum(stats.values()) != served:
+        raise AssertionError(f"not every served query rode the kernel: "
+                             f"{stats} for {served}")
+    for fam, res in results.items():
+        for r in res:
+            if len(r.hits) > K or r.total < len(r.hits) or any(
+                    not np.isfinite(h.score) for h in r.hits):
+                raise AssertionError(f"{fam}: malformed result {r.total} "
+                                     f"{[h.score for h in r.hits]}")
+        log(f"phase main-path: {fam}: queries with hits="
+            f"{sum(1 for r in res if r.hits)}/{len(res)}, mean total="
+            f"{np.mean([r.total for r in res]):.1f}")
+
+    # every query of each family, kernel vs plain (groups larger than the
+    # kernel's grid have blocks serve several queries)
+    err = 0.0
+    for fam, qs in batches.items():
+        kres = E.execute_batch(
+            [ix.prepare(q, None, E.QueryOptions(k=K), 2) for q in qs],
+            seg, K)
+        pres, largest = plain_results(ix, seg, qs)
+        for q, kr, (pidx, pval, pcnt) in zip(qs, kres, pres):
+            live = pval > -3.3e38
+            if kr.count != pcnt or not np.array_equal(
+                    kr.local_idx[live], pidx[live]) or not np.array_equal(
+                    kr.scores <= -3.3e38, ~live):
+                raise AssertionError(f"{fam} {q!r}: kernel {kr.count} "
+                                     f"{kr.local_idx} vs plain {pcnt} "
+                                     f"{pidx}")
+            np.testing.assert_allclose(kr.scores[live], pval[live],
+                                       rtol=SCORE_RTOL, atol=0, err_msg=q)
+            if live.any():
+                err = max(err, float(np.abs(kr.scores[live]
+                                            - pval[live]).max()))
+        hits = [h.key for h in results[fam][0].hits]
+        want = [ix.doctable.get(int(seg.gids_np[d])).key
+                for d in kres[0].local_idx[kres[0].scores > -3.3e38]]
+        if hits != want:
+            raise AssertionError(f"{fam}: served hits {hits} != {want}")
+        log(f"phase main-path: {fam}: all {len(qs)} queries kernel == "
+            f"plain (largest group {largest}, kernel grid "
+            f"{IK._MAX_GRID})")
+    for q in batches["and2"][:16]:
+        r = client.ft_search_many("bm25", [q], k=K)[0]
+        want = numpy_and2_count(seg, ix, q)
+        if r.total != want:
+            raise AssertionError(f"and2 {q!r}: total {r.total} != numpy "
+                                 f"intersection {want}")
+    log("phase main-path: 16 and2 totals == numpy set intersections")
+
+    # information only: QPS per family (host clock, ends in a sync)
+    for fam, qs in batches.items():
+        best = None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            client.ft_search_many("bm25", qs, k=K)
+            torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        log(f"phase main-path: qps {fam}: {len(qs) / best:.1f} "
+            f"(batch {len(qs)}, best of 2, host clock)")
+    log(f"phase main-path: max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated(dev)}")
+
+    # information only: kernel vs plain time at the and2 shapes
+    cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
+           for q in batches["and2"]]
+    subs = E._prep_subs(cqs, seg, K)
+    idxs, entry, seg_args, rows = max(subs, key=lambda s: len(s[0]))
+    stacked = E._device_unpack_rows(entry.layout,
+                                    torch.from_numpy(rows).to(dev))
+    meta, fmeta, aux = E._kernel_batched_inputs(
+        stacked, seg_args, entry.descs, entry.aux_keys, entry.dmeta)
+    args = (meta, fmeta, seg_args["doc_ids"], seg_args["freqs"],
+            seg_args["field_masks"], seg_args["posting_dl"], *aux)
+    kw = dict(T=len(entry.descs), Ws=entry.Ws, groups=entry.groups,
+              pivot_g=entry.pivot_g, k=entry.k_pad, dense=entry.dense)
+    e = compare(*IK.intersect_batch(*args, **kw),
+                *IK.intersect_plain(*args, **kw),
+                f"kernel vs plain [and2 group of {len(idxs)}]")
+    err = max(err, e)
+    log(f"phase main-path: and2 largest group B={len(idxs)}: raw kernel "
+        f"lanes == plain lanes, max_abs_err={e:.3g}")
+    plain_ms = time_ms(lambda: IK.intersect_plain(*args, **kw), 5)
+    k_ms = time_ms(lambda: IK.intersect_batch(*args, **kw))
+    plain_ms2 = time_ms(lambda: IK.intersect_plain(*args, **kw), 5)
+    k_ms2 = time_ms(lambda: IK.intersect_batch(*args, **kw))
+    log(f"phase main-path: and2 largest group B={len(idxs)} Ws={entry.Ws} "
+        f"groups={entry.groups} k={entry.k_pad}: kernel "
+        f"{k_ms:.4f}/{k_ms2:.4f} ms, plain {plain_ms:.4f}/{plain_ms2:.4f} "
+        f"ms (CUDA events, plain/kernel/plain/kernel)")
+    phase_profile(client, ix, seg, batches, dev)
+    return launches, err, min(k_ms, k_ms2), min(plain_ms, plain_ms2)
+
+
+# ---------------------------------------------------------------- phase 5
+def device_busy_us(prof) -> tuple:
+    """(busy us, intersect-kernel us) from a torch.profiler trace: the
+    union of the device-side (kernel and memcpy) intervals, and the sum
+    of the intersect kernel's."""
+    spans, kern = [], 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((ev.time_range.start, ev.time_range.end))
+            if "intersect_kernel" in ev.name:
+                kern += ev.time_range.elapsed_us()
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy, kern
+
+
+def phase_profile(client, ix, seg, batches, dev):
+    """Information only: where one batch's time goes, per family.  The
+    host stages of `ft_search_many`, each by the host clock over steady
+    (already prepared) queries: prepare, bind (`_prep_subs`: rows,
+    grouping, plans), launch (each group's upload, unpack and kernel
+    launch), wait (`synchronize`), d2h (`_BatchHandle.result`); then the
+    whole `ft_search_many` (rest = whole - the stages: hits and merge),
+    and the device's busy time over one `ft_search_many` traced by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    for fam, qs in batches.items():
+        opts = E.QueryOptions(k=K)
+        t = [time.perf_counter()]
+        cqs = [ix.prepare(q, None, opts, 2) for q in qs]
+        t.append(time.perf_counter())
+        subs = E._prep_subs(cqs, seg, K)
+        t.append(time.perf_counter())
+        parts = [(idxs, entry.run(sa, rows))
+                 for idxs, entry, sa, rows in subs]
+        t.append(time.perf_counter())
+        torch.cuda.synchronize(dev)
+        t.append(time.perf_counter())
+        E._BatchHandle(parts, len(cqs)).result()
+        t.append(time.perf_counter())
+        client.ft_search_many("bm25", qs, k=K)
+        torch.cuda.synchronize(dev)
+        t.append(time.perf_counter())
+        ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+        whole = ms[5]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            client.ft_search_many("bm25", qs, k=K)
+            torch.cuda.synchronize(dev)
+            traced = (time.perf_counter() - t0) * 1e3
+        busy, kern = device_busy_us(prof)
+        log(f"phase profile: {fam} (batch {len(qs)}, {len(subs)} groups) "
+            f"host ms: prepare {ms[0]:.3f}, bind {ms[1]:.3f}, launch "
+            f"{ms[2]:.3f}, wait {ms[3]:.3f}, d2h {ms[4]:.3f}, whole "
+            f"ft_search_many {whole:.3f}, rest {whole - sum(ms[:5]):.3f}; "
+            f"traced ft_search_many {traced:.3f} ms with device busy "
+            f"{busy:.1f} us (intersect kernel {kern:.1f} us), idle share "
+            f"{1.0 - busy / (traced * 1e3):.4f}")
+
+
+def main():
+    smi = phase_card()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase_build()
+    err3 = phase_kernel_vs_plain(dev)
+    launches, err4, k_ms, p_ms = phase_main_path(dev, N_DOCS, BATCH)
+    loaded = [m for m in sys.modules
+              if m == "jax" or m.startswith("jax.")
+              or m == "redisearch_tpu" or m.startswith("redisearch_tpu.")]
+    if loaded:
+        raise AssertionError(f"JAX-side modules were imported: {loaded}")
+    log(smi)
+    log(json.dumps({"kernels": [{
+        "name": "intersect", "route": "cuda", "source": KERNEL_SRC,
+        "replaces": KERNEL_REPLACES, "launches": launches,
+        "max_abs_err": max(err3, err4), "ms": k_ms, "plain_ms": p_ms}]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,20 @@
+"""redisearch_tpu_torch — the search engine of `redisearch_tpu`, ported to
+PyTorch and CUDA.
+
+It keeps the JAX package's module names, imports torch and never jax, and
+reaches the JAX package's host-only modules (schema, analysis, query
+parser, doc table, native tokenizer) through `_host` without running
+`redisearch_tpu/__init__.py`.  The ported slice is batched BM25 FT.SEARCH:
+`Client.ft_search_many` -> `SearchIndex.search_many` ->
+`query.engine.execute_batch` -> `ops.intersect.intersect_batch` (the CUDA
+kernel `csrc/intersect.cu` on a card, its plain torch version on the
+CPU).  See ROADMAP.md for what is still to port.
+"""
+
+from ._host.schema import Field, FieldType, Schema
+from .api import Client
+from .index.index import Hit, SearchIndex, SearchResult
+from .query.engine import QueryOptions
+
+__all__ = ["Schema", "Field", "FieldType", "QueryOptions", "SearchIndex",
+           "SearchResult", "Hit", "Client"]

@@ -1,0 +1,140 @@
+"""Client: the command surface of the torch port.
+
+Counterpart of `redisearch_tpu/api.py` for the port's main path:
+FT.CREATE (`ft_create`), HSET (`hset`: writes the document store and
+routes to every index whose rule matches) and batched FT.SEARCH
+(`ft_search_many`).  The other FT.* commands are not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Optional, Sequence
+
+import torch
+
+from ._host.schema import Field, Schema
+from ._host.utils import log as _log
+from ._host.utils.errors import IndexExists, IndexNotFound
+from .index.index import SearchIndex, SearchResult, default_device
+
+
+class Client:
+    """An embedded search service instance; its indexes keep their
+    segments on `device` (default: the card when there is one)."""
+
+    def __init__(self, device=None):
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self._indexes: dict[str, SearchIndex] = {}
+        self._aliases: dict[str, str] = {}
+        self._keyspace: dict[str, dict] = {}
+
+    # -- index lifecycle -----------------------------------------------------
+    def ft_create(self, name: str, fields: Sequence[Field],
+                  prefixes: Sequence[str] = ("",),
+                  filter_expr: Optional[str] = None,
+                  language: str = "english",
+                  stopwords: Optional[Sequence[str]] = None,
+                  score_field: Optional[str] = None,
+                  on_json: bool = False,
+                  skip_initial_scan: bool = False,
+                  background_scan: bool = False,
+                  **schema_kw) -> SearchIndex:
+        """FT.CREATE — also scans existing keys matching the rule,
+        synchronously by default; background_scan indexes on a thread,
+        with progress in `scan_state` and an abort under device-memory
+        pressure (reference: indexes_scanner.c)."""
+        if name in self._indexes:
+            raise IndexExists(f"Index {name} already exists")
+        schema = Schema(name=name, fields=list(fields), prefixes=prefixes,
+                        filter_expr=filter_expr, language=language,
+                        stopwords=stopwords, score_field=score_field,
+                        on_json=on_json, **schema_kw)
+        ix = SearchIndex(schema, device=self.device)
+        self._indexes[name] = ix
+        _log.logger.info("created index %s (%d fields)",
+                         _log.fmt_index(name), len(fields))
+        if skip_initial_scan:
+            return ix
+        snapshot = list(self._keyspace.items())
+        if not background_scan:
+            for key, fieldsv in snapshot:
+                if self._rule_matches(schema, key, fieldsv):
+                    ix.add_document(key, fieldsv)
+            return ix
+
+        ix.scan_state = {"running": True, "scanned": 0,
+                         "total": len(snapshot), "oom_abort": False}
+
+        def _scan():
+            try:
+                for j, (key, fieldsv) in enumerate(snapshot):
+                    if _scan_oom():
+                        ix.scan_state["oom_abort"] = True
+                        _log.logger.warning(
+                            "background scan of %s aborted on OOM at "
+                            "%d/%d", _log.fmt_index(name), j,
+                            len(snapshot))
+                        return
+                    if self._rule_matches(schema, key, fieldsv):
+                        ix.add_document(key, fieldsv)
+                    ix.scan_state["scanned"] = j + 1
+                ix.commit()
+            finally:
+                ix.scan_state["running"] = False
+
+        def _scan_oom() -> bool:
+            if self.device.type != "cuda":
+                return False
+            free, total = torch.cuda.mem_get_info(self.device)
+            return bool(total) and (total - free) / total > 0.95
+
+        threading.Thread(target=_scan, daemon=True,
+                         name=f"rs-scan-{name}").start()
+        return ix
+
+    # -- keyspace ------------------------------------------------------------
+    def hset(self, key: str, fields: dict[str, Any],
+             ttl: Optional[float] = None) -> None:
+        """Write a document; routes to all matching indexes."""
+        self._keyspace[key] = dict(fields)
+        for ix in self._indexes.values():
+            if self._rule_matches(ix.schema, key, fields):
+                ix.add_document(key, dict(fields), ttl=ttl)
+            elif key in ix.doctable:
+                meta = ix.doctable.delete(key)  # no longer matches the rule
+                ix._mark_deleted(meta.gid)
+
+    def _rule_matches(self, schema: Schema, key: str, fields: dict) -> bool:
+        if not schema.matches_key(key):
+            return False
+        if schema.filter_expr:
+            from ._host.agg import expr as _expr
+            try:
+                e = _expr.parse(schema.filter_expr)
+                return _expr._truthy(_expr.evaluate(e, fields))
+            except Exception:
+                return False
+        return True
+
+    # -- queries --------------------------------------------------------------
+    def ft_search_many(self, name: str, queries: list[str],
+                       params: Optional[list] = None,
+                       k: int = 10, scorer: str = "BM25STD",
+                       dialect: int = 2) -> list[SearchResult]:
+        """Batched search: each group of same-shaped queries is one
+        kernel launch (see query.engine.execute_batch)."""
+        ix = self._index(name)
+        return ix.search_many(queries, params=params, k=k, scorer=scorer,
+                              dialect=dialect)
+
+    # -- internals -------------------------------------------------------------
+    def _resolve(self, name: str) -> str:
+        return self._aliases.get(name, name)
+
+    def _index(self, name: str) -> SearchIndex:
+        ix = self._indexes.get(self._resolve(name))
+        if ix is None:
+            raise IndexNotFound(name)
+        return ix

@@ -1,0 +1,238 @@
+"""Bulk ingestion: the native tokenizer path producing a Segment directly.
+
+Port of `redisearch_tpu/index/bulk.py::bulk_add`.  TEXT fields stream
+through the C++ tokenizer (`native/bulk_indexer.cpp`, reached through
+`_host.native`, built into `native/*.so` on first use); stems are merged
+afterwards with the JAX package's `_merge_stems`; structured columns are
+vectorized numpy.  The arrays, pads and layouts are the JAX path's own;
+only the last step differs: they land as torch tensors on the index's
+device.  Schemas the native path does not cover fall back to the
+incremental builder, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from .._host import native
+from .._host.index.builder import MAX_POS_STRIDE
+from .._host.index.bulk import _merge_stems, _stage_tag, can_use_native
+from .._host.schema import FieldType
+from .._host.utils.jsonpath import get_field_value
+from .builder import SegmentBuilder
+from .segment import (LANE, POS_SLICE_PAD, Segment, StrColumn, TagPostings,
+                      TermDict, TextPostings, build_tag_codes,
+                      make_numeric_column, next_pow2, posting_pad,
+                      round_up, tail_pad)
+
+
+def bulk_add(index, docs: Iterable[tuple[str, dict]],
+             commit: bool = True) -> int:
+    """Add many documents at once.  Returns the number indexed."""
+    if not can_use_native(index):
+        n = 0
+        for key, fields in docs:
+            index.add_document(key, fields)
+            n += 1
+        if commit:
+            index.commit()
+        return n
+
+    index.commit()  # seal any pending incremental docs first
+    schema = index.schema
+    device = index.device
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    # the native tokenizer does NOT stem: stems are synthesized from the
+    # raw-term CSR afterwards (_merge_stems) with the index language's
+    # Snowball stemmer
+    nb = native.NativeTextBuilder(list(index.stopwords), stem=False)
+    text_fields = schema.text_fields()
+    tf_ids = [f.field_id for f in text_fields]
+    tf_w = [f.weight for f in text_fields]
+
+    metas = []
+    tag_stage = {f.attribute: {} for f in schema.fields
+                 if f.type == FieldType.TAG}
+    num_stage = {f.attribute: [] for f in schema.fields
+                 if f.type == FieldType.NUMERIC}
+    str_stage = {f.attribute: [] for f in schema.fields
+                 if f.sortable and f.type in (FieldType.TEXT, FieldType.TAG)}
+    present_stage = {f.attribute: [] for f in schema.fields}
+    geom_stage = {f.attribute: [] for f in schema.fields
+                  if f.type == FieldType.GEOMETRY}
+
+    helper = SegmentBuilder(schema, index.stopwords, None,
+                            device)  # field parsers
+    local = 0
+    for key, fields in docs:
+        meta, old = index.doctable.put(key, fields)
+        if old is not None:
+            index._mark_deleted(old.gid)
+        metas.append(meta)
+        texts = []
+        for f in text_fields:
+            v = get_field_value(fields, f.name)
+            if isinstance(v, (list, tuple)):
+                v = " ".join(str(x) for x in v)
+            texts.append(str(v).encode("utf-8") if v is not None else b"")
+        doclen = nb.add_doc(texts, tf_ids, tf_w)
+        meta.doclen = int(doclen)
+        for f in schema.fields:
+            raw = get_field_value(fields, f.name)
+            if isinstance(raw, (str, bytes)) or raw is None:
+                present_stage[f.attribute].append(
+                    raw is not None and (raw != "" or f.indexempty))
+            else:
+                present_stage[f.attribute].append(True)
+            if f.type == FieldType.NUMERIC:
+                num_stage[f.attribute].append(helper._parse_numeric(f, raw))
+            elif f.type == FieldType.TAG:
+                joined = _stage_tag(f, raw, local, tag_stage[f.attribute])
+                if f.sortable:
+                    str_stage[f.attribute].append(joined)
+            elif f.type == FieldType.GEOMETRY:
+                from .._host.utils import wkt
+                geom_stage[f.attribute].append(
+                    wkt.parse(str(raw)) if raw is not None else None)
+            elif f.type == FieldType.TEXT and f.sortable:
+                val = str(raw) if raw is not None else None
+                if val is not None and not f.unf:
+                    val = val.casefold()
+                str_stage[f.attribute].append(val)
+        local += 1
+
+    n = local
+    if n == 0:
+        return 0
+    (terms, term_offsets, doc_ids, freqs, masks, pos_offsets, positions,
+     doc_lens, max_freqs_arr, max_pos, max_postings) = nb.finish()
+    (terms, term_offsets, doc_ids, freqs, masks, pos_offsets, positions,
+     max_postings) = _merge_stems(
+        schema.language, terms, term_offsets, doc_ids, freqs, masks,
+        pos_offsets, positions, max_postings, max_freqs_arr)
+
+    for meta, dl_i, mf in zip(metas, doc_lens, max_freqs_arr):
+        index.doctable.set_doclen(meta.gid, int(dl_i), int(mf))
+
+    n_pad = round_up(n, LANE)
+    pos_stride = min(next_pow2(int(max_pos) + 2), MAX_POS_STRIDE)
+    while pos_stride > 2 and n_pad * pos_stride >= 2**31:
+        pos_stride //= 2
+
+    nnz = doc_ids.shape[0]
+    nnz_pad = round_up(max(nnz, 1), LANE)
+    npos = positions.shape[0]
+    npos_pad = round_up(max(npos, 1), LANE)
+
+    di = np.zeros(nnz_pad, np.int32)
+    di[:nnz] = doc_ids
+    fr = np.zeros(nnz_pad, np.float32)
+    fr[:nnz] = freqs
+    ms = np.zeros(nnz_pad, np.int32)
+    ms[:nnz] = masks
+    po = np.zeros(nnz_pad + 1, np.int64)
+    po[:nnz + 1] = pos_offsets
+    po[nnz + 1:] = pos_offsets[nnz]
+    # poskeys = doc * stride + min(pos, stride-1), vectorized
+    counts = np.diff(pos_offsets)
+    docrep = np.repeat(doc_ids, counts)
+    pk = np.zeros(npos_pad, np.int32)
+    pk[:npos] = docrep.astype(np.int64) * pos_stride + np.minimum(
+        positions, pos_stride - 1)
+
+    doc_freq = np.diff(term_offsets).astype(np.int32)
+    td = TermDict(ids={t: i for i, t in enumerate(terms)}, terms=terms,
+                  doc_freq=doc_freq)
+    cap = next_pow2(n_pad)
+    dl = np.zeros(n_pad, np.float32)
+    dl[:n] = doc_lens
+    posting_dl = dl[di]  # per-posting doc length
+    text = TextPostings(
+        term_offsets=dev(term_offsets),
+        doc_ids=dev(tail_pad(di, posting_pad(len(di), cap))),
+        freqs=dev(tail_pad(fr, posting_pad(len(fr), cap))),
+        field_masks=dev(tail_pad(ms, posting_pad(len(ms), cap))),
+        doclens=dev(tail_pad(posting_dl, posting_pad(len(posting_dl), cap))),
+        pos_offsets=dev(po.astype(np.int32)),
+        poskeys=dev(tail_pad(pk, posting_pad(len(pk), POS_SLICE_PAD),
+                             2**31 - 1)),
+        pos_stride=pos_stride,
+        pos_clamped=bool(npos and positions.max() > pos_stride - 1),
+        nnz=int(nnz),
+        max_postings=int(max_postings), term_offsets_np=term_offsets,
+        pos_offsets_np=pos_offsets.astype(np.int64))
+
+    gids = np.zeros(n_pad, np.int32)
+    gids[:n] = [m.gid for m in metas]
+    alive = np.zeros(n_pad, bool)
+    alive[:n] = True
+    mf = np.ones(n_pad, np.float32)
+    mf[:n] = max_freqs_arr
+    ds = np.zeros(n_pad, np.float32)
+    ds[:n] = [m.score for m in metas]
+    exp = np.zeros(n_pad, np.int32)
+    exp[:n] = [int(m.expires_at) if m.expires_at else 0 for m in metas]
+
+    tags = {}
+    for attr, stage in tag_stage.items():
+        values = sorted(stage)
+        t_off = np.zeros(len(values) + 1, np.int64)
+        t_nnz = 0
+        t_max = 0
+        for i, v in enumerate(values):
+            t_off[i] = t_nnz
+            t_nnz += len(stage[v])
+            t_max = max(t_max, len(stage[v]))
+        t_off[len(values)] = t_nnz
+        t_ids = np.zeros(round_up(max(t_nnz, 1), LANE), np.int32)
+        at = 0
+        for v in values:
+            lst = stage[v]
+            t_ids[at:at + len(lst)] = lst
+            at += len(lst)
+        tags[attr] = TagPostings(
+            ids={v: i for i, v in enumerate(values)}, values=values,
+            offsets=dev(t_off.astype(np.int32)),
+            doc_ids=dev(tail_pad(t_ids, posting_pad(len(t_ids), cap))),
+            nnz=int(t_nnz),
+            max_postings=int(t_max), offsets_np=t_off.astype(np.int32),
+            codes=build_tag_codes(stage, values, n_pad, device))
+
+    numerics = {}
+    for attr, vals in num_stage.items():
+        col = np.full(n_pad, np.nan, np.float32)
+        col[:n] = [v[0] if v else np.nan for v in vals]
+        numerics[attr] = make_numeric_column(col, n, device,
+                                             value_lists=vals)
+    strcols = {}
+    for attr, vals in str_stage.items():
+        uniq = sorted({v for v in vals if v is not None})
+        idmap = {v: i for i, v in enumerate(uniq)}
+        ids = np.full(n_pad, -1, np.int32)
+        ids[:n] = [idmap.get(v, -1) if v is not None else -1 for v in vals]
+        ids_t = dev(ids)
+        strcols[attr] = StrColumn(value_ids=ids_t, table=uniq, order=ids_t)
+    missing = {}
+    for attr, pres in present_stage.items():
+        m = np.zeros(n_pad, bool)
+        m[:n] = pres
+        missing[attr] = dev(m)
+
+    seg = Segment(
+        n_docs=n, n_pad=n_pad, device=device, gids=dev(gids),
+        alive=dev(alive), doclen=dev(dl), max_freq=dev(mf),
+        docscore=dev(ds), expire_at=dev(exp), terms=td, text=text,
+        tags=tags, numerics=numerics, strcols=strcols, missing=missing,
+        gid_to_local={m.gid: i for i, m in enumerate(metas)},
+        gids_np=gids, alive_np=alive, doclen_np=dl,
+        geometries={a: list(v) for a, v in geom_stage.items()},
+        has_ttl=bool((exp != 0).any()),
+        uniform_docscore=bool((ds[:n] == 1.0).all()))
+    index.segments.append(seg)
+    return n

@@ -1,0 +1,320 @@
+"""SearchIndex: schema, doc table, builder, sealed segments and the batched
+query path, for the torch port.
+
+Counterpart of `redisearch_tpu/index/index.py`, on the port's main path:
+documents stage on the host and seal on `commit()` into an immutable
+segment on the index's device; `search_many` serves a batch of queries
+through the intersection kernel.  Single-query `search()` rides the
+general window path in the JAX package and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .._host.analysis.stopwords import StopWordList
+from .._host.analysis.synonyms import SynonymMap
+from .._host.index.doctable import DocTable
+from .._host.query import ast
+from .._host.query.parser import QueryParser
+from .._host.schema import FieldType, Schema
+from .._host.utils import log as _log
+from .._host.utils.errors import IndexError_
+from ..query.engine import CompiledQuery, QueryOptions, execute_batch
+from .builder import SegmentBuilder
+from .segment import Segment
+
+
+def default_device() -> torch.device:
+    """The card when there is one, else the CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+class Hit:
+    """One search result row."""
+
+    __slots__ = ("key", "score", "fields", "sortkey", "vector_distance",
+                 "gid", "payload")
+
+    def __init__(self, key, score, fields=None, sortkey=None,
+                 vector_distance=None, gid=0, payload=None):
+        self.key = key
+        self.score = score
+        self.fields = fields
+        self.sortkey = sortkey
+        self.vector_distance = vector_distance
+        self.gid = gid
+        self.payload = payload
+
+    def __repr__(self):
+        return f"Hit({self.key!r}, score={self.score:.4f})"
+
+
+class SearchResult:
+    def __init__(self, total: int, hits: list[Hit], query_ast=None):
+        self.total = total
+        self.hits = hits
+        self.query_ast = query_ast
+        self.warnings: list[str] = []
+
+    def __iter__(self):
+        return iter(self.hits)
+
+    def __len__(self):
+        return len(self.hits)
+
+
+class SearchIndex:
+    def __init__(self, schema: Schema, device=None):
+        self.schema = schema
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self.doctable = DocTable()
+        self.stopwords = StopWordList(schema.stopwords)
+        self.synonyms = SynonymMap()
+        self.segments: list[Segment] = []
+        self._builder = self._new_builder()
+        self.stats = {"indexing_errors": 0}
+        self.index_errors = {"count": 0, "last_error": None,
+                             "last_error_key": None, "by_field": {}}
+        self.on_oom = "ignore"       # ignore | return | fail
+        self._prepared: dict = {}    # prepared-query cache (see prepare())
+        self._commit_lock = threading.RLock()
+        # background initial scan progress (Client.ft_create)
+        self.scan_state: Optional[dict] = None
+
+    def _new_builder(self) -> SegmentBuilder:
+        return SegmentBuilder(self.schema, self.stopwords, self.synonyms,
+                              device=self.device)
+
+    # -- write path ---------------------------------------------------------
+    def add_document(self, key: str, fields: dict[str, Any],
+                     score: float = 1.0, payload: Optional[bytes] = None,
+                     ttl: Optional[float] = None,
+                     field_expiration: Optional[dict] = None,
+                     language: Optional[str] = None) -> None:
+        """HSET-equivalent: (re)index a document."""
+        if self.schema.score_field and self.schema.score_field in fields:
+            try:
+                score = float(fields[self.schema.score_field])
+            except (TypeError, ValueError):
+                pass
+        meta, old = self.doctable.put(key, fields, score=score,
+                                      payload=payload)
+        if language is not None:
+            meta.language = language
+        if ttl is not None:
+            meta.expires_at = time.time() + ttl
+        if field_expiration is not None:
+            meta.field_expiration = dict(field_expiration)
+        elif old is not None and old.field_expiration:
+            meta.field_expiration = dict(old.field_expiration)
+        if old is not None:
+            self._mark_deleted(old.gid)
+        try:
+            self._builder.add(meta)
+        except Exception as e:
+            # the document is dropped, the error recorded per field, and
+            # indexing continues (reference: index_error.c)
+            self.doctable.delete(key)
+            self.stats["indexing_errors"] += 1
+            self.index_errors["count"] += 1
+            self.index_errors["last_error"] = str(e)
+            self.index_errors["last_error_key"] = key
+            _log.logger.warning(
+                "indexing failed for %s in %s: %s",
+                _log.fmt_doc(key, meta.gid),
+                _log.fmt_index(self.schema.name), _log.fmt_text(str(e)))
+            field = getattr(e, "field", None) or "_"
+            self.index_errors["by_field"][field] = (
+                self.index_errors["by_field"].get(field, 0) + 1)
+            # the builder may hold partial state for this doc; rebuild it
+            self._rebuild_builder()
+            return
+        self.doctable.set_doclen(meta.gid, meta.doclen, meta.max_freq)
+
+    def _rebuild_builder(self, drop_gid: Optional[int] = None):
+        keep = [g for g in self._builder._gids
+                if g != drop_gid and (m := self.doctable.get(g)) is not None
+                and not m.deleted]
+        b = self._new_builder()
+        for g in keep:
+            b.add(self.doctable.get(g))
+        self._builder = b
+
+    def add_documents(self, docs, commit: bool = True) -> int:
+        """Bulk ingest via the native tokenizer (index/bulk.py); falls
+        back to the incremental path when native features don't cover
+        the schema.  docs: iterable of (key, fields)."""
+        from .bulk import bulk_add
+        return bulk_add(self, docs, commit=commit)
+
+    def _mark_deleted(self, gid: int) -> None:
+        for seg in self.segments:
+            if seg.mark_deleted(gid):
+                return
+        # doc still in the builder: re-stage without it
+        if gid in self._builder._gids:
+            self._rebuild_builder(drop_gid=gid)
+
+    def commit(self) -> None:
+        """Seal pending docs into a new immutable segment.  Compaction of
+        deleted docs is not ported yet (ROADMAP A11): a segment with
+        deletions stays unclean and off the kernel path."""
+        with self._commit_lock:
+            if len(self._builder) == 0:
+                return
+            seg = self._builder.seal()
+            if seg is not None:
+                self.segments.append(seg)
+            self._builder = self._new_builder()
+
+    # -- read path ----------------------------------------------------------
+    def parse_query(self, query: str, params=None,
+                    dialect: int = 2, nostopwords: bool = False) -> ast.Node:
+        root = QueryParser(
+            params=params,
+            stopwords=StopWordList([]) if nostopwords else self.stopwords,
+            dialect=dialect).parse(query)
+        if dialect == 1:
+            root = self._d1_resolve_fields(root)
+        return root
+
+    def _d1_resolve_fields(self, node: ast.Node) -> ast.Node:
+        """Dialect-1 legacy: unknown fields match nothing instead of
+        erroring (reference v1 grammar)."""
+        direct = getattr(node, "field", None)
+        if direct is not None and isinstance(direct, str):
+            if self.schema.try_field(direct) is None:
+                return ast.EmptyNode()
+        if node.fieldmask_attrs:
+            known = [a for a in node.fieldmask_attrs
+                     if (f := self.schema.try_field(a)) is not None
+                     and f.type == FieldType.TEXT]
+            if not known:
+                return ast.EmptyNode()
+            node.fieldmask_attrs = known
+        for c in list(node.children()):
+            resolved = self._d1_resolve_fields(c)
+            if resolved is not c:
+                from .._host.query.parser import _replace_child
+                _replace_child(node, c, resolved)
+        return node
+
+    def compile(self, root: ast.Node, opts: QueryOptions) -> CompiledQuery:
+        cq = CompiledQuery(self.schema, root, opts, synonyms=self.synonyms)
+        cq.root = root
+        cq.global_N = max(self.doctable.num_docs, 1)
+        cq.global_avgdl = self.doctable.avg_doclen or 1.0
+        return cq
+
+    def prepare(self, query: str, params: Optional[dict], opts: QueryOptions,
+                dialect: int = 2) -> CompiledQuery:
+        """Prepared-query cache: parse+lower once per (query string,
+        params, options).  A hit with other per-call options (k, clock)
+        returns a view owning its own options over the shared compiled
+        structure and its row/bind caches."""
+        for v in (params or {}).values():
+            if isinstance(v, (bytes, np.ndarray)):
+                raise NotImplementedError(
+                    "vector query parameters are not ported yet "
+                    "(ROADMAP A7)")
+        scalar_items = tuple(sorted(
+            (k, repr(v) if isinstance(v, (list, tuple)) else str(v))
+            for k, v in (params or {}).items()))
+        key = (query, scalar_items, dialect,
+               opts.scorer, opts.sort_field, opts.sort_asc, opts.slop,
+               opts.inorder, opts.verbatim, opts.language,
+               opts.max_expansions, opts.expander, opts.in_fields,
+               opts.tanh_factor, opts.nostopwords,
+               self.doctable.num_docs)  # stats change -> new idf
+        cq = self._prepared.get(key)
+        if cq is None:
+            root = self.parse_query(query, params, dialect,
+                                    nostopwords=opts.nostopwords)
+            cq = self.compile(root, opts)
+            if len(self._prepared) >= 32768:
+                self._prepared.clear()
+            self._prepared[key] = cq
+        if cq.opts == opts:
+            return cq
+        view = CompiledQuery.__new__(CompiledQuery)
+        view.__dict__.update(cq.__dict__)
+        vo = QueryOptions.__new__(QueryOptions)
+        vo.__dict__.update(cq.opts.__dict__)
+        vo.k = opts.k
+        vo.now = opts.now
+        view.opts = vo
+        return view
+
+    def search(self, query: str, *args, **kwargs) -> SearchResult:
+        """Single-query FT.SEARCH rides the general window path."""
+        raise NotImplementedError(
+            "single-query search() is not ported yet (ROADMAP A6); "
+            "use search_many()")
+
+    def _check_oom(self) -> Optional[SearchResult]:
+        """Query OOM guardrail (reference: QueryMemoryGuard): under
+        device-memory pressure the query is let through (ignore),
+        answered empty (return), or failed (fail)."""
+        if self.on_oom == "ignore" or self.device.type != "cuda":
+            return None
+        free, total = torch.cuda.mem_get_info(self.device)
+        if not total or (total - free) / total < 0.9:
+            return None
+        if self.on_oom == "fail":
+            raise IndexError_("Not enough memory available to execute the "
+                              "query")
+        res = SearchResult(total=0, hits=[])
+        res.warnings = ["OOM: query returned empty result"]
+        return res
+
+    def search_many(self, queries: list, params: Optional[list] = None,
+                    k: int = 10, scorer: str = "BM25STD",
+                    dialect: int = 2,
+                    opts_list: Optional[list] = None) -> list:
+        """Batched FT.SEARCH: every group of same-shaped queries is one
+        kernel launch; all groups are collected together.  opts_list
+        overrides QueryOptions per query."""
+        self.commit()
+        oom = self._check_oom()
+        if oom is not None:
+            return [oom for _ in queries]
+        cqs = []
+        for i, q in enumerate(queries):
+            p = params[i] if params else None
+            o = (opts_list[i] if opts_list
+                 else QueryOptions(scorer=scorer, k=k))
+            cqs.append(self.prepare(q, p, o, dialect))
+        all_hits: list = [[] for _ in cqs]
+        totals = [0] * len(cqs)
+        for seg in self.segments:
+            results = execute_batch(cqs, seg, k)
+            gids = seg.gids_host
+            for i, res in enumerate(results):
+                totals[i] += res.count
+                n_hit = 0
+                for j in range(res.local_idx.shape[0]):
+                    if n_hit >= k:
+                        break
+                    sc = float(res.scores[j])
+                    if sc <= -3.3e38:
+                        continue
+                    meta = self.doctable.get(
+                        int(gids[int(res.local_idx[j])]))
+                    if meta is None or meta.deleted:
+                        continue
+                    all_hits[i].append(Hit(meta.key, sc, fields=meta.fields,
+                                           gid=meta.gid))
+                    n_hit += 1
+        # deterministic merge: score first, then doc id (the reference
+        # sorter's docid tiebreak)
+        return [SearchResult(total=totals[i],
+                             hits=sorted(all_hits[i],
+                                         key=lambda h: (-h.score, h.gid))[:k])
+                for i in range(len(cqs))]
