@@ -7,13 +7,21 @@ script exits non-zero:
 
 1. card: no CUDA device is a failure; prints the device and nvidia-smi's
    name and power limit.
-2. build: compiles `redisearch_tpu_torch/csrc/intersect.cu` with nvcc for
-   sm_90a and prints the seconds and ptxas' register/spill report.
+2. build: compiles `redisearch_tpu_torch/csrc/intersect.cu` and
+   `csrc/groupby.cu` with nvcc for sm_90a (one nvcc each, started
+   together) and prints each one's seconds and ptxas' register/spill
+   report.
 3. kernel vs plain: random posting windows at the serving buckets (pivot
    2048/8192/32768, members up to 131072), the AND/NOT/OPT/OR families,
    tag-aux and dense-tag plans, k = 1/16/64, multi-phase ORs, and
    batches larger than the kernel's grid.  Docs and counts must be
-   equal, scores within rtol 1e-6.
+   equal, scores within rtol 1e-6.  The same windows in raw mode
+   (`raw=True`): lane for lane equal docs, bit-identical scores, equal
+   counts.  Then the group-by kernel against `groupby_plain` on random
+   gid slots at G = 1..65,536 (both of its branches), 0-3 ops, with and
+   without sums of squares, batches below and above its grid: counts
+   exact, sums exact on integer inputs whose group sums stay below
+   2^24, otherwise within 1e-5 of the group's sum of |v|.
 4. main path: `Client.ft_create` with bench.py's BM25 schema, a 1M-doc
    FTSB-enwiki-shaped corpus (4+20 zipf(1.25) tokens over a 200k vocab,
    seed 0) through `add_documents`, then `ft_search_many` at batch 8192,
@@ -26,7 +34,19 @@ script exits non-zero:
    plain version's are printed for information.
 5. profile, for information: per family, the host stages of one batch
    and the device's busy share from torch.profiler.
-6. the last three lines: nvidia-smi's name and power limit, the
+6. aggregate path: on the same 1M-doc index, `Client.ft_aggregate_many`
+   with bench.py's FT.AGGREGATE request (2-term match, GROUPBY @grp with
+   COUNT/SUM/AVG(@price), SORTBY @s DESC, LIMIT 0 10) at batch 1024 for
+   four batches of kernel-eligible requests (the eligible share is
+   printed).  Every request must count under "device-tail" and both
+   kernels must have launched; every request is recomputed with the
+   plain versions on the card (rows, totals, order and values equal);
+   16 are checked against a numpy group-by of the host-copied postings
+   and columns.  A second shape (COUNT/STDDEV/AVG, SORTBY @grp) takes
+   the host finish with sums of squares.  QPS, each kernel's time
+   against its plain version's at the bench shapes and one batch's
+   host/device split are printed for information.
+7. the last three lines: nvidia-smi's name and power limit, the
    kernels' JSON record, then {"ok": true, "device": {...}}.
 """
 
@@ -41,7 +61,9 @@ import numpy as np
 import torch
 
 import redisearch_tpu_torch as rt
+from redisearch_tpu_torch.agg import pipeline as AP
 from redisearch_tpu_torch.ops import _build
+from redisearch_tpu_torch.ops import groupby as GB
 from redisearch_tpu_torch.ops import intersect as IK
 from redisearch_tpu_torch.query import engine as E
 
@@ -51,6 +73,10 @@ K = 10
 SCORE_RTOL = 1e-6
 KERNEL_SRC = "redisearch_tpu_torch/csrc/intersect.cu"
 KERNEL_REPLACES = "redisearch_tpu/ops/intersect.py:295"
+GB_SRC = "redisearch_tpu_torch/csrc/groupby.cu"
+GB_REPLACES = "redisearch_tpu/ops/groupby.py:161"
+AGG_BATCH = 1024
+AGG_BATCHES = 4
 
 # bench.py's seven intersection-kernel families (phrase is kernel B2)
 FAMILIES = {
@@ -90,13 +116,19 @@ def phase_card() -> str:
 
 # ---------------------------------------------------------------- phase 2
 def phase_build():
-    _build.load()
-    info = _build.BUILD_INFO
-    log(f"phase build: {info['path']} built={info['built']} "
-        f"seconds={info['seconds']:.2f}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"phase build: ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"phase build: both libraries in {time.perf_counter() - t0:.2f}s "
+        f"(one nvcc per source, in parallel)")
+    built = {name: dict(info) for name, info in _build.BUILD_INFO.items()}
+    for name in _build.SRCS:
+        _build.load(name)
+        info = built[name]
+        log(f"phase build: {name}: {info['path']} built={info['built']} "
+            f"seconds={info['seconds']:.2f}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"phase build: {name}: ptxas: {line.strip()}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -207,9 +239,30 @@ def compare(kd, ks, kc, pd, ps, pc, what):
     return float(np.abs(ks[live] - ps[live]).max()) if live.any() else 0.0
 
 
-def phase_kernel_vs_plain(dev, B: int = 48) -> float:
+def compare_raw(kout, pout, what):
+    """Raw-mode kernel vs plain: lane for lane equal docs, bit-identical
+    scores, equal counts.  Returns the max abs score difference (0)."""
+    kd, ks, kc = (t.cpu().numpy() for t in kout)
+    pd, ps, pc = (t.cpu().numpy() for t in pout)
+    if kd.shape != pd.shape or ks.shape != ps.shape:
+        raise AssertionError(f"{what}: shapes {kd.shape} vs {pd.shape}")
+    if not np.array_equal(kc, pc):
+        raise AssertionError(f"{what}: counts differ at "
+                             f"{np.flatnonzero(kc != pc)[:5]}")
+    if not np.array_equal(kd, pd):
+        bad = np.argwhere(kd != pd)[:5]
+        raise AssertionError(f"{what}: docs differ at {bad.tolist()}")
+    if not np.array_equal(ks.view(np.int32), ps.view(np.int32)):
+        bad = np.argwhere(ks.view(np.int32) != ps.view(np.int32))[:5]
+        raise AssertionError(f"{what}: scores not bit-identical at "
+                             f"{bad.tolist()}")
+    return float(np.abs(ks - ps).max()) if ks.size else 0.0
+
+
+def phase_kernel_vs_plain(dev, B: int = 48) -> tuple:
+    """Top-k and raw mode of every case; returns the two max errors."""
     rng = np.random.default_rng(7)
-    err = 0.0
+    err, err_raw = 0.0, 0.0
     for label, args, kw in kernel_cases(rng, B):
         t = [torch.as_tensor(a, device=dev) for a in args]
         kout = IK.intersect_batch(*t, **kw)
@@ -221,6 +274,85 @@ def phase_kernel_vs_plain(dev, B: int = 48) -> float:
         log(f"phase kernel-vs-plain: {label} Ws={kw['Ws']} k={kw['k']} "
             f"B={args[0].shape[0]} live lanes={n_hit} "
             f"matches={int(pout[2].sum())} max_abs_err={e:.3g} ok")
+        del kout, pout
+        kout = IK.intersect_batch(*t, raw=True, **kw)
+        pout = IK.intersect_plain(*t, raw=True, **kw)
+        torch.cuda.synchronize()
+        e = compare_raw(kout, pout, f"raw kernel vs plain [{label}]")
+        err_raw = max(err_raw, e)
+        log(f"phase kernel-vs-plain: raw {label} lanes/query="
+            f"{kout[0].shape[1]} B={args[0].shape[0]} "
+            f"matches={int(pout[2].sum())} lane for lane equal, scores "
+            f"bit-identical")
+        del kout, pout, t
+    torch.cuda.synchronize()
+    return err, err_raw
+
+
+# (G, n_ops, want_sumsq, n, B, integer values)
+GB_CASES = [
+    (1, 0, False, 33792, 64, True),
+    (7, 1, True, 9216, 256, True),
+    (1001, 1, False, 9216, 1024, True),        # the bench shape
+    (1001, 3, True, 33792, 64, False),
+    (4000, 1, True, 9216, 128, False),         # 64 KB: opted-in smem
+    (12000, 1, True, 9216, 64, True),          # 192 KB of shared memory
+    (65536, 1, True, 33792, 32, True),         # global-atomics branch
+    (65536, 0, False, 9216, 16, False),        # global-atomics branch
+    (1001, 1, True, 512, GB._MAX_GRID + 517, True),    # grid stride
+    (7, 3, False, 2048, GB._MAX_GRID + 517, False),    # grid stride
+]
+
+
+def compare_groupby(kres, pres, scale, integer, what) -> float:
+    """Counts exact; sums exact where integer inputs keep the group's
+    sum of |v| (of v*v) below 2^24, else within 1e-5 of it."""
+    err = 0.0
+    if sorted(kres) != sorted(pres):
+        raise AssertionError(f"{what}: keys {sorted(kres)}")
+    for key in pres:
+        k = kres[key].cpu().numpy()
+        p = pres[key].cpu().numpy()
+        if key.endswith(".count"):
+            if not np.array_equal(k, p):
+                raise AssertionError(f"{what}: {key} differs")
+            continue
+        sc = scale[key].cpu().numpy()
+        d = np.abs(k.astype(np.float64) - p)
+        exact = (sc < 2 ** 24) if integer else np.zeros_like(d, bool)
+        if (d[exact] != 0).any() or (d > 1e-5 * sc).any():
+            i = np.unravel_index(np.argmax(d - 1e-5 * sc), d.shape)
+            raise AssertionError(f"{what}: {key} {k[i]} vs {p[i]} (scale "
+                                 f"{sc[i]})")
+        err = max(err, float(d.max()) if d.size else 0.0)
+    return err
+
+
+def phase_groupby_vs_plain(dev) -> float:
+    rng = np.random.default_rng(11)
+    err = 0.0
+    for G, n_ops, sq, n, B, integer in GB_CASES:
+        S = 1 + n_ops
+        gs = rng.integers(0, G, (B, S, n), dtype=np.int32)
+        gs[rng.random((B, S, n)) < 0.3] = -1
+        vs = (rng.integers(1, 10_000, (B, n_ops, n)) if integer
+              else rng.normal(0.0, 1000.0, (B, n_ops, n))).astype(np.float32)
+        gs_t = torch.as_tensor(gs, device=dev)
+        vs_t = torch.as_tensor(vs, device=dev)
+        kres = GB.groupby_aggregate_batch(gs_t, vs_t, G, want_sumsq=sq)
+        pres = GB.groupby_plain(gs_t, vs_t, G, want_sumsq=sq)
+        scale = GB.groupby_plain(gs_t, vs_t.abs(), G, want_sumsq=sq)
+        torch.cuda.synchronize()
+        what = f"groupby kernel vs plain [G={G} ops={n_ops} sumsq={sq}]"
+        e = compare_groupby(kres, pres, scale, integer, what)
+        err = max(err, e)
+        smem = GB._channels(S, sq) * GB._g_pad(G) * 4
+        log(f"phase groupby-vs-plain: G={G} n_ops={n_ops} sumsq={sq} n={n} "
+            f"B={B} {'integer' if integer else 'normal'} values, "
+            f"{'shared' if smem <= GB.SMEM_MAX else 'global'} branch "
+            f"({smem} B/query), rows={int(pres['g.None.count'].sum())} "
+            f"max_abs_err={e:.3g} ok")
+        del gs_t, vs_t, kres, pres, scale
     torch.cuda.synchronize()
     return err
 
@@ -287,9 +419,14 @@ def plain_results(ix, seg, queries):
 
 
 def numpy_and2_count(seg, ix, q: str) -> int:
-    """Match count of an and2 query from the host-copied postings: the
-    doc sets of each token group (the token and its expansions, field
-    mask tested) intersected with numpy."""
+    """Match count of an and2 query from the host-copied postings."""
+    return len(numpy_and2_docs(seg, ix, q))
+
+
+def numpy_and2_docs(seg, ix, q: str) -> np.ndarray:
+    """Matching local doc ids of an and2 query from the host-copied
+    postings: the doc sets of each token group (the token and its
+    expansions, field mask tested) intersected with numpy."""
     cq = ix.prepare(q, None, E.QueryOptions(k=K), 2)
     binding, _P = cq.bind(seg)
     dyn = binding.dyn
@@ -303,7 +440,7 @@ def numpy_and2_count(seg, ix, q: str) -> int:
             docs.append(d[(m & int(dyn["tmasks"][s])) != 0])
         sets.append(np.unique(np.concatenate(docs)) if docs
                     else np.zeros(0, np.int32))
-    return int(len(np.intersect1d(sets[0], sets[1])))
+    return np.intersect1d(sets[0], sets[1])
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -321,7 +458,8 @@ def time_ms(fn, iters: int = 20) -> float:
 
 
 def phase_main_path(dev, n_docs: int, batch: int):
-    """Returns (launches, max_abs_err, kernel ms, plain ms)."""
+    """Returns (launches, max_abs_err, kernel ms, plain ms, client,
+    index)."""
     t0 = time.perf_counter()
     docs, qt = make_corpus(n_docs)
     log(f"phase main-path: corpus {n_docs} docs generated in "
@@ -455,20 +593,22 @@ def phase_main_path(dev, n_docs: int, batch: int):
         f"{k_ms:.4f}/{k_ms2:.4f} ms, plain {plain_ms:.4f}/{plain_ms2:.4f} "
         f"ms (CUDA events, plain/kernel/plain/kernel)")
     phase_profile(client, ix, seg, batches, dev)
-    return launches, err, min(k_ms, k_ms2), min(plain_ms, plain_ms2)
+    return (launches, err, min(k_ms, k_ms2), min(plain_ms, plain_ms2),
+            client, ix)
 
 
 # ---------------------------------------------------------------- phase 5
-def device_busy_us(prof) -> tuple:
-    """(busy us, intersect-kernel us) from a torch.profiler trace: the
-    union of the device-side (kernel and memcpy) intervals, and the sum
-    of the intersect kernel's."""
-    spans, kern = [], 0.0
+def device_busy_us(prof, names=("intersect_kernel",)) -> tuple:
+    """(busy us, {name: us}) from a torch.profiler trace: the union of
+    the device-side (kernel and memcpy) intervals, and per kernel name
+    the sum of its intervals."""
+    spans, kern = [], dict.fromkeys(names, 0.0)
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             spans.append((ev.time_range.start, ev.time_range.end))
-            if "intersect_kernel" in ev.name:
-                kern += ev.time_range.elapsed_us()
+            for nm in names:
+                if nm in ev.name:
+                    kern[nm] += ev.time_range.elapsed_us()
     busy, end = 0.0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
@@ -512,7 +652,8 @@ def phase_profile(client, ix, seg, batches, dev):
             client.ft_search_many("bm25", qs, k=K)
             torch.cuda.synchronize(dev)
             traced = (time.perf_counter() - t0) * 1e3
-        busy, kern = device_busy_us(prof)
+        busy, kerns = device_busy_us(prof)
+        kern = kerns["intersect_kernel"]
         log(f"phase profile: {fam} (batch {len(qs)}, {len(subs)} groups) "
             f"host ms: prepare {ms[0]:.3f}, bind {ms[1]:.3f}, launch "
             f"{ms[2]:.3f}, wait {ms[3]:.3f}, d2h {ms[4]:.3f}, whole "
@@ -522,26 +663,313 @@ def phase_profile(client, ix, seg, batches, dev):
             f"{1.0 - busy / (traced * 1e3):.4f}")
 
 
+# ---------------------------------------------------------------- phase 6
+def agg_request_fn():
+    """bench.py's FT.AGGREGATE request (bench_agg): 2-term text match
+    with terms drawn from ranks 20..2000 -> GROUPBY @grp (1,000 values)
+    COUNT / SUM / AVG(@price) -> SORTBY @s DESC -> LIMIT 0 10."""
+    rng = np.random.default_rng(3)
+    qt = ["w%06d" % i for i in rng.integers(20, 2000, size=256)]
+
+    def query(i):
+        return f"{qt[(2 * i) % 256]} {qt[(2 * i + 1) % 256]}"
+
+    def mk(i):
+        return (rt.AggregateRequest(query(i))
+                .group_by("@grp", ("COUNT", [], "n"),
+                          ("SUM", ["@price"], "s"),
+                          ("AVG", ["@price"], "a"))
+                .sort_by(("@s", rt.DESC)).limit(0, 10))
+
+    def mk_sd(i):
+        return (rt.AggregateRequest(query(i))
+                .group_by("@grp", ("COUNT", [], "n"),
+                          ("STDDEV", ["@price"], "sd"),
+                          ("AVG", ["@price"], "a"))
+                .sort_by("@grp"))
+    return mk, mk_sd
+
+
+def agg_eligible(ix, seg, req) -> bool:
+    """Whether the request rides the kernel-raw branch: a device plan
+    without MIN/MAX, and an intersection-kernel plan whose pivots are
+    text slots (the refusals are ROADMAP A6)."""
+    cq = ix.prepare(req.query, req.params, AP._options(req), req.dialect)
+    plan = AP._plan_device_group_cached(ix, req, cq)
+    if plan is None or plan[3]:
+        return False
+    kp = E._kernel_plan(cq, seg, cq.bind_row(seg)[1][4], 16)
+    return kp is not None and all(kp[0][p][0] == "t"
+                                  for p in kp[2][kp[3]][1])
+
+
+class plain_versions:
+    """Within the block the pipeline's two ops run their plain torch
+    versions on the card (for the recomputation the kernels are held
+    against)."""
+
+    def __enter__(self):
+        self.saved = IK.intersect_batch, GB.groupby_aggregate_batch
+        IK.intersect_batch = IK.intersect_plain
+        GB.groupby_aggregate_batch = GB.groupby_plain
+
+    def __exit__(self, *exc):
+        IK.intersect_batch, GB.groupby_aggregate_batch = self.saved
+
+
+class capture_shapes:
+    """Within the block, record the arguments of each op's calls, one
+    per distinct shape (the largest batch of each), calling through."""
+
+    def __init__(self):
+        self.args = {"intersect": {}, "groupby": {}}
+
+    def _wrap(self, name, fn):
+        def rec(*a, **k):
+            # the trailing dims of the batched inputs + the static args
+            key = (tuple(tuple(x.shape[1:]) for x in a[:2]),
+                   tuple(x for x in a if not isinstance(x, torch.Tensor)),
+                   tuple(sorted((kk, repr(v)) for kk, v in k.items())))
+            old = self.args[name].get(key)
+            if old is None or a[0].shape[0] > old[0][0].shape[0]:
+                self.args[name][key] = (a, k)
+            return fn(*a, **k)
+        return rec
+
+    def __enter__(self):
+        self.saved = IK.intersect_batch, GB.groupby_aggregate_batch
+        IK.intersect_batch = self._wrap("intersect", self.saved[0])
+        GB.groupby_aggregate_batch = self._wrap("groupby", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        IK.intersect_batch, GB.groupby_aggregate_batch = self.saved
+
+
+def numpy_agg_top(seg, ix, q, grp_ids, table, price):
+    """(total, top-10 [(grp, n, s)]) of the bench request from the
+    host-copied postings and columns: SUM desc, ties by ascending group
+    id (the device tail's order)."""
+    docs = numpy_and2_docs(seg, ix, q)
+    g = np.where(grp_ids[docs] >= 0, grp_ids[docs], len(table))
+    G = len(table) + 1
+    n = np.bincount(g, minlength=G)
+    sm = np.bincount(g, weights=price[docs].astype(np.float64),
+                     minlength=G)
+    present = np.flatnonzero(n > 0)
+    order = present[np.lexsort((present, -sm[present]))][:10]
+    keys = list(table) + [None]
+    return len(docs), [(keys[i], float(n[i]), float(sm[i])) for i in order]
+
+
+def phase_aggregate(client, ix, dev) -> dict:
+    seg = ix.segments[0]
+    mk, mk_sd = agg_request_fn()
+    want = AGG_BATCH * AGG_BATCHES
+    reqs, drawn = [], 0
+    while len(reqs) < want:
+        r = mk(drawn)
+        drawn += 1
+        if agg_eligible(ix, seg, r):
+            reqs.append(r)
+    log(f"phase aggregate: {want}/{drawn} requests kernel-raw eligible "
+        f"({100.0 * want / drawn:.2f}%); the refused are both-terms-over-"
+        f"32,768 pivots (ROADMAP A6)")
+    batches = [reqs[i:i + AGG_BATCH] for i in range(0, want, AGG_BATCH)]
+    client.ft_aggregate_many("bm25", batches[0][:8])   # set-up: columns
+
+    # the counted aggregate run: counters zeroed just before, read after
+    AP.AGG_PATH_STATS.clear()
+    IK.LAUNCHES = 0
+    GB.LAUNCHES = 0
+    results = [client.ft_aggregate_many("bm25", b) for b in batches]
+    torch.cuda.synchronize(dev)
+    raw_launches, gb_launches = IK.LAUNCHES, GB.LAUNCHES
+    stats = dict(AP.AGG_PATH_STATS)
+    log(f"phase aggregate: intersect (raw) launches={raw_launches}, "
+        f"groupby launches={gb_launches}, path stats={stats}, "
+        f"served={want}")
+    if raw_launches <= 0 or gb_launches <= 0:
+        raise AssertionError("a kernel of the aggregate path never launched")
+    if stats != {"device-tail": want}:
+        raise AssertionError(f"not every request rode the device tail: "
+                             f"{stats} for {want}")
+    flat = [r for res in results for r in res]
+    for r in flat:
+        if len(r.rows) > 10 or r.total < sum(x["n"] for x in r.rows) or any(
+                not np.isfinite(x["s"]) for x in r.rows):
+            raise AssertionError(f"malformed aggregate result {r}")
+    log(f"phase aggregate: requests with rows="
+        f"{sum(1 for r in flat if r.rows)}/{len(flat)}, mean total="
+        f"{np.mean([r.total for r in flat]):.1f}")
+
+    # every served request recomputed with the plain versions on the card
+    with plain_versions():
+        plain = [client.ft_aggregate_many("bm25", b) for b in batches]
+    for req, k, p in zip(reqs, flat, [r for res in plain for r in res]):
+        if k.total != p.total or k.rows != p.rows:
+            raise AssertionError(f"aggregate {req.query!r}: kernel "
+                                 f"{k.total} {k.rows} vs plain {p.total} "
+                                 f"{p.rows}")
+    log(f"phase aggregate: all {want} requests kernel == plain (rows, "
+        f"totals, order, values exact)")
+
+    grp_ids = seg.strcols["grp"].value_ids.cpu().numpy()
+    table = seg.strcols["grp"].table
+    price = seg.numerics["price"].values.cpu().numpy()
+    for req, r in list(zip(reqs, flat))[:16]:
+        total, top = numpy_agg_top(seg, ix, req.query, grp_ids, table, price)
+        got = [(x["grp"], x["n"], x["s"]) for x in r.rows]
+        if r.total != total or got != top:
+            raise AssertionError(f"aggregate {req.query!r}: {r.total} {got} "
+                                 f"!= numpy {total} {top}")
+    log("phase aggregate: 16 requests == numpy group-by of the host-copied "
+        "postings and columns (total, top-10 grp/n/s)")
+
+    # second shape: STDDEV takes the host finish with sums of squares
+    sd_reqs = [mk_sd(i) for i in range(drawn)
+               if agg_eligible(ix, seg, mk_sd(i))][:AGG_BATCH]
+    AP.AGG_PATH_STATS.clear()
+    ksd = client.ft_aggregate_many("bm25", sd_reqs)
+    torch.cuda.synchronize(dev)
+    if dict(AP.AGG_PATH_STATS) != {"device": len(sd_reqs)}:
+        raise AssertionError(f"STDDEV shape: {AP.AGG_PATH_STATS}")
+    with plain_versions():
+        psd = client.ft_aggregate_many("bm25", sd_reqs)
+    for req, k, p in zip(sd_reqs, ksd, psd):
+        if k.total != p.total or len(k.rows) != len(p.rows):
+            raise AssertionError(f"stddev {req.query!r}: {k.total} vs "
+                                 f"{p.total}")
+        for a, b in zip(k.rows, p.rows):
+            if (a["grp"], a["n"], a["a"]) != (b["grp"], b["n"], b["a"]):
+                raise AssertionError(f"stddev {req.query!r}: {a} vs {b}")
+            if a["sd"] is None or b["sd"] is None:
+                if a["sd"] is not b["sd"]:
+                    raise AssertionError(f"stddev {req.query!r}: {a} {b}")
+                continue
+            # f32 sums of squares in atomic order: hold the centred sum
+            # of squares to 1e-5 of the group's sum of squares
+            n = b["n"]
+            sumsq = (n - 1) * b["sd"] ** 2 + n * b["a"] ** 2
+            if abs((n - 1) * (a["sd"] ** 2 - b["sd"] ** 2)) > 1e-5 * sumsq:
+                raise AssertionError(f"stddev {req.query!r}: {a} vs {b}")
+    log(f"phase aggregate: STDDEV shape, {len(sd_reqs)} requests on the "
+        f"host finish: kernel == plain (grp, n, avg exact; stddev on the "
+        f"centred sum of squares within 1e-5)")
+
+    # information only: QPS at batch 1024 (host clock, ends in a sync)
+    best = None
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for b in batches:
+            client.ft_aggregate_many("bm25", b)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    log(f"phase aggregate: qps {want / best:.1f} ({AGG_BATCHES} batches of "
+        f"{AGG_BATCH}, best of 2, host clock)")
+
+    # information only: each kernel against its plain version at the
+    # bench shapes (every chunk shape of one batch; the JSON line reports
+    # the chunk with the most requests)
+    with capture_shapes() as cap:
+        client.ft_aggregate_many("bm25", batches[0])
+    err_raw = err_gb = 0.0
+    t = {}
+    for name, kern, plain_fn in (
+            ("intersect_raw", IK.intersect_batch, IK.intersect_plain),
+            ("groupby", GB.groupby_aggregate_batch, GB.groupby_plain)):
+        calls = sorted(cap.args["intersect" if name == "intersect_raw"
+                                else "groupby"].values(),
+                       key=lambda c: -c[0][0].shape[0])
+        for ci, (a, k) in enumerate(calls):
+            kout, pout = kern(*a, **k), plain_fn(*a, **k)
+            if name == "intersect_raw":
+                err_raw = max(err_raw, compare_raw(
+                    kout, pout, "raw kernel vs plain [aggregate chunk]"))
+            else:
+                err_gb = max(err_gb, compare_groupby(
+                    kout, pout, pout, True,
+                    "groupby kernel vs plain [aggregate chunk]"))
+            del kout, pout
+            p1 = time_ms(lambda: plain_fn(*a, **k), 5)
+            k1 = time_ms(lambda: kern(*a, **k))
+            p2 = time_ms(lambda: plain_fn(*a, **k), 5)
+            k2 = time_ms(lambda: kern(*a, **k))
+            if ci == 0:
+                t[name] = (min(k1, k2), min(p1, p2))
+            log(f"phase aggregate: {name} at a bench chunk shape "
+                f"{[tuple(x.shape) for x in a[:2]]} "
+                f"{ {kk: v for kk, v in k.items() if kk != 'groups'} }: "
+                f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
+                f"(CUDA events, plain/kernel/plain/kernel)")
+    phase_agg_profile(ix, batches[0], dev)
+    return dict(raw_launches=raw_launches, gb_launches=gb_launches,
+                err_raw=err_raw, err_gb=err_gb, raw_ms=t["intersect_raw"],
+                gb_ms=t["groupby"])
+
+
+def phase_agg_profile(ix, batch, dev):
+    """Information only: one aggregate batch's host stages (submit =
+    prepare, plan, group, upload and launches; wait = synchronize;
+    finish = copies to the host and the per-request finish) and the
+    device's busy time over one traced batch."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    h = AP.run_aggregate_many(ix, batch, async_=True)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    h.result()
+    t3 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        AP.run_aggregate_many(ix, batch)
+        torch.cuda.synchronize(dev)
+        traced = (time.perf_counter() - ts) * 1e3
+    busy, kern = device_busy_us(prof, ("intersect_kernel", "groupby_kernel"))
+    log(f"phase profile: aggregate (batch {len(batch)}) host ms: submit "
+        f"{(t1 - t0) * 1e3:.3f}, wait {(t2 - t1) * 1e3:.3f}, finish "
+        f"{(t3 - t2) * 1e3:.3f}, whole {(t3 - t0) * 1e3:.3f}; traced "
+        f"{traced:.3f} ms with device busy {busy:.1f} us (intersect "
+        f"{kern['intersect_kernel']:.1f} us, groupby "
+        f"{kern['groupby_kernel']:.1f} us), idle share "
+        f"{1.0 - busy / (traced * 1e3):.4f}")
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    err3 = phase_kernel_vs_plain(dev)
-    launches, err4, k_ms, p_ms = phase_main_path(dev, N_DOCS, BATCH)
+    err3, err3_raw = phase_kernel_vs_plain(dev)
+    err_gb3 = phase_groupby_vs_plain(dev)
+    launches, err4, k_ms, p_ms, client, ix = phase_main_path(dev, N_DOCS,
+                                                             BATCH)
+    agg = phase_aggregate(client, ix, dev)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "redisearch_tpu" or m.startswith("redisearch_tpu.")]
     if loaded:
         raise AssertionError(f"JAX-side modules were imported: {loaded}")
     log(smi)
-    log(json.dumps({"kernels": [{
-        "name": "intersect", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(err3, err4), "ms": k_ms, "plain_ms": p_ms}]}))
+    log(json.dumps({"kernels": [
+        {"name": "intersect", "route": "cuda", "source": KERNEL_SRC,
+         "replaces": KERNEL_REPLACES, "launches": launches,
+         "max_abs_err": max(err3, err4), "ms": k_ms, "plain_ms": p_ms},
+        {"name": "intersect_raw", "route": "cuda", "source": KERNEL_SRC,
+         "replaces": KERNEL_REPLACES, "launches": agg["raw_launches"],
+         "max_abs_err": max(err3_raw, agg["err_raw"]),
+         "ms": agg["raw_ms"][0], "plain_ms": agg["raw_ms"][1]},
+        {"name": "groupby_sums_batch", "route": "cuda", "source": GB_SRC,
+         "replaces": GB_REPLACES, "launches": agg["gb_launches"],
+         "max_abs_err": max(err_gb3, agg["err_gb"]),
+         "ms": agg["gb_ms"][0], "plain_ms": agg["gb_ms"][1]}]}))
+    # "count" is the number of cards this run used: one
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
 
 
 if __name__ == "__main__":

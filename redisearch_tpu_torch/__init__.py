@@ -8,13 +8,18 @@ parser, doc table, native tokenizer) through `_host` without running
 `Client.ft_search_many` -> `SearchIndex.search_many` ->
 `query.engine.execute_batch` -> `ops.intersect.intersect_batch` (the CUDA
 kernel `csrc/intersect.cu` on a card, its plain torch version on the
-CPU).  See ROADMAP.md for what is still to port.
+CPU); and batched FT.AGGREGATE GROUPBY: `Client.ft_aggregate_many` ->
+`agg.pipeline.run_aggregate_many` -> the intersection kernel's raw mode
+and `ops.groupby.groupby_aggregate_batch` (the CUDA kernel
+`csrc/groupby.cu`).  See ROADMAP.md for what is still to port.
 """
 
 from ._host.schema import Field, FieldType, Schema
+from .agg.pipeline import ASC, DESC, AggregateRequest, AggregateResult
 from .api import Client
 from .index.index import Hit, SearchIndex, SearchResult
 from .query.engine import QueryOptions
 
 __all__ = ["Schema", "Field", "FieldType", "QueryOptions", "SearchIndex",
-           "SearchResult", "Hit", "Client"]
+           "SearchResult", "Hit", "Client", "AggregateRequest",
+           "AggregateResult", "ASC", "DESC"]

@@ -2,8 +2,9 @@
 
 Counterpart of `redisearch_tpu/api.py` for the port's main path:
 FT.CREATE (`ft_create`), HSET (`hset`: writes the document store and
-routes to every index whose rule matches) and batched FT.SEARCH
-(`ft_search_many`).  The other FT.* commands are not ported yet.
+routes to every index whose rule matches), batched FT.SEARCH
+(`ft_search_many`) and batched FT.AGGREGATE (`ft_aggregate_many`).  The
+other FT.* commands are not ported yet.
 """
 
 from __future__ import annotations
@@ -128,6 +129,17 @@ class Client:
         ix = self._index(name)
         return ix.search_many(queries, params=params, k=k, scorer=scorer,
                               dialect=dialect)
+
+    def ft_aggregate_many(self, name: str, reqs: list) -> list:
+        """Batched FT.AGGREGATE: same-shaped GROUPBYs launch together and
+        are collected together (see agg.pipeline.run_aggregate_many)."""
+        return self._index(name).aggregate_many(reqs)
+
+    def ft_aggregate(self, name: str, req):
+        """Single-request FT.AGGREGATE rides the general window path."""
+        raise NotImplementedError(
+            "single-request ft_aggregate is not ported yet (ROADMAP A6); "
+            "use ft_aggregate_many")
 
     # -- internals -------------------------------------------------------------
     def _resolve(self, name: str) -> str:

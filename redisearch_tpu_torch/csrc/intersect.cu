@@ -24,6 +24,16 @@
 //     passes (score desc, lowest window position = lowest doc on ties)
 //     fill lanes [phase*k, phase*k + k); the rest keep the
 //     (INT32_MAX, -3.4e38) filler.
+//   * raw mode (plan[P_RAW], the FT.AGGREGATE GROUPBY path) keeps the
+//     Pallas kernel's raw contract: per pivot phase a section of
+//     W/128 + R_EXTRA rows of 128 lanes, lane j = posting
+//     (start/128)*128 + j, live in [start%128, start%128 + len).  The
+//     threads stride over the section's lanes, evaluate the live ones
+//     exactly as in top-k mode and write every lane straight to the
+//     output (filler where dead); the arg-max passes and the scratch are
+//     skipped.  The row-aligned layout is kept although this kernel
+//     reads flat offsets: the caller slices posting-aligned group
+//     columns at the same rows.
 //
 // What bounds it on this card: the latency of the dependent
 // global-memory probes of the binary searches (log2(W) per member slot
@@ -52,6 +62,9 @@ constexpr int P_GRP = 22;    // groups: flag, src, nslots, slots[8]
 constexpr int GRP_REC = 11;
 constexpr int P_DNS = 110;   // dense predicates: flag, aux src, nv, meta col
 constexpr int DNS_REC = 4;
+constexpr int P_RAW = 120;   // 1 = raw mode
+constexpr int BLK = 128;
+constexpr int R_EXTRA = 8;   // raw sections: W / 128 + R_EXTRA rows
 
 constexpr int MAX_AUX = 4;
 constexpr int MAX_META = 64;
@@ -139,8 +152,11 @@ intersect_kernel(const Plan plan, const Args a) {
   }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  int* sd = a.scr_docs + (long long)blockIdx.x * a.scr_cols;
-  float* ss = a.scr_scores + (long long)blockIdx.x * a.scr_cols;
+  const bool raw = plan.v[P_RAW] != 0;
+  // top-k mode: this block's pivot-sized scratch row (raw mode has none)
+  int* sd = raw ? nullptr : a.scr_docs + (long long)blockIdx.x * a.scr_cols;
+  float* ss =
+      raw ? nullptr : a.scr_scores + (long long)blockIdx.x * a.scr_cols;
 
   for (int q = blockIdx.x; q < a.B; q += gridDim.x) {
     __syncthreads();   // the previous query is done with shared state
@@ -150,9 +166,11 @@ intersect_kernel(const Plan plan, const Args a) {
       s_fmeta[i] = a.fmeta[(long long)q * a.n_fmeta + i];
     int* od = a.out_docs + (long long)q * a.out_cols;
     float* os = a.out_scores + (long long)q * a.out_cols;
-    for (int i = threadIdx.x; i < a.out_cols; i += THREADS) {
-      od[i] = INF_DOC;
-      os[i] = NEG_INF;
+    if (!raw) {   // raw mode writes every lane of its sections below
+      for (int i = threadIdx.x; i < a.out_cols; i += THREADS) {
+        od[i] = INF_DOC;
+        os[i] = NEG_INF;
+      }
     }
     __syncthreads();
 
@@ -164,17 +182,40 @@ intersect_kernel(const Plan plan, const Args a) {
     const int n_piv = s_plan[P_NPIV];
     const float avgdl = s_fmeta[T];
     int total = 0;
+    long long out_off = 0;   // raw mode: this phase's section
 
     for (int pi = 0; pi < n_piv; ++pi) {
       const int p = s_plan[P_PIV + pi];
       const int Wp = s_plan[P_WS + p];
-      const long long stp = clamp_start(s_meta[p], a.n_post, Wp);
-      const int lenp = min(max(s_meta[T + p], 0), Wp);
       const int qmp = s_meta[2 * T + p];
       const float twp = s_fmeta[p];
+      // candidate lane i reads posting stp + i; live lanes are
+      // [live_lo, live_hi).  Top-k: the clamped window's first len
+      // lanes.  Raw: whole rows from the start's row (a len past the
+      // section's lanes changes nothing, so it is clamped to them).
+      long long stp;
+      int live_lo, live_hi, n_lanes;
+      if (raw) {
+        const int st = s_meta[p];
+        stp = (long long)(st >= 0 ? st / BLK : -((-st + BLK - 1) / BLK)) *
+              BLK;
+        n_lanes = Wp + R_EXTRA * BLK;
+        live_lo = (int)(st - stp);
+        live_hi = live_lo + min(max(s_meta[T + p], 0), n_lanes);
+      } else {
+        stp = clamp_start(s_meta[p], a.n_post, Wp);
+        live_lo = 0;
+        live_hi = min(max(s_meta[T + p], 0), Wp);
+        n_lanes = live_hi;
+      }
       int my_cnt = 0;
 
-      for (int i = threadIdx.x; i < lenp; i += THREADS) {
+      for (int i = threadIdx.x; i < n_lanes; i += THREADS) {
+        if (i < live_lo || i >= live_hi) {   // raw mode only
+          od[out_off + i] = INF_DOC;
+          os[out_off + i] = NEG_INF;
+          continue;
+        }
         const long long gi = stp + i;
         const int pd = a.doc_ids[gi];
         const float dl = a.dl[gi];
@@ -186,7 +227,8 @@ intersect_kernel(const Plan plan, const Args a) {
           const int o = P_DNS + di * DNS_REC;
           const int fl = s_plan[o], src = s_plan[o + 1];
           const int nv = s_plan[o + 2], mcol = s_plan[o + 3];
-          const long long stc = clamp_start(s_meta[p], s_aux_n[src], Wp);
+          const long long stc =
+              raw ? stp : clamp_start(s_meta[p], s_aux_n[src], Wp);
           const int cw = s_aux[src][stc + i];
           bool hitd = false;
           for (int v = 0; v < nv; ++v) hitd |= (cw == s_meta[mcol + v]);
@@ -259,8 +301,13 @@ intersect_kernel(const Plan plan, const Args a) {
           }
         }
 
-        sd[i] = valid ? pd : INF_DOC;
-        ss[i] = valid ? score : NEG_INF;
+        if (raw) {
+          od[out_off + i] = valid ? pd : INF_DOC;
+          os[out_off + i] = valid ? score : NEG_INF;
+        } else {
+          sd[i] = valid ? pd : INF_DOC;
+          ss[i] = valid ? score : NEG_INF;
+        }
         my_cnt += valid ? 1 : 0;
       }
 
@@ -277,13 +324,15 @@ intersect_kernel(const Plan plan, const Args a) {
       __syncthreads();
       const int cnt = s_cnt;
       total += cnt;
+      out_off += n_lanes;
+      if (raw) continue;
 
       // top-k: min(k, cnt) arg-max passes; later lanes keep the filler
       const int n_take = min(k, cnt);
       for (int e = 0; e < n_take; ++e) {
         float bs = -INFINITY;
         int bi = INF_DOC;
-        for (int i = threadIdx.x; i < lenp; i += THREADS) {
+        for (int i = threadIdx.x; i < n_lanes; i += THREADS) {
           const float s = ss[i];
           if (s > bs) { bs = s; bi = i; }   // i ascends: ties keep lowest
         }

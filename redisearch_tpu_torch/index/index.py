@@ -4,8 +4,10 @@ query path, for the torch port.
 Counterpart of `redisearch_tpu/index/index.py`, on the port's main path:
 documents stage on the host and seal on `commit()` into an immutable
 segment on the index's device; `search_many` serves a batch of queries
-through the intersection kernel.  Single-query `search()` rides the
-general window path in the JAX package and is not ported yet.
+through the intersection kernel, `aggregate_many` a batch of FT.AGGREGATE
+GROUPBYs through its raw mode and the group-by kernel.  Single-query
+`search()` and `aggregate()` ride the general window path in the JAX
+package and are not ported yet.
 """
 
 from __future__ import annotations
@@ -257,6 +259,18 @@ class SearchIndex:
         raise NotImplementedError(
             "single-query search() is not ported yet (ROADMAP A6); "
             "use search_many()")
+
+    def aggregate(self, req):
+        """Single-request FT.AGGREGATE rides the general window path."""
+        raise NotImplementedError(
+            "single-request aggregate() is not ported yet (ROADMAP A6); "
+            "use aggregate_many()")
+
+    def aggregate_many(self, reqs: list) -> list:
+        """Batched FT.AGGREGATE (agg.pipeline.run_aggregate_many): `reqs`
+        are agg.pipeline.AggregateRequest; returns AggregateResults."""
+        from ..agg.pipeline import run_aggregate_many
+        return run_aggregate_many(self, reqs)
 
     def _check_oom(self) -> Optional[SearchResult]:
         """Query OOM guardrail (reference: QueryMemoryGuard): under

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-`csrc/intersect.cu` has a plain C interface, so it compiles with nvcc
-alone in seconds (no PyTorch headers) into a shared library that ctypes
-loads.  The library lands in `redisearch_tpu_torch/_build/` (listed in
-`.gitignore`) under a name carrying the hash of the source and the
-flags: an edited source rebuilds, an unchanged one loads as it is.
-The build runs at first use, never at import.
+Each source under `csrc/` has a plain C interface, so it compiles with
+nvcc alone in seconds (no PyTorch headers) into its own shared library
+that ctypes loads.  The libraries land in `redisearch_tpu_torch/_build/`
+(listed in `.gitignore`) under names carrying the hash of the source and
+the flags: an edited source rebuilds, an unchanged one loads as it is.
+`build_all` starts one nvcc per source, all at once.  Builds run at
+first use, never at import.
 """
 
 from __future__ import annotations
@@ -17,20 +18,39 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "csrc", "intersect.cu")
+SRCS = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+        for name in ("intersect", "groupby")}
 BUILD_DIR = os.path.join(_PKG, "_build")
-# --fmad=false and no fast-math: the kernel must round like the plain
-# torch version (see the note at the top of csrc/intersect.cu)
+# --fmad=false and no fast-math: the kernels must round like their plain
+# torch versions (see the note at the top of csrc/intersect.cu)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v"]
 
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: argument types of each library's launch function
+_LAUNCH = {
+    "intersect": ("rs_intersect_launch", [
+        _vp, _i32, _vp, _i32,                      # meta, fmeta
+        _vp, _vp, _vp, _vp, _i64,                  # postings, n_post
+        ctypes.POINTER(_vp), ctypes.POINTER(_i64),  # aux ptrs / lens
+        _vp,                                       # plan (host)
+        _vp, _vp, _vp, _i32,                       # outputs, out_cols
+        _vp, _vp, _i32,                            # scratch, scr_cols
+        _i32, _i32, _vp]),                         # B, grid, stream
+    "groupby": ("rs_groupby_launch", [
+        _vp, _vp, _vp,                             # gslots, vals, out
+        _i32, _i32, _i64,                          # B, S, n
+        _i32, _i32,                                # G_pad, want_sumsq
+        _i32, _i32, _vp]),                         # grid, use_smem, stream
+}
+
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-#: what the last build or load did: {"path", "seconds", "log", "built"}
+_libs: dict = {}
+#: per source, what the last build or load did:
+#: {"path", "seconds", "log", "built"}
 BUILD_INFO: dict = {}
 
 
@@ -39,64 +59,74 @@ def _nvcc() -> str:
                  "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found: the intersect kernel builds with "
-                       "the CUDA toolkit (CUDA_HOME or /usr/local/cuda)")
+    raise RuntimeError("nvcc not found: the kernels build with the CUDA "
+                       "toolkit (CUDA_HOME or /usr/local/cuda)")
 
 
-def build() -> str:
-    """Compile the kernel library if this source and these flags have
-    no build yet; returns its path.  Fills BUILD_INFO (the ptxas report
-    of registers, shared memory and spills is under "log")."""
-    with open(SRC, "rb") as f:
+def _target(name: str) -> str:
+    with open(SRCS[name], "rb") as f:
         src = f.read()
     tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libintersect_{tag}.so")
-    log_path = so[:-3] + ".log"
-    if os.path.exists(so):
-        log = ""
-        if os.path.exists(log_path):
-            with open(log_path) as f:
-                log = f.read()
-        BUILD_INFO.update(path=so, seconds=0.0, log=log, built=False)
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, SRC],
-                          capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    with open(log_path, "w") as f:
-        f.write(log)
-    os.replace(tmp, so)      # atomic: concurrent builders never see halves
-    BUILD_INFO.update(path=so, seconds=secs, log=log, built=True)
-    return so
+    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once."""
-    global _lib
+def build_all(names=tuple(SRCS)) -> dict:
+    """Compile every library in `names` that this source and these flags
+    have no build of yet, one nvcc per source, all started together;
+    returns {name: path}.  Fills BUILD_INFO[name] (the ptxas report of
+    registers, shared memory and spills is under "log")."""
+    paths, procs = {}, {}
+    for name in names:
+        so = _target(name)
+        paths[name] = so
+        if os.path.exists(so):
+            log = ""
+            if os.path.exists(so[:-3] + ".log"):
+                with open(so[:-3] + ".log") as f:
+                    log = f.read()
+            BUILD_INFO[name] = dict(path=so, seconds=0.0, log=log,
+                                    built=False)
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *FLAGS, "-o", tmp, SRCS[name]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name} ({proc.returncode}):\n"
+                          f"{log}")
+            continue
+        so = paths[name]
+        with open(so[:-3] + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, so)    # atomic: concurrent builders never see halves
+        BUILD_INFO[name] = dict(path=so, seconds=secs, log=log, built=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Library `name`, built on first use and loaded once."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build())
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.rs_intersect_launch.restype = i32
-        lib.rs_intersect_launch.argtypes = [
-            vp, i32, vp, i32,                    # meta, fmeta
-            vp, vp, vp, vp, i64,                 # postings, n_post
-            ctypes.POINTER(vp), ctypes.POINTER(i64),   # aux ptrs / lens
-            vp,                                  # plan (host)
-            vp, vp, vp, i32,                     # outputs, out_cols
-            vp, vp, i32,                         # scratch, scr_cols
-            i32, i32, vp]                        # B, grid, stream
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        lib = ctypes.CDLL(build_all((name,))[name])
+        fn_name, argtypes = _LAUNCH[name]
+        fn = getattr(lib, fn_name)
+        fn.restype = _i32
+        fn.argtypes = argtypes
         lib.rs_cuda_error_string.restype = ctypes.c_char_p
-        lib.rs_cuda_error_string.argtypes = [i32]
-        _lib = lib
+        lib.rs_cuda_error_string.argtypes = [_i32]
+        _libs[name] = lib
         return lib
 
 
-def error_string(err: int) -> str:
-    return load().rs_cuda_error_string(err).decode()
+def error_string(name: str, err: int) -> str:
+    return load(name).rs_cuda_error_string(err).decode()

@@ -5,7 +5,9 @@ Counterpart of `redisearch_tpu/ops/intersect.py` (`intersect_batch`,
 at the pivot window's postings, the field-mask test, dense TAG code
 predicates, REQ/NOT/OPT membership of the other slots, first-owner dedup
 across OR phases; then the phase's top-k (score desc, lowest doc on ties)
-and the match count.
+and the match count.  Raw mode (`raw=True`, the FT.AGGREGATE GROUPBY
+path) skips the top-k and returns each phase's masked (doc, score) lanes,
+row-aligned with the postings as the Pallas kernel writes them.
 
 Two implementations of one contract:
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 BLK = 128
+R_EXTRA = 8             # raw sections carry W // 128 + R_EXTRA rows
 MAX_W_PIVOT = 32768     # pivot windows bound the phase scratch
 MAX_W_MEMBER = 131072
 NEG_INF = -3.4e38
@@ -61,6 +64,12 @@ def _out_lanes(groups, pivot_g: int, k: int) -> int:
     return max(-(-(P_n * k) // BLK), 1) * BLK
 
 
+def _raw_lanes(Ws, groups, pivot_g: int) -> int:
+    """Output lanes per query in raw mode: per pivot slot, in phase
+    order, a section of Ws[p] // 128 + R_EXTRA rows of 128 lanes."""
+    return sum(Ws[p] // BLK + R_EXTRA for p in groups[pivot_g][1]) * BLK
+
+
 def _phase_plan(T, groups, pivot_g):
     """[(pivot slot, others)] in phase order; others as in `_xla_impl`:
     earlier pivot siblings dedup+fold, later ones fold, then every other
@@ -89,20 +98,22 @@ def _window(arr, starts, W):
 
 def intersect_plain(meta, fmeta, doc_ids, freqs, masks, posting_dl, *aux,
                     T: int, Ws: tuple, groups: tuple, pivot_g: int = 0,
-                    k: int = 16, dense: tuple = ()):
-    """Plain torch port of `_xla_impl`: same arguments and outputs as
-    `intersect_batch`.  Runs the batch in chunks so the [b, W] member
-    windows stay small (a [8192, 131072] gather alone would be 4 GB)."""
+                    k: int = 16, dense: tuple = (), raw: bool = False):
+    """Plain torch port of `_xla_impl` (and, with raw=True, of the Pallas
+    kernel's raw mode): same arguments and outputs as `intersect_batch`.
+    Runs the batch in chunks so the [b, W] member windows stay small (a
+    [8192, 131072] gather alone would be 4 GB)."""
     B = meta.shape[0]
     dev = meta.device
-    L = _out_lanes(groups, pivot_g, k)
-    chunk = max(1, (1 << 22) // max(Ws))
+    L = (_raw_lanes(Ws, groups, pivot_g) if raw
+         else _out_lanes(groups, pivot_g, k))
+    chunk = max(1, (1 << 22) // max(max(Ws), L))
     docs_o, scores_o, counts_o = [], [], []
     for c0 in range(0, B, chunk):
         d, s, c = _plain_chunk(
             meta[c0:c0 + chunk], fmeta[c0:c0 + chunk], doc_ids, freqs,
             masks, posting_dl, aux, T=T, Ws=Ws, groups=groups,
-            pivot_g=pivot_g, k=k, dense=dense, L=L)
+            pivot_g=pivot_g, k=k, dense=dense, L=L, raw=raw)
         docs_o.append(d)
         scores_o.append(s)
         counts_o.append(c)
@@ -114,7 +125,7 @@ def intersect_plain(meta, fmeta, doc_ids, freqs, masks, posting_dl, *aux,
 
 
 def _plain_chunk(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
-                 T, Ws, groups, pivot_g, k, dense, L):
+                 T, Ws, groups, pivot_g, k, dense, L, raw):
     b = meta.shape[0]
     dev = meta.device
     srcs = _slot_srcs(T, groups)
@@ -145,6 +156,29 @@ def _plain_chunk(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
         v = inr & ((mk & qm[:, t:t + 1]) != 0)
         return torch.where(inr, d, INF), f, v, dlw
 
+    def pivot_win(p):
+        """Slot p's candidate lanes: (docs, freqs, valid, doclens, the
+        codes of dense predicate d).  Top-k mode: the window at its
+        start, clamped as `win` clamps it.  Raw mode: Ws[p] // 128 +
+        R_EXTRA whole 128-lane rows from the start's row, live in
+        [start % 128, start % 128 + len) — the Pallas kernel's DMA."""
+        if not raw:
+            def codes(d):
+                return _window(aux[dense[d][1]], starts[:, p], Ws[p])
+            return (*win(p), codes)
+        lanes = torch.arange((Ws[p] // BLK + R_EXTRA) * BLK, device=dev)
+        st = starts[:, p].long()
+        base = torch.div(st, BLK, rounding_mode="floor") * BLK
+        r = (st - base)[:, None]
+        inr = (lanes[None, :] >= r) & (lanes[None, :] < r + lens[:, p:p + 1])
+        pos = base[:, None] + lanes[None, :]
+
+        def at(arr):
+            return arr[pos.clamp(0, arr.shape[0] - 1)]
+        v = inr & ((at(masks) & qm[:, p:p + 1]) != 0)
+        return (torch.where(inr, at(doc_ids), INF), at(freqs), v,
+                at(posting_dl), lambda d: at(aux[dense[d][1]]))
+
     def member(t, pd):
         md, mf_, mv, _ = win(t)
         idx = torch.searchsorted(md, pd).clamp(0, Ws[t] - 1)
@@ -155,7 +189,7 @@ def _plain_chunk(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
         return hit, torch.where(hit, torch.gather(mf_, 1, idx), zero)
 
     def phase(p, others):
-        pd, pf, pvalid, pdl = win(p)
+        pd, pf, pvalid, pdl, codes = pivot_win(p)
 
         def bm25(tf, w):
             # the JAX op order: K1 * (0.25 + (B_*dl)/max(avgdl, 1e-9)),
@@ -166,8 +200,8 @@ def _plain_chunk(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
 
         score = torch.where(pvalid, bm25(pf, tws[:, p:p + 1]), zero)
         valid = pvalid
-        for di, (fl, dsrc, nv) in enumerate(dense):
-            cw = _window(aux[dsrc], starts[:, p], Ws[p])
+        for di, (fl, _dsrc, nv) in enumerate(dense):
+            cw = codes(di)
             o = dense_off[di]
             hitd = cw == meta[:, o:o + 1]
             for v in range(1, nv):
@@ -210,10 +244,16 @@ def _plain_chunk(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
                     score = score + gadd
         return torch.where(valid, pd, INF), torch.where(valid, score, NEG)
 
+    plan = _phase_plan(T, groups, pivot_g)
+    if raw:
+        secs = [phase(p, others) for p, others in plan]
+        d = torch.cat([s_[0] for s_ in secs], dim=1)
+        return (d, torch.cat([s_[1] for s_ in secs], dim=1),
+                (d != INF).sum(1, dtype=torch.int32))
     topd = torch.full((b, L), INT32_MAX, dtype=torch.int32, device=dev)
     tops = torch.full((b, L), NEG_INF, dtype=torch.float32, device=dev)
     count = torch.zeros(b, dtype=torch.int32, device=dev)
-    for pi, (p, others) in enumerate(_phase_plan(T, groups, pivot_g)):
+    for pi, (p, others) in enumerate(plan):
         d, sc = phase(p, others)
         count = count + (d != INF).sum(1, dtype=torch.int32)
         # k max-extractions == the first k of a stable descending sort:
@@ -242,7 +282,7 @@ def iter_topk(scores, docs, k: int):
 
 # descriptor layout shared with csrc/intersect.cu (PLAN_* there)
 _PLAN_LEN = 128
-_P_WS, _P_PIV, _P_GRP, _P_DNS = 6, 14, 22, 110
+_P_WS, _P_PIV, _P_GRP, _P_DNS, _P_RAW = 6, 14, 22, 110, 120
 _GRP_REC, _DNS_REC = 11, 4
 _MAX_AUX = 4
 #: blocks in flight: each walks queries blockIdx, blockIdx + grid, ...
@@ -250,7 +290,8 @@ _MAX_AUX = 4
 _MAX_GRID = 4096
 
 
-def _plan_array(T, Ws, groups, pivot_g, k, dense) -> np.ndarray:
+def _plan_array(T, Ws, groups, pivot_g, k, dense,
+                raw: bool = False) -> np.ndarray:
     """The static plan as the kernel's int32 descriptor."""
     pivots = list(groups[pivot_g][1])
     if not 1 <= T <= 8 or len(groups) > 8 or len(pivots) > 8:
@@ -272,6 +313,7 @@ def _plan_array(T, Ws, groups, pivot_g, k, dense) -> np.ndarray:
         o = _P_DNS + di * _DNS_REC
         plan[o:o + 4] = (fl, src, nv, moff)
         moff += nv
+    plan[_P_RAW] = int(raw)
     return plan
 
 
@@ -289,9 +331,9 @@ def _check(t, name, dtype, device, ndim=None):
 
 
 def _launch(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
-            T, Ws, groups, pivot_g, k, dense):
+            T, Ws, groups, pivot_g, k, dense, raw):
     from . import _build
-    lib = _build.load()
+    lib = _build.load("intersect")
     dev = meta.device
     B = meta.shape[0]
     srcs = _slot_srcs(T, groups)
@@ -327,15 +369,17 @@ def _launch(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
         raise ValueError("pivot window exceeds MAX_W_PIVOT")
     if not 1 <= k <= 64:
         raise ValueError(f"k={k} outside [1, 64]")
-    plan = _plan_array(T, Ws, groups, pivot_g, k, dense)
-    L = _out_lanes(groups, pivot_g, k)
+    plan = _plan_array(T, Ws, groups, pivot_g, k, dense, raw)
+    L = (_raw_lanes(Ws, groups, pivot_g) if raw
+         else _out_lanes(groups, pivot_g, k))
     out_docs = torch.empty((B, L), dtype=torch.int32, device=dev)
     out_scores = torch.empty((B, L), dtype=torch.float32, device=dev)
     out_counts = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return out_docs, out_scores, out_counts
-    Wp = max(Ws[p] for p in groups[pivot_g][1])
     grid = min(B, _MAX_GRID)
+    # raw mode writes its lanes straight to the output: no scratch
+    Wp = 0 if raw else max(Ws[p] for p in groups[pivot_g][1])
     scr_docs = torch.empty((grid, Wp), dtype=torch.int32, device=dev)
     scr_scores = torch.empty((grid, Wp), dtype=torch.float32, device=dev)
     aux_p = [a.data_ptr() for a in aux] + [0] * (_MAX_AUX - len(aux))
@@ -352,7 +396,7 @@ def _launch(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"intersect kernel launch failed: CUDA error "
-                           f"{rc} ({_build.error_string(rc)})")
+                           f"{rc} ({_build.error_string('intersect', rc)})")
     global LAUNCHES
     LAUNCHES += 1
     return out_docs, out_scores, out_counts
@@ -360,7 +404,7 @@ def _launch(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
 
 def intersect_batch(meta, fmeta, doc_ids, freqs, masks, posting_dl, *aux,
                     T: int, Ws: tuple, groups: tuple, pivot_g: int = 0,
-                    k: int = 16, dense: tuple = ()):
+                    k: int = 16, dense: tuple = (), raw: bool = False):
     """Run the term-query intersection over a batch.
 
     meta: int32 [B, 3T + sum(nv)] — per slot starts, lens, qmasks, then
@@ -385,9 +429,9 @@ def intersect_batch(meta, fmeta, doc_ids, freqs, masks, posting_dl, *aux,
     if meta.device.type == "cpu":
         return intersect_plain(meta, fmeta, doc_ids, freqs, masks,
                                posting_dl, *aux, T=T, Ws=Ws, groups=groups,
-                               pivot_g=pivot_g, k=k, dense=dense)
+                               pivot_g=pivot_g, k=k, dense=dense, raw=raw)
     if meta.device.type != "cuda":
         raise RuntimeError(f"no intersect kernel for device {meta.device}")
     return _launch(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux,
                    T=T, Ws=Ws, groups=groups, pivot_g=pivot_g, k=k,
-                   dense=dense)
+                   dense=dense, raw=raw)

@@ -12,6 +12,10 @@ documented difference: `_xla_impl` leaves a real doc id in an exhausted
 lane (its score is -3.4e38); the port and the Pallas kernel put
 INT32_MAX there.  Lanes whose score is <= -3.3e38 are compared by score
 only.
+
+Raw mode (`raw=True`, the GROUPBY path) is compared lane for lane with
+the Pallas kernel's raw mode in interpret mode: equal docs and counts,
+scores within rtol 1e-6; and its merged top-k with `_xla_impl`'s.
 """
 
 import types
@@ -198,6 +202,54 @@ def test_plain_matches_pallas_interpret(interpret_mode, label):
                                atol=0)
 
 
+RAW_LABELS = ["and2", "not", "opt", "or2", "and2not", "tag-aux",
+              "dense-tag"]
+
+
+@pytest.mark.parametrize("label", RAW_LABELS)
+def test_plain_raw_matches_pallas_interpret(interpret_mode, label):
+    """Raw lanes lane for lane: per pivot slot a section of W/128 + 8
+    rows from the start's row, live lanes at [start % 128, + len)."""
+    _label, Ws, groups, k, extra = next(c for c in CASES if c[0] == label)
+    args, dense = _inputs(label, Ws, extra)
+    kw = dict(T=len(Ws), Ws=Ws, groups=groups, pivot_g=0, k=k, dense=dense,
+              raw=True)
+    kd, ks, kc = (np.asarray(a) for a in JIK.intersect_batch(
+        *[jnp.asarray(a) for a in args], **kw))
+    td, ts, tc = _plain(args, **kw)
+    L = sum(Ws[p] // BLK + 8 for p in groups[0][1]) * BLK
+    assert td.shape == kd.shape == (8, L) and ts.shape == ks.shape
+    np.testing.assert_array_equal(td, kd)
+    np.testing.assert_array_equal(tc, kc)
+    np.testing.assert_allclose(ts, ks, rtol=RTOL, atol=0)
+    live = td != INF
+    assert (ts[~live] <= -3.3e38).all() and live.any()
+    np.testing.assert_array_equal(tc, live.sum(1))
+
+
+@pytest.mark.parametrize("label,Ws,groups,k,extra", CASES,
+                         ids=[c[0] for c in CASES])
+def test_plain_raw_topk_matches_xla_impl(label, Ws, groups, k, extra):
+    """The raw lanes merged with iter_topk give `_xla_impl`'s merged
+    top-k: same docs, scores within rtol 1e-6, same counts."""
+    args, dense = _inputs(label, Ws, extra)
+    kw = dict(T=len(Ws), Ws=Ws, groups=groups, pivot_g=0, k=k, dense=dense)
+    td, ts, tc = (torch.from_numpy(a) for a in _plain(args, raw=True, **kw))
+    xd, xs, xc = (np.asarray(a) for a in JIK._xla_impl(
+        *[jnp.asarray(a) for a in args], **kw))
+    np.testing.assert_array_equal(tc.numpy(), xc)
+    tv, tsel = TIK.iter_topk(ts, td, k)
+    tdocs = torch.gather(td, 1, tsel).numpy()
+    xv, xsel = JIK.iter_topk(jnp.asarray(xs), jnp.asarray(xd), k)
+    xv, xsel = np.asarray(xv), np.asarray(xsel)
+    live = xv > -3.3e38
+    np.testing.assert_array_equal(tv.numpy() > -3.3e38, live)
+    np.testing.assert_array_equal(tdocs[live],
+                                  np.take_along_axis(xd, xsel, 1)[live])
+    np.testing.assert_allclose(tv.numpy()[live], xv[live], rtol=RTOL,
+                               atol=0)
+
+
 def test_plain_chunks_large_batches():
     """A batch larger than one chunk gives the same rows as the rows run
     one by one (the chunk bound keeps [b, W] gathers small)."""
@@ -268,3 +320,14 @@ def test_kernel_plan_descriptor_layout():
     assert plan[33:37].tolist() == [R, 0, 1, 2]
     assert plan[44:48].tolist() == [N, -1, 1, 3]
     assert plan[110:114].tolist() == [N, 1, 2, 12]
+    assert plan[120] == 0
+
+
+def test_kernel_plan_raw_flag():
+    """Raw mode rides the same descriptor, flagged at intersect.cu's
+    P_RAW; the output width is the sum of the pivot sections."""
+    Ws = (2048, 8192, 2048)
+    groups = ((R, (0, 1)), (N, (2,)))
+    plan = TIK._plan_array(3, Ws, groups, 0, 16, (), raw=True)
+    assert plan[120] == 1 and plan[:6].tolist() == [3, 16, 0, 2, 0, 2]
+    assert TIK._raw_lanes(Ws, groups, 0) == (16 + 8 + 64 + 8) * BLK

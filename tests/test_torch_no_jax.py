@@ -2,8 +2,10 @@
 
 A subprocess imports `redisearch_tpu_torch`, builds a 600-doc index on
 the CPU (the smallest corpus whose posting windows reach the kernel's
-1024 bucket) and serves a `search_many` batch, then reports which
-modules it loaded.  Two environments: jax, jaxlib and ml_dtypes blocked
+1024 bucket), serves a `search_many` batch and an `ft_aggregate_many`
+batch (GROUPBY through the raw intersection and the group-by op), then
+reports which modules it loaded.  The aggregation's host modules
+(`agg/expr.py`, `agg/reducers.py`) must load through `_host`.  Two environments: jax, jaxlib and ml_dtypes blocked
 on `sys.meta_path` (the card's machine may have none of them), and jax
 importable (the port must still not load it).  Neither may load `jax`
 or any `redisearch_tpu.*` module.
@@ -33,15 +35,26 @@ import redisearch_tpu_torch as rt
 
 client = rt.Client(device="cpu")
 ix = client.ft_create("idx", [rt.Field("t", rt.FieldType.TEXT),
-                              rt.Field("c", rt.FieldType.TAG)])
+                              rt.Field("c", rt.FieldType.TAG),
+                              rt.Field("g", rt.FieldType.TAG, sortable=True),
+                              rt.Field("p", rt.FieldType.NUMERIC)])
 ix.add_documents([(f"d{i}", {"t": "alpha beta" if i % 2 else "alpha gamma",
-                             "c": "x" if i % 3 else "y"})
+                             "c": "x" if i % 3 else "y",
+                             "g": f"g{i % 5}", "p": float(i % 13)})
                   for i in range(600)])
 res = client.ft_search_many("idx", ["alpha beta", "alpha @c:{y}",
                                     "beta|gamma", "gamma -beta"], k=5)
+agg = client.ft_aggregate_many("idx", [
+    rt.AggregateRequest(q).group_by("@g", ("COUNT", [], "n"),
+                                    ("SUM", ["@p"], "s"))
+    .sort_by(("@s", rt.DESC)).limit(0, 3)
+    for q in ("alpha beta", "alpha gamma")])
 print(json.dumps({
     "totals": [r.total for r in res],
     "keys": [[h.key for h in r.hits] for r in res],
+    "agg": [[r.total, r.rows] for r in agg],
+    "host_agg": sorted(m for m in sys.modules
+                       if m.startswith("redisearch_tpu_torch._host.agg")),
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
                                             "redisearch_tpu")),
@@ -64,3 +77,15 @@ def test_port_serves_without_jax(block):
     assert out["keys"][0] == ["d1", "d3", "d5", "d7", "d9"]
     assert out["keys"][1] == ["d0", "d3", "d6", "d9", "d12"]
     assert out["keys"][3] == ["d0", "d2", "d4", "d6", "d8"]
+    assert out["host_agg"] == ["redisearch_tpu_torch._host.agg",
+                               "redisearch_tpu_torch._host.agg.expr",
+                               "redisearch_tpu_torch._host.agg.reducers"]
+    for (total, rows), odd in zip(out["agg"], (1, 0)):
+        docs = [i for i in range(600) if i % 2 == odd]
+        want = {}
+        for i in docs:
+            n, s = want.get(f"g{i % 5}", (0.0, 0.0))
+            want[f"g{i % 5}"] = (n + 1, s + i % 13)
+        top = sorted(want.items(), key=lambda kv: -kv[1][1])[:3]
+        assert total == len(docs)
+        assert rows == [{"g": g, "n": n, "s": s} for g, (n, s) in top]
