@@ -7,17 +7,22 @@ script exits non-zero:
 
 1. card: no CUDA device is a failure; prints the device and nvidia-smi's
    name and power limit.
-2. build: compiles `redisearch_tpu_torch/csrc/intersect.cu` and
-   `csrc/groupby.cu` with nvcc for sm_90a (one nvcc each, started
-   together) and prints each one's seconds and ptxas' register/spill
-   report.
+2. build: compiles `redisearch_tpu_torch/csrc/intersect.cu`,
+   `csrc/phrase.cu` and `csrc/groupby.cu` with nvcc for sm_90a (one nvcc
+   each, started together) and prints each one's seconds and ptxas'
+   register/spill report.
 3. kernel vs plain: random posting windows at the serving buckets (pivot
    2048/8192/32768, members up to 131072), the AND/NOT/OPT/OR families,
    tag-aux and dense-tag plans, k = 1/16/64, multi-phase ORs, and
    batches larger than the kernel's grid.  Docs and counts must be
    equal, scores within rtol 1e-6.  The same windows in raw mode
    (`raw=True`): lane for lane equal docs, bit-identical scores, equal
-   counts.  Then the group-by kernel against `groupby_plain` on random
+   counts.  Then the phrase kernel against `phrase_plain`, top-k and
+   raw, on random posting and position-key windows (W0/PW 2048..131072,
+   T = 2..4, slop 0/1/3, k = 1/16/64, repeated terms, clamped keys, a
+   1024 stride, batches larger than its grid): lane for lane equal,
+   scores bit-identical.  Then the group-by kernel against
+   `groupby_plain` on random
    gid slots at G = 1..65,536 (both of its branches), 0-3 ops, with and
    without sums of squares, batches below and above its grid: counts
    exact, sums exact on integer inputs whose group sums stay below
@@ -25,13 +30,19 @@ script exits non-zero:
 4. main path: `Client.ft_create` with bench.py's BM25 schema, a 1M-doc
    FTSB-enwiki-shaped corpus (4+20 zipf(1.25) tokens over a 200k vocab,
    seed 0) through `add_documents`, then `ft_search_many` at batch 8192,
-   k=10 on seven query families.  Every served query must count under
-   "kernel" and the kernel must have launched; every query of each
-   family is recomputed with `intersect_plain` on the card and must
-   agree, as must the raw lanes of the largest and2 group; a few and2
-   counts are checked against numpy set intersections of the
-   host-copied postings.  QPS, memory and the kernel's time against the
-   plain version's are printed for information.
+   k=10 on bench.py's eight query families (kernel_hit_pct printed).
+   Every served query must count under "kernel" (phrase: under
+   "phrase-kernel") and both kernels must have launched; every query of
+   each family is recomputed with the plain versions on the card and
+   must agree; a few and2 counts are checked against numpy set
+   intersections of the host-copied postings.  Then 1024 exact and 1024
+   slop-1 in-order phrases of 2-4 terms cut from the corpus's own token
+   runs: each must ride the phrase kernel, match its source doc and
+   agree with its plain recomputation, and 16 must equal the in-order
+   proximity model over the host-copied tokens.  QPS (sequential
+   batches, and bench.py's pipelined loop at depth 2), memory and the
+   kernels' times against the plain versions' (the largest and2 group,
+   every phrase group) are printed for information.
 5. profile, for information: per family, the host stages of one batch
    and the device's busy share from torch.profiler.
 6. aggregate path: on the same 1M-doc index, `Client.ft_aggregate_many`
@@ -73,14 +84,18 @@ K = 10
 SCORE_RTOL = 1e-6
 KERNEL_SRC = "redisearch_tpu_torch/csrc/intersect.cu"
 KERNEL_REPLACES = "redisearch_tpu/ops/intersect.py:295"
+PHRASE_SRC = "redisearch_tpu_torch/csrc/phrase.cu"
+PHRASE_REPLACES = "redisearch_tpu/ops/intersect.py:854"
 GB_SRC = "redisearch_tpu_torch/csrc/groupby.cu"
 GB_REPLACES = "redisearch_tpu/ops/groupby.py:161"
 AGG_BATCH = 1024
 AGG_BATCHES = 4
 
-# bench.py's seven intersection-kernel families (phrase is kernel B2)
+# bench.py's eight families: phrase rides the phrase kernel, the other
+# seven the intersection kernel
 FAMILIES = {
     "and2": lambda qt, i: f"{qt[(2*i) % 500]} {qt[(2*i+1) % 500]}",
+    "phrase": lambda qt, i: f'"{qt[(2*i) % 500]} {qt[(2*i+1) % 500]}"',
     "and2_tag": lambda qt, i: (f"{qt[(2*i) % 500]} {qt[(2*i+1) % 500]} "
                                f"@cat:{{cat{i % 16:02d}}}"),
     "and3": lambda qt, i: (f"{qt[(3*i) % 500]} {qt[(3*i+1) % 500]} "
@@ -118,8 +133,9 @@ def phase_card() -> str:
 def phase_build():
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"phase build: both libraries in {time.perf_counter() - t0:.2f}s "
-        f"(one nvcc per source, in parallel)")
+    log(f"phase build: {len(_build.SRCS)} libraries in "
+        f"{time.perf_counter() - t0:.2f}s (one nvcc per source, in "
+        f"parallel)")
     built = {name: dict(info) for name, info in _build.BUILD_INFO.items()}
     for name in _build.SRCS:
         _build.load(name)
@@ -240,8 +256,9 @@ def compare(kd, ks, kc, pd, ps, pc, what):
 
 
 def compare_raw(kout, pout, what):
-    """Raw-mode kernel vs plain: lane for lane equal docs, bit-identical
-    scores, equal counts.  Returns the max abs score difference (0)."""
+    """Kernel vs plain, lane for lane (raw mode, and the phrase kernel's
+    top-k lanes): equal docs, bit-identical scores, equal counts.
+    Returns the max abs score difference (0)."""
     kd, ks, kc = (t.cpu().numpy() for t in kout)
     pd, ps, pc = (t.cpu().numpy() for t in pout)
     if kd.shape != pd.shape or ks.shape != ps.shape:
@@ -287,6 +304,146 @@ def phase_kernel_vs_plain(dev, B: int = 48) -> tuple:
         del kout, pout, t
     torch.cuda.synchronize()
     return err, err_raw
+
+
+def make_phrase_windows(rng, B, Ws, PWs, stride=64, n_docs=2_000_000,
+                        clamp=False, repeat=False):
+    """Random phrase inputs (tests/test_torch_phrase.py's _make_phrase,
+    vectorised): per query and slot a doc-sorted posting window and a
+    sorted position-key window (doc * stride + pos, 1-2 random positions
+    a doc) at arbitrary offsets of flat arrays, INT32_MAX past the live
+    length.  Half the docs common to every slot get an in-order run with
+    gaps of 0-2 positions, so chains of every slop match.  clamp:
+    positions past stride - 1 are clamped there (keys repeat within a
+    term, as on a pos_clamped segment).  repeat: slot 1 reads slot 0's
+    windows (a repeated term).  Keys past PW are cut."""
+    T = len(Ws)
+    # each window takes at most its bucket + 255 (offset and gap), and
+    # the last one's bucket stays inside the array: no start is clamped
+    n_post = B * sum(w + 256 for w in Ws) + max(Ws) + 4096
+    n_keys = B * sum(p + 256 for p in PWs) + max(PWs) + 4096
+    doc_ids = np.full(n_post, 2**31 - 1, np.int32)
+    freqs = np.zeros(n_post, np.float32)
+    masks = np.zeros(n_post, np.int32)
+    dl = (np.abs(rng.normal(24.0, 6.0, n_post)) + 1.0).astype(np.float32)
+    keys = np.full(n_keys, 2**31 - 1, np.int32)
+    meta = np.zeros((B, 5 * T), np.int32)
+    fmeta = np.zeros((B, T + 1), np.float32)
+    at_p = at_k = 0
+    for b in range(B):
+        pool = np.unique(rng.integers(0, n_docs, max(Ws)))
+        slot_docs = []
+        for W in Ws:
+            live = int(rng.integers(max(1, W // 4), W + 1))
+            shared = pool[rng.random(len(pool)) < 0.6]
+            extra = rng.integers(0, n_docs, live)
+            slot_docs.append(np.unique(np.concatenate([shared, extra]))[:live])
+        common = slot_docs[0]
+        for d in slot_docs[1:]:
+            common = np.intersect1d(common, d)
+        seeded = common[rng.random(len(common)) < 0.5]
+        p0 = rng.integers(0, stride - 3 * T, len(seeded))
+        gaps = np.cumsum(rng.integers(0, 3, (len(seeded), T)), axis=1)
+        for t, W in enumerate(Ws):
+            if repeat and t == 1:
+                meta[b, 1::T] = meta[b, 0::T]
+                continue
+            docs = slot_docs[t]
+            at_p += int(rng.integers(0, 128))
+            live = len(docs)
+            doc_ids[at_p:at_p + live] = docs
+            freqs[at_p:at_p + live] = rng.integers(1, 8, live)
+            masks[at_p:at_p + live] = np.where(rng.random(live) < 0.9, 3, 4)
+            dd = np.repeat(docs, rng.integers(1, 3, live)).astype(np.int64)
+            hi = stride + 40 if clamp else stride
+            pos = rng.integers(0, hi, dd.size)
+            dd = np.concatenate([dd, seeded])
+            pos = np.concatenate([pos, p0 + t + gaps[:, t]])
+            ks = dd * stride + np.minimum(pos, stride - 1)
+            ks = np.sort(ks) if clamp else np.unique(ks)
+            n_live = min(len(ks), PWs[t])
+            at_k += int(rng.integers(0, 128))
+            keys[at_k:at_k + n_live] = ks[:n_live]
+            meta[b, t], meta[b, T + t], meta[b, 2 * T + t] = at_p, live, 3
+            meta[b, 3 * T + t], meta[b, 4 * T + t] = at_k, n_live
+            at_p += W + 128
+            at_k += PWs[t] + 128
+        fmeta[b, :T] = rng.uniform(0.5, 4.0, T)
+        if repeat:
+            fmeta[b, 1] = fmeta[b, 0]
+        fmeta[b, T] = 24.0
+    return meta, fmeta, doc_ids, freqs, masks, dl, keys
+
+
+# (label, Ws, PWs, slop, k, layout, stride, distinct queries, batch):
+# W0 / PW at the serving buckets 2048..131072, T = 2..4, slop 0/1/3,
+# k = 1/16/64; a batch above a distinct count repeats those queries, so
+# that it outgrows the kernel's grid (4096 blocks; 512 at W0 = 131072)
+PHRASE_CASES = [
+    ("t2-exact", (2048, 2048), (4096, 4096), 0, 16, None, 64, 48, 48),
+    ("t2-slop1-k1", (2048, 8192), (4096, 16384), 1, 1, None, 64, 48, 48),
+    ("t3-slop3", (8192,) * 3, (16384,) * 3, 3, 16, None, 64, 32, 32),
+    ("t4-exact-k64", (2048, 2048, 8192, 2048), (4096, 4096, 16384, 4096),
+     0, 64, None, 64, 48, 48),
+    ("t2-slop1-32768", (32768, 32768), (65536, 65536), 1, 16, None, 64,
+     16, 16),
+    ("t3-131072-k64", (131072, 32768, 32768), (131072, 65536, 65536), 0,
+     64, None, 64, 8, 8),
+    ("t2-131072-slop3", (32768, 131072), (131072, 131072), 3, 16, None,
+     64, 8, 8),
+    ("t2-repeated", (2048, 2048), (4096, 4096), 0, 16, "repeat", 64, 48,
+     48),
+    ("t2-clamped", (2048, 2048), (4096, 4096), 0, 16, "clamp", 64, 48, 48),
+    ("t3-clamped-slop1", (8192,) * 3, (16384,) * 3, 1, 16, "clamp", 64,
+     32, 32),
+    ("t2-stride1024", (2048, 2048), (4096, 4096), 1, 16, None, 1024, 48,
+     48),
+    ("t2-gridstride", (2048, 2048), (4096, 4096), 1, 16, None, 64, 48,
+     IK._MAX_GRID + 517),
+    ("t2-131072-gridstride", (131072, 2048), (131072, 4096), 0, 16, None,
+     64, 8, 600),
+]
+
+
+def phrase_case_args(rng, case):
+    label, Ws, PWs, slop, k, layout, stride, n_q, B = case
+    n_docs = min(2_000_000, (2**31 - 1) // stride - 1)
+    args = make_phrase_windows(rng, n_q, Ws, PWs, stride=stride,
+                               n_docs=n_docs, clamp=layout == "clamp",
+                               repeat=layout == "repeat")
+    if B > n_q:
+        pick = rng.integers(0, n_q, B)
+        args = (args[0][pick], args[1][pick]) + args[2:]
+    return args, dict(T=len(Ws), Ws=Ws, PWs=PWs, stride=stride, slop=slop,
+                      k=k)
+
+
+def phase_phrase_vs_plain(dev) -> float:
+    """The phrase kernel against `phrase_plain` on every PHRASE_CASES
+    case, top-k and raw: docs and counts equal, scores bit-identical,
+    lane for lane.  Returns the max abs score difference (0)."""
+    rng = np.random.default_rng(13)
+    err = 0.0
+    for case in PHRASE_CASES:
+        args, kw = phrase_case_args(rng, case)
+        t = [torch.as_tensor(a, device=dev) for a in args]
+        for raw in (False, True):
+            kout = IK.phrase_batch(*t, raw=raw, **kw)
+            pout = IK.phrase_plain(*t, raw=raw, **kw)
+            torch.cuda.synchronize()
+            what = f"phrase kernel vs plain [{case[0]} raw={raw}]"
+            err = max(err, compare_raw(kout, pout, what))
+            log(f"phase phrase-vs-plain: {case[0]} raw={raw} Ws={kw['Ws']} "
+                f"PWs={kw['PWs']} slop={kw['slop']} k={kw['k']} "
+                f"stride={kw['stride']} B={args[0].shape[0]} lanes/query="
+                f"{kout[0].shape[1]} matches={int(pout[2].sum())} lane "
+                f"for lane equal, scores bit-identical")
+            if int(pout[2].sum()) == 0:
+                raise AssertionError(f"{what}: no phrase matches generated")
+            del kout, pout
+        del t
+    torch.cuda.synchronize()
+    return err
 
 
 # (G, n_ops, want_sumsq, n, B, integer values)
@@ -359,7 +516,9 @@ def phase_groupby_vs_plain(dev) -> float:
 
 # ---------------------------------------------------------------- phase 4
 def make_corpus(n_docs: int, seed: int = 0):
-    """bench.py's corpus: 4+20 zipf(1.25) tokens over a 200k vocab."""
+    """bench.py's corpus: 4+20 zipf(1.25) tokens over a 200k vocab.
+    Returns (docs, query terms, token ids int32 [n_docs, 24]: title
+    then body)."""
     rng = np.random.default_rng(seed)
     vocab = 200_000
     words = np.array(["w%06d" % i for i in range(vocab)])
@@ -374,7 +533,7 @@ def make_corpus(n_docs: int, seed: int = 0):
                        "price": float(price[i])})
             for i in range(n_docs)]
     qt = ["w%06d" % i for i in rng.integers(20, 5000, size=512)]
-    return docs, qt
+    return docs, qt, zipf.astype(np.int32)
 
 
 def bm25_fields():
@@ -384,38 +543,47 @@ def bm25_fields():
             F("price", T.NUMERIC, sortable=True)]
 
 
-def kernel_eligible(ix, seg, q: str) -> bool:
-    cq = ix.prepare(q, None, E.QueryOptions(k=K), 2)
+def kernel_eligible(ix, seg, q: str, opts=None) -> bool:
+    """Whether a kernel serves `q`: the intersection kernel's plan, else
+    the phrase kernel's (the order of the engine's `_rows_executor`)."""
+    cq = ix.prepare(q, None, opts or E.QueryOptions(k=K), 2)
     _row, ent = cq.bind_row(seg)
     k_pad = int(min(E.next_pow2(K), seg.n_pad))
-    return E._kernel_plan(cq, seg, ent[4], k_pad) is not None
+    return (E._kernel_plan(cq, seg, ent[4], k_pad) is not None
+            or E._kernel_plan_phrase(cq, seg, ent[4], k_pad) is not None)
 
 
-def plain_results(ix, seg, queries):
-    """The engine's kernel branch for `queries`, with `intersect_plain`
-    in place of the kernel: ([(idx, scores, count)] per query, the size
+def plain_results(ix, seg, queries, opts=None):
+    """The engine's results for `queries` with each kernel's plain
+    version in its place (`plain_versions`): ([SegmentResult], the size
     of the largest group)."""
-    cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2) for q in queries]
-    out = [None] * len(cqs)
-    subs = E._prep_subs(cqs, seg, K)
-    for idxs, entry, seg_args, rows in subs:
-        stacked = E._device_unpack_rows(
-            entry.layout, torch.from_numpy(rows).to(seg.device))
-        meta, fmeta, aux = E._kernel_batched_inputs(
-            stacked, seg_args, entry.descs, entry.aux_keys, entry.dmeta)
-        docs, scores, count = IK.intersect_plain(
-            meta, fmeta, seg_args["doc_ids"], seg_args["freqs"],
-            seg_args["field_masks"], seg_args["posting_dl"], *aux,
-            T=len(entry.descs), Ws=entry.Ws, groups=entry.groups,
-            pivot_g=entry.pivot_g, k=entry.k_pad, dense=entry.dense)
-        vals, sel = IK.iter_topk(scores, docs, entry.ke)
-        idx = torch.gather(docs, 1, sel)
-        idx = torch.where(vals > -3e38, idx, IK.INT32_MAX)
-        idx, vals, count = (idx.cpu().numpy(), vals.cpu().numpy(),
-                            count.cpu().numpy())
-        for j, i in enumerate(idxs):
-            out[i] = (idx[j], vals[j], int(count[j]))
-    return out, max(len(s[0]) for s in subs)
+    cqs = [ix.prepare(q, None, opts or E.QueryOptions(k=K), 2)
+           for q in queries]
+    largest = max(len(s[0]) for s in E._prep_subs(cqs, seg, K))
+    with plain_versions():
+        return E.execute_batch(cqs, seg, K), largest
+
+
+def check_against_plain(kres, pres, what):
+    """Served results against their plain recomputation: counts and the
+    live lanes' docs equal, scores within SCORE_RTOL.  Returns the max
+    abs score difference."""
+    err = 0.0
+    for i, (kr, pr) in enumerate(zip(kres, pres)):
+        live = pr.scores > -3.3e38
+        if kr.count != pr.count or not np.array_equal(
+                kr.local_idx[live], pr.local_idx[live]) or not np.array_equal(
+                kr.scores <= -3.3e38, ~live):
+            raise AssertionError(f"{what} query {i}: kernel {kr.count} "
+                                 f"{kr.local_idx} vs plain {pr.count} "
+                                 f"{pr.local_idx}")
+        np.testing.assert_allclose(kr.scores[live], pr.scores[live],
+                                   rtol=SCORE_RTOL, atol=0,
+                                   err_msg=f"{what} query {i}")
+        if live.any():
+            err = max(err, float(np.abs(kr.scores[live]
+                                        - pr.scores[live]).max()))
+    return err
 
 
 def numpy_and2_count(seg, ix, q: str) -> int:
@@ -457,11 +625,14 @@ def time_ms(fn, iters: int = 20) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def phase_main_path(dev, n_docs: int, batch: int):
-    """Returns (launches, max_abs_err, kernel ms, plain ms, client,
-    index)."""
+def phase_main_path(dev, n_docs: int, batch: int) -> dict:
+    """Ingest, serve the eight families once with the launch counters
+    zeroed just before and read just after, hold every query against its
+    plain recomputation, then the check-only phrase runs, QPS, kernel
+    times and the profile.  Returns the numbers of the kernels' JSON
+    line, the client and the index."""
     t0 = time.perf_counter()
-    docs, qt = make_corpus(n_docs)
+    docs, qt, toks = make_corpus(n_docs)
     log(f"phase main-path: corpus {n_docs} docs generated in "
         f"{time.perf_counter() - t0:.1f}s")
     client = rt.Client(device=dev)
@@ -475,7 +646,7 @@ def phase_main_path(dev, n_docs: int, batch: int):
     seg = ix.segments[0]
     log(f"phase main-path: ingest {n_docs} docs in {ingest_s:.1f}s "
         f"({n_docs / ingest_s:.0f} docs/s), segment nnz={seg.text.nnz} "
-        f"device bytes={seg.memory_bytes()}")
+        f"device bytes={seg.memory_bytes()} pos_stride={seg.text.pos_stride}")
 
     batches = {}
     for fam, fn in FAMILIES.items():
@@ -486,24 +657,32 @@ def phase_main_path(dev, n_docs: int, batch: int):
             f"({100.0 * len(ok) / len(qs):.2f}%)")
         if not ok:
             raise AssertionError(f"{fam}: no kernel-eligible query")
+    # bench.py's kernel_hit_pct: the share of the eight families' queries
+    # that ride a kernel (the port refuses the others: ROADMAP A6)
+    n_ok = sum(len(qs) for qs in batches.values())
+    log(f"phase main-path: kernel_hit_pct "
+        f"{100.0 * n_ok / (batch * len(FAMILIES)):.2f} ({n_ok} of "
+        f"{batch * len(FAMILIES)} queries of the {len(FAMILIES)} families)")
     seg.tag_pcodes("cat")     # set-up: the dense code column, built once
 
     # the counted main-path run: counters zeroed just before, read after
     E.QUERY_PATH_STATS.clear()
     IK.LAUNCHES = 0
+    IK.PHRASE_LAUNCHES = 0
     results = {fam: client.ft_search_many("bm25", qs, k=K)
                for fam, qs in batches.items()}
     torch.cuda.synchronize(dev)
-    launches = IK.LAUNCHES
+    launches, p_launches = IK.LAUNCHES, IK.PHRASE_LAUNCHES
     stats = dict(E.QUERY_PATH_STATS)
-    served = sum(len(qs) for qs in batches.values())
-    log(f"phase main-path: kernel launches={launches}, path stats={stats}, "
-        f"served={served}")
-    if launches <= 0:
-        raise AssertionError("the intersect kernel never launched")
-    if stats.get("kernel", 0) != served or sum(stats.values()) != served:
-        raise AssertionError(f"not every served query rode the kernel: "
-                             f"{stats} for {served}")
+    n_phrase = len(batches["phrase"])
+    want = {"kernel": n_ok - n_phrase, "phrase-kernel": n_phrase}
+    log(f"phase main-path: intersect launches={launches}, phrase launches="
+        f"{p_launches}, path stats={stats}, served={n_ok}")
+    if launches <= 0 or p_launches <= 0:
+        raise AssertionError("a kernel of the main path never launched")
+    if stats != want:
+        raise AssertionError(f"not every served query rode its kernel: "
+                             f"{stats}, want {want}")
     for fam, res in results.items():
         for r in res:
             if len(r.hits) > K or r.total < len(r.hits) or any(
@@ -512,37 +691,25 @@ def phase_main_path(dev, n_docs: int, batch: int):
                                      f"{[h.score for h in r.hits]}")
         log(f"phase main-path: {fam}: queries with hits="
             f"{sum(1 for r in res if r.hits)}/{len(res)}, mean total="
-            f"{np.mean([r.total for r in res]):.1f}")
+            f"{np.mean([r.total for r in res]):.3f}")
 
     # every query of each family, kernel vs plain (groups larger than the
     # kernel's grid have blocks serve several queries)
-    err = 0.0
+    err = {"intersect": 0.0, "phrase": 0.0}
     for fam, qs in batches.items():
         kres = E.execute_batch(
             [ix.prepare(q, None, E.QueryOptions(k=K), 2) for q in qs],
             seg, K)
         pres, largest = plain_results(ix, seg, qs)
-        for q, kr, (pidx, pval, pcnt) in zip(qs, kres, pres):
-            live = pval > -3.3e38
-            if kr.count != pcnt or not np.array_equal(
-                    kr.local_idx[live], pidx[live]) or not np.array_equal(
-                    kr.scores <= -3.3e38, ~live):
-                raise AssertionError(f"{fam} {q!r}: kernel {kr.count} "
-                                     f"{kr.local_idx} vs plain {pcnt} "
-                                     f"{pidx}")
-            np.testing.assert_allclose(kr.scores[live], pval[live],
-                                       rtol=SCORE_RTOL, atol=0, err_msg=q)
-            if live.any():
-                err = max(err, float(np.abs(kr.scores[live]
-                                            - pval[live]).max()))
+        name = "phrase" if fam == "phrase" else "intersect"
+        err[name] = max(err[name], check_against_plain(kres, pres, fam))
         hits = [h.key for h in results[fam][0].hits]
         want = [ix.doctable.get(int(seg.gids_np[d])).key
                 for d in kres[0].local_idx[kres[0].scores > -3.3e38]]
         if hits != want:
             raise AssertionError(f"{fam}: served hits {hits} != {want}")
         log(f"phase main-path: {fam}: all {len(qs)} queries kernel == "
-            f"plain (largest group {largest}, kernel grid "
-            f"{IK._MAX_GRID})")
+            f"plain (largest group {largest})")
     for q in batches["and2"][:16]:
         r = client.ft_search_many("bm25", [q], k=K)[0]
         want = numpy_and2_count(seg, ix, q)
@@ -550,8 +717,127 @@ def phase_main_path(dev, n_docs: int, batch: int):
             raise AssertionError(f"and2 {q!r}: total {r.total} != numpy "
                                  f"intersection {want}")
     log("phase main-path: 16 and2 totals == numpy set intersections")
+    err["phrase"] = max(err["phrase"], phase_phrase_runs(ix, seg, toks))
+    del toks
 
-    # information only: QPS per family (host clock, ends in a sync)
+    phase_qps(client, ix, seg, batches, dev)
+    log(f"phase main-path: max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated(dev)}")
+    times = phase_kernel_times(ix, seg, batches, dev)
+    phase_profile(client, ix, seg, batches, dev)
+    return dict(launches=launches, p_launches=p_launches, err=err,
+                times=times, client=client, ix=ix)
+
+
+# a phrase the reference's in-order proximity model accepts: a port of
+# RediSearch's proximity.rs within_range_in_order (tests/
+# test_fuzz_proximity.py holds the same model; that module imports the
+# JAX package, which this script must not load)
+def within_range_in_order(lists, max_slop):
+    n = len(lists)
+    iters = [iter(x) for x in lists]
+    pos = [0] * n
+    while True:
+        p0 = next(iters[0], None)
+        if p0 is None:
+            return False
+        pos[0] = p0
+        span = 0
+        over = False
+        for i in range(1, n):
+            last = pos[i - 1]
+            p = pos[i]
+            while p < last:
+                p = next(iters[i], None)
+                if p is None:
+                    return False
+            pos[i] = p
+            span += p - last - 1
+            if span > 0 and span > max_slop:
+                over = True
+                break
+        if not over:
+            return True
+
+
+def model_phrase_docs(toks, words, slop) -> set:
+    """Docs (corpus row numbers) whose tokens hold `words` in order
+    within `slop`, by the proximity model over the host-copied tokens.
+    Positions are 1-based, as the model expects (its iterators start at
+    0), with the index's one-position gap between TEXT fields: title
+    tokens 1..4, body tokens 6..25."""
+    ids = [int(w[1:]) for w in words]
+    rows = np.flatnonzero(np.all([(toks == t).any(axis=1) for t in ids],
+                                 axis=0))
+    pos_of = 1 + np.r_[np.arange(4), 5 + np.arange(toks.shape[1] - 4)]
+    return {int(r) for r in rows if within_range_in_order(
+        [pos_of[toks[r] == t].tolist() for t in ids], slop)}
+
+
+def phase_phrase_runs(ix, seg, toks, n_each: int = 1024) -> float:
+    """Check-only phrases that do match: 2-4-term exact phrases and
+    slop-1 in-order phrases cut from the corpus's own body token runs
+    (the slop-1 ones skip one token), drawn until n_each of each kind
+    ride the phrase kernel.  Every query must ride it and match its
+    source doc, equal its plain recomputation, and 16 must equal the
+    proximity model's doc set.  Returns the max abs score difference."""
+    rng = np.random.default_rng(17)
+    words = lambda ids: ["w%06d" % t for t in ids]
+    kinds = {"exact": ([], E.QueryOptions(k=K)),
+             "slop1-inorder": ([], E.QueryOptions(k=K, slop=1,
+                                                  inorder=True))}
+    drawn = 0
+    while min(len(v[0]) for v in kinds.values()) < n_each:
+        drawn += 1
+        r, T = int(rng.integers(0, toks.shape[0])), int(rng.integers(2, 5))
+        j = 4 + int(rng.integers(0, toks.shape[1] - 4 - T))
+        for kind, (qs, opts) in kinds.items():
+            if len(qs) >= n_each:
+                continue
+            cols = (list(range(j, j + T)) if kind == "exact"
+                    else [j] + list(range(j + 2, j + T + 1)))
+            w = words(toks[r, cols])
+            q = f'"{" ".join(w)}"' if kind == "exact" else " ".join(w)
+            if kernel_eligible(ix, seg, q, opts):
+                qs.append((q, w, r))
+    err = 0.0
+    for kind, (qs, opts) in kinds.items():
+        slop = 0 if kind == "exact" else 1
+        qstr = [q for q, _w, _r in qs]
+        cqs = [ix.prepare(q, None, opts, 2) for q in qstr]
+        E.QUERY_PATH_STATS.clear()
+        IK.PHRASE_LAUNCHES = 0
+        kres = E.execute_batch(cqs, seg, K)
+        if dict(E.QUERY_PATH_STATS) != {"phrase-kernel": len(qs)} or \
+                IK.PHRASE_LAUNCHES <= 0:
+            raise AssertionError(f"phrase runs {kind}: "
+                                 f"{E.QUERY_PATH_STATS}, launches "
+                                 f"{IK.PHRASE_LAUNCHES}")
+        if any(kr.count < 1 for kr in kres):
+            raise AssertionError(f"phrase runs {kind}: a phrase cut from a "
+                                 f"doc does not match it")
+        pres, _largest = plain_results(ix, seg, qstr, opts)
+        err = max(err, check_against_plain(kres, pres, f"runs {kind}"))
+        for (q, w, r), kr in list(zip(qs, kres))[:8]:
+            want = model_phrase_docs(toks, w, slop)
+            got = {int(ix.doctable.get(int(seg.gids_np[d])).key[1:])
+                   for d in kr.local_idx[kr.scores > -3.3e38]}
+            if kr.count != len(want) or not got <= want or r not in want:
+                raise AssertionError(f"phrase runs {kind} {q!r}: total "
+                                     f"{kr.count}, model {len(want)}")
+        log(f"phase main-path: phrase runs {kind}: {len(qs)} phrases of "
+            f"2-4 terms ({drawn} draws), all rode the phrase kernel, "
+            f"mean total {np.mean([kr.count for kr in kres]):.2f}, all "
+            f"equal to plain; 8 equal to the in-order proximity model "
+            f"(slop {slop}) over the host-copied tokens")
+    return err
+
+
+def phase_qps(client, ix, seg, batches, dev, iters: int = 4):
+    """Information only: QPS per family, host clock, ending in a sync:
+    sequential `ft_search_many` batches (best of 2), then bench.py's
+    pipelined loop over `execute_batch(async_=True)` at depth 2, which
+    prepares the next batch while the card runs this one (best of 2)."""
     for fam, qs in batches.items():
         best = None
         for _ in range(2):
@@ -562,10 +848,40 @@ def phase_main_path(dev, n_docs: int, batch: int):
             best = dt if best is None else min(best, dt)
         log(f"phase main-path: qps {fam}: {len(qs) / best:.1f} "
             f"(batch {len(qs)}, best of 2, host clock)")
-    log(f"phase main-path: max_memory_allocated="
-        f"{torch.cuda.max_memory_allocated(dev)}")
+    opts = E.QueryOptions(k=K)
+    total_q = total_s = 0.0
+    for fam, qs in batches.items():
+        best = None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pending = []
+            nxt = [ix.prepare(q, None, opts, 2) for q in qs]
+            for it in range(iters):
+                pending.append(E.execute_batch(nxt, seg, K, async_=True))
+                if it + 1 < iters:
+                    nxt = [ix.prepare(q, None, opts, 2) for q in qs]
+                if len(pending) > 2:
+                    pending.pop(0).result()
+            for h in pending:
+                h.result()
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        total_q += iters * len(qs)
+        total_s += best
+        log(f"phase main-path: pipelined qps {fam}: "
+            f"{iters * len(qs) / best:.1f} ({iters} batches of {len(qs)}, "
+            f"depth 2, best of 2, host clock)")
+    log(f"phase main-path: pipelined qps, {len(batches)} families: "
+        f"{total_q / total_s:.1f}")
 
-    # information only: kernel vs plain time at the and2 shapes
+
+def phase_kernel_times(ix, seg, batches, dev) -> dict:
+    """Information only: each kernel against its plain version at the
+    main path's shapes (CUDA events, plain/kernel/plain/kernel): the
+    largest and2 group, and every group of the phrase family (one per
+    window-bucket combination).  Each pair is also compared.  Returns
+    {name: (kernel ms, plain ms, max abs err)} of the largest group."""
+    out = {}
     cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
            for q in batches["and2"]]
     subs = E._prep_subs(cqs, seg, K)
@@ -581,24 +897,46 @@ def phase_main_path(dev, n_docs: int, batch: int):
     e = compare(*IK.intersect_batch(*args, **kw),
                 *IK.intersect_plain(*args, **kw),
                 f"kernel vs plain [and2 group of {len(idxs)}]")
-    err = max(err, e)
-    log(f"phase main-path: and2 largest group B={len(idxs)}: raw kernel "
-        f"lanes == plain lanes, max_abs_err={e:.3g}")
-    plain_ms = time_ms(lambda: IK.intersect_plain(*args, **kw), 5)
-    k_ms = time_ms(lambda: IK.intersect_batch(*args, **kw))
-    plain_ms2 = time_ms(lambda: IK.intersect_plain(*args, **kw), 5)
-    k_ms2 = time_ms(lambda: IK.intersect_batch(*args, **kw))
+    p1 = time_ms(lambda: IK.intersect_plain(*args, **kw), 5)
+    k1 = time_ms(lambda: IK.intersect_batch(*args, **kw))
+    p2 = time_ms(lambda: IK.intersect_plain(*args, **kw), 5)
+    k2 = time_ms(lambda: IK.intersect_batch(*args, **kw))
+    out["intersect"] = (min(k1, k2), min(p1, p2), e)
     log(f"phase main-path: and2 largest group B={len(idxs)} Ws={entry.Ws} "
-        f"groups={entry.groups} k={entry.k_pad}: kernel "
-        f"{k_ms:.4f}/{k_ms2:.4f} ms, plain {plain_ms:.4f}/{plain_ms2:.4f} "
-        f"ms (CUDA events, plain/kernel/plain/kernel)")
-    phase_profile(client, ix, seg, batches, dev)
-    return (launches, err, min(k_ms, k_ms2), min(plain_ms, plain_ms2),
-            client, ix)
+        f"groups={entry.groups} k={entry.k_pad}: kernel lanes == plain "
+        f"lanes; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
+        f"(CUDA events, plain/kernel/plain/kernel)")
+
+    cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
+           for q in batches["phrase"]]
+    subs = sorted(E._prep_subs(cqs, seg, K), key=lambda s: -len(s[0]))
+    for gi, (idxs, entry, seg_args, rows) in enumerate(subs):
+        meta, fmeta = entry.inputs(seg_args, rows)
+        args = (meta, fmeta, seg_args["doc_ids"], seg_args["freqs"],
+                seg_args["field_masks"], seg_args["posting_dl"],
+                seg_args["poskeys"])
+        kw = dict(T=len(entry.slots), Ws=entry.Ws, PWs=entry.PWs,
+                  stride=entry.stride, slop=entry.slop, k=entry.k_pad,
+                  raw=entry.raw(dev))
+        e = compare_raw(IK.phrase_batch(*args, **kw),
+                        IK.phrase_plain(*args, **kw),
+                        f"phrase kernel vs plain [group of {len(idxs)}]")
+        p1 = time_ms(lambda: IK.phrase_plain(*args, **kw), 5)
+        k1 = time_ms(lambda: IK.phrase_batch(*args, **kw))
+        p2 = time_ms(lambda: IK.phrase_plain(*args, **kw), 5)
+        k2 = time_ms(lambda: IK.phrase_batch(*args, **kw))
+        if gi == 0:
+            out["phrase"] = (min(k1, k2), min(p1, p2), e)
+        log(f"phase main-path: phrase group B={len(idxs)} Ws={entry.Ws} "
+            f"PWs={entry.PWs} raw={kw['raw']}: kernel lanes == plain "
+            f"lanes; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
+            f"ms (CUDA events, plain/kernel/plain/kernel)")
+    return out
 
 
 # ---------------------------------------------------------------- phase 5
-def device_busy_us(prof, names=("intersect_kernel",)) -> tuple:
+def device_busy_us(prof, names=("intersect_kernel", "phrase_kernel")
+                   ) -> tuple:
     """(busy us, {name: us}) from a torch.profiler trace: the union of
     the device-side (kernel and memcpy) intervals, and per kernel name
     the sum of its intervals."""
@@ -653,13 +991,13 @@ def phase_profile(client, ix, seg, batches, dev):
             torch.cuda.synchronize(dev)
             traced = (time.perf_counter() - t0) * 1e3
         busy, kerns = device_busy_us(prof)
-        kern = kerns["intersect_kernel"]
+        kern = sum(kerns.values())
         log(f"phase profile: {fam} (batch {len(qs)}, {len(subs)} groups) "
             f"host ms: prepare {ms[0]:.3f}, bind {ms[1]:.3f}, launch "
             f"{ms[2]:.3f}, wait {ms[3]:.3f}, d2h {ms[4]:.3f}, whole "
             f"ft_search_many {whole:.3f}, rest {whole - sum(ms[:5]):.3f}; "
             f"traced ft_search_many {traced:.3f} ms with device busy "
-            f"{busy:.1f} us (intersect kernel {kern:.1f} us), idle share "
+            f"{busy:.1f} us (kernels {kern:.1f} us), idle share "
             f"{1.0 - busy / (traced * 1e3):.4f}")
 
 
@@ -704,17 +1042,20 @@ def agg_eligible(ix, seg, req) -> bool:
 
 
 class plain_versions:
-    """Within the block the pipeline's two ops run their plain torch
-    versions on the card (for the recomputation the kernels are held
-    against)."""
+    """Within the block the engine's and the pipeline's ops run their
+    plain torch versions on the card (for the recomputation the kernels
+    are held against)."""
 
     def __enter__(self):
-        self.saved = IK.intersect_batch, GB.groupby_aggregate_batch
+        self.saved = (IK.intersect_batch, IK.phrase_batch,
+                      GB.groupby_aggregate_batch)
         IK.intersect_batch = IK.intersect_plain
+        IK.phrase_batch = IK.phrase_plain
         GB.groupby_aggregate_batch = GB.groupby_plain
 
     def __exit__(self, *exc):
-        IK.intersect_batch, GB.groupby_aggregate_batch = self.saved
+        (IK.intersect_batch, IK.phrase_batch,
+         GB.groupby_aggregate_batch) = self.saved
 
 
 class capture_shapes:
@@ -944,10 +1285,12 @@ def main():
     torch.cuda.set_device(dev)
     phase_build()
     err3, err3_raw = phase_kernel_vs_plain(dev)
+    err3_phrase = phase_phrase_vs_plain(dev)
     err_gb3 = phase_groupby_vs_plain(dev)
-    launches, err4, k_ms, p_ms, client, ix = phase_main_path(dev, N_DOCS,
-                                                             BATCH)
-    agg = phase_aggregate(client, ix, dev)
+    main = phase_main_path(dev, N_DOCS, BATCH)
+    agg = phase_aggregate(main["client"], main["ix"], dev)
+    k_ms, p_ms, k_err = main["times"]["intersect"]
+    pk_ms, pp_ms, pk_err = main["times"]["phrase"]
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "redisearch_tpu" or m.startswith("redisearch_tpu.")]
@@ -956,8 +1299,13 @@ def main():
     log(smi)
     log(json.dumps({"kernels": [
         {"name": "intersect", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": KERNEL_REPLACES, "launches": launches,
-         "max_abs_err": max(err3, err4), "ms": k_ms, "plain_ms": p_ms},
+         "replaces": KERNEL_REPLACES, "launches": main["launches"],
+         "max_abs_err": max(err3, main["err"]["intersect"], k_err),
+         "ms": k_ms, "plain_ms": p_ms},
+        {"name": "phrase", "route": "cuda", "source": PHRASE_SRC,
+         "replaces": PHRASE_REPLACES, "launches": main["p_launches"],
+         "max_abs_err": max(err3_phrase, main["err"]["phrase"], pk_err),
+         "ms": pk_ms, "plain_ms": pp_ms},
         {"name": "intersect_raw", "route": "cuda", "source": KERNEL_SRC,
          "replaces": KERNEL_REPLACES, "launches": agg["raw_launches"],
          "max_abs_err": max(err3_raw, agg["err_raw"]),

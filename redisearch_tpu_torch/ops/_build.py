@@ -21,7 +21,7 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRCS = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-        for name in ("intersect", "groupby")}
+        for name in ("intersect", "groupby", "phrase")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 # --fmad=false and no fast-math: the kernels must round like their plain
 # torch versions (see the note at the top of csrc/intersect.cu)
@@ -45,6 +45,13 @@ _LAUNCH = {
         _i32, _i32, _i64,                          # B, S, n
         _i32, _i32,                                # G_pad, want_sumsq
         _i32, _i32, _vp]),                         # grid, use_smem, stream
+    "phrase": ("rs_phrase_launch", [
+        _vp, _vp,                                  # meta, fmeta
+        _vp, _vp, _vp, _vp, _i64,                  # postings, n_post
+        _vp, _i64,                                 # poskeys, n_keys
+        _vp,                                       # params (host)
+        _vp, _vp, _vp, _vp,                        # outputs, scratch
+        _i32, _vp]),                               # grid, stream
 }
 
 _lock = threading.Lock()

@@ -276,6 +276,146 @@ def iter_topk(scores, docs, k: int):
     return vals[:, :k], sel[:, :k]
 
 
+def _phrase_lanes(Ws, k: int, raw: bool) -> int:
+    """Output lanes per query of the phrase op: k rounded up to whole
+    128-lane rows, or in raw mode term 0's section of Ws[0] // 128 +
+    R_EXTRA rows."""
+    if raw:
+        return (Ws[0] // BLK + R_EXTRA) * BLK
+    return max(-(-k // BLK), 1) * BLK
+
+
+def phrase_plain(meta, fmeta, doc_ids, freqs, masks, posting_dl, poskeys, *,
+                 T: int, Ws: tuple, PWs: tuple, stride: int, slop: int = 0,
+                 k: int = 16, raw: bool = False, eq_join=None):
+    """Plain torch port of `_xla_phrase_impl` (and, with raw=True, of the
+    Pallas phrase kernel's raw mode): same arguments and outputs as
+    `phrase_batch`.  `eq_join` changes nothing: the result is the anchor
+    chain's, as in the twin.  Runs the batch in chunks so the [b, PW]
+    key windows stay small."""
+    B = meta.shape[0]
+    dev = meta.device
+    L = _phrase_lanes(Ws, k, raw)
+    chunk = max(1, (1 << 22) // max(max(Ws), max(PWs), L))
+    outs = [_phrase_chunk(meta[c0:c0 + chunk], fmeta[c0:c0 + chunk],
+                          doc_ids, freqs, masks, posting_dl, poskeys, T=T,
+                          Ws=Ws, PWs=PWs, stride=stride, slop=slop, k=k,
+                          L=L, raw=raw)
+            for c0 in range(0, B, chunk)]
+    if not outs:
+        return (torch.empty((0, L), dtype=torch.int32, device=dev),
+                torch.empty((0, L), dtype=torch.float32, device=dev),
+                torch.empty((0,), dtype=torch.int32, device=dev))
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def _phrase_chunk(meta, fmeta, doc_ids, freqs, masks, posting_dl, poskeys, *,
+                  T, Ws, PWs, stride, slop, k, L, raw):
+    b = meta.shape[0]
+    dev = meta.device
+    tstarts, tlens, qm = meta[:, :T], meta[:, T:2 * T], meta[:, 2 * T:3 * T]
+    pstarts, plens = meta[:, 3 * T:4 * T], meta[:, 4 * T:5 * T]
+    tws = fmeta[:, :T]
+    avgdl = fmeta[:, T:T + 1]
+    INF = torch.tensor(INT32_MAX, dtype=torch.int32, device=dev)
+    NEG = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def pwin(t):
+        ks = _window(poskeys, pstarts[:, t], PWs[t])
+        live = torch.arange(PWs[t], device=dev)[None, :] < plens[:, t:t + 1]
+        return torch.where(live, ks, INF)
+
+    # the in-order anchor chain over term 0's keys; spans in 64 bits so
+    # dead lanes (INF keys) cannot overflow
+    cand = pwin(0)
+    alive = cand != INF
+    doc0 = torch.where(alive, torch.div(cand, stride, rounding_mode="floor"),
+                       INF)
+    anchor = cand
+    ok = alive
+    span = torch.zeros(cand.shape, dtype=torch.int64, device=dev)
+    for j in range(1, T):
+        kj = pwin(j)
+        at = torch.searchsorted(kj, anchor)
+        found = torch.where(at < PWs[j],
+                            torch.gather(kj, 1, at.clamp(max=PWs[j] - 1)),
+                            INF)
+        ok = (ok & (found >= anchor) & (found != INF)
+              & (torch.div(found, stride, rounding_mode="floor") == doc0))
+        span = torch.where(ok, span + (found.long() - anchor.long() - 1),
+                           span)
+        ok = ok & (span <= max(slop, 0))
+        anchor = torch.where(ok, found, anchor)
+
+    def win(t):
+        W = Ws[t]
+        inr = torch.arange(W, device=dev)[None, :] < tlens[:, t:t + 1]
+        d = _window(doc_ids, tstarts[:, t], W)
+        mv = inr & ((_window(masks, tstarts[:, t], W) & qm[:, t:t + 1]) != 0)
+        return (torch.where(inr, d, INF), _window(freqs, tstarts[:, t], W),
+                mv, inr, _window(posting_dl, tstarts[:, t], W))
+
+    if raw:
+        # term 0's whole 128-lane rows from its start's row, live in
+        # [start % 128, start % 128 + len) — the Pallas kernel's DMA
+        lanes = torch.arange(L, device=dev)
+        st = tstarts[:, 0].long()
+        base = torch.div(st, BLK, rounding_mode="floor") * BLK
+        r = (st - base)[:, None]
+        pinr = (lanes[None, :] >= r) & (lanes[None, :] < r + tlens[:, :1])
+        pos = base[:, None] + lanes[None, :]
+
+        def at0(arr):
+            return arr[pos.clamp(0, arr.shape[0] - 1)]
+        pd = torch.where(pinr, at0(doc_ids), INF)
+        pf, pdl = at0(freqs), at0(posting_dl)
+        pmv = pinr & ((at0(masks) & qm[:, :1]) != 0)
+    else:
+        pd, pf, pmv, pinr, pdl = win(0)
+
+    # fold: a term-0 doc hits when one of its keys survived the chain
+    okc = torch.cumsum(ok.to(torch.int32), dim=1)
+    cand64 = cand.long()
+    lo = torch.searchsorted(cand64, pd.long() * stride)
+    hi = torch.searchsorted(cand64, (pd.long() + 1) * stride)
+
+    def c_at(i):
+        return torch.where(i > 0, torch.gather(okc, 1, (i - 1).clamp(min=0)),
+                           0)
+    anylen = (tlens > 0).all(dim=1, keepdim=True)
+    dochit = pinr & (c_at(hi) - c_at(lo) > 0) & anylen
+
+    def bm25(tf, w):
+        # the twin's op order, f32 throughout (see intersect_plain)
+        norm = K1 * (1.0 - B_ + B_ * pdl / torch.clamp(avgdl, min=1e-9))
+        return w * tf * (K1 + 1.0) / (tf + norm)
+
+    # phrase validity reads positions only; each slot scores where its
+    # own posting is mask-valid
+    score = torch.where(dochit & pmv, bm25(pf, tws[:, :1]), zero)
+    for u in range(1, T):
+        md, mf, mmv, _inr, _dl = win(u)
+        idx = torch.searchsorted(md, pd).clamp(max=Ws[u] - 1)
+        hit = ((torch.gather(md, 1, idx) == pd) & torch.gather(mmv, 1, idx)
+               & dochit)
+        score = score + torch.where(
+            hit, bm25(torch.gather(mf, 1, idx), tws[:, u:u + 1]), zero)
+    d_o = torch.where(dochit, pd, INF)
+    s_o = torch.where(dochit, score, NEG)
+    count = dochit.sum(1, dtype=torch.int32)
+    if raw:
+        return d_o, s_o, count
+    topd = torch.full((b, L), INT32_MAX, dtype=torch.int32, device=dev)
+    tops = torch.full((b, L), NEG_INF, dtype=torch.float32, device=dev)
+    # k max-extractions == the first k of a stable descending sort
+    kk = min(k, s_o.shape[1])
+    vals, sel = iter_topk(s_o, d_o, kk)
+    topd[:, :kk] = torch.where(vals > NEG, torch.gather(d_o, 1, sel), INF)
+    tops[:, :kk] = vals
+    return topd, tops, count
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel launch
 # ---------------------------------------------------------------------------
@@ -435,3 +575,118 @@ def intersect_batch(meta, fmeta, doc_ids, freqs, masks, posting_dl, *aux,
     return _launch(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux,
                    T=T, Ws=Ws, groups=groups, pivot_g=pivot_g, k=k,
                    dense=dense, raw=raw)
+
+
+# ---------------------------------------------------------------------------
+# Phrase kernel launch
+# ---------------------------------------------------------------------------
+
+#: kernel launches made by `phrase_batch` (plain int; callers reset it)
+PHRASE_LAUNCHES = 0
+#: bytes of top-k scratch the phrase kernel's grid may hold: each block
+#: owns one [Ws[0]] f32 score row, so at the 131,072 bucket the grid is
+#: 512 blocks, not _MAX_GRID (whose rows would take 2 GB)
+_PHRASE_SCRATCH_BYTES = 256 << 20
+
+
+def _phrase_params(T, Ws, PWs, stride, slop, k, raw, out_cols, scr_cols,
+                   B) -> np.ndarray:
+    """The int32 parameter block csrc/phrase.cu reads (P_* there)."""
+    prm = np.zeros(16, np.int32)
+    prm[0:8] = (T, stride, slop, k, int(raw), out_cols, scr_cols, B)
+    prm[8:8 + T] = Ws
+    prm[12:12 + T] = PWs
+    return prm
+
+
+def _phrase_launch(meta, fmeta, doc_ids, freqs, masks, posting_dl, poskeys,
+                   *, T, Ws, PWs, stride, slop, k, raw):
+    from . import _build
+    lib = _build.load("phrase")
+    dev = meta.device
+    B = meta.shape[0]
+    if not 2 <= T <= 4 or len(Ws) != T or len(PWs) != T:
+        raise ValueError(f"phrase kernel takes 2..4 terms with a window "
+                         f"each: T={T}, Ws={Ws}, PWs={PWs}")
+    _check(meta, "meta", torch.int32, dev, 2)
+    _check(fmeta, "fmeta", torch.float32, dev, 2)
+    if meta.shape[1] != 5 * T or fmeta.shape != (B, T + 1):
+        raise ValueError(f"meta {tuple(meta.shape)} / fmeta "
+                         f"{tuple(fmeta.shape)}: expected {5 * T} and "
+                         f"{T + 1} columns")
+    _check(doc_ids, "doc_ids", torch.int32, dev, 1)
+    N = doc_ids.shape[0]
+    for name, t, dt in (("freqs", freqs, torch.float32),
+                        ("masks", masks, torch.int32),
+                        ("posting_dl", posting_dl, torch.float32)):
+        _check(t, name, dt, dev, 1)
+        if t.shape[0] != N:
+            raise ValueError(f"{name}: length {t.shape[0]} != {N}")
+    _check(poskeys, "poskeys", torch.int32, dev, 1)
+    if max(Ws) > N or max(PWs) > poskeys.shape[0]:
+        raise ValueError(f"windows Ws={Ws} / PWs={PWs} exceed their arrays "
+                         f"({N} postings, {poskeys.shape[0]} keys)")
+    if PWs[0] > MAX_W_MEMBER or Ws[0] > MAX_W_MEMBER:
+        raise ValueError("term 0's windows exceed MAX_W_MEMBER")
+    if stride < 1:
+        raise ValueError(f"stride={stride}")
+    if not 1 <= k <= 64:
+        raise ValueError(f"k={k} outside [1, 64]")
+    L = _phrase_lanes(Ws, k, raw)
+    out_docs = torch.empty((B, L), dtype=torch.int32, device=dev)
+    out_scores = torch.empty((B, L), dtype=torch.float32, device=dev)
+    out_counts = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out_docs, out_scores, out_counts
+    # raw mode writes its lanes straight to the output: no scratch
+    scr_cols = 0 if raw else Ws[0]
+    grid = min(B, _MAX_GRID)
+    if scr_cols:
+        grid = min(grid, max(1, _PHRASE_SCRATCH_BYTES // (4 * scr_cols)))
+    scr = torch.empty((grid, scr_cols), dtype=torch.float32, device=dev)
+    prm = _phrase_params(T, Ws, PWs, stride, slop, k, raw, L, scr_cols, B)
+    rc = lib.rs_phrase_launch(
+        meta.data_ptr(), fmeta.data_ptr(), doc_ids.data_ptr(),
+        freqs.data_ptr(), masks.data_ptr(), posting_dl.data_ptr(), N,
+        poskeys.data_ptr(), poskeys.shape[0],
+        prm.ctypes.data_as(ctypes.c_void_p), out_docs.data_ptr(),
+        out_scores.data_ptr(), out_counts.data_ptr(), scr.data_ptr(), grid,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"phrase kernel launch failed: CUDA error {rc} "
+                           f"({_build.error_string('phrase', rc)})")
+    global PHRASE_LAUNCHES
+    PHRASE_LAUNCHES += 1
+    return out_docs, out_scores, out_counts
+
+
+def phrase_batch(meta, fmeta, doc_ids, freqs, masks, posting_dl, poskeys,
+                 *, T: int, Ws: tuple, PWs: tuple, stride: int,
+                 slop: int = 0, k: int = 16, raw: bool = False,
+                 eq_join: bool | None = None):
+    """Exact / in-order phrase search over a batch.
+
+    meta: int32 [B, 5T] — per slot posting starts, lens, qmasks, then
+    poskey-window starts and lens (flat offsets into `poskeys`).
+    fmeta: f32 [B, T+1] — slot tweights then avgdl.  Returns
+    (docs [B, L], scores [B, L], counts [B]): with L = k rounded up to
+    128, the top-k (score desc, lowest doc on ties) with INT32_MAX /
+    NEG_INF filler, plus the hit count.
+
+    raw=True: the masked (doc, score) lanes of term 0's section instead
+    (Ws[0] // 128 + R_EXTRA rows of 128 lanes from its start's row);
+    callers finish with `iter_topk`.  `eq_join` is accepted for the JAX
+    signature and changes nothing: the result is the anchor chain's.
+
+    CPU tensors run `phrase_plain`; CUDA tensors launch the kernel
+    (`PHRASE_LAUNCHES` counts each launch) or raise.
+    """
+    if meta.device.type == "cpu":
+        return phrase_plain(meta, fmeta, doc_ids, freqs, masks, posting_dl,
+                            poskeys, T=T, Ws=Ws, PWs=PWs, stride=stride,
+                            slop=slop, k=k, raw=raw)
+    if meta.device.type != "cuda":
+        raise RuntimeError(f"no phrase kernel for device {meta.device}")
+    return _phrase_launch(meta, fmeta, doc_ids, freqs, masks, posting_dl,
+                          poskeys, T=T, Ws=Ws, PWs=PWs, stride=stride,
+                          slop=slop, k=k, raw=raw)

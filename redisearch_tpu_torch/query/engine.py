@@ -1043,6 +1043,59 @@ def _kernel_seg_ok(cq0: CompiledQuery, seg: Segment, k_pad: int) -> bool:
     return True
 
 
+def _kernel_plan_phrase(cq0: CompiledQuery, seg: Segment, bk: dict,
+                        k_pad: int):
+    """Eligibility for the phrase kernel (ops/intersect.py phrase_batch):
+    a single exact / in-order-slop phrase leaf on a clean segment, with
+    in-window (non-overflow) position lists.  Returns (slots, Ws, PWs,
+    stride, slop) or None.  A copy of the JAX planner's, gates and budget
+    included, so that both packages route the same phrases to the kernel;
+    only its RS_TPU_NO_INTERSECT_KERNEL switch is left out, as in
+    `_kernel_plan`."""
+    if not _kernel_seg_ok(cq0, seg, k_pad):
+        return None
+    tree = cq0.tree
+    if tree[0] != "leaf" or not isinstance(tree[1], LPhrase):
+        return None
+    leaf = tree[1]
+    if not leaf.inorder or leaf.slop < 0:
+        return None
+    T = len(leaf.slots)
+    if not 2 <= T <= 4:
+        return None
+    if tuple(leaf.slots) != tuple(range(leaf.score_lo, leaf.score_hi)):
+        return None
+    e = bk.get(tree[2])
+    if not e:
+        return None
+    Wn, Pc, Pm, pivot_j, bigs, _big_rounds, n_chunks = e
+    if n_chunks > 1 or any(bigs) or pivot_j != 0:
+        return None
+    if Wn > IK.MAX_W_MEMBER or Wn % 1024:
+        return None
+    if Pc > IK.MAX_W_MEMBER or Pc % 1024 or Pm > IK.MAX_W_MEMBER \
+            or Pm % 1024:
+        return None
+    try:
+        if seg.text.poskeys.shape[0] % 128:
+            return None
+    except Exception:
+        return None
+    Ws = (Wn,) * T
+    PWs = (Pc,) + (Pm,) * (T - 1)
+    # VMEM budget: posting windows (slot0 carries doclens), poskey
+    # windows, 6 chain buffers (Pc), 3 fold/score buffers (W0)
+    vmem = sum((4 if t == 0 else 3) * (Ws[t] + 1024) * 4
+               for t in range(T))
+    vmem += sum((PWs[t] + 1024) * 4 for t in range(T))
+    vmem += 6 * (Pc + 1024) * 4
+    vmem += 3 * (Wn + 1024) * 4
+    if vmem > 12 * 1024 * 1024:
+        return None
+    return (tuple(leaf.slots), Ws, PWs, int(seg.text.pos_stride),
+            max(int(leaf.slop), 0))
+
+
 def _layout_of(proto: dict) -> tuple[list, int]:
     """Canonical flat int32 transport layout for a dict of arrays:
     sorted keys, each flattened to `size` lanes.  Shared by the packed
@@ -1153,7 +1206,7 @@ def decode_blob(raw, field) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 #: how many batched queries rode which executor family (callers reset it)
-QUERY_PATH_STATS: dict[str, int] = {"kernel": 0}
+QUERY_PATH_STATS: dict[str, int] = {"kernel": 0, "phrase-kernel": 0}
 
 
 @dataclasses.dataclass
@@ -1184,14 +1237,17 @@ class _BatchHandle:
         return out_all
 
 
-def execute_batch(cqs: list, seg: Segment, k: int) -> list:
+def execute_batch(cqs: list, seg: Segment, k: int, async_: bool = False):
     """Run a batch of queries: every group of queries sharing a (tree
     structure, window buckets) signature is one kernel launch over its
     stacked transport rows; all groups launch before any is collected.
-    Returns one SegmentResult per query."""
+    Returns one SegmentResult per query; with async_=True, the
+    `_BatchHandle` at once (the card may still be working), whose
+    result() collects."""
     parts = [(idxs, entry.run(seg_args, rows))
              for idxs, entry, seg_args, rows in _prep_subs(cqs, seg, k)]
-    return _BatchHandle(parts, len(cqs)).result()
+    handle = _BatchHandle(parts, len(cqs))
+    return handle if async_ else handle.result()
 
 
 def _prep_subs(cqs: list, seg: Segment, k: int) -> list:
@@ -1266,19 +1322,80 @@ class _KernelExecutor:
         return {"idx": idx, "scores": vals, "count": count}
 
 
-def _rows_executor(cq0: CompiledQuery, ent: tuple, seg: Segment,
-                   k: int) -> _KernelExecutor:
-    """The executor of one batch group; groups the kernel does not
-    serve raise instead of falling back."""
+class _PhraseExecutor:
+    """One batch group on the phrase kernel (the JAX executor's phrase
+    branch, `_rows_executor` with `_kernel_plan_phrase` set)."""
+
+    path = "phrase-kernel"
+
+    def __init__(self, layout: list, pplan: tuple, k_pad: int, ke: int):
+        self.layout = layout
+        self.slots, self.Ws, self.PWs, self.stride, self.slop = pplan
+        self.k_pad = k_pad
+        self.ke = ke
+
+    def inputs(self, seg_args: dict, rows_np: np.ndarray) -> tuple:
+        """(meta, fmeta) of the group: one upload of the [B, total] rows,
+        unpacked on the device, the phrase slots' posting windows and
+        their poskey windows through `pos_offsets`."""
+        rows = torch.from_numpy(rows_np).to(seg_args["doc_ids"].device)
+        stacked = _device_unpack_rows(self.layout, rows)
+        sl = list(self.slots)
+        ts = stacked["tstarts"][:, sl].to(torch.int32)
+        tl = stacked["tlens"][:, sl].to(torch.int32)
+        tm = stacked["tmasks"][:, sl].to(torch.int32)
+        po = seg_args["pos_offsets"]
+        pstart = po[ts.long()]
+        plen = po[(ts + tl).long()] - pstart
+        meta = torch.cat([ts, tl, tm, pstart, plen], dim=1)
+        fmeta = torch.cat([stacked["tweight"][:, sl],
+                           stacked["avgdl"].reshape(-1, 1)], dim=1)
+        return (meta.to(torch.int32).contiguous(),
+                fmeta.to(torch.float32).contiguous())
+
+    def raw(self, dev: torch.device) -> bool:
+        """The JAX package's raw gate for small term-0 windows, with
+        "the tensors are on the card" in place of `_use_pallas()`: the
+        kernel then skips its arg-max passes and `iter_topk` merges."""
+        return ((self.Ws[0] // 128 + IK.R_EXTRA) * 128 <= 10_240
+                and dev.type == "cuda")
+
+    def run(self, seg_args: dict, rows_np: np.ndarray) -> dict:
+        """Launch the kernel for the group and take each query's top
+        lanes.  Returns device tensors {"idx" [B, ke], "scores" [B, ke],
+        "count" [B]}."""
+        meta, fmeta = self.inputs(seg_args, rows_np)
+        docs, scores, count = IK.phrase_batch(
+            meta, fmeta, seg_args["doc_ids"], seg_args["freqs"],
+            seg_args["field_masks"], seg_args["posting_dl"],
+            seg_args["poskeys"], T=len(self.slots), Ws=self.Ws,
+            PWs=self.PWs, stride=self.stride, slop=self.slop, k=self.k_pad,
+            raw=self.raw(meta.device))
+        vals, sel = IK.iter_topk(scores, docs, self.ke)
+        idx = torch.gather(docs, 1, sel)
+        # exhausted lanes keep the INT32_MAX doc filler
+        idx = torch.where(vals > -3e38, idx, IK.INT32_MAX)
+        return {"idx": idx, "scores": vals, "count": count}
+
+
+def _rows_executor(cq0: CompiledQuery, ent: tuple, seg: Segment, k: int):
+    """The executor of one batch group: the intersection kernel, else
+    the phrase kernel; groups neither serves raise instead of falling
+    back."""
     _static, _patches, layout, _total, bk, _P2, _gsig, _lfp = ent
     k_pad = int(min(next_pow2(max(k, 1)), seg.n_pad))
     kplan = _kernel_plan(cq0, seg, bk, k_pad)
-    if kplan is None:
-        what = ("phrase queries (ROADMAP A5)" if cq0._phrase_leaves(cq0.tree)
-                else "queries outside the intersection kernel's shapes — "
-                     "the general window path (ROADMAP A6)")
-        raise NotImplementedError(f"not ported yet: {what}")
-    return _KernelExecutor(layout, kplan, k_pad, min(k, k_pad))
+    if kplan is not None:
+        return _KernelExecutor(layout, kplan, k_pad, min(k, k_pad))
+    pplan = _kernel_plan_phrase(cq0, seg, bk, k_pad)
+    if pplan is not None:
+        return _PhraseExecutor(layout, pplan, k_pad, min(k, k_pad))
+    what = ("phrases outside the phrase kernel's shapes (unordered slop, "
+            "more than 4 terms, ultra-common terms)"
+            if cq0._phrase_leaves(cq0.tree)
+            else "queries outside the intersection kernel's shapes")
+    raise NotImplementedError(
+        f"not ported yet: {what} — the general window path (ROADMAP A6)")
 
 
 def _kernel_batched_inputs(stacked, seg_args_, descs, aux_keys, dmeta):
@@ -1337,13 +1454,15 @@ def _device_unpack_rows(layout: list, rows: torch.Tensor) -> dict:
 
 
 def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
-    """The device arrays the kernel path reads: text postings, and per
-    TAG leaf its doc postings and posting-aligned codes."""
+    """The device arrays the kernels read: text postings and position
+    keys, and per TAG leaf its doc postings and posting-aligned codes."""
     args = {
         "doc_ids": seg.text.doc_ids,
         "freqs": seg.text.freqs,
         "field_masks": seg.text.field_masks,
         "posting_dl": seg.text.doclens,
+        "pos_offsets": seg.text.pos_offsets,
+        "poskeys": seg.text.poskeys,
     }
     for j, node in enumerate(cq.tag_nodes):
         attr = cq.schema.field(node.field).attribute

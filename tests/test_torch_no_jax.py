@@ -2,8 +2,9 @@
 
 A subprocess imports `redisearch_tpu_torch`, builds a 600-doc index on
 the CPU (the smallest corpus whose posting windows reach the kernel's
-1024 bucket), serves a `search_many` batch and an `ft_aggregate_many`
-batch (GROUPBY through the raw intersection and the group-by op), then
+1024 bucket), serves a `search_many` batch, a batch of exact and
+in-order slop phrases (the phrase op) and an `ft_aggregate_many` batch
+(GROUPBY through the raw intersection and the group-by op), then
 reports which modules it loaded.  The aggregation's host modules
 (`agg/expr.py`, `agg/reducers.py`) must load through `_host`.  Two environments: jax, jaxlib and ml_dtypes blocked
 on `sys.meta_path` (the card's machine may have none of them), and jax
@@ -44,6 +45,12 @@ ix.add_documents([(f"d{i}", {"t": "alpha beta" if i % 2 else "alpha gamma",
                   for i in range(600)])
 res = client.ft_search_many("idx", ["alpha beta", "alpha @c:{y}",
                                     "beta|gamma", "gamma -beta"], k=5)
+from redisearch_tpu_torch.query import engine
+engine.QUERY_PATH_STATS.clear()
+phr = client.ft_search_many("idx", ['"alpha beta"', '"beta alpha"'], k=5)
+phr += ix.search_many(["alpha gamma"], k=5, opts_list=[
+    rt.QueryOptions(k=5, slop=1, inorder=True)])
+phr_paths = dict(engine.QUERY_PATH_STATS)
 agg = client.ft_aggregate_many("idx", [
     rt.AggregateRequest(q).group_by("@g", ("COUNT", [], "n"),
                                     ("SUM", ["@p"], "s"))
@@ -52,6 +59,8 @@ agg = client.ft_aggregate_many("idx", [
 print(json.dumps({
     "totals": [r.total for r in res],
     "keys": [[h.key for h in r.hits] for r in res],
+    "phrase": [[r.total, [h.key for h in r.hits]] for r in phr],
+    "phrase_paths": phr_paths,
     "agg": [[r.total, r.rows] for r in agg],
     "host_agg": sorted(m for m in sys.modules
                        if m.startswith("redisearch_tpu_torch._host.agg")),
@@ -77,6 +86,9 @@ def test_port_serves_without_jax(block):
     assert out["keys"][0] == ["d1", "d3", "d5", "d7", "d9"]
     assert out["keys"][1] == ["d0", "d3", "d6", "d9", "d12"]
     assert out["keys"][3] == ["d0", "d2", "d4", "d6", "d8"]
+    assert out["phrase_paths"] == {"phrase-kernel": 3}
+    assert out["phrase"] == [[300, ["d1", "d3", "d5", "d7", "d9"]], [0, []],
+                             [300, ["d0", "d2", "d4", "d6", "d8"]]]
     assert out["host_agg"] == ["redisearch_tpu_torch._host.agg",
                                "redisearch_tpu_torch._host.agg.expr",
                                "redisearch_tpu_torch._host.agg.reducers"]

@@ -200,7 +200,8 @@ def test_transport_rows_and_plans_match_jax(which, plain_idx, tag_idx,
 
 
 @pytest.mark.parametrize("query,item", [
-    ('"w000001 w000002"', "A5"),          # phrase: kernel B2
+    # a phrase of 5 terms: past the phrase kernel's 2-4
+    ('"w000001 w000002 w000003 w000004 w000005"', "A6"),
     ("@price:[1 5000]", "A6"),            # numeric leaf
     ("w000001 @price:[1 5000]", "A6"),    # numeric inside an AND
 ])
