@@ -26,16 +26,24 @@ script exits non-zero:
    gid slots at G = 1..65,536 (both of its branches), 0-3 ops, with and
    without sums of squares, batches below and above its grid: counts
    exact, sums exact on integer inputs whose group sums stay below
-   2^24, otherwise within 1e-5 of the group's sum of |v|.
+   2^24, otherwise within 1e-5 of the group's sum of |v|.  Then the
+   single-query group-by kernels (B4 sums, B5 min/max) against their
+   plain versions at n = 1,000 / 65,536 / 1,000,064 rows and G = 1 /
+   1,001 / 16,384 / 65,536 (both branches), with masked rows, empty
+   groups, negative values and NaNs: counts, min and max equal, sums
+   within 1e-5 of the float64 sums.
 4. main path: `Client.ft_create` with bench.py's BM25 schema, a 1M-doc
    FTSB-enwiki-shaped corpus (4+20 zipf(1.25) tokens over a 200k vocab,
    seed 0) through `add_documents`, then `ft_search_many` at batch 8192,
-   k=10 on bench.py's eight query families (kernel_hit_pct printed).
-   Every served query must count under "kernel" (phrase: under
-   "phrase-kernel") and both kernels must have launched; every query of
+   k=10 on bench.py's eight query families (kernel_hit_pct and the
+   window share printed).  Every served query must count under its
+   executor ("kernel", "phrase-kernel", or "window" for the few no
+   kernel takes) and both kernels must have launched; every query of
    each family is recomputed with the plain versions on the card and
    must agree; a few and2 counts are checked against numpy set
-   intersections of the host-copied postings.  Then 1024 exact and 1024
+   intersections of the host-copied postings; single `ix.search()` (the
+   general window program) must equal the batch for 64 queries of each
+   family.  Then 1024 exact and 1024
    slop-1 in-order phrases of 2-4 terms cut from the corpus's own token
    runs: each must ride the phrase kernel, match its source doc and
    agree with its plain recomputation, and 16 must equal the in-order
@@ -56,14 +64,26 @@ script exits non-zero:
    and columns.  A second shape (COUNT/STDDEV/AVG, SORTBY @grp) takes
    the host finish with sums of squares.  QPS, each kernel's time
    against its plain version's at the bench shapes and one batch's
-   host/device split are printed for information.
-7. the last three lines: nvidia-smi's name and power limit, the
+   host/device split are printed for information.  Then bench.py's
+   bench_agg_star request ('*' GROUPBY @grp COUNT/SUM over all 1M rows)
+   at batch 64 on the window branch with B4 (every request equal to a
+   numpy group-by of the host-copied columns), and bench_agg with MIN
+   and MAX added at batch 1024 with B4 and B5 (every request equal to
+   its plain recomputation, 16 to numpy, 16 single `ft_aggregate` calls
+   to the batch), each with its QPS; B4 and B5 are timed at the '*'
+   shape beside their plain versions and one library call each.
+   Kernel times are device times (CUDA events behind a device sleep
+   that covers the host's enqueue); each is printed beside its bytes
+   bound.
+7. the module check (no jax, no module file under `redisearch_tpu/`),
+   then the last three lines: nvidia-smi's name and power limit, the
    kernels' JSON record, then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -88,6 +108,11 @@ PHRASE_SRC = "redisearch_tpu_torch/csrc/phrase.cu"
 PHRASE_REPLACES = "redisearch_tpu/ops/intersect.py:854"
 GB_SRC = "redisearch_tpu_torch/csrc/groupby.cu"
 GB_REPLACES = "redisearch_tpu/ops/groupby.py:161"
+SUMS_REPLACES = "redisearch_tpu/ops/groupby.py:43"
+MINMAX_REPLACES = "redisearch_tpu/ops/groupby.py:87"
+#: the card's memory rate (H100 SXM data sheet), for the bytes bound
+HBM_BYTES_PER_S = 3.35e12
+STAR_BATCH = 64
 AGG_BATCH = 1024
 AGG_BATCHES = 4
 
@@ -108,8 +133,15 @@ FAMILIES = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A line of the report; phase lines carry the seconds since start."""
+    msg = " ".join(str(x) for x in a)
+    if msg.startswith("phase "):
+        msg = f"[{time.perf_counter() - _T0:7.1f}s] {msg}"
+    print(msg, flush=True)
 
 
 # ---------------------------------------------------------------- phase 1
@@ -514,6 +546,113 @@ def phase_groupby_vs_plain(dev) -> float:
     return err
 
 
+# (n, G, integer values): n in {1,000; 65,536; a 1M-doc segment's n_pad},
+# G in {1; 1,001; 16,384 (shared branch); 65,536 (global branch)}
+N_PAD_1M = 1_000_064
+GB1_CASES = [(n, G, (i + j) % 2 == 0)
+             for i, n in enumerate((1000, 65536, N_PAD_1M))
+             for j, G in enumerate((1, 1001, 16384, 65536))]
+
+
+def single_gb_inputs(rng, n, G, integer):
+    """Raw groupby_aggregate inputs: gids with out-of-range ids (-1 and
+    >= G), invalid rows, every third group left empty (its rows masked),
+    negative values;
+    one NaN per 100,000 rows in the normal-valued cases."""
+    g = rng.integers(-1, G + 2, n).astype(np.int32)
+    if G > 2:
+        g[(g >= 0) & (g % 3 == 1)] = -1
+    valid = rng.random(n) < 0.8
+    if integer:
+        v = rng.integers(-9999, 10_000, n).astype(np.float32)
+    else:
+        v = rng.normal(0.0, 1000.0, n).astype(np.float32)
+        v[rng.integers(0, n, max(1, n // 100_000))] = np.nan
+    return g, valid, v
+
+
+def f64_sums(g, valid, v, G):
+    """count/sum/sumsq/sum|v| per group in float64 on the host: the
+    truth the f32 sums are held to."""
+    g, valid, v = (t.cpu().numpy() for t in (g, valid, v))
+    ok = valid & (g >= 0) & (g < G)
+    gg = np.where(ok, g, G)
+    vm = np.where(ok, v, 0.0).astype(np.float64)
+    return {"sum": np.bincount(gg, vm, G + 1)[:G],
+            "sumsq": np.bincount(gg, vm * vm, G + 1)[:G],
+            "scale.sum": np.bincount(gg, np.abs(vm), G + 1)[:G],
+            "scale.sumsq": np.bincount(gg, vm * vm, G + 1)[:G]}
+
+
+def compare_single(kres, pres, truth, integer, what) -> dict:
+    """B4/B5 against their plain versions: counts, min and max equal (NaN
+    where the plain one is NaN).  A sum is within 1e-5 of the group's
+    sum of |v| (of v*v) of the float64 sum, exactly equal to it on
+    integer inputs below 2^24, and within that plus the plain version's
+    own distance from it of the plain sum (f32 sums in one bin over
+    800k rows drift by a few 1e-5: the kernel's block sums are closer).
+    Returns per key the max abs difference from the plain version over
+    the non-NaN entries."""
+    err = {}
+    if sorted(kres) != sorted(pres):
+        raise AssertionError(f"{what}: keys {sorted(kres)}")
+    for key in pres:
+        k = kres[key].cpu().numpy().astype(np.float64)
+        p = pres[key].cpu().numpy().astype(np.float64)
+        nan = np.isnan(p)
+        if not np.array_equal(nan, np.isnan(k)):
+            raise AssertionError(f"{what}: {key} NaN positions differ")
+        k, p = k[~nan], p[~nan]
+        d = np.abs(k - p)
+        if key in ("count", "min", "max"):
+            if (d != 0).any():
+                i = int(np.argmax(d))
+                raise AssertionError(f"{what}: {key} {k[i]} vs {p[i]}")
+        else:
+            sc = truth["scale." + key][~nan]
+            t = truth[key][~nan]
+            dk, dp = np.abs(k - t), np.abs(p - t)
+            exact = (sc < 2 ** 24) if integer else np.zeros_like(d, bool)
+            bad = ((dk[exact] != 0).any() or (dk > 1e-5 * sc).any()
+                   or (d > 1e-5 * sc + dp).any())
+            if bad:
+                i = int(np.argmax(dk - 1e-5 * sc))
+                raise AssertionError(f"{what}: {key} {k[i]} vs plain {p[i]}"
+                                     f", float64 {t[i]} (scale {sc[i]})")
+        err[key] = float(d.max()) if d.size else 0.0
+    return err
+
+
+def phase_single_groupby_vs_plain(dev) -> tuple:
+    """Kernels B4 (sums) and B5 (min/max) against their plain versions on
+    every GB1_CASES case, through `groupby_aggregate` (masking included)
+    and on the pre-masked rows.  Returns the two max errors."""
+    rng = np.random.default_rng(19)
+    err_s = err_m = 0.0
+    for n, G, integer in GB1_CASES:
+        g, valid, v = (torch.as_tensor(a, device=dev)
+                       for a in single_gb_inputs(rng, n, G, integer))
+        kres = GB.groupby_aggregate(g, valid, v, G, want_minmax=True)
+        pres = GB.groupby_aggregate_plain(g, valid, v, G, want_minmax=True)
+        torch.cuda.synchronize()
+        what = f"B4/B5 vs plain [n={n} G={G}]"
+        e = compare_single(kres, pres, f64_sums(g, valid, v, G), integer,
+                           what)
+        err_s = max(err_s, e["count"], e["sum"], e["sumsq"])
+        err_m = max(err_m, e["min"], e["max"])
+        cnt = pres["count"].cpu().numpy()
+        smem = 3 * GB._g_pad(G) * 4 <= GB.SMEM_MAX
+        log(f"phase single-groupby-vs-plain: n={n} G={G} "
+            f"{'integer' if integer else 'normal+NaN'} values, "
+            f"{'shared' if smem else 'global'} branch, grid="
+            f"{GB._single_grid(n, GB._g_pad(G))}, rows={int(cnt.sum())}, "
+            f"empty groups={int((cnt == 0).sum())}, max_abs_err="
+            f"{max(e.values()):.3g} ok")
+        del g, valid, v, kres, pres
+    torch.cuda.synchronize()
+    return err_s, err_m
+
+
 # ---------------------------------------------------------------- phase 4
 def make_corpus(n_docs: int, seed: int = 0):
     """bench.py's corpus: 4+20 zipf(1.25) tokens over a 200k vocab.
@@ -612,17 +751,73 @@ def numpy_and2_docs(seg, ix, q: str) -> np.ndarray:
 
 
 def time_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of fn, in ms: CUDA events around `iters`
+    calls.  The calls are enqueued while the card spins in a
+    `torch.cuda._sleep` long enough to cover the host's enqueue time, so
+    that the events time the device's work and not the host's launch
+    gaps between the calls."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - h0
+    torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(max(2.0 * host_s, 1e-3), 2.0) * 2e9))
     t0.record()
     for _ in range(iters):
         fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound_ms(n_bytes: float) -> float:
+    """The least time the card could take to move n_bytes at its memory
+    rate.  Every kernel here does a handful of integer or f32 operations
+    per byte it reads, far below the 67 TFLOP/s f32 rate, so bytes bound
+    them all."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def intersect_bytes(meta, fmeta, T, groups, pivot_g, outs) -> int:
+    """Bytes this batch needs the intersection kernel to move: every live
+    posting of the pivot slots (doc, freq, mask and doc length), one
+    probe of each other slot per pivot posting, at most its live length
+    (doc, freq and mask for a text slot, the doc for an aux tag slot),
+    the per-query meta and the outputs."""
+    srcs = IK._slot_srcs(T, groups)
+    lens = meta[:, T:2 * T].to(torch.int64)
+    piv = list(groups[pivot_g][1])
+    plen = lens[:, piv].sum(1)
+    n = 16 * int(plen.sum())
+    for t in range(T):
+        if t not in piv:
+            n += (12 if srcs[t] < 0 else 4) * int(
+                torch.minimum(lens[:, t], plen).sum())
+    return n + nbytes(meta, fmeta, *outs)
+
+
+def phrase_bytes(meta, fmeta, T, outs) -> int:
+    """Bytes this batch needs the phrase kernel to move: term 0's live
+    position keys, one probe of each later term's keys per term-0 key
+    (at most its live length), and for the queries that match, term 0's
+    postings (16 bytes each) and one probe of each later slot's postings
+    per term-0 posting (12 bytes); then the meta and the outputs."""
+    pl = meta[:, 4 * T:5 * T].to(torch.int64)
+    tl = meta[:, T:2 * T].to(torch.int64)[outs[2] > 0]
+    n = 4 * int(pl[:, 0].sum()) + 16 * int(tl[:, 0].sum())
+    for t in range(1, T):
+        n += 4 * int(torch.minimum(pl[:, t], pl[:, 0]).sum())
+        n += 12 * int(torch.minimum(tl[:, t], tl[:, 0]).sum())
+    return n + nbytes(meta, fmeta, *outs)
 
 
 def phase_main_path(dev, n_docs: int, batch: int) -> dict:
@@ -648,21 +843,24 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
         f"({n_docs / ingest_s:.0f} docs/s), segment nnz={seg.text.nnz} "
         f"device bytes={seg.memory_bytes()} pos_stride={seg.text.pos_stride}")
 
-    batches = {}
+    batches, n_kern = {}, {}
     for fam, fn in FAMILIES.items():
         qs = [fn(qt, i) for i in range(batch)]
-        ok = [q for q in qs if kernel_eligible(ix, seg, q)]
-        batches[fam] = ok
-        log(f"phase main-path: {fam}: {len(ok)}/{len(qs)} kernel-eligible "
-            f"({100.0 * len(ok) / len(qs):.2f}%)")
-        if not ok:
+        n_kern[fam] = sum(kernel_eligible(ix, seg, q) for q in qs)
+        batches[fam] = qs
+        log(f"phase main-path: {fam}: {n_kern[fam]}/{len(qs)} "
+            f"kernel-eligible ({100.0 * n_kern[fam] / len(qs):.2f}%), the "
+            f"rest on the window program")
+        if not n_kern[fam]:
             raise AssertionError(f"{fam}: no kernel-eligible query")
     # bench.py's kernel_hit_pct: the share of the eight families' queries
-    # that ride a kernel (the port refuses the others: ROADMAP A6)
-    n_ok = sum(len(qs) for qs in batches.values())
-    log(f"phase main-path: kernel_hit_pct "
-        f"{100.0 * n_ok / (batch * len(FAMILIES)):.2f} ({n_ok} of "
-        f"{batch * len(FAMILIES)} queries of the {len(FAMILIES)} families)")
+    # that ride a kernel; the window program serves the rest
+    n_all = batch * len(FAMILIES)
+    n_ok = sum(n_kern.values())
+    log(f"phase main-path: kernel_hit_pct {100.0 * n_ok / n_all:.2f} "
+        f"({n_ok} of {n_all} queries of the {len(FAMILIES)} families), "
+        f"window share {100.0 * (n_all - n_ok) / n_all:.2f} "
+        f"({n_all - n_ok} queries)")
     seg.tag_pcodes("cat")     # set-up: the dense code column, built once
 
     # the counted main-path run: counters zeroed just before, read after
@@ -674,10 +872,12 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
     torch.cuda.synchronize(dev)
     launches, p_launches = IK.LAUNCHES, IK.PHRASE_LAUNCHES
     stats = dict(E.QUERY_PATH_STATS)
-    n_phrase = len(batches["phrase"])
+    n_phrase = n_kern["phrase"]
     want = {"kernel": n_ok - n_phrase, "phrase-kernel": n_phrase}
+    if n_all > n_ok:
+        want["window"] = n_all - n_ok
     log(f"phase main-path: intersect launches={launches}, phrase launches="
-        f"{p_launches}, path stats={stats}, served={n_ok}")
+        f"{p_launches}, path stats={stats}, served={n_all}")
     if launches <= 0 or p_launches <= 0:
         raise AssertionError("a kernel of the main path never launched")
     if stats != want:
@@ -717,6 +917,7 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
             raise AssertionError(f"and2 {q!r}: total {r.total} != numpy "
                                  f"intersection {want}")
     log("phase main-path: 16 and2 totals == numpy set intersections")
+    check_single_search(ix, results, qt)
     err["phrase"] = max(err["phrase"], phase_phrase_runs(ix, seg, toks))
     del toks
 
@@ -727,6 +928,38 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
     phase_profile(client, ix, seg, batches, dev)
     return dict(launches=launches, p_launches=p_launches, err=err,
                 times=times, client=client, ix=ix)
+
+
+def same_hits(a, b, what):
+    """Two results of one query: totals equal, scores within 1e-5 lane
+    by lane, and the same docs lane by lane except where two scores tie
+    within 1e-5 (their order may differ at the last bit)."""
+    sa = np.array([h.score for h in a.hits])
+    sb = np.array([h.score for h in b.hits])
+    if a.total != b.total or len(sa) != len(sb):
+        raise AssertionError(f"{what}: totals {a.total} vs {b.total}, "
+                             f"{len(sa)} vs {len(sb)} hits")
+    np.testing.assert_allclose(sa, sb, rtol=1e-5, atol=0, err_msg=what)
+    allsc = np.concatenate([sa, sb])
+    for i, (ha, hb) in enumerate(zip(a.hits, b.hits)):
+        if ha.key != hb.key and (np.sum(np.abs(allsc - sa[i])
+                                        <= 1e-5 * abs(sa[i])) < 3):
+            raise AssertionError(f"{what}: hit {i} {ha.key} vs {hb.key}")
+
+
+def check_single_search(ix, results, qt, n_each: int = 64):
+    """`ix.search(q)` (the general window program, one query) against the
+    served `ft_search_many` result (the kernels) for the first n_each
+    queries of each family."""
+    n = 0
+    for fam, res in results.items():
+        qs = [FAMILIES[fam](qt, i) for i in range(n_each)]
+        for q, r in zip(qs, res):
+            same_hits(ix.search(q, num=K), r, f"search vs search_many "
+                      f"[{fam} {q!r}]")
+            n += 1
+    log(f"phase main-path: {n} single ix.search() (window program) == "
+        f"ft_search_many (kernels), {n_each} per family")
 
 
 # a phrase the reference's in-order proximity model accepts: a port of
@@ -877,14 +1110,15 @@ def phase_qps(client, ix, seg, batches, dev, iters: int = 4):
 
 def phase_kernel_times(ix, seg, batches, dev) -> dict:
     """Information only: each kernel against its plain version at the
-    main path's shapes (CUDA events, plain/kernel/plain/kernel): the
+    main path's shapes (device ms, plain/kernel/plain/kernel): the
     largest and2 group, and every group of the phrase family (one per
     window-bucket combination).  Each pair is also compared.  Returns
     {name: (kernel ms, plain ms, max abs err)} of the largest group."""
     out = {}
     cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
            for q in batches["and2"]]
-    subs = E._prep_subs(cqs, seg, K)
+    subs = [s_ for s_ in E._prep_subs(cqs, seg, K)
+            if isinstance(s_[1], E._KernelExecutor)]
     idxs, entry, seg_args, rows = max(subs, key=lambda s: len(s[0]))
     stacked = E._device_unpack_rows(entry.layout,
                                     torch.from_numpy(rows).to(dev))
@@ -894,22 +1128,26 @@ def phase_kernel_times(ix, seg, batches, dev) -> dict:
             seg_args["field_masks"], seg_args["posting_dl"], *aux)
     kw = dict(T=len(entry.descs), Ws=entry.Ws, groups=entry.groups,
               pivot_g=entry.pivot_g, k=entry.k_pad, dense=entry.dense)
-    e = compare(*IK.intersect_batch(*args, **kw),
-                *IK.intersect_plain(*args, **kw),
+    kout = IK.intersect_batch(*args, **kw)
+    e = compare(*kout, *IK.intersect_plain(*args, **kw),
                 f"kernel vs plain [and2 group of {len(idxs)}]")
+    b = bound_ms(intersect_bytes(meta, fmeta, kw["T"], kw["groups"],
+                                 kw["pivot_g"], kout))
     p1 = time_ms(lambda: IK.intersect_plain(*args, **kw), 5)
     k1 = time_ms(lambda: IK.intersect_batch(*args, **kw))
     p2 = time_ms(lambda: IK.intersect_plain(*args, **kw), 5)
     k2 = time_ms(lambda: IK.intersect_batch(*args, **kw))
-    out["intersect"] = (min(k1, k2), min(p1, p2), e)
+    out["intersect"] = (min(k1, k2), min(p1, p2), e, b)
     log(f"phase main-path: and2 largest group B={len(idxs)} Ws={entry.Ws} "
         f"groups={entry.groups} k={entry.k_pad}: kernel lanes == plain "
         f"lanes; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
-        f"(CUDA events, plain/kernel/plain/kernel)")
+        f"(device ms, plain/kernel/plain/kernel), bytes bound {b:.4f} ms")
 
     cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
            for q in batches["phrase"]]
-    subs = sorted(E._prep_subs(cqs, seg, K), key=lambda s: -len(s[0]))
+    subs = sorted((s_ for s_ in E._prep_subs(cqs, seg, K)
+                   if isinstance(s_[1], E._PhraseExecutor)),
+                  key=lambda s: -len(s[0]))
     for gi, (idxs, entry, seg_args, rows) in enumerate(subs):
         meta, fmeta = entry.inputs(seg_args, rows)
         args = (meta, fmeta, seg_args["doc_ids"], seg_args["freqs"],
@@ -918,19 +1156,21 @@ def phase_kernel_times(ix, seg, batches, dev) -> dict:
         kw = dict(T=len(entry.slots), Ws=entry.Ws, PWs=entry.PWs,
                   stride=entry.stride, slop=entry.slop, k=entry.k_pad,
                   raw=entry.raw(dev))
-        e = compare_raw(IK.phrase_batch(*args, **kw),
-                        IK.phrase_plain(*args, **kw),
+        kout = IK.phrase_batch(*args, **kw)
+        e = compare_raw(kout, IK.phrase_plain(*args, **kw),
                         f"phrase kernel vs plain [group of {len(idxs)}]")
+        b = bound_ms(phrase_bytes(meta, fmeta, kw["T"], kout))
         p1 = time_ms(lambda: IK.phrase_plain(*args, **kw), 5)
         k1 = time_ms(lambda: IK.phrase_batch(*args, **kw))
         p2 = time_ms(lambda: IK.phrase_plain(*args, **kw), 5)
         k2 = time_ms(lambda: IK.phrase_batch(*args, **kw))
         if gi == 0:
-            out["phrase"] = (min(k1, k2), min(p1, p2), e)
+            out["phrase"] = (min(k1, k2), min(p1, p2), e, b)
         log(f"phase main-path: phrase group B={len(idxs)} Ws={entry.Ws} "
             f"PWs={entry.PWs} raw={kw['raw']}: kernel lanes == plain "
             f"lanes; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
-            f"ms (CUDA events, plain/kernel/plain/kernel)")
+            f"ms (device ms, plain/kernel/plain/kernel), bytes bound "
+            f"{b:.4f} ms")
     return out
 
 
@@ -1025,7 +1265,26 @@ def agg_request_fn():
                           ("STDDEV", ["@price"], "sd"),
                           ("AVG", ["@price"], "a"))
                 .sort_by("@grp"))
-    return mk, mk_sd
+
+    def mk_mm(i):
+        """bench_agg with MIN and MAX of the price added."""
+        return (rt.AggregateRequest(query(i))
+                .group_by("@grp", ("COUNT", [], "n"),
+                          ("SUM", ["@price"], "s"),
+                          ("AVG", ["@price"], "a"),
+                          ("MIN", ["@price"], "lo"),
+                          ("MAX", ["@price"], "hi"))
+                .sort_by(("@s", rt.DESC)).limit(0, 10))
+    return mk, mk_sd, mk_mm
+
+
+def star_request(now: int):
+    """bench.py's bench_agg_star request: '*' -> GROUPBY @grp -> COUNT /
+    SUM(@price) -> SORTBY @s DESC -> LIMIT 0 10 over all 1M rows; the TTL
+    clock varies per request, as bench.py varies it."""
+    return (rt.AggregateRequest("*", now=now)
+            .group_by("@grp", ("COUNT", [], "n"), ("SUM", ["@price"], "s"))
+            .sort_by(("@s", rt.DESC)).limit(0, 10))
 
 
 def agg_eligible(ix, seg, req) -> bool:
@@ -1048,14 +1307,15 @@ class plain_versions:
 
     def __enter__(self):
         self.saved = (IK.intersect_batch, IK.phrase_batch,
-                      GB.groupby_aggregate_batch)
+                      GB.groupby_aggregate_batch, GB.groupby_aggregate)
         IK.intersect_batch = IK.intersect_plain
         IK.phrase_batch = IK.phrase_plain
         GB.groupby_aggregate_batch = GB.groupby_plain
+        GB.groupby_aggregate = GB.groupby_aggregate_plain
 
     def __exit__(self, *exc):
-        (IK.intersect_batch, IK.phrase_batch,
-         GB.groupby_aggregate_batch) = self.saved
+        (IK.intersect_batch, IK.phrase_batch, GB.groupby_aggregate_batch,
+         GB.groupby_aggregate) = self.saved
 
 
 class capture_shapes:
@@ -1087,25 +1347,31 @@ class capture_shapes:
         IK.intersect_batch, GB.groupby_aggregate_batch = self.saved
 
 
-def numpy_agg_top(seg, ix, q, grp_ids, table, price):
-    """(total, top-10 [(grp, n, s)]) of the bench request from the
-    host-copied postings and columns: SUM desc, ties by ascending group
-    id (the device tail's order)."""
-    docs = numpy_and2_docs(seg, ix, q)
+def numpy_agg_top(seg, ix, q, grp_ids, table, price, docs=None):
+    """(total, top-10 [(grp, n, s, min, max)]) of the bench request from
+    the host-copied postings and columns (every doc when q is None):
+    SUM desc, ties by ascending group id (the device tail's order)."""
+    if docs is None:
+        docs = numpy_and2_docs(seg, ix, q)
     g = np.where(grp_ids[docs] >= 0, grp_ids[docs], len(table))
     G = len(table) + 1
+    p = price[docs].astype(np.float64)
     n = np.bincount(g, minlength=G)
-    sm = np.bincount(g, weights=price[docs].astype(np.float64),
-                     minlength=G)
+    sm = np.bincount(g, weights=p, minlength=G)
+    lo = np.full(G, np.inf)
+    hi = np.full(G, -np.inf)
+    np.minimum.at(lo, g, p)
+    np.maximum.at(hi, g, p)
     present = np.flatnonzero(n > 0)
     order = present[np.lexsort((present, -sm[present]))][:10]
     keys = list(table) + [None]
-    return len(docs), [(keys[i], float(n[i]), float(sm[i])) for i in order]
+    return len(docs), [(keys[i], float(n[i]), float(sm[i]), float(lo[i]),
+                        float(hi[i])) for i in order]
 
 
 def phase_aggregate(client, ix, dev) -> dict:
     seg = ix.segments[0]
-    mk, mk_sd = agg_request_fn()
+    mk, mk_sd, _mk_mm = agg_request_fn()
     want = AGG_BATCH * AGG_BATCHES
     reqs, drawn = [], 0
     while len(reqs) < want:
@@ -1161,7 +1427,7 @@ def phase_aggregate(client, ix, dev) -> dict:
     for req, r in list(zip(reqs, flat))[:16]:
         total, top = numpy_agg_top(seg, ix, req.query, grp_ids, table, price)
         got = [(x["grp"], x["n"], x["s"]) for x in r.rows]
-        if r.total != total or got != top:
+        if r.total != total or got != [t_[:3] for t_ in top]:
             raise AssertionError(f"aggregate {req.query!r}: {r.total} {got} "
                                  f"!= numpy {total} {top}")
     log("phase aggregate: 16 requests == numpy group-by of the host-copied "
@@ -1225,32 +1491,242 @@ def phase_aggregate(client, ix, dev) -> dict:
                        key=lambda c: -c[0][0].shape[0])
         for ci, (a, k) in enumerate(calls):
             kout, pout = kern(*a, **k), plain_fn(*a, **k)
+            lib = None
             if name == "intersect_raw":
                 err_raw = max(err_raw, compare_raw(
                     kout, pout, "raw kernel vs plain [aggregate chunk]"))
+                b = bound_ms(intersect_bytes(a[0], a[1], k["T"], k["groups"],
+                                             k.get("pivot_g", 0), kout))
             else:
                 err_gb = max(err_gb, compare_groupby(
                     kout, pout, pout, True,
                     "groupby kernel vs plain [aggregate chunk]"))
+                b = bound_ms(nbytes(*a[:2], *kout.values()))
+                lib = batch_library_call(*a[:2], a[2], **k)
             del kout, pout
             p1 = time_ms(lambda: plain_fn(*a, **k), 5)
             k1 = time_ms(lambda: kern(*a, **k))
             p2 = time_ms(lambda: plain_fn(*a, **k), 5)
             k2 = time_ms(lambda: kern(*a, **k))
+            lib_ms = None if lib is None else time_ms(lib)
             if ci == 0:
-                t[name] = (min(k1, k2), min(p1, p2))
+                t[name] = (min(k1, k2), min(p1, p2), b, lib_ms)
             log(f"phase aggregate: {name} at a bench chunk shape "
                 f"{[tuple(x.shape) for x in a[:2]]} "
                 f"{ {kk: v for kk, v in k.items() if kk != 'groups'} }: "
                 f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
-                f"(CUDA events, plain/kernel/plain/kernel)")
+                f"(device ms, plain/kernel/plain/kernel), bytes bound "
+                f"{b:.4f} ms, library call "
+                f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     phase_agg_profile(ix, batches[0], dev)
     return dict(raw_launches=raw_launches, gb_launches=gb_launches,
                 err_raw=err_raw, err_gb=err_gb, raw_ms=t["intersect_raw"],
                 gb_ms=t["groupby"])
 
 
-def phase_agg_profile(ix, batch, dev):
+def batch_library_call(gslots, vals, n_groups, want_sumsq=True):
+    """One PyTorch call computing what the batched group-by kernel (B3)
+    computes: a single `index_add_` over every (query, channel, lane)
+    into a flat [B * C * (G_pad + 1)] output (C channels a query), its
+    indices and sources
+    built outside the timed call.  Timed for comparison only; the port
+    never calls it."""
+    B, S, n = gslots.shape
+    G1 = GB._g_pad(n_groups) + 1
+    C = GB._channels(S, want_sumsq)
+    idx, src = [], []
+    c = 0
+    for s_ in range(S):
+        g = gslots[:, s_]
+        gi = torch.where((g >= 0) & (g < G1 - 1), g, G1 - 1).long()
+        chans = [(g >= 0).to(torch.float32)]
+        if s_ > 0:
+            v = torch.where(g >= 0, vals[:, s_ - 1], 0.0)
+            chans += [v] + ([v * v] if want_sumsq else [])
+        for x in chans:
+            q = torch.arange(B, device=g.device)[:, None]
+            idx.append(((q * C + c) * G1 + gi).reshape(-1))
+            src.append(x.reshape(-1))
+            c += 1
+    idx, src = torch.cat(idx), torch.cat(src)
+    out = torch.zeros(B * C * G1, dtype=torch.float32, device=idx.device)
+    return lambda: out.index_add_(0, idx, src)
+
+
+def single_library_calls(g, vm, n_groups):
+    """One PyTorch call for each single-query kernel, on its pre-masked
+    rows: B4 as one `index_add_` of [ones, v, v*v] into [3, G + 1]; B5 as
+    one `scatter_reduce_` amin of [v, -v] onto +3.4e38 (min, and -max).
+    Timed for comparison only; the port never calls them."""
+    G1 = n_groups + 1
+    gi = torch.where(g >= 0, g, n_groups).long()
+    idx3 = torch.cat([gi, gi + G1, gi + 2 * G1])
+    src3 = torch.cat([(g >= 0).to(torch.float32), vm, vm * vm])
+    out3 = torch.zeros(3 * G1, dtype=torch.float32, device=g.device)
+    idx2 = torch.cat([gi, gi + G1])
+    src2 = torch.cat([vm, -vm])
+    out2 = torch.full((2 * G1,), GB.BIG, dtype=torch.float32,
+                      device=g.device)
+    return (lambda: out3.index_add_(0, idx3, src3),
+            lambda: out2.scatter_reduce_(0, idx2, src2, "amin",
+                                         include_self=True))
+
+
+def phase_single_groupby_times(ix, dev) -> dict:
+    """B4 and B5 against their plain versions and one library call each
+    at the `*` shape: every row of the 1M-doc segment, G = 1,001 (grp),
+    the price column (device ms, plain/kernel/plain/kernel); each pair
+    also compared.  Returns {name: (kernel ms, plain ms, bound ms,
+    library ms, max abs err)}."""
+    seg = ix.segments[0]
+    ids = seg.strcols["grp"].value_ids
+    G = len(seg.strcols["grp"].table) + 1
+    gid = torch.where(ids < 0, G - 1, ids)
+    valid = torch.arange(seg.n_pad, device=dev) < seg.n_docs
+    price = seg.numerics["price"].values
+    g, vm = GB._premask(gid, valid & seg.numerics["price"].present, price,
+                        G)
+    lib_sums, lib_mm = single_library_calls(g, vm, G)
+    truth = f64_sums(gid, valid & seg.numerics["price"].present, price, G)
+    out = {}
+    for name, kern, plain_fn, lib in (
+            ("groupby_sums", GB.sums_kernel, GB.sums_plain, lib_sums),
+            ("groupby_minmax", GB.minmax_kernel, GB.minmax_plain, lib_mm)):
+        kres, pres = kern(g, vm, G), plain_fn(g, vm, G)
+        e = compare_single(kres, pres, truth, True, f"{name} at the * shape")
+        b = bound_ms(nbytes(g, vm, *kres.values()))
+        p1 = time_ms(lambda: plain_fn(g, vm, G), 5)
+        k1 = time_ms(lambda: kern(g, vm, G))
+        p2 = time_ms(lambda: plain_fn(g, vm, G), 5)
+        k2 = time_ms(lambda: kern(g, vm, G))
+        lib_ms = time_ms(lib)
+        out[name] = (min(k1, k2), min(p1, p2), b, lib_ms, max(e.values()))
+        log(f"phase aggregate: {name} at the * shape (n={seg.n_pad}, "
+            f"G={G}): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
+            f"{p2:.4f} ms (device ms, plain/kernel/plain/kernel), bytes "
+            f"bound {b:.4f} ms, library call {lib_ms:.4f} ms; kernel == "
+            f"plain")
+    return out
+
+
+def agg_qps(client, batches) -> float:
+    """Requests per second over `batches` (host clock, ending in a
+    synchronize; best of 2)."""
+    best = None
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for b in batches:
+            client.ft_aggregate_many("bm25", b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return sum(len(b) for b in batches) / best
+
+
+def zero_counts():
+    AP.AGG_PATH_STATS.clear()
+    E.QUERY_PATH_STATS.clear()
+    IK.LAUNCHES = IK.PHRASE_LAUNCHES = 0
+    GB.LAUNCHES = GB.SUMS_LAUNCHES = GB.MINMAX_LAUNCHES = 0
+
+
+def phase_agg_star(client, ix, dev) -> dict:
+    """bench.py's bench_agg_star at batch 64 on the 1M-doc index: the
+    window branch (match-all, 1M rows a request; its staged windows would
+    exceed _MAX_BATCH_STAGE, so each request runs B4 for the base count
+    and the price).  Every request must equal a numpy group-by of the
+    host-copied columns.  QPS, memory and one batch's host/device split
+    are printed."""
+    seg = ix.segments[0]
+    base = int(time.time())
+    reqs = [star_request(base + i) for i in range(STAR_BATCH)]
+    client.ft_aggregate_many("bm25", reqs[:2])        # set-up: columns
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    res = client.ft_aggregate_many("bm25", reqs)
+    torch.cuda.synchronize(dev)
+    launches = GB.SUMS_LAUNCHES
+    stats = dict(AP.AGG_PATH_STATS)
+    log(f"phase aggregate-star: batch {STAR_BATCH}: B4 launches={launches}, "
+        f"B5 launches={GB.MINMAX_LAUNCHES}, batched group-by launches="
+        f"{GB.LAUNCHES}, intersect launches={IK.LAUNCHES}, path stats="
+        f"{stats}, max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated(dev)}")
+    if launches != 2 * STAR_BATCH or stats != {"device-tail": STAR_BATCH}:
+        raise AssertionError(f"star batch: {launches} B4 launches, {stats}")
+    grp_ids = seg.strcols["grp"].value_ids.cpu().numpy()
+    price = seg.numerics["price"].values.cpu().numpy()
+    total, top = numpy_agg_top(seg, ix, None, grp_ids,
+                               seg.strcols["grp"].table, price,
+                               docs=np.arange(seg.n_docs))
+    for r in res:
+        got = [(x["grp"], x["n"], x["s"]) for x in r.rows]
+        if r.total != total or got != [t_[:3] for t_ in top]:
+            raise AssertionError(f"star: {r.total} {got} != numpy {total} "
+                                 f"{top}")
+    log(f"phase aggregate-star: all {STAR_BATCH} requests == numpy group-by "
+        f"of the host-copied columns (total {total}, top-10 grp/n/s)")
+    qps = agg_qps(client, [reqs])
+    log(f"phase aggregate-star: qps {qps:.1f} (batch {STAR_BATCH}, best of "
+        f"2, host clock)")
+    phase_agg_profile(ix, reqs, dev, "aggregate-star")
+    return dict(launches=launches, qps=qps)
+
+
+def phase_agg_minmax(client, ix, dev) -> dict:
+    """The MIN/MAX variant of bench_agg at batch 1024: the window branch
+    (MIN/MAX leave the kernel-raw branch) with B4 and B5 per request.
+    Every request must equal its plain recomputation on the card, 16
+    must equal numpy, and 16 single `ft_aggregate` calls must equal the
+    batch's results.  QPS is printed."""
+    seg = ix.segments[0]
+    _mk, _mk_sd, mk_mm = agg_request_fn()
+    reqs = [mk_mm(i) for i in range(AGG_BATCH)]
+    client.ft_aggregate_many("bm25", reqs[:8])        # set-up
+    zero_counts()
+    res = client.ft_aggregate_many("bm25", reqs)
+    torch.cuda.synchronize(dev)
+    sums_l, mm_l = GB.SUMS_LAUNCHES, GB.MINMAX_LAUNCHES
+    stats = dict(AP.AGG_PATH_STATS)
+    log(f"phase aggregate-minmax: batch {AGG_BATCH}: B4 launches={sums_l}, "
+        f"B5 launches={mm_l}, intersect launches={IK.LAUNCHES}, path "
+        f"stats={stats}, requests with rows="
+        f"{sum(1 for r in res if r.rows)}, mean total="
+        f"{np.mean([r.total for r in res]):.1f}")
+    if sums_l <= 0 or mm_l <= 0 or stats != {"device-tail": AGG_BATCH}:
+        raise AssertionError(f"minmax batch: {sums_l} {mm_l} {stats}")
+    with plain_versions():
+        plain = client.ft_aggregate_many("bm25", reqs)
+    for req, k, p in zip(reqs, res, plain):
+        if k.total != p.total or k.rows != p.rows:
+            raise AssertionError(f"minmax {req.query!r}: kernel {k.total} "
+                                 f"{k.rows} vs plain {p.total} {p.rows}")
+    log(f"phase aggregate-minmax: all {AGG_BATCH} requests kernel == plain "
+        f"(rows, totals, order, values exact)")
+    grp_ids = seg.strcols["grp"].value_ids.cpu().numpy()
+    price = seg.numerics["price"].values.cpu().numpy()
+    for req, r in list(zip(reqs, res))[:16]:
+        total, top = numpy_agg_top(seg, ix, req.query, grp_ids,
+                                   seg.strcols["grp"].table, price)
+        got = [(x["grp"], x["n"], x["s"], x["lo"], x["hi"]) for x in r.rows]
+        if r.total != total or got != top:
+            raise AssertionError(f"minmax {req.query!r}: {r.total} {got} "
+                                 f"!= numpy {total} {top}")
+    for req, r in list(zip(reqs, res))[:16]:
+        one = client.ft_aggregate("bm25", req)
+        if one.total != r.total or one.rows != r.rows:
+            raise AssertionError(f"ft_aggregate {req.query!r}: {one.total} "
+                                 f"{one.rows} vs {r.total} {r.rows}")
+    log("phase aggregate-minmax: 16 requests == numpy group-by (total, "
+        "top-10 grp/n/s/min/max); 16 single ft_aggregate == "
+        "ft_aggregate_many")
+    qps = agg_qps(client, [reqs])
+    log(f"phase aggregate-minmax: qps {qps:.1f} (batch {AGG_BATCH}, best of "
+        f"2, host clock)")
+    return dict(sums_launches=sums_l, mm_launches=mm_l, qps=qps)
+
+
+def phase_agg_profile(ix, batch, dev, what="aggregate"):
     """Information only: one aggregate batch's host stages (submit =
     prepare, plan, group, upload and launches; wait = synchronize;
     finish = copies to the host and the per-request finish) and the
@@ -1269,13 +1745,16 @@ def phase_agg_profile(ix, batch, dev):
         AP.run_aggregate_many(ix, batch)
         torch.cuda.synchronize(dev)
         traced = (time.perf_counter() - ts) * 1e3
-    busy, kern = device_busy_us(prof, ("intersect_kernel", "groupby_kernel"))
-    log(f"phase profile: aggregate (batch {len(batch)}) host ms: submit "
+    busy, kern = device_busy_us(prof, ("intersect_kernel", "groupby_kernel",
+                                       "gb_sums_kernel", "gb_minmax_kernel"))
+    log(f"phase profile: {what} (batch {len(batch)}) host ms: submit "
         f"{(t1 - t0) * 1e3:.3f}, wait {(t2 - t1) * 1e3:.3f}, finish "
         f"{(t3 - t2) * 1e3:.3f}, whole {(t3 - t0) * 1e3:.3f}; traced "
         f"{traced:.3f} ms with device busy {busy:.1f} us (intersect "
-        f"{kern['intersect_kernel']:.1f} us, groupby "
-        f"{kern['groupby_kernel']:.1f} us), idle share "
+        f"{kern['intersect_kernel']:.1f} us, batched groupby "
+        f"{kern['groupby_kernel']:.1f} us, B4 "
+        f"{kern['gb_sums_kernel']:.1f} us, B5 "
+        f"{kern['gb_minmax_kernel']:.1f} us), idle share "
         f"{1.0 - busy / (traced * 1e3):.4f}")
 
 
@@ -1287,37 +1766,54 @@ def main():
     err3, err3_raw = phase_kernel_vs_plain(dev)
     err3_phrase = phase_phrase_vs_plain(dev)
     err_gb3 = phase_groupby_vs_plain(dev)
+    err_sums3, err_mm3 = phase_single_groupby_vs_plain(dev)
     main = phase_main_path(dev, N_DOCS, BATCH)
     agg = phase_aggregate(main["client"], main["ix"], dev)
-    k_ms, p_ms, k_err = main["times"]["intersect"]
-    pk_ms, pp_ms, pk_err = main["times"]["phrase"]
-    loaded = [m for m in sys.modules
+    star = phase_agg_star(main["client"], main["ix"], dev)
+    mm = phase_agg_minmax(main["client"], main["ix"], dev)
+    single = phase_single_groupby_times(main["ix"], dev)
+    k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
+    pk_ms, pp_ms, pk_err, pk_b = main["times"]["phrase"]
+    jax_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "redisearch_tpu") + os.sep
+    loaded = [m for m, mod in list(sys.modules.items())
               if m == "jax" or m.startswith("jax.")
-              or m == "redisearch_tpu" or m.startswith("redisearch_tpu.")]
+              or m == "redisearch_tpu" or m.startswith("redisearch_tpu.")
+              or (getattr(mod, "__file__", None) or "").startswith(jax_dir)]
     if loaded:
         raise AssertionError(f"JAX-side modules were imported: {loaded}")
+    log("phase modules: no jax module and no module file under "
+        "redisearch_tpu/ was loaded")
+
+    def rec(name, source, replaces, launches, err, ms, plain_ms, b,
+            library_ms):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b, "bound_by": "bytes", "library_ms": library_ms}
+
+    ss, sm = single["groupby_sums"], single["groupby_minmax"]
     log(smi)
     log(json.dumps({"kernels": [
-        {"name": "intersect", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": KERNEL_REPLACES, "launches": main["launches"],
-         "max_abs_err": max(err3, main["err"]["intersect"], k_err),
-         "ms": k_ms, "plain_ms": p_ms},
-        {"name": "phrase", "route": "cuda", "source": PHRASE_SRC,
-         "replaces": PHRASE_REPLACES, "launches": main["p_launches"],
-         "max_abs_err": max(err3_phrase, main["err"]["phrase"], pk_err),
-         "ms": pk_ms, "plain_ms": pp_ms},
-        {"name": "intersect_raw", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": KERNEL_REPLACES, "launches": agg["raw_launches"],
-         "max_abs_err": max(err3_raw, agg["err_raw"]),
-         "ms": agg["raw_ms"][0], "plain_ms": agg["raw_ms"][1]},
-        {"name": "groupby_sums_batch", "route": "cuda", "source": GB_SRC,
-         "replaces": GB_REPLACES, "launches": agg["gb_launches"],
-         "max_abs_err": max(err_gb3, agg["err_gb"]),
-         "ms": agg["gb_ms"][0], "plain_ms": agg["gb_ms"][1]}]}))
-    # "count" is the number of cards this run used: one
+        rec("intersect", KERNEL_SRC, KERNEL_REPLACES, main["launches"],
+            max(err3, main["err"]["intersect"], k_err), k_ms, p_ms, k_b,
+            None),
+        rec("phrase", PHRASE_SRC, PHRASE_REPLACES, main["p_launches"],
+            max(err3_phrase, main["err"]["phrase"], pk_err), pk_ms, pp_ms,
+            pk_b, None),
+        rec("intersect_raw", KERNEL_SRC, KERNEL_REPLACES,
+            agg["raw_launches"], max(err3_raw, agg["err_raw"]),
+            agg["raw_ms"][0], agg["raw_ms"][1], agg["raw_ms"][2], None),
+        rec("groupby_sums_batch", GB_SRC, GB_REPLACES, agg["gb_launches"],
+            max(err_gb3, agg["err_gb"]), *agg["gb_ms"]),
+        rec("groupby_sums", GB_SRC, SUMS_REPLACES,
+            star["launches"] + mm["sums_launches"], max(err_sums3, ss[4]),
+            *ss[:4]),
+        rec("groupby_minmax", GB_SRC, MINMAX_REPLACES, mm["mm_launches"],
+            max(err_mm3, sm[4]), *sm[:4])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

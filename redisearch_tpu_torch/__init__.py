@@ -1,10 +1,11 @@
 """redisearch_tpu_torch — the search engine of `redisearch_tpu`, ported to
 PyTorch and CUDA.
 
-It keeps the JAX package's module names, imports torch and never jax, and
-reaches the JAX package's host-only modules (schema, analysis, query
-parser, doc table, native tokenizer) through `_host` without running
-`redisearch_tpu/__init__.py`.  The ported slice is batched BM25 FT.SEARCH:
+It keeps the JAX package's module names, imports torch and never jax,
+and imports nothing of the JAX package: the host-only modules it needs
+(schema, analysis, query parser, doc table, native tokenizer, aggregate
+expressions and reducers) are copies of the JAX package's, each naming
+its source in its first line.  Batched BM25 FT.SEARCH:
 `Client.ft_search_many` -> `SearchIndex.search_many` ->
 `query.engine.execute_batch` -> `ops.intersect.intersect_batch` (the CUDA
 kernel `csrc/intersect.cu` on a card, its plain torch version on the
@@ -14,7 +15,7 @@ and `ops.groupby.groupby_aggregate_batch` (the CUDA kernel
 `csrc/groupby.cu`).  See ROADMAP.md for what is still to port.
 """
 
-from ._host.schema import Field, FieldType, Schema
+from .schema import Field, FieldType, Schema
 from .agg.pipeline import ASC, DESC, AggregateRequest, AggregateResult
 from .api import Client
 from .index.index import Hit, SearchIndex, SearchResult

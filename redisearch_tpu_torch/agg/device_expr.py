@@ -20,7 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .._host.agg.expr import Expr
+from ..agg.expr import Expr
 
 F32 = torch.float32
 

@@ -1,26 +1,33 @@
-"""Batched FT.AGGREGATE GROUPBY on the device, for the torch port.
+"""FT.AGGREGATE GROUPBY on the device, for the torch port.
 
-Counterpart of `redisearch_tpu/agg/pipeline.py` on its serving path:
-`run_aggregate_many` over the kernel-raw branch of
-`_device_group_submit_batch`.  Per segment and batch group, the
-intersection kernel in raw mode (`ops.intersect.intersect_batch(
-raw=True)`) emits each query's masked pivot-window lanes; the
-posting-aligned (group id, value, present) columns are sliced at the
-same rows; the compiled APPLY/FILTER steps run on those lanes; the
-group-by kernel (`ops.groupby.groupby_aggregate_batch`) sums every
-query's groups; and either an on-device SORT/LIMIT head
-(`_make_device_tail`) or the host merge (`_device_group_finish`)
-finishes each request.
+Counterpart of `redisearch_tpu/agg/pipeline.py` on its device paths:
 
-What the kernel-raw branch does not serve raises NotImplementedError
-naming the ROADMAP item, and never falls back: the host pipeline
-(`run_aggregate`, LOAD steps, non-algebraic reducers, unencodable keys:
-A6/A9), MIN/MAX reducers (kernels B4/B5, after A6), queries the
-intersection kernel refuses (match-all, pivots over 32,768: the general
-window path, A6) and KNN (A7).
+* batched, `run_aggregate_many` -> `_device_group_submit_batch`, per
+  segment and batch group either
+  - the kernel-raw branch: the intersection kernel in raw mode
+    (`ops.intersect.intersect_batch(raw=True)`) emits each query's
+    masked pivot-window lanes, the posting-aligned (group id, value,
+    present) columns are sliced at the same rows, the compiled
+    APPLY/FILTER steps run on those lanes and the batched group-by
+    kernel (B3, `ops.groupby.groupby_aggregate_batch`) sums every
+    query's groups; or
+  - the window branch, for what that kernel does not serve (match-all,
+    pivots over 32,768, MIN/MAX, ...): the general window program per
+    query (`query.engine._build_fn`, mode "window") and either B3 over
+    the staged (gid, value) windows (`_make_fused_cols`) or the
+    single-query kernels B4/B5 (`_make_fused`, `groupby_aggregate`);
+  then an on-device SORT/LIMIT head (`_make_device_tail`) or the host
+  merge (`_device_group_finish`);
+* single, `run_aggregate` -> `_device_group_submit` -> `_make_fused` per
+  segment -> `_device_group_finish`.
 
-Left out as TPU-attach machinery: the packed executors and their
-compile cache, async host copies, pow2 batch padding and the 1024-query
+What the device paths do not serve raises NotImplementedError naming the
+ROADMAP item, and never falls back: the host pipeline (`_run_steps`:
+LOAD, non-algebraic reducers, unencodable keys, more than 65,536 groups:
+A9), cursors (A9) and KNN (A7).
+
+Left out as TPU-attach machinery: the packed executors and their compile
+cache, async host copies, pow2 batch padding and the 1024-query
 scalar-memory chunking.
 """
 
@@ -32,15 +39,17 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .._host.agg import expr as E
-from .._host.agg.reducers import make_reducer
-from .._host.schema import FieldType
-from .._host.utils.errors import QuerySyntaxError
+from ..agg import expr as E
+from ..agg.reducers import make_reducer
+from ..schema import FieldType
+from ..utils.errors import QuerySyntaxError
 from ..ops import groupby as GB
 from ..ops import intersect as IK
-from ..query.engine import (QueryOptions, _device_unpack_rows,
-                            _kernel_batched_inputs, _kernel_plan,
-                            _segment_args)
+from ..query.engine import (LAll, QueryOptions, _device_unpack,
+                            _device_unpack_rows, _kernel_batched_inputs,
+                            _kernel_plan, _layout_of, _pack_into, _pack_out,
+                            _program, _segment_args, _unpack_out,
+                            _window_width, next_pow2)
 from .device_expr import compile_device_expr
 
 ASC = True
@@ -205,14 +214,33 @@ def _options(req: "AggregateRequest") -> QueryOptions:
                         now=req.now)
 
 
+def run_aggregate(index, req: "AggregateRequest") -> "AggregateResult":
+    """Execute one aggregation (FT.AGGREGATE): the device GROUPBY over
+    the general window program on every segment, then the host merge.
+    A request the device path does not serve raises NotImplementedError:
+    the host pipeline is ROADMAP A9."""
+    index.commit()
+    cq = index.prepare(req.query, req.params, _options(req), req.dialect)
+    if cq.knn is not None:
+        raise _not_ported("KNN aggregations", "A7")
+    fast = _try_device_group(index, req, cq)
+    if fast is None:
+        raise _not_ported(
+            "this aggregation's steps (LOAD, non-algebraic reducers, or "
+            "group keys the device path cannot encode) need the host "
+            "pipeline", "A9")
+    _count_path("device")
+    return fast
+
+
 def run_aggregate_many(index, reqs: list, async_: bool = False):
     """Execute a batch of aggregations: requests with the same plan
     shape and the same per-segment transport-row structure run as one
-    group (per segment: one raw intersection launch and one group-by
-    launch per chunk), and every group's outputs are collected together.
-    With async_=True returns an _AggBatchHandle at once; .result()
-    collects.  A request the kernel-raw branch does not serve raises
-    NotImplementedError before anything launches."""
+    group (per segment: the kernel-raw branch, or the window branch), and
+    every group's outputs are collected together.  With async_=True
+    returns an _AggBatchHandle at once; .result() collects.  A request
+    the device paths do not serve raises NotImplementedError before
+    anything launches."""
     index.commit()
     prepared = []
     groups: dict = {}
@@ -225,10 +253,7 @@ def run_aggregate_many(index, reqs: list, async_: bool = False):
             raise _not_ported(
                 "this aggregation's steps (LOAD, non-algebraic reducers, "
                 "or group keys the device path cannot encode) need the "
-                "host pipeline", "A9/A6")
-        if plan[3]:
-            raise _not_ported("MIN/MAX reducers (kernels B4/B5)",
-                              "B4/B5, after A6")
+                "host pipeline", "A9")
         prepared.append((req, cq, plan))
         # batchable = equal plan (the memoized plan object pins step
         # shape, reducers and the tail) AND equal per-segment row
@@ -250,17 +275,27 @@ def run_aggregate_many(index, reqs: list, async_: bool = False):
             host = [{kk: vv.cpu().numpy() for kk, vv in so.items()}
                     for so in seg_outs]
             for j, (i, h) in enumerate(zip(idxs, handles)):
-                group, tail, op_list, rspec, key_parts = h
+                group, tail, op_list, mm, rspec, key_parts = h
                 parts = [(kp, {kk: vv[j] for kk, vv in hs.items()})
                          for kp, hs in zip(key_parts, host)]
                 _count_path("device-tail" if rspec is not None
                             else "device")
                 fin_ = (_device_tail_finish if rspec is not None
                         else _device_group_finish)
-                out[i] = fin_(index, (group, tail, op_list, rspec, parts))
+                out[i] = fin_(index, (group, tail, op_list, mm, rspec,
+                                      parts))
         return out
 
     return _AggBatchHandle(fin) if async_ else fin()
+
+
+def _try_device_group(index, req: AggregateRequest, cq):
+    """The device GROUPBY of one request: its result, or None when the
+    plan is not device-eligible."""
+    h = _device_group_submit(index, req, cq)
+    if h is None:
+        return None
+    return _device_group_finish(index, h)
 
 
 def _key_encoding(index, seg, keyname):
@@ -430,6 +465,108 @@ def _plan_device_group(index, req: AggregateRequest, cq):
         for (k, _a, _f), s in zip(compiled_pre, pre))
     return (group, tail, operands, want_minmax, compiled_pre,
             in_fields, pre_sig, key_aliases)
+
+
+def _gather_cols(seg_args_, in_fields, cd):
+    """Each input numeric field's (values, present) at the window docs;
+    the columns themselves when `cd` is None (an iota window)."""
+    cols = {}
+    for j, nm_ in enumerate(in_fields):
+        v = seg_args_["gb_num_vals"][j]
+        p = seg_args_["gb_num_pres"][j]
+        cols[nm_] = (v, p) if cd is None else (v[cd], p[cd])
+    return cols
+
+
+def _run_pre(compiled_pre, cols, valid, like):
+    """The compiled APPLY/FILTER steps over the window's columns."""
+    for kind, alias, fn_ in compiled_pre:
+        if kind == "apply":
+            cols[alias] = fn_(cols)
+        else:
+            fv, fp = fn_(cols)
+            valid = valid & _lanes(fp, like) & _lanes(fv != 0.0, like)
+    return valid
+
+
+def _composite_gid(seg_args_, sizes, cd, like):
+    """The composite group id of each window lane (a missing key is the
+    key's last value id)."""
+    gid = torch.zeros(like.shape, dtype=torch.int32, device=like.device)
+    for k_, sz_ in enumerate(sizes):
+        idk = seg_args_["gb_keys"][k_]
+        if cd is not None:
+            idk = idk[cd]
+        idk = torch.where(idk < 0, sz_ - 1, idk)
+        gid = gid * sz_ + idk
+    return gid
+
+
+def _make_fused(cq, raw, G, sizes, in_fields, compiled_pre, operands,
+                want_minmax):
+    """The per-query fused program: window program -> compiled pre steps
+    -> key/operand gathers -> `groupby_aggregate` (B4, and B5 for
+    MIN/MAX) for the base count and each operand.  Shared by the single
+    request path and the window branch of the batch path."""
+    # match-all roots emit the iota window: every column is already
+    # doc-aligned, so no gathers
+    iota_root = cq.tree[0] == "leaf" and isinstance(cq.tree[1], LAll)
+
+    def fused(seg_args_, dyn):
+        out = raw(seg_args_, dyn)
+        docs, valid = out["docs"], out["valid"]
+        n_pad_ = seg_args_["gb_keys"].shape[1]
+        cd = None if iota_root else docs.clamp(max=n_pad_ - 1).long()
+        cols = _gather_cols(seg_args_, in_fields, cd)
+        valid = _run_pre(compiled_pre, cols, valid, docs)
+        gid = _composite_gid(seg_args_, sizes, cd, docs)
+        res = {"count": out["count"]}
+        base = GB.groupby_aggregate(
+            gid, valid, torch.zeros(docs.shape, dtype=torch.float32,
+                                    device=docs.device),
+            G, want_minmax=False)
+        for stat, arr in base.items():
+            res[f"g.None.{stat}"] = arr
+        for j, op_ in enumerate(operands):
+            vals, pres = cols[op_]
+            gr = GB.groupby_aggregate(
+                gid, valid & _lanes(pres, docs),
+                _lanes(vals, docs).to(torch.float32), G,
+                want_minmax=want_minmax)
+            for stat, arr in gr.items():
+                res[f"g.{j}.{stat}"] = arr
+        return res
+
+    return fused
+
+
+def _make_fused_cols(raw, sizes, in_fields, compiled_pre, operands):
+    """Window half of the batched program: per query, the pre-masked gid
+    slots [1 + n_ops, Wc] and op values [n_ops, Wc] over the query's
+    window; the caller stacks a chunk of them for ONE batched group-by
+    launch (B3)."""
+
+    def fused(seg_args_, dyn):
+        out = raw(seg_args_, dyn)
+        docs, valid = out["docs"], out["valid"]
+        n_pad_ = seg_args_["gb_keys"].shape[1]
+        cd = docs.clamp(max=n_pad_ - 1).long()
+        cols = _gather_cols(seg_args_, in_fields, cd)
+        valid = _run_pre(compiled_pre, cols, valid, docs)
+        gid = _composite_gid(seg_args_, sizes, cd, docs)
+        slots = [torch.where(valid, gid, -1)]
+        vlist = []
+        for op_ in operands:
+            v, p = cols[op_]
+            slots.append(torch.where(valid & _lanes(p, docs), gid, -1))
+            vlist.append(_lanes(v, docs).to(torch.float32))
+        return {"count": out["count"], "gslots": torch.stack(slots),
+                "vals": (torch.stack(vlist) if vlist
+                         else torch.zeros((0,) + tuple(docs.shape),
+                                          dtype=torch.float32,
+                                          device=docs.device))}
+
+    return fused
 
 
 #: cap on the elements a batch chunk stages between the two kernels
@@ -646,7 +783,11 @@ def _make_device_tail(G, dtail, red_specs):
                     c > 0, res[f"g.{tag}.sum"] / torch.clamp(c, min=1.0),
                     0.0)
                 nulls = c == 0
-            else:  # STDDEV (MIN/MAX never reach here)
+            elif nm == "MIN":
+                vals, nulls = res.get(f"g.{tag}.min", c), c == 0
+            elif nm == "MAX":
+                vals, nulls = res.get(f"g.{tag}.max", c), c == 0
+            else:  # STDDEV
                 s = res[f"g.{tag}.sum"]
                 var = ((res[f"g.{tag}.sumsq"]
                         - s * s / torch.clamp(c, min=1.0))
@@ -706,7 +847,7 @@ def _device_tail_finish(index, h) -> "AggregateResult":
     """Materialize an AggregateResult from the compact device-tail
     output: decode the K surviving group ids' key values, replay the
     LIMIT arithmetic over the already-sorted head."""
-    group, tail, _op_list, red_specs, parts = h
+    group, tail, _op_list, _mm, red_specs, parts = h
     (key_infos, _sizes), out = parts[0]
     total = int(out["count"])
     gsizes, tarrs, divs = _tail_decode_arrays(key_infos)
@@ -826,13 +967,16 @@ def _chunk_size(W_raw: int, n_ops: int, n_in: int) -> int:
 
 def _device_group_submit_batch(index, items):
     """Launch a group of same-shape GROUPBYs (equal plan, equal
-    transport-row structure) on every segment: one upload of the
-    group's rows, then per chunk the raw intersection, the column slices
-    and one group-by launch (and the device tail when the plan has one).
-    Returns (one handle per query, per-segment output dicts of [B, ...]
-    device tensors)."""
+    transport-row structure) on every segment: one upload of the group's
+    rows, then per chunk either the kernel-raw branch (raw intersection,
+    column slices, one group-by launch) or the window branch (the window
+    program per query, then one batched group-by launch when the chunk's
+    staged windows fit `_MAX_BATCH_STAGE`, else the single-query kernels
+    per query), and the device tail when the plan has one.  Returns (one
+    handle per query, per-segment output dicts of [B, ...] device
+    tensors)."""
     _req0, cq0, plan0 = items[0]
-    (group0, tail0, operands, _want_minmax, compiled_pre, in_fields,
+    (group0, tail0, operands, want_minmax, compiled_pre, in_fields,
      pre_sig, key_aliases) = plan0
     want_sumsq = any(n.upper() == "STDDEV"
                      for n, _a, _al in group0.reducers)
@@ -851,41 +995,101 @@ def _device_group_submit_batch(index, items):
             raise _not_ported(
                 "group keys the device path cannot encode, or more than "
                 f"{_MAX_DEVICE_GROUPS} groups, need the host pipeline",
-                "A9/A6")
+                "A9")
         key_infos, sizes, G, seg_args = ga
         rows = np.stack([cq.bind_row(seg)[0] for _r, cq, _p in items])
         ent = cq0.bind_row(seg)[1]
-        layout, buckets = ent[2], ent[4]
-        kplan = _kernel_plan(cq0, seg, buckets, 16)
+        layout, buckets, P2 = ent[2], ent[4], ent[5]
+        # the kernel-raw branch: no MIN/MAX, and an intersection-kernel
+        # plan whose pivots are text slots
+        kplan = None if want_minmax else _kernel_plan(cq0, seg, buckets, 16)
         if kplan is not None and not all(
                 kplan[0][p][0] == "t" for p in kplan[2][kplan[3]][1]):
             kplan = None
-        if kplan is None:
-            raise _not_ported(
-                "aggregations over queries outside the intersection "
-                "kernel's shapes (match-all, pivots over 32,768, ...) — "
-                "the general window path", "A6")
-        seg_args.update(_seg_posting_cols(
-            index, seg, cq0, group0, in_fields, sizes, compiled_pre,
-            pre_sig, key_aliases))
-        fused, W_raw = _make_kernel_groupby(
-            kplan, layout, sizes, in_fields, compiled_pre, operands, G,
-            want_sumsq)
         tailfn = (None if dtail is None
                   else _make_device_tail(G, dtail, red_specs))
-        Cp = _chunk_size(W_raw, len(operands), len(in_fields))
         rows_d = torch.from_numpy(rows).to(seg.device)
         outs = []
-        for c0 in range(0, B, Cp):
-            res = fused(seg_args, rows_d[c0:c0 + Cp])
-            outs.append(res if tailfn is None else tailfn(res))
+        if kplan is not None:
+            seg_args.update(_seg_posting_cols(
+                index, seg, cq0, group0, in_fields, sizes, compiled_pre,
+                pre_sig, key_aliases))
+            fused, W_raw = _make_kernel_groupby(
+                kplan, layout, sizes, in_fields, compiled_pre, operands, G,
+                want_sumsq)
+            Cp = _chunk_size(W_raw, len(operands), len(in_fields))
+            for c0 in range(0, B, Cp):
+                res = fused(seg_args, rows_d[c0:c0 + Cp])
+                outs.append(res if tailfn is None else tailfn(res))
+        else:
+            raw = _program(cq0, seg, buckets, P2, 1, False, "window")
+            # the JAX package's power-of-two batch cut at its 1024-query
+            # chunk: the staging test below is the JAX one
+            Cp = min(int(next_pow2(B)), 1024)
+            Wc = _window_width(cq0.tree, buckets, seg.n_pad)
+            S = 1 + len(operands)
+            use_batch_kernel = (not want_minmax
+                                and Cp * Wc * (S + max(S - 1, 1))
+                                <= _MAX_BATCH_STAGE)
+            if use_batch_kernel:
+                fused = _make_fused_cols(raw, sizes, in_fields,
+                                         compiled_pre, operands)
+            else:
+                fused = _make_fused(cq0, raw, G, sizes, in_fields,
+                                    compiled_pre, operands, want_minmax)
+            for c0 in range(0, B, Cp):
+                stacked = _device_unpack_rows(layout, rows_d[c0:c0 + Cp])
+                per_q = [fused(seg_args, {kk: vv[i]
+                                          for kk, vv in stacked.items()})
+                         for i in range(min(Cp, B - c0))]
+                res = {kk: torch.stack([r[kk] for r in per_q])
+                       for kk in per_q[0]}
+                if use_batch_kernel:
+                    gs, vs = res.pop("gslots"), res.pop("vals")
+                    res.update(GB.groupby_aggregate_batch(
+                        gs, vs, G, want_sumsq=want_sumsq))
+                outs.append(res if tailfn is None else tailfn(res))
         seg_outs.append({kk: torch.cat([o[kk] for o in outs])
                          for kk in outs[0]})
         key_parts.append((key_infos, sizes))
-    handles = [(group0, tail0, operands,
+    handles = [(group0, tail0, operands, want_minmax,
                 red_specs if dtail is not None else None, key_parts)
                for _item in items]
     return handles, seg_outs
+
+
+def _device_group_submit(index, req: AggregateRequest, cq):
+    """One request's device GROUPBY on every segment: the window program
+    and `_make_fused` (kernels B4/B5), its outputs copied to the host in
+    one tensor per segment.  Returns the finish handle, or None when the
+    plan is not device-eligible."""
+    plan = _plan_device_group_cached(index, req, cq)
+    if plan is None:
+        return None
+    (group, tail, operands, want_minmax, compiled_pre, in_fields,
+     pre_sig, key_aliases) = plan
+    parts = []
+    for seg in index.segments:
+        ga = _seg_group_args(index, seg, cq, group, in_fields,
+                             compiled_pre, pre_sig, key_aliases)
+        if ga is None:
+            return None
+        key_infos, sizes, G, seg_args = ga
+        binding, P = cq.bind(seg)
+        dyn = binding.dyn
+        dyn.pop("_tagL", None)
+        buckets = dyn.pop("_buckets")
+        raw = _program(cq, seg, buckets, P, 1, False, "window")
+        fused = _make_fused(cq, raw, G, sizes, in_fields, compiled_pre,
+                            operands, want_minmax)
+        layout, total = _layout_of(dyn)
+        buf = _pack_into(layout, dyn, np.zeros(total, np.int32))
+        flat, out_layout = _pack_out(fused(
+            seg_args, _device_unpack(layout,
+                                     torch.from_numpy(buf).to(seg.device))))
+        parts.append(((key_infos, sizes),
+                      _unpack_out(flat.cpu().numpy(), out_layout)))
+    return (group, tail, operands, want_minmax, None, parts)
 
 
 def _device_group_finish(index, h) -> "AggregateResult":
@@ -893,14 +1097,15 @@ def _device_group_finish(index, h) -> "AggregateResult":
     with numpy scatter-reductions, run the SORT/LIMIT tail over arrays
     (np.lexsort), and decode group keys only for the rows that survive
     the tail."""
-    group, tail, op_list, _unused, parts = h
+    group, tail, op_list, want_minmax, _unused, parts = h
     total = 0
     outs = []
     for (key_infos, sizes), out in parts:
         total += int(out["count"])
         outs.append((key_infos, sizes, out))
 
-    stat_names = ("count", "sum", "sumsq")
+    stat_names = ("count", "sum", "sumsq") + (
+        ("min", "max") if want_minmax else ())
     ops: list = [None] + list(op_list)
 
     def _seg_stats(out):
@@ -925,7 +1130,14 @@ def _device_group_finish(index, h) -> "AggregateResult":
             for d in range(K)]
         gsizes = [len(t) + 1 for t in tables]
         G = int(np.prod(gsizes))
-        stats = {op: {s: np.zeros(G) for s in stat_names} for op in ops}
+        stats = {op: {} for op in ops}
+        for op in ops:
+            for s in stat_names:
+                if op is None and s in ("min", "max"):
+                    continue       # the base COUNT op carries no min/max
+                stats[op][s] = (np.full(G, 3.4e38) if s == "min" else
+                                np.full(G, -3.4e38) if s == "max" else
+                                np.zeros(G))
         for key_infos, sizes, out in outs:
             sst = _seg_stats(out)
             nz = np.nonzero(sst[None]["count"] > 0)[0]
@@ -951,8 +1163,15 @@ def _device_group_finish(index, h) -> "AggregateResult":
                 ggid = ggid * gsizes[d] + dims[d]
             for op in ops:
                 for s, arr in sst[op].items():
-                    if s in stats[op]:
-                        np.add.at(stats[op][s], ggid, arr[nz])
+                    if s not in stats[op]:
+                        continue
+                    v = arr[nz]
+                    if s == "min":
+                        np.minimum.at(stats[op][s], ggid, v)
+                    elif s == "max":
+                        np.maximum.at(stats[op][s], ggid, v)
+                    else:
+                        np.add.at(stats[op][s], ggid, v)
 
     gsizes = [len(t) + 1 for t in tables]
     base_cnt = stats[None]["count"]
@@ -975,7 +1194,11 @@ def _device_group_finish(index, h) -> "AggregateResult":
             elif nm == "AVG":
                 vals = np.where(c > 0, st["sum"] / np.maximum(c, 1.0), 0.0)
                 nulls = c == 0
-            else:  # STDDEV (MIN/MAX never reach here)
+            elif nm == "MIN":
+                vals, nulls = st.get("min", c), c == 0
+            elif nm == "MAX":
+                vals, nulls = st.get("max", c), c == 0
+            else:  # STDDEV
                 var = ((st["sumsq"] - st["sum"] ** 2 / np.maximum(c, 1.0))
                        / np.maximum(c - 1.0, 1.0))
                 vals = np.where(c >= 2, np.sqrt(np.maximum(var, 0.0)), 0.0)

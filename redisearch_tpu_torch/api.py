@@ -1,10 +1,10 @@
 """Client: the command surface of the torch port.
 
-Counterpart of `redisearch_tpu/api.py` for the port's main path:
-FT.CREATE (`ft_create`), HSET (`hset`: writes the document store and
-routes to every index whose rule matches), batched FT.SEARCH
-(`ft_search_many`) and batched FT.AGGREGATE (`ft_aggregate_many`).  The
-other FT.* commands are not ported yet.
+Counterpart of `redisearch_tpu/api.py` for the port's paths: FT.CREATE
+(`ft_create`), HSET (`hset`: writes the document store and routes to
+every index whose rule matches), FT.SEARCH (`ft_search`, and batched
+`ft_search_many`) and FT.AGGREGATE (`ft_aggregate`, and batched
+`ft_aggregate_many`).  The other FT.* commands are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,9 +14,9 @@ from typing import Any, Optional, Sequence
 
 import torch
 
-from ._host.schema import Field, Schema
-from ._host.utils import log as _log
-from ._host.utils.errors import IndexExists, IndexNotFound
+from .schema import Field, Schema
+from .utils import log as _log
+from .utils.errors import IndexExists, IndexNotFound, RSError
 from .index.index import SearchIndex, SearchResult, default_device
 
 
@@ -111,7 +111,7 @@ class Client:
         if not schema.matches_key(key):
             return False
         if schema.filter_expr:
-            from ._host.agg import expr as _expr
+            from .agg import expr as _expr
             try:
                 e = _expr.parse(schema.filter_expr)
                 return _expr._truthy(_expr.evaluate(e, fields))
@@ -135,11 +135,43 @@ class Client:
         are collected together (see agg.pipeline.run_aggregate_many)."""
         return self._index(name).aggregate_many(reqs)
 
+    def ft_search(self, name: str, query: str,
+                  highlight: Optional[dict] = None,
+                  summarize: Optional[dict] = None,
+                  filters: Optional[list] = None,
+                  **opts) -> SearchResult:
+        """FT.SEARCH: one query through the general window program
+        (SearchIndex.search); expired fields are dropped from the
+        returned documents.  HIGHLIGHT, SUMMARIZE and legacy FILTER
+        arguments are not ported yet."""
+        if highlight is not None or summarize is not None or filters:
+            raise NotImplementedError(
+                "HIGHLIGHT / SUMMARIZE / FILTER are not ported yet "
+                "(ROADMAP A13)")
+        dialect = int(opts.get("dialect", 2))
+        if not 1 <= dialect <= 4:
+            raise RSError("DIALECT requires a non negative integer "
+                          ">=1 and <= 4")
+        ix = self._index(name)
+        res = ix.search(query, **opts)
+        for hit in res.hits:       # field-level TTL (HEXPIRE analog)
+            if hit.fields is None:
+                continue
+            meta = ix.doctable.get(hit.gid)
+            if meta is None or not meta.field_expiration:
+                continue
+            for f in list(hit.fields):
+                if meta.field_expired(f):
+                    del hit.fields[f]
+        return res
+
     def ft_aggregate(self, name: str, req):
-        """Single-request FT.AGGREGATE rides the general window path."""
-        raise NotImplementedError(
-            "single-request ft_aggregate is not ported yet (ROADMAP A6); "
-            "use ft_aggregate_many")
+        """FT.AGGREGATE of one request (agg.pipeline.run_aggregate).
+        Cursors (WITHCURSOR) are not ported yet."""
+        if req.with_cursor:
+            raise NotImplementedError(
+                "FT.AGGREGATE WITHCURSOR is not ported yet (ROADMAP A9)")
+        return self._index(name).aggregate(req)
 
     # -- internals -------------------------------------------------------------
     def _resolve(self, name: str) -> str:

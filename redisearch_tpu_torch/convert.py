@@ -29,10 +29,10 @@ def segment_from_jax(seg, device) -> Segment:
     if seg.cold:
         raise NotImplementedError(
             "cold (storage='host') segments are not ported yet "
-            "(ROADMAP A6)")
+            "(ROADMAP A6-cold)")
     if seg.vectors or seg.geos:   # the port has no such columns yet
         raise NotImplementedError(
-            "VECTOR and GEO columns are not ported yet (ROADMAP A6/A7)")
+            "VECTOR and GEO columns are not ported yet (ROADMAP A6-geo/A7)")
     tx = seg.text
     text = TextPostings(
         term_offsets=_t(tx.term_offsets, device),

@@ -1,50 +1,377 @@
 """Host-side segment builder: the write path.
 
-The staging half (tokenize, stem, per-term postings, tag and numeric
-staging) is the JAX package's own `SegmentBuilder`, reached through
-`_host`.  This subclass ports `seal`: the same numpy arrays, with the
-same pads and layouts, land as torch tensors on the index's device.
+Counterpart of `redisearch_tpu/index/builder.py`.  The staging half
+(tokenize, stem, per-term postings, tag and numeric staging) is a copy of
+the JAX package's `SegmentBuilder`; `seal` is the port's: the same numpy
+arrays, with the same pads and layouts, land as torch tensors on the
+index's device.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+import time
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from .._host.index.builder import MAX_POS_STRIDE
-from .._host.index.builder import SegmentBuilder as _HostBuilder
-from .._host.schema import FieldType, Schema
+from ..analysis.phonetics import dm_code
+from ..analysis.stemmer import Stemmer
+from ..analysis.stopwords import StopWordList
+from ..analysis.tokenizer import Tokenizer, normalize_token
+from ..schema import Field, FieldType, Schema
+from ..utils import wkt
+from ..utils.errors import IndexError_, WrongFieldType
+from ..utils.jsonpath import get_field_value
+from .doctable import DocMeta
 from .segment import (LANE, POS_SLICE_PAD, Segment, StrColumn, TagPostings,
                       TermDict, TextPostings, build_tag_codes,
                       make_numeric_column, mask_words, next_pow2,
                       pack_mask_words, posting_pad, round_up, tail_pad)
-
 
 def check_schema_ported(schema: Schema) -> None:
     """Refuse what the port cannot seal yet, naming the ROADMAP item."""
     if schema.storage == "host":
         raise NotImplementedError(
             "cold (storage='host') segments are not ported yet "
-            "(ROADMAP A6)")
+            "(ROADMAP A6-cold)")
     for f in schema.fields:
         if f.type == FieldType.VECTOR:
             raise NotImplementedError(
                 f"VECTOR field {f.name!r} is not ported yet (ROADMAP A7)")
         if f.type == FieldType.GEO:
             raise NotImplementedError(
-                f"GEO field {f.name!r} is not ported yet (ROADMAP A6)")
+                f"GEO field {f.name!r} is not ported yet (ROADMAP A6-geo)")
 
 
-class SegmentBuilder(_HostBuilder):
+STEM_PREFIX = "+"        # reference: STEM_PREFIX in forward index terms
+PHONETIC_PREFIX = "\x01"  # reference: PHONETIC_PREFIX
+# Device field masks are int32 words; schemas with more than 32 TEXT
+# fields pack into [nnz, K] multi-word masks (K = ceil(F/32)), matching
+# the reference's 128-bit t_fieldMask (src/redisearch.h) at K=4.
+DEVICE_MAX_TEXT_FIELDS = 128
+# Positions per doc tracked for phrase matching are capped so that
+# local_doc * pos_stride + pos fits in int32 (see segment.py poskeys).
+MAX_POS_STRIDE = 4096
+
+def _bf16():
+    import ml_dtypes
+    return ml_dtypes.bfloat16
+
+
+_VEC_NP_DTYPES = {
+    "FLOAT32": np.float32,
+    "FLOAT64": np.float64,
+    "FLOAT16": np.float16,
+    "INT8": np.int8,
+    "UINT8": np.uint8,
+}
+
+
+def _vec_np_dtype(name: str):
+    if name == "BFLOAT16":
+        return _bf16()
+    return _VEC_NP_DTYPES[name]
+
+
+class _TermStage:
+    __slots__ = ("docs", "freqs", "masks", "positions", "doc_freq")
+
+    def __init__(self):
+        self.docs: list[int] = []
+        self.freqs: list[float] = []
+        self.masks: list[int] = []
+        self.positions: list[list[int]] = []
+        self.doc_freq = 0
+
+
+class SegmentBuilder:
     """Accumulates documents on the host, then seals them into a torch
     Segment on `device`."""
 
-    def __init__(self, schema: Schema, stopwords, synonyms, device):
+    def __init__(self, schema: Schema,
+                 stopwords: Optional[StopWordList] = None,
+                 synonyms=None, device="cpu"):
         check_schema_ported(schema)
-        super().__init__(schema, stopwords, synonyms)
         self.device = torch.device(device)
+        self.schema = schema
+        self.synonyms = synonyms
+        if schema.num_text_fields > DEVICE_MAX_TEXT_FIELDS:
+            raise IndexError_(
+                f"device field mask supports up to {DEVICE_MAX_TEXT_FIELDS} "
+                f"TEXT fields for now")
+        self.stopwords = stopwords or StopWordList(schema.stopwords)
+        self._stemmers: dict[str, Stemmer] = {}
+        # staging
+        self._gids: list[int] = []
+        self._metas: list = []       # DocMeta refs: TTLs re-read at seal
+        self._doclen: list[float] = []
+        self._maxfreq: list[float] = []
+        self._docscore: list[float] = []
+        self._expire: list[int] = []
+        self._terms: dict[str, _TermStage] = {}
+        self._term_order: list[str] = []
+        self._tags: dict[str, dict[str, list[int]]] = {
+            f.attribute: {} for f in schema.fields if f.type == FieldType.TAG}
+        self._numerics: dict[str, list[float]] = {
+            f.attribute: [] for f in schema.fields
+            if f.type == FieldType.NUMERIC}
+        self._geos: dict[str, list[tuple[float, float]]] = {
+            f.attribute: [] for f in schema.fields if f.type == FieldType.GEO}
+        self._strcols: dict[str, list[Optional[str]]] = {
+            f.attribute: [] for f in schema.fields
+            if f.sortable and f.type in (FieldType.TEXT, FieldType.TAG)}
+        self._vectors: dict[str, list[Optional[np.ndarray]]] = {
+            f.attribute: [] for f in schema.fields
+            if f.type == FieldType.VECTOR}
+        self._geoms: dict[str, list] = {
+            f.attribute: [] for f in schema.fields
+            if f.type == FieldType.GEOMETRY}
+        self._present: dict[str, list[bool]] = {
+            f.attribute: [] for f in schema.fields}
+        # field-level TTLs (reference: ttl_table — docId -> [(field, ts)])
+        self._fexpire: dict[str, list[int]] = {
+            f.attribute: [] for f in schema.fields}
+        self._any_fexp = False
+        self.max_positions = 0
+
+    def __len__(self) -> int:
+        return len(self._gids)
+
+    def _stemmer_for(self, language: str) -> Stemmer:
+        st = self._stemmers.get(language)
+        if st is None:
+            st = Stemmer(language)
+            self._stemmers[language] = st
+        return st
+
+    # -- add one document -------------------------------------------------
+    def add(self, meta: DocMeta) -> None:
+        """Stage one document.  Mirrors Document_AddToIndexes."""
+        local = len(self._gids)
+        self._gids.append(meta.gid)
+        self._metas.append(meta)
+        self._docscore.append(meta.score)
+        self._expire.append(int(-(-meta.expires_at // 1))
+                            if meta.expires_at else 0)
+
+        language = getattr(meta, "language", None) or str(
+            meta.fields.get(self.schema.language_field, self.schema.language)
+            if self.schema.language_field else self.schema.language)
+        stemmer = self._stemmer_for(language)
+
+        fe = meta.field_expiration or {}
+        for f in self.schema.fields:
+            v = fe.get(f.attribute) or fe.get(f.name) or 0
+            self._fexpire[f.attribute].append(int(v))
+            if v:
+                self._any_fexp = True
+
+        # per-doc forward index: term -> [freq, mask, positions].
+        # Positions are global across TEXT fields (base advances per field,
+        # +1 gap so phrases never falsely match across a field boundary).
+        fwd: dict[str, list] = {}
+        doclen = 0.0
+        max_pos = 0
+        pos_base = 0
+
+        for field in self.schema.fields:
+            raw = get_field_value(meta.fields, field.name)
+            if raw is None and field.alias:
+                raw = meta.fields.get(field.alias)
+            if isinstance(raw, (str, bytes)) or raw is None:
+                present = raw is not None and (raw != ""
+                                               or field.indexempty)
+            else:
+                present = True
+            self._present[field.attribute].append(bool(present))
+            if field.type == FieldType.TEXT:
+                n_tok, mp = self._add_text(field, raw, fwd, stemmer,
+                                           pos_base)
+                doclen += n_tok
+                pos_base += n_tok + 1
+                max_pos = max(max_pos, mp)
+                if field.sortable:
+                    val = str(raw) if raw is not None else None
+                    if val is not None and not field.unf:
+                        val = normalize_token(val)
+                    self._strcols[field.attribute].append(val)
+            elif field.type == FieldType.NUMERIC:
+                self._numerics[field.attribute].append(
+                    self._parse_numeric(field, raw))
+            elif field.type == FieldType.TAG:
+                joined = self._add_tag(field, raw, local)
+                if field.sortable:
+                    self._strcols[field.attribute].append(joined)
+            elif field.type == FieldType.GEO:
+                self._geos[field.attribute].append(
+                    self._parse_geo(field, raw))
+            elif field.type == FieldType.VECTOR:
+                self._vectors[field.attribute].append(
+                    self._parse_vector(field, raw))
+            elif field.type == FieldType.GEOMETRY:
+                self._geoms[field.attribute].append(
+                    wkt.parse(str(raw)) if raw is not None else None)
+
+        # merge forward index into term staging (reference: indexer.c:58
+        # writeIndexEntry per term)
+        max_freq = 0.0
+        for term, (freq, mask, positions) in fwd.items():
+            stage = self._terms.get(term)
+            if stage is None:
+                stage = _TermStage()
+                self._terms[term] = stage
+                self._term_order.append(term)
+            stage.docs.append(local)
+            stage.freqs.append(freq)
+            stage.masks.append(mask)
+            stage.positions.append(positions)
+            stage.doc_freq += 1
+            max_freq = max(max_freq, freq)
+
+        self._doclen.append(doclen)
+        self._maxfreq.append(max(max_freq, 1.0))
+        self.max_positions = max(self.max_positions, max_pos)
+        meta.doclen = int(doclen)
+        meta.max_freq = int(max_freq)
+
+    # -- field preprocessors ----------------------------------------------
+    def _add_text(self, field: Field, raw: Any, fwd: dict,
+                  stemmer: Stemmer, pos_base: int) -> tuple[int, int]:
+        if raw is None:
+            return 0, 0
+        if isinstance(raw, (list, tuple)):  # JSON multi-value text
+            text = " ".join(str(v) for v in raw)
+        else:
+            text = str(raw)
+        tk = Tokenizer(self.stopwords,
+                       None if field.nostem else stemmer)
+        n_tok = 0
+        max_pos = 0
+        fbit = 1 << field.field_id
+        # Stored freqs are field-WEIGHT-scaled, and the intersection
+        # kernel derives membership from (tf sum > 0) (_member_pass's
+        # want_tf fast path).  Clamp non-positive weights to a tiny
+        # epsilon so a WEIGHT 0 field still registers hits (and NOT
+        # exclusions) while contributing ~0 BM25 score — matching the
+        # XLA twin's membership-based hit.
+        w = field.weight if field.weight > 0 else 1e-6
+        for tok in tk.tokenize(text):
+            n_tok += 1
+            if tok.is_stopword or field.noindex:
+                continue
+            pos = pos_base + tok.pos
+            max_pos = max(max_pos, pos)
+            self._fwd_add(fwd, tok.tok, w, fbit, pos)
+            if tok.stem:
+                self._fwd_add(fwd, STEM_PREFIX + tok.stem, w, fbit, pos)
+            if field.phonetic:
+                code = dm_code(tok.tok)
+                if code:
+                    self._fwd_add(fwd, PHONETIC_PREFIX + code, w, fbit, pos)
+            if self.synonyms is not None:
+                for syn in self.synonyms.group_terms(tok.tok):
+                    self._fwd_add(fwd, syn, w, fbit, pos)
+        return n_tok, max_pos
+
+    @staticmethod
+    def _fwd_add(fwd: dict, term: str, weight: float, fbit: int,
+                 pos: int) -> None:
+        ent = fwd.get(term)
+        if ent is None:
+            fwd[term] = [weight, fbit, [pos]]
+        else:
+            ent[0] += weight
+            ent[1] |= fbit
+            ent[2].append(pos)
+
+    def _parse_numeric(self, field: Field, raw: Any) -> list:
+        """Returns the list of values for the doc ([] = missing).  JSON
+        multi-value numerics index every element (reference: multi-value
+        fields feed each value into the numeric range tree)."""
+        if raw is None or raw == "":
+            return []
+        vals = raw if isinstance(raw, (list, tuple)) else [raw]
+        out = []
+        for v in vals:
+            if v is None or v == "":
+                continue
+            try:
+                out.append(float(v))
+            except (TypeError, ValueError):
+                raise WrongFieldType(
+                    f"Could not index numeric value for field {field.name}")
+        return out
+
+    def _add_tag(self, field: Field, raw: Any,
+                 local: int) -> Optional[str]:
+        if raw is None:
+            return None
+        if isinstance(raw, (list, tuple)):
+            values = [str(v) for v in raw]
+            joined = field.separator.join(values)
+        else:
+            joined = str(raw)
+            values = [v.strip() for v in joined.split(field.separator)]
+        stage = self._tags[field.attribute]
+        for v in values:
+            if v == "" and not field.indexempty:
+                continue
+            if not field.casesensitive:
+                v = v.lower()
+            lst = stage.get(v)
+            if lst is None:
+                stage[v] = [local]
+            elif lst[-1] != local:
+                lst.append(local)
+        return joined if not field.casesensitive else joined
+
+    def _parse_geo(self, field: Field, raw: Any) -> tuple[float, float]:
+        if raw is None or raw == "":
+            return (math.nan, math.nan)
+        if isinstance(raw, (list, tuple)) and len(raw) == 2:
+            lon, lat = float(raw[0]), float(raw[1])
+        else:
+            parts = str(raw).split(",")
+            if len(parts) != 2:
+                raise WrongFieldType(f"bad geo value for {field.name}: {raw}")
+            lon, lat = float(parts[0]), float(parts[1])
+        if not (-180 <= lon <= 180 and -85.05112878 <= lat <= 85.05112878):
+            raise WrongFieldType(f"geo out of range for {field.name}")
+        return (math.radians(lon), math.radians(lat))
+
+    def _parse_vector(self, field: Field, raw: Any) -> Optional[list]:
+        """Returns the doc's vector list (None = missing).  JSON
+        multi-value vector fields ($..path arrays-of-arrays) index every
+        vector (reference: VecSim multi-value)."""
+        if raw is None:
+            return None
+        vp = field.vector
+        npdt = _vec_np_dtype(vp.dtype)
+        if isinstance(raw, str):
+            # RESP clients send vector blobs as binary-safe strings
+            raw = raw.encode("latin-1", "surrogateescape")
+        if isinstance(raw, bytes):
+            arr = np.frombuffer(raw, dtype=npdt).astype(np.float32)
+            if arr.shape[0] != vp.dim and arr.shape[0] % vp.dim == 0:
+                return list(arr.reshape(-1, vp.dim))  # concatenated blobs
+            if arr.shape[0] != vp.dim:
+                raise WrongFieldType(
+                    f"vector dim mismatch for {field.name}: got "
+                    f"{arr.shape[0]}, want {vp.dim}")
+            return [arr]
+        if (isinstance(raw, (list, tuple)) and raw
+                and isinstance(raw[0], (list, tuple, np.ndarray))):
+            vecs = [np.asarray(v, np.float32).reshape(-1) for v in raw]
+        else:
+            vecs = [np.asarray(raw, dtype=np.float32).reshape(-1)]
+        for arr in vecs:
+            if arr.shape[0] != vp.dim:
+                raise WrongFieldType(
+                    f"vector dim mismatch for {field.name}: got "
+                    f"{arr.shape[0]}, want {vp.dim}")
+        return vecs
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)

@@ -1,10 +1,11 @@
 """Bulk ingestion: the native tokenizer path producing a Segment directly.
 
 Port of `redisearch_tpu/index/bulk.py::bulk_add`.  TEXT fields stream
-through the C++ tokenizer (`native/bulk_indexer.cpp`, reached through
-`_host.native`, built into `native/*.so` on first use); stems are merged
-afterwards with the JAX package's `_merge_stems`; structured columns are
-vectorized numpy.  The arrays, pads and layouts are the JAX path's own;
+through the C++ tokenizer (`native/bulk_indexer.cpp`, bound by the
+port's `native.py` and built into `redisearch_tpu_torch/_build/` on first
+use); stems are merged afterwards by `_merge_stems`; structured columns
+are vectorized numpy.  `can_use_native`, `_merge_stems` and `_stage_tag`
+are copies of the JAX module's.  The arrays, pads and layouts are the JAX path's own;
 only the last step differs: they land as torch tensors on the index's
 device.  Schemas the native path does not cover fall back to the
 incremental builder, as in the JAX package.
@@ -17,16 +18,39 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from .._host import native
-from .._host.index.builder import MAX_POS_STRIDE
-from .._host.index.bulk import _merge_stems, _stage_tag, can_use_native
-from .._host.schema import FieldType
-from .._host.utils.jsonpath import get_field_value
-from .builder import SegmentBuilder
+from .. import native
+from ..schema import FieldType
+from ..utils.jsonpath import get_field_value
+from .builder import MAX_POS_STRIDE, SegmentBuilder
 from .segment import (LANE, POS_SLICE_PAD, Segment, StrColumn, TagPostings,
                       TermDict, TextPostings, build_tag_codes,
                       make_numeric_column, next_pow2, posting_pad,
                       round_up, tail_pad)
+
+
+def can_use_native(index) -> bool:
+    if not native.available():
+        return False
+    if index.schema.storage == "host":
+        # cold segments seal through the incremental builder (it keeps
+        # the CSR arrays host-resident); the native path builds device
+        # arrays directly
+        return False
+    if len(index.synonyms) > 0:
+        return False
+    if any(f.phonetic for f in index.schema.text_fields()):
+        return False
+    if any(f.nostem for f in index.schema.text_fields()):
+        # the stem post-pass merges whole postings; it cannot split a
+        # posting's freq between stemmed and NOSTEM fields
+        return False
+    if index.schema.language_field is not None:
+        return False
+    if index.schema.num_text_fields > 31:
+        # the native tokenizer packs field bits into a single int32;
+        # multi-word masks (up to 128 TEXT fields) use the Python builder
+        return False
+    return True
 
 
 def bulk_add(index, docs: Iterable[tuple[str, dict]],
@@ -97,7 +121,7 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
                 if f.sortable:
                     str_stage[f.attribute].append(joined)
             elif f.type == FieldType.GEOMETRY:
-                from .._host.utils import wkt
+                from ..utils import wkt
                 geom_stage[f.attribute].append(
                     wkt.parse(str(raw)) if raw is not None else None)
             elif f.type == FieldType.TEXT and f.sortable:
@@ -236,3 +260,122 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
         uniform_docscore=bool((ds[:n] == 1.0).all()))
     index.segments.append(seg)
     return n
+
+
+def _merge_stems(language, terms, term_offsets, doc_ids, freqs, masks,
+                 pos_offsets, positions, max_postings, max_freqs_arr):
+    """Synthesize '+stem' postings by merging raw-term postings.
+
+    Equivalent to per-token stem forward-indexing (builder.py _add_text:
+    every stemmable token also writes STEM_PREFIX+stem into the forward
+    index — reference: StemmerExpander-compatible '+term' entries): a
+    stem's posting at doc d has freq = sum of member-term freqs, field
+    mask = OR, positions = sorted union.  `max_freqs_arr` is updated in
+    place so per-doc maxTermFreq covers stem entries like the reference's
+    forward index does.
+
+    All folds are vectorized (lexsort + reduceat) — no per-posting Python.
+    """
+    from ..analysis.stemmer import Stemmer
+
+    st = Stemmer(language or "english")
+    groups: dict[str, list[int]] = {}
+    for tid, t in enumerate(terms):
+        # tokenizer MIN_STEM_CANDIDATE_LEN: only terms of >= 4 chars stem
+        if len(t) < 4 or t[0] in ("+", "\x01", "~"):
+            continue
+        s = st.stem(t)
+        if s:
+            groups.setdefault("+" + s, []).append(tid)
+    if not groups:
+        return (terms, term_offsets, doc_ids, freqs, masks, pos_offsets,
+                positions, max_postings)
+
+    stem_terms = sorted(groups)
+    to = np.asarray(term_offsets, np.int64)
+    po_all = np.asarray(pos_offsets, np.int64)
+    member_tids = np.concatenate(
+        [np.asarray(groups[s], np.int64) for s in stem_terms])
+    member_gid = np.concatenate(
+        [np.full(len(groups[s]), gi, np.int64)
+         for gi, s in enumerate(stem_terms)])
+    starts = to[member_tids]
+    lens_ = to[member_tids + 1] - starts
+    total = int(lens_.sum())
+    cum = np.concatenate([[0], np.cumsum(lens_)[:-1]])
+    idx = np.arange(total, dtype=np.int64) + np.repeat(starts - cum, lens_)
+    g_rep = np.repeat(member_gid, lens_)
+
+    order = np.lexsort((doc_ids[idx], g_rep))
+    oi = idx[order]
+    g_s = g_rep[order]
+    d_s = doc_ids[oi]
+    new_group = np.concatenate(
+        [[True], (g_s[1:] != g_s[:-1]) | (d_s[1:] != d_s[:-1])])
+    bounds = np.flatnonzero(new_group)
+    out_gid = g_s[new_group]
+    out_doc = d_s[new_group]
+    out_freq = np.add.reduceat(freqs[oi], bounds).astype(np.float32)
+    out_mask = np.bitwise_or.reduceat(masks[oi], bounds)
+
+    # positions: concatenate member position runs in (stem, doc) order,
+    # then sort within each fold group
+    p_starts = po_all[oi]
+    p_lens = po_all[oi + 1] - p_starts
+    ptotal = int(p_lens.sum())
+    pcum = np.concatenate([[0], np.cumsum(p_lens)[:-1]])
+    pidx = (np.arange(ptotal, dtype=np.int64)
+            + np.repeat(p_starts - pcum, p_lens))
+    fold_id = np.cumsum(new_group) - 1
+    fold_per_pos = np.repeat(fold_id, p_lens)
+    s_pos = positions[pidx]
+    po_order = np.lexsort((s_pos, fold_per_pos))
+    s_pos = s_pos[po_order]
+    out_pos_lens = np.add.reduceat(
+        p_lens, bounds) if len(bounds) else np.zeros(0, np.int64)
+
+    # per-doc maxTermFreq including stem entries
+    d_order = np.argsort(out_doc, kind="stable")
+    df = out_doc[d_order]
+    db = np.concatenate([[True], df[1:] != df[:-1]])
+    dmx = np.maximum.reduceat(out_freq[d_order], np.flatnonzero(db))
+    du = df[db]
+    max_freqs_arr[du] = np.maximum(max_freqs_arr[du], dmx)
+
+    stem_counts = np.bincount(out_gid, minlength=len(stem_terms))
+    new_terms = list(terms) + stem_terms
+    new_to = np.concatenate(
+        [to, to[-1] + np.cumsum(stem_counts)]).astype(term_offsets.dtype)
+    new_doc_ids = np.concatenate([doc_ids, out_doc]).astype(doc_ids.dtype)
+    new_freqs = np.concatenate([freqs, out_freq]).astype(freqs.dtype)
+    new_masks = np.concatenate([masks, out_mask]).astype(masks.dtype)
+    new_po = np.concatenate(
+        [po_all, po_all[-1] + np.cumsum(out_pos_lens)])
+    new_positions = np.concatenate([positions, s_pos]).astype(
+        positions.dtype)
+    max_postings = max(int(max_postings), int(stem_counts.max())
+                       if len(stem_counts) else 0)
+    return (new_terms, new_to, new_doc_ids, new_freqs, new_masks,
+            new_po, new_positions, max_postings)
+
+
+def _stage_tag(field, raw, local: int, stage: dict):
+    if raw is None:
+        return None
+    if isinstance(raw, (list, tuple)):
+        values = [str(v) for v in raw]
+        joined = field.separator.join(values)
+    else:
+        joined = str(raw)
+        values = [v.strip() for v in joined.split(field.separator)]
+    for v in values:
+        if v == "" and not field.indexempty:
+            continue
+        if not field.casesensitive:
+            v = v.lower()
+        lst = stage.get(v)
+        if lst is None:
+            stage[v] = [local]
+        elif lst[-1] != local:
+            lst.append(local)
+    return joined

@@ -1,33 +1,34 @@
 """SearchIndex: schema, doc table, builder, sealed segments and the batched
 query path, for the torch port.
 
-Counterpart of `redisearch_tpu/index/index.py`, on the port's main path:
+Counterpart of `redisearch_tpu/index/index.py`, for the port:
 documents stage on the host and seal on `commit()` into an immutable
 segment on the index's device; `search_many` serves a batch of queries
-through the intersection kernel, `aggregate_many` a batch of FT.AGGREGATE
-GROUPBYs through its raw mode and the group-by kernel.  Single-query
-`search()` and `aggregate()` ride the general window path in the JAX
-package and are not ported yet.
+through the intersection and phrase kernels (the general window program
+for groups neither takes), `aggregate_many` a batch of FT.AGGREGATE
+GROUPBYs; single-query `search()` and `aggregate()` ride the general
+window program.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, Iterable, Optional
 
 import numpy as np
 import torch
 
-from .._host.analysis.stopwords import StopWordList
-from .._host.analysis.synonyms import SynonymMap
-from .._host.index.doctable import DocTable
-from .._host.query import ast
-from .._host.query.parser import QueryParser
-from .._host.schema import FieldType, Schema
-from .._host.utils import log as _log
-from .._host.utils.errors import IndexError_
-from ..query.engine import CompiledQuery, QueryOptions, execute_batch
+from ..analysis.stopwords import StopWordList
+from ..analysis.synonyms import SynonymMap
+from ..index.doctable import DocTable
+from ..query import ast
+from ..query.parser import QueryParser
+from ..schema import FieldType, Schema
+from ..utils import log as _log
+from ..utils.errors import IndexError_, TimeoutError_
+from ..query.engine import (CompiledQuery, QueryOptions, execute,
+                            execute_batch)
 from .builder import SegmentBuilder
 from .segment import Segment
 
@@ -81,7 +82,11 @@ class SearchIndex:
         self.synonyms = SynonymMap()
         self.segments: list[Segment] = []
         self._builder = self._new_builder()
-        self.stats = {"indexing_errors": 0}
+        self.stats = {"indexing_errors": 0, "queries": 0}
+        # query timeout (ms, 0 = none) and its policy: return | fail |
+        # return_strict (reference: TIMEOUT / ON_TIMEOUT)
+        self.timeout_ms = 0
+        self.on_timeout = "return"
         self.index_errors = {"count": 0, "last_error": None,
                              "last_error_key": None, "by_field": {}}
         self.on_oom = "ignore"       # ignore | return | fail
@@ -204,7 +209,7 @@ class SearchIndex:
         for c in list(node.children()):
             resolved = self._d1_resolve_fields(c)
             if resolved is not c:
-                from .._host.query.parser import _replace_child
+                from ..query.parser import _replace_child
                 _replace_child(node, c, resolved)
         return node
 
@@ -254,17 +259,150 @@ class SearchIndex:
         view.opts = vo
         return view
 
-    def search(self, query: str, *args, **kwargs) -> SearchResult:
-        """Single-query FT.SEARCH rides the general window path."""
-        raise NotImplementedError(
-            "single-query search() is not ported yet (ROADMAP A6); "
-            "use search_many()")
+    def search(
+        self,
+        query: str,
+        params: Optional[dict] = None,
+        offset: int = 0,
+        num: int = 10,
+        scorer: str = "BM25STD",
+        sort_by: Optional[str] = None,
+        sort_asc: bool = True,
+        slop: int = -1,
+        inorder: bool = False,
+        verbatim: bool = False,
+        language: Optional[str] = None,
+        no_content: bool = False,
+        return_fields: Optional[Iterable[str]] = None,
+        dialect: int = 2,
+        max_expansions: Optional[int] = None,
+        payload: Optional[bytes] = None,
+        in_keys: Optional[Iterable[str]] = None,
+        in_fields: Optional[Iterable[str]] = None,
+        tanh_factor: float = 4.0,
+        expander: str = "",
+        nostopwords: bool = False,
+    ) -> SearchResult:
+        """FT.SEARCH: one query through the general window program
+        (`query.engine.execute`) on every segment, then the merge by
+        score (or sort key) and doc id.  in_keys/in_fields mirror
+        INKEYS/INFIELDS.  The HAMMING scorer and registered custom
+        scorers are not ported yet."""
+        self.commit()
+        self.stats["queries"] += 1
+        oom = self._check_oom()
+        if oom is not None:
+            return oom
+        from .. import ext as _ext
+        if scorer == "HAMMING" or _ext.is_custom_scorer(scorer):
+            raise NotImplementedError(
+                f"the {scorer} scorer is not ported yet (ROADMAP A13)")
+        del payload          # read only by the HAMMING scorer
+        opts = QueryOptions(
+            scorer=scorer, k=offset + num, sort_field=sort_by,
+            sort_asc=sort_asc, slop=slop, inorder=inorder,
+            verbatim=verbatim, now=int(time.time()),
+            language=language or self.schema.language,
+            in_fields=tuple(in_fields) if in_fields else None,
+            tanh_factor=tanh_factor, expander=expander,
+            nostopwords=nostopwords)
+        if max_expansions:
+            opts.max_expansions = max_expansions
+        cq = self.prepare(query, params, opts, dialect)
+        k = max(offset + num, 1)
+        deadline = (time.perf_counter() + self.timeout_ms / 1e3
+                    if self.timeout_ms else None)
+        warnings: list[str] = []
+        merged: list[tuple] = []   # (rank, gid, score, sortkey, segment)
+        total = 0
+        inkey_gids = None
+        if in_keys is not None:
+            # INKEYS: restrict to the given keys, as an extra doc mask
+            metas = (self.doctable.get_by_key(k2) for k2 in in_keys)
+            inkey_gids = np.array(sorted(m.gid for m in metas
+                                         if m is not None and not m.deleted),
+                                  np.int64)
+        for seg in self.segments:
+            if deadline is not None and time.perf_counter() > deadline:
+                # the reference's ON_TIMEOUT policies
+                if self.on_timeout == "fail":
+                    raise TimeoutError_("Timeout limit was reached")
+                if self.on_timeout == "return_strict" and not merged:
+                    raise TimeoutError_("Timeout limit was reached")
+                warnings.append("Timeout limit was reached")
+                break
+            emask = (np.isin(seg.gids_host, inkey_gids)
+                     if inkey_gids is not None else None)
+            res = execute(cq, seg, k, extra_mask=emask)
+            for w in res.warnings:
+                if w not in warnings:
+                    warnings.append(w)
+            total += res.count
+            gids = seg.gids_host
+            for j in range(min(k, res.local_idx.shape[0])):
+                li = int(res.local_idx[j])
+                sc = float(res.scores[j])
+                if sort_by is not None:
+                    kv = float(res.sortkeys[j])
+                    if abs(kv) >= 3.3e38:
+                        continue
+                    if abs(kv) >= 2.9e38:
+                        # missing-sort-value sentinel: the doc matches but
+                        # ranks last in either direction
+                        rank = (1, 0.0)
+                    else:
+                        # string sort keys are per-segment dictionary
+                        # ranks: rank on the resolved string instead
+                        resolved = self._resolve_sortkey(seg, sort_by, kv)
+                        if isinstance(resolved, str):
+                            rank = (0, resolved if sort_asc
+                                    else tuple(-ord(c) for c in resolved))
+                        else:
+                            rank = (0, kv if sort_asc else -kv)
+                else:
+                    if sc <= -3.3e38:
+                        continue
+                    rank = -sc
+                merged.append((rank, int(gids[li]), sc,
+                               float(res.sortkeys[j])
+                               if res.sortkeys is not None else None, seg))
+        merged.sort(key=lambda x: (x[0], x[1]))
+        hits = []
+        for _rank, gid, sc, skey, seg in merged[offset:offset + num]:
+            meta = self.doctable.get(gid)
+            if meta is None or meta.deleted:
+                continue
+            fields = None
+            if not no_content:
+                if return_fields:
+                    fields = {f: meta.fields.get(f) for f in return_fields
+                              if f in meta.fields}
+                else:
+                    fields = dict(meta.fields)
+            sortkey = None
+            if (skey is not None and sort_by is not None
+                    and abs(skey) < 2.9e38):   # missing-value sentinel
+                sortkey = self._resolve_sortkey(seg, sort_by, skey)
+            hits.append(Hit(meta.key, sc, fields=fields, sortkey=sortkey,
+                            gid=gid, payload=meta.payload))
+        out = SearchResult(total=total, hits=hits, query_ast=cq.root)
+        out.warnings = warnings
+        return out
+
+    def _resolve_sortkey(self, seg: Segment, field: str, keyval: float):
+        f = self.schema.field(field)
+        if f.type == FieldType.NUMERIC:
+            return keyval
+        sc = seg.strcols.get(f.attribute)
+        if sc is not None and 0 <= int(keyval) < len(sc.table):
+            return sc.table[int(keyval)]
+        return keyval
 
     def aggregate(self, req):
-        """Single-request FT.AGGREGATE rides the general window path."""
-        raise NotImplementedError(
-            "single-request aggregate() is not ported yet (ROADMAP A6); "
-            "use aggregate_many()")
+        """FT.AGGREGATE (agg.pipeline.run_aggregate): `req` is an
+        agg.pipeline.AggregateRequest."""
+        from ..agg.pipeline import run_aggregate
+        return run_aggregate(self, req)
 
     def aggregate_many(self, reqs: list) -> list:
         """Batched FT.AGGREGATE (agg.pipeline.run_aggregate_many): `reqs`

@@ -2,10 +2,11 @@
 
 Counterpart of `redisearch_tpu/index/segment.py`.  The host dataclasses
 (`TermDict`, `TextPostings`, `TagPostings`, `NumericColumn`,
-`StrColumn`) and the pad helpers are the JAX package's own, reached
-through `_host`; their array fields hold torch tensors here.  Every pad
-and array layout is identical to the JAX segment, so a window bucket or a
-posting offset means the same thing in both packages.
+`StrColumn`) and the pad helpers are copies of the JAX package's (that
+module tries `import jax.numpy`; this one does not); their array fields
+hold torch tensors here.  Every pad and array layout is identical to the
+JAX segment, so a window bucket or a posting offset means the same thing
+in both packages.
 
 The planner reads only host state: the term dictionary, the `*_np`
 mirrors of the CSR offsets, and the numpy mirrors this segment keeps of
@@ -22,22 +23,190 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .._host.index.segment import (  # noqa: F401  (re-exported)
-    KERNEL_ROW_PAD,
-    LANE,
-    POS_SLICE_PAD,
-    NumericColumn,
-    StrColumn,
-    TagPostings,
-    TermDict,
-    TextPostings,
-    mask_words,
-    next_pow2,
-    pack_mask_words,
-    posting_pad,
-    round_up,
-    tail_pad,
-)
+# Lane width of the TPU VPU; all ragged arrays are padded to a multiple.
+LANE = 128
+
+
+def round_up(x: int, m: int) -> int:
+    return max(((x + m - 1) // m) * m, m)
+
+
+# SLICE guarantee: device posting arrays carry a tail pad so that the
+# engine's `dynamic_slice(arr, start, W)` window reads never clamp
+# (start <= real length, W <= the pad).  ops/window.py relies on this.
+# Position keys cap their pad (and the engine caps the P bucket) at
+# POS_SLICE_PAD.  Terms with more positions than this stay EXACT in
+# phrase windows via slow paths (engine.py _phrase_chain_pivot): member
+# terms probe the CSR by dynamic binary search; an oversized pivot scans
+# its run in POS_SLICE_PAD chunks into a dense doc accumulator.  A
+# warning surfaces on SearchResult.warnings when either path engages.
+POS_SLICE_PAD = 262144
+
+
+def tail_pad(arr: np.ndarray, extra: int, fill=0) -> np.ndarray:
+    out = np.full((arr.shape[0] + extra,) + arr.shape[1:], fill, arr.dtype)
+    out[:arr.shape[0]] = arr
+    return out
+
+
+# The Pallas kernels (ops/intersect.py) DMA whole 128-lane ROWS: a
+# window starting at `start` reads rows [start//128, start//128 +
+# W//128 + R_EXTRA).  Beyond the XLA SLICE guarantee (start + W <= len)
+# that reaches up to (R_EXTRA + 1) * 128 elements further — without
+# this extra pad a window near the array tail makes the row copy clamp
+# (dynamic-slice semantics), silently SHIFTING the window data against
+# the kernel's start%128 offset and dropping/corrupting matches.
+KERNEL_ROW_PAD = 9 * LANE
+
+
+def posting_pad(n: int, cap: int) -> int:
+    """Tail-pad size for kernel-readable posting arrays: the SLICE
+    guarantee (`cap` >= any window bucket) plus the kernel row-DMA
+    overhang, rounded so the padded length is whole 128-lane rows."""
+    extra = cap + KERNEL_ROW_PAD
+    return extra + (-(n + extra)) % LANE
+
+
+def mask_words(n_text_fields: int) -> int:
+    """int32 words per field mask (reference t_fieldMask is 128-bit:
+    up to 4 words; single-word masks keep the flat fast path)."""
+    return max(1, -(-n_text_fields // 32))
+
+
+def pack_mask_words(masks, K: int) -> np.ndarray:
+    """Pack python-int field masks into K int32 words.
+
+    Returns int32[n] when K == 1 (bit 31 wraps through uint32 so a
+    32-field mask still fits one word), else int32[n, K]."""
+    a = np.asarray(
+        [[(int(m) >> (32 * j)) & 0xFFFFFFFF for j in range(K)]
+         for m in masks], dtype=np.uint64).reshape(-1, K)
+    out = a.astype(np.uint32).view(np.int32)
+    return out[:, 0] if K == 1 else out
+
+
+def next_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p <<= 1
+    return p
+
+
+@dataclasses.dataclass
+class TermDict:
+    """Host-side term dictionary (reference: terms Trie, src/trie/).
+
+    On TPU the dictionary stays host-side (SURVEY.md §7.3): lookups are hash
+    probes, and prefix/suffix/fuzzy expansion scans the sorted term list.
+    """
+
+    ids: dict[str, int]
+    terms: list[str]                    # id -> term
+    doc_freq: np.ndarray                # int32[n_terms]
+    _sorted: Optional[list[str]] = None
+
+    def lookup(self, term: str) -> int:
+        return self.ids.get(term, -1)
+
+    @property
+    def sorted_terms(self) -> list[str]:
+        if self._sorted is None:
+            self._sorted = sorted(self.ids)
+        return self._sorted
+
+    def __len__(self) -> int:
+        return len(self.terms)
+
+
+@dataclasses.dataclass
+class TextPostings:
+    """CSR postings over all TEXT terms of a segment.
+
+    Reference: InvertedIndex<E> blocks (inverted_index/src/index/core.rs:31)
+    — here one flat strided layout for the whole segment.
+    """
+
+    term_offsets: Any   # int32[n_terms+1] into the nnz axis
+    doc_ids: Any        # int32[nnz_pad] local doc ids (ascending per term)
+    freqs: Any          # float32[nnz_pad] field-weighted term frequency
+    field_masks: Any    # int32[nnz_pad] bitmask of TEXT fields (<=32 round1)
+    # per-posting doc length (the BM25/DOCNORM norm operand) — replicated
+    # into posting order so scoring windows slice it contiguously instead
+    # of paying an arbitrary-index doclen gather (~30M elem/s on TPU)
+    doclens: Any        # float32[nnz_pad]
+    pos_offsets: Any    # int32[nnz_pad+1] into poskeys
+    poskeys: Any        # int32[npos_pad] = local_doc * pos_stride + position
+    pos_stride: int     # power of two >= max positions tracked per doc
+    nnz: int
+    max_postings: int   # longest posting list (gather bucket upper bound)
+    # True when any position was clamped at pos_stride - 1 (docs longer
+    # than the stride cap): the phrase equality-join formulation and the
+    # anchor chain judge clamped keys differently, so the engine keeps
+    # the chain kernel on such segments (ops/intersect.py phrase_batch)
+    pos_clamped: bool = False
+    term_offsets_np: Optional[np.ndarray] = None  # host mirror for planning
+    pos_offsets_np: Optional[np.ndarray] = None   # host mirror for planning
+
+
+@dataclasses.dataclass
+class TagPostings:
+    """CSR doc-id postings per TAG value (reference: src/tag_index.c)."""
+
+    ids: dict[str, int]          # tag value -> tag id (host-side dict)
+    values: list[str]            # tag id -> value
+    offsets: Any                 # int32[n_tags+1]
+    doc_ids: Any                 # int32[nnz_pad]
+    nnz: int
+    max_postings: int
+    offsets_np: Optional[np.ndarray] = None       # host mirror for planning
+    # Dense doc-aligned value-id column (int32[n_pad], -1 = no value),
+    # built only when every doc carries <= 1 value for this field: tag
+    # *predicates* then check `codes[doc] == qcode` per candidate instead
+    # of block-gathering the value's posting window (the [Q,128] row-DMA
+    # membership costs ~7 ns/element; the code compare is one gather per
+    # candidate).  Multi-valued fields keep the posting-window member path.
+    codes: Any = None
+    _sorted: Optional[list[str]] = None
+
+    @property
+    def sorted_values(self) -> list[str]:
+        if self._sorted is None:
+            self._sorted = sorted(self.ids)
+        return self._sorted
+
+
+@dataclasses.dataclass
+class NumericColumn:
+    """Dense numeric column (replaces the numeric range tree).
+
+    `sorted_*` is the value-sorted permutation: the numeric *generator*
+    path — a range [lo, hi] is a contiguous run in sorted order found by
+    searchsorted, the batch-at-a-time analog of a range-tree leaf scan
+    (reference: numeric_range_tree).  Missing docs sort last with doc id
+    INT32_MAX so a window gather yields valid sorted candidates.
+    """
+
+    values: Any    # float32[n_pad] (first value — SORTBY key)
+    present: Any   # bool[n_pad]
+    sorted_vals: Any = None   # float32 ascending over ALL (value,doc) pairs
+    sorted_docs: Any = None   # int32 doc ids in value order (dups if multi)
+    sorted_vals_np: Any = None  # host mirror for bind-time searchsorted
+    # JSON multi-value support (reference: multi-value numeric fields index
+    # every array element into the range tree): dense [n_pad, V] matrix for
+    # the predicate path; the sorted permutation above holds every pair so
+    # range *generator* windows see all values (deduped on device).
+    multi_values: Any = None   # float32[n_pad, V]
+    multi_present: Any = None  # bool[n_pad, V]
+    multi: bool = False
+
+
+@dataclasses.dataclass
+class StrColumn:
+    """Dictionary-encoded string column for SORTBY/GROUPBY on TAG/TEXT."""
+
+    value_ids: Any        # int32[n_pad]; -1 = missing
+    table: list[str]      # value id -> string
+    order: Any            # int32[n_pad]: rank of value in lexicographic order
 
 
 def make_numeric_column(col_with_nan: np.ndarray, n: int, device,
@@ -165,6 +334,17 @@ class Segment:
             self._pcode_cache[attr] = cached
         return cached
 
+    def sort_columns(self, attr: str):
+        """(f32 rank key, present) of a sortable TAG/TEXT column, the
+        window program's SORTBY operands; built once, then cached."""
+        key = ("sort", attr)
+        cached = self._pcode_cache.get(key)
+        if cached is None:
+            sc = self.strcols[attr]
+            cached = (sc.order.to(torch.float32), sc.value_ids >= 0)
+            self._pcode_cache[key] = cached
+        return cached
+
     @property
     def gids_host(self) -> np.ndarray:
         return self.gids_np
@@ -210,5 +390,6 @@ class Segment:
         for m in self.missing.values():
             acc(m)
         for p in self._pcode_cache.values():
-            acc(p)
+            for t in (p if isinstance(p, tuple) else (p,)):
+                acc(t)
         return sum(seen.values())

@@ -30,28 +30,34 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xptxas", "-v"]
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: argument types of each library's launch function
+#: each library's launch functions and their argument types
 _LAUNCH = {
-    "intersect": ("rs_intersect_launch", [
+    "intersect": [("rs_intersect_launch", [
         _vp, _i32, _vp, _i32,                      # meta, fmeta
         _vp, _vp, _vp, _vp, _i64,                  # postings, n_post
         ctypes.POINTER(_vp), ctypes.POINTER(_i64),  # aux ptrs / lens
         _vp,                                       # plan (host)
         _vp, _vp, _vp, _i32,                       # outputs, out_cols
         _vp, _vp, _i32,                            # scratch, scr_cols
-        _i32, _i32, _vp]),                         # B, grid, stream
-    "groupby": ("rs_groupby_launch", [
+        _i32, _i32, _vp])],                        # B, grid, stream
+    "groupby": [("rs_groupby_launch", [
         _vp, _vp, _vp,                             # gslots, vals, out
         _i32, _i32, _i64,                          # B, S, n
         _i32, _i32,                                # G_pad, want_sumsq
         _i32, _i32, _vp]),                         # grid, use_smem, stream
-    "phrase": ("rs_phrase_launch", [
+        ("rs_gb_sums_launch", [
+            _vp, _vp, _vp, _i64, _i32,             # gids, vals, out, n, G_pad
+            _i32, _i32, _vp]),                     # grid, use_smem, stream
+        ("rs_gb_minmax_launch", [
+            _vp, _vp, _vp, _vp, _i64, _i32,        # gids, vals, out, nan, n,
+            _i32, _i32, _vp])],                    # G_pad, grid, smem, stream
+    "phrase": [("rs_phrase_launch", [
         _vp, _vp,                                  # meta, fmeta
         _vp, _vp, _vp, _vp, _i64,                  # postings, n_post
         _vp, _i64,                                 # poskeys, n_keys
         _vp,                                       # params (host)
         _vp, _vp, _vp, _vp,                        # outputs, scratch
-        _i32, _vp]),                               # grid, stream
+        _i32, _vp])],                              # grid, stream
 }
 
 _lock = threading.Lock()
@@ -125,10 +131,10 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         lib = ctypes.CDLL(build_all((name,))[name])
-        fn_name, argtypes = _LAUNCH[name]
-        fn = getattr(lib, fn_name)
-        fn.restype = _i32
-        fn.argtypes = argtypes
+        for fn_name, argtypes in _LAUNCH[name]:
+            fn = getattr(lib, fn_name)
+            fn.restype = _i32
+            fn.argtypes = argtypes
         lib.rs_cuda_error_string.restype = ctypes.c_char_p
         lib.rs_cuda_error_string.argtypes = [_i32]
         _libs[name] = lib

@@ -1,26 +1,34 @@
-"""Query planner and batched executor for the torch port.
+"""Query planner and executors for the torch port.
 
 Counterpart of `redisearch_tpu/query/engine.py`.  That file imports jax,
-so its host-only planner cannot be shared through `_host`; the planner
-below is a copy of it, kept as it is so that a query binds to the same
-slots, window buckets and transport rows in both packages (a test pins
-the rows byte for byte):
+so the port keeps its own copy of the host-side planner, kept as it is so
+that a query binds to the same slots, window buckets and transport rows
+in both packages (a test pins the rows byte for byte):
 
 * the leaf classes, `QueryOptions`, `SegmentBinding` and `CompiledQuery`
   with `bind` / `bind_row`;
-* `_kernel_plan` and `_kernel_seg_ok`, `_layout_of` and `_pack_into`, and
-  the slop-scorer helpers `bind` consults.
+* `_kernel_plan` and `_kernel_seg_ok`, `_kernel_plan_phrase`,
+  `_layout_of` and `_pack_into`, and the slop-scorer helpers `bind`
+  consults.
 
 Two spots differ: the BM25 avgdl fallback reads the segment's host
 mirror of the doc lengths, and `decode_blob` (vector payloads) raises
 "not ported yet".
 
-The executor is the kernel branch of the JAX executor: `execute_batch`
--> `_prep_subs` (bind rows, group by structure and buckets) ->
-`_KernelExecutor.run` (one upload of the group's rows, unpack on the
-device, `ops.intersect.intersect_batch`, phase merge with `iter_topk`)
--> `_BatchHandle.result`.  A group the kernel does not serve raises
-`NotImplementedError`; the general window path is ROADMAP A6.
+Executors:
+
+* batched, `execute_batch` -> `_prep_subs` (bind rows, group by
+  structure and buckets) -> `_rows_executor`: the intersection kernel
+  (`_KernelExecutor`), else the phrase kernel (`_PhraseExecutor`), else
+  the general window program once per query (`_WindowExecutor`) ->
+  `_BatchHandle.result`;
+* single, `execute` -> the general window program (`_build_fn`, a plain
+  function over device tensors, cached per signature in
+  `_PROGRAM_CACHE`), in mode "topk" (FT.SEARCH) or "window" (the
+  aggregation source).
+
+GEO and vector fields, KNN payloads and cold segments are refused
+before they reach an executor (the builder, `bind`).
 """
 
 from __future__ import annotations
@@ -33,14 +41,15 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .._host.analysis.stemmer import Stemmer
-from .._host.query import ast, expand
-from .._host.schema import FieldType, Schema
-from .._host.utils import wkt
-from .._host.utils.errors import (FieldNotFound, QuerySyntaxError,
-                                  WrongFieldType)
+from ..analysis.stemmer import Stemmer
+from ..query import ast, expand
+from ..schema import FieldType, Schema
+from ..utils import wkt
+from ..utils.errors import FieldNotFound, QuerySyntaxError, WrongFieldType
 from ..index.segment import Segment, next_pow2
 from ..ops import intersect as IK
+from ..ops import text as T
+from ..ops import window as WIN
 
 # ---------------------------------------------------------------------------
 # IR (static structure — everything here keys the compile cache)
@@ -234,7 +243,7 @@ class CompiledQuery:
                 if self.schema.try_field(a)
             ) if node.fieldmask_attrs else any(
                 f.phonetic for f in self.schema.text_fields())
-            from .._host import ext as _ext
+            from .. import ext as _ext
             custom = _ext.get_expander(self.opts.expander)
             if custom is not None and not (node.verbatim
                                            or self.opts.verbatim):
@@ -1206,15 +1215,19 @@ def decode_blob(raw, field) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 #: how many batched queries rode which executor family (callers reset it)
-QUERY_PATH_STATS: dict[str, int] = {"kernel": 0, "phrase-kernel": 0}
+QUERY_PATH_STATS: dict[str, int] = {"kernel": 0, "phrase-kernel": 0,
+                                    "window": 0}
 
 
 @dataclasses.dataclass
 class SegmentResult:
     """One query's outputs for one segment, on the host."""
-    local_idx: np.ndarray      # int32[k]
+    local_idx: np.ndarray      # int32[k] (window mode: the window's docs)
     scores: np.ndarray         # float32[k] (NEG_INF for an empty tail)
     count: int                 # total matching docs
+    sortkeys: Optional[np.ndarray] = None   # SORTBY keys of the lanes
+    valid: Optional[np.ndarray] = None   # window mode: bool per window slot
+    warnings: tuple = ()                 # bind-time notices
 
 
 class _BatchHandle:
@@ -1378,11 +1391,37 @@ class _PhraseExecutor:
         return {"idx": idx, "scores": vals, "count": count}
 
 
+class _WindowExecutor:
+    """One batch group on the general window program (the JAX executor's
+    last branch, `_rows_executor` without a kernel plan): one upload of
+    the group's rows, unpacked on the device, then the program once per
+    query (the JAX package's `lax.scan`), `min(k, k_pad)` lanes each."""
+
+    path = "window"
+
+    def __init__(self, layout: list, program, ke: int):
+        self.layout = layout
+        self.program = program
+        self.ke = ke
+
+    def run(self, seg_args: dict, rows_np: np.ndarray) -> dict:
+        """Returns device tensors {"idx" [B, ke], "scores" [B, ke],
+        "count" [B] (, "sortkeys" [B, ke])}."""
+        rows = torch.from_numpy(rows_np).to(seg_args["doc_ids"].device)
+        stacked = _device_unpack_rows(self.layout, rows)
+        outs = []
+        for i in range(rows.shape[0]):
+            out = self.program(seg_args,
+                               {kk: vv[i] for kk, vv in stacked.items()})
+            outs.append({kk: (vv[:self.ke] if vv.dim() == 1 else vv)
+                         for kk, vv in out.items()})
+        return {kk: torch.stack([o[kk] for o in outs]) for kk in outs[0]}
+
+
 def _rows_executor(cq0: CompiledQuery, ent: tuple, seg: Segment, k: int):
     """The executor of one batch group: the intersection kernel, else
-    the phrase kernel; groups neither serves raise instead of falling
-    back."""
-    _static, _patches, layout, _total, bk, _P2, _gsig, _lfp = ent
+    the phrase kernel, else the general window program."""
+    _static, _patches, layout, _total, bk, P2, _gsig, _lfp = ent
     k_pad = int(min(next_pow2(max(k, 1)), seg.n_pad))
     kplan = _kernel_plan(cq0, seg, bk, k_pad)
     if kplan is not None:
@@ -1390,12 +1429,8 @@ def _rows_executor(cq0: CompiledQuery, ent: tuple, seg: Segment, k: int):
     pplan = _kernel_plan_phrase(cq0, seg, bk, k_pad)
     if pplan is not None:
         return _PhraseExecutor(layout, pplan, k_pad, min(k, k_pad))
-    what = ("phrases outside the phrase kernel's shapes (unordered slop, "
-            "more than 4 terms, ultra-common terms)"
-            if cq0._phrase_leaves(cq0.tree)
-            else "queries outside the intersection kernel's shapes")
-    raise NotImplementedError(
-        f"not ported yet: {what} — the general window path (ROADMAP A6)")
+    return _WindowExecutor(layout, _program(cq0, seg, bk, P2, k_pad, False,
+                                            "topk"), min(k, k_pad))
 
 
 def _kernel_batched_inputs(stacked, seg_args_, descs, aux_keys, dmeta):
@@ -1453,17 +1488,41 @@ def _device_unpack_rows(layout: list, rows: torch.Tensor) -> dict:
     return d
 
 
+def _tag_codes_ords(cq: CompiledQuery, seg: Segment) -> tuple:
+    """Tag ords whose field has the dense value-id column on this segment
+    (single-valued TAG fields): the window program's predicate for them
+    is a per-candidate code compare instead of posting-window
+    membership."""
+    out = []
+    for j, node in enumerate(cq.tag_nodes):
+        tp = seg.tags.get(cq.schema.field(node.field).attribute)
+        if tp is not None and tp.codes is not None:
+            out.append(j)
+    return tuple(out)
+
+
 def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
-    """The device arrays the kernels read: text postings and position
-    keys, and per TAG leaf its doc postings and posting-aligned codes."""
+    """The device arrays the kernels and the window program read (the JAX
+    function's, without vector and GEO columns): postings, position keys,
+    per-doc columns, per TAG leaf its doc postings and codes, per NUMERIC
+    leaf its columns, field TTL columns, the missing-field columns and the
+    SORTBY column."""
     args = {
+        "gids": seg.gids,
         "doc_ids": seg.text.doc_ids,
         "freqs": seg.text.freqs,
         "field_masks": seg.text.field_masks,
         "posting_dl": seg.text.doclens,
         "pos_offsets": seg.text.pos_offsets,
         "poskeys": seg.text.poskeys,
+        "alive": seg.alive,
+        "doclen": seg.doclen,
+        "max_freq": seg.max_freq,
+        "docscore": seg.docscore,
+        "expire_at": seg.expire_at,
     }
+    if seg.text_fexp is not None:
+        args["text_fexp"] = seg.text_fexp
     for j, node in enumerate(cq.tag_nodes):
         attr = cq.schema.field(node.field).attribute
         tp = seg.tags.get(attr)
@@ -1471,7 +1530,811 @@ def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
             tp.doc_ids if tp is not None
             else torch.zeros(1, dtype=torch.int32, device=seg.device))
         if tp is not None and tp.codes is not None:
+            args[f"tag{j}_codes"] = tp.codes
             pc = seg.tag_pcodes(attr)
             if pc is not None:
                 args[f"tag{j}_pcodes"] = pc
+    for leaf, _idx in cq.leaves():
+        if (isinstance(leaf, (LTag, LNumeric))
+                and leaf.field in seg.field_fexp):
+            kind = "tag" if isinstance(leaf, LTag) else "num"
+            args[f"{kind}{leaf.ord}_fexp"] = seg.field_fexp[leaf.field]
+        if isinstance(leaf, LMissing):
+            if leaf.field in seg.field_fexp:
+                args[f"has_{leaf.field}_fexp"] = seg.field_fexp[leaf.field]
+            elif seg.text_fexp is not None:
+                fld = cq.schema.try_field(leaf.field)
+                if fld is not None and fld.type == FieldType.TEXT:
+                    args[f"has_{leaf.field}_fexp"] = \
+                        seg.text_fexp[:, fld.field_id]
+            args[f"has_{leaf.field}"] = seg.missing[leaf.field]
+        if isinstance(leaf, LNumeric):
+            col = seg.numerics[leaf.field]
+            args[f"num{leaf.ord}_v"] = col.values
+            args[f"num{leaf.ord}_p"] = col.present
+            args[f"num{leaf.ord}_sd"] = (
+                col.sorted_docs if col.sorted_docs is not None
+                else torch.zeros(1, dtype=torch.int32, device=seg.device))
+            if col.multi:
+                args[f"num{leaf.ord}_mv"] = col.multi_values
+                args[f"num{leaf.ord}_mp"] = col.multi_present
+    if cq.opts.sort_field:
+        f = cq.schema.field(cq.opts.sort_field)
+        if f.type == FieldType.NUMERIC:
+            col = seg.numerics[f.attribute]
+            args["sort_v"] = col.values
+            args["sort_p"] = col.present
+        elif f.attribute in seg.strcols:
+            args["sort_v"], args["sort_p"] = seg.sort_columns(f.attribute)
+        else:
+            raise FieldNotFound(
+                f"SORTBY field {f.attribute} is not sortable")
     return args
+
+
+# ---------------------------------------------------------------------------
+# The general window program (the JAX package's `_build_fn`)
+# ---------------------------------------------------------------------------
+
+#: built window programs by signature (the JAX package's `_COMPILE_CACHE`
+#: for this path): a repeated shape does no planning twice
+_PROGRAM_CACHE: dict[str, Any] = {}
+
+
+def _seg_sig(cq: CompiledQuery, seg: Segment) -> str:
+    """The segment state a window program's structure depends on."""
+    return (f"n={seg.n_pad}|stride={seg.text.pos_stride}"
+            f"|tc={_tag_codes_ords(cq, seg)}"
+            f"|d={seg.n_deleted > 0}|t={seg.has_ttl}"
+            f"|u={seg.uniform_docscore}"
+            f"|ft={seg.text_fexp is not None}:{sorted(seg.field_fexp)}")
+
+
+def _program(cq: CompiledQuery, seg: Segment, buckets: dict, P: int,
+             k_pad: int, has_extra: bool, mode: str):
+    """The cached window program of (query structure, buckets, segment
+    state, k, mode)."""
+    sig = cq.signature(f"{_seg_sig(cq, seg)}|extra={has_extra}|mode={mode}",
+                       buckets, P, k_pad)
+    fn = _PROGRAM_CACHE.get(sig)
+    if fn is None:
+        fn = _build_fn(cq, seg, buckets, P, k_pad, has_extra, mode)
+        if len(_PROGRAM_CACHE) > 4096:
+            _PROGRAM_CACHE.clear()
+        _PROGRAM_CACHE[sig] = fn
+    return fn
+
+
+def _device_unpack(layout: list, buf: torch.Tensor) -> dict:
+    """Unpack one int32 transport row on its device (the 1-row case of
+    `_device_unpack_rows`)."""
+    return {kk: vv[0]
+            for kk, vv in _device_unpack_rows(layout, buf[None, :]).items()}
+
+
+def _pack_out(out: dict):
+    """All outputs as ONE int32 device tensor (floats as bit patterns,
+    bools as 0/1) and its layout, so that a call costs one copy."""
+    parts, layout, off = [], [], 0
+    for key in sorted(out):
+        a = out[key]
+        flat = a.reshape(-1)
+        if flat.dtype == torch.bool:
+            kind, flat = "bool", flat.to(torch.int32)
+        elif flat.is_floating_point():
+            kind, flat = "float32", flat.to(torch.float32).view(torch.int32)
+        else:
+            kind, flat = "int32", flat.to(torch.int32)
+        layout.append((key, off, flat.shape[0], tuple(a.shape), kind))
+        off += flat.shape[0]
+        parts.append(flat)
+    return torch.cat(parts), layout
+
+
+def _unpack_out(flat: np.ndarray, layout: list) -> dict:
+    out = {}
+    for key, o, n, shape, kind in layout:
+        v = flat[o:o + n]
+        if kind == "float32":
+            v = v.view(np.float32)
+        elif kind == "bool":
+            v = v.astype(bool)
+        out[key] = v.reshape(shape) if shape else v[0]
+    return out
+
+
+def execute(cq: CompiledQuery, seg: Segment, k: int,
+            extra_mask: Optional[np.ndarray] = None,
+            mode: str = "topk") -> SegmentResult:
+    """Run a compiled query against one segment on the window program.
+
+    mode "topk": the top k by score or sort key (FT.SEARCH).  mode
+    "window": the candidate window (docs, valid, scores) with no top-k,
+    the aggregation source.  The dynamic state crosses to the device as
+    one int32 row and the outputs come back as one tensor."""
+    binding, P = cq.bind(seg)
+    dyn = binding.dyn
+    dyn.pop("_tagL", None)
+    buckets = dyn.pop("_buckets")
+    if extra_mask is not None:
+        dyn["extra_mask"] = extra_mask
+    k_pad = int(min(next_pow2(max(k, 1)), seg.n_pad))
+    fn = _program(cq, seg, buckets, P, k_pad, extra_mask is not None, mode)
+    layout, total = _layout_of(dyn)
+    buf = _pack_into(layout, dyn, np.zeros(total, np.int32))
+    dev_dyn = _device_unpack(layout, torch.from_numpy(buf).to(seg.device))
+    flat, out_layout = _pack_out(fn(_segment_args(cq, seg), dev_dyn))
+    out = _unpack_out(flat.cpu().numpy(), out_layout)
+    if mode == "window":
+        return SegmentResult(local_idx=out["docs"], scores=out["score"],
+                             count=int(out["count"]), valid=out["valid"],
+                             warnings=binding.warnings)
+    return SegmentResult(local_idx=out["idx"], scores=out["scores"],
+                         count=int(out["count"]),
+                         sortkeys=out.get("sortkeys"),
+                         warnings=binding.warnings)
+
+
+def _can_gen(t) -> bool:
+    """Static: can this subtree evaluate as a candidate *window*
+    (generator), or only as a membership predicate (not/opt)?"""
+    tag = t[0]
+    if tag == "leaf":
+        return isinstance(t[1], (LTerms, LPhrase, LTag, LNumeric,
+                                 LAll, LNone))
+    if tag == "and":
+        return any(_can_gen(c) for c in t[1])
+    if tag in ("or", "dismax"):
+        return all(_can_gen(c) for c in t[1])
+    return False  # not/opt are predicates
+
+
+def _gen_bucket(t, buckets: dict, n_pad: int) -> int:
+    """Static width bound of a subtree's generator output window (the
+    pivot choice of an AND)."""
+    tag = t[0]
+    if tag == "leaf":
+        leaf, idx = t[1], t[2]
+        bk = buckets[idx]
+        if isinstance(leaf, LTerms):
+            return bk[0] * bk[1]
+        if isinstance(leaf, LPhrase):
+            if len(bk) > 4 and bk[6] > 1:
+                return n_pad   # chunked dense accumulator
+            return bk[1]           # position window bound
+        if isinstance(leaf, LTag):
+            return bk[0] * bk[1]
+        if isinstance(leaf, LNumeric):
+            return bk[0]
+        if isinstance(leaf, LAll):
+            return n_pad
+        return 1                   # LNone
+    if tag == "and":
+        return min(_gen_bucket(c, buckets, n_pad)
+                   for c in t[1] if _can_gen(c))
+    if tag in ("or", "dismax"):
+        return next_pow2(sum(_gen_bucket(c, buckets, n_pad)
+                             for c in t[1]))
+    return n_pad
+
+
+def _window_width(t, buckets: dict, n_pad: int) -> int:
+    """The exact lane count of the window program's output for tree `t`
+    (`_gen_bucket` rounds unions up; a union's window is the sum of its
+    children's)."""
+    if not _can_gen(t):
+        return n_pad
+    tag = t[0]
+    if tag == "leaf":
+        return _gen_bucket(t, buckets, n_pad)
+    if tag == "and":
+        gens = [c for c in t[1] if _can_gen(c)]
+        pivot = min(gens, key=lambda c: _gen_bucket(c, buckets, n_pad))
+        return _window_width(pivot, buckets, n_pad)
+    return sum(_window_width(c, buckets, n_pad) for c in t[1])
+
+
+def _tree_has_terms(t) -> bool:
+    tag = t[0]
+    if tag == "leaf":
+        return isinstance(t[1], (LTerms, LPhrase))
+    if tag in ("not", "opt"):
+        return _tree_has_terms(t[1])
+    return any(_tree_has_terms(c) for c in t[1])
+
+
+def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
+              P: int, k: int, has_extra: bool, mode: str = "topk"):
+    """Build the window-evaluator program of one query structure: a plain
+    function `run(seg_args, dyn)` over device tensors (the JAX function
+    traced and compiled it; here it runs eagerly).
+
+    Every subtree evaluates as a candidate *window* (generator) or a
+    membership *predicate*; an intersection pivots on its statically
+    smallest window (ops/window.py).  The scorers, the clean/dirty/TTL
+    flags, `extra_mask`, the doc-score multiply, the GetSlop divisor,
+    mode "window" and the top-k root (with SORTBY) are the JAX
+    function's.  Vector and GEO leaves and KNN never reach it: the
+    builder refuses VECTOR and GEO fields, and `bind` KNN payloads."""
+    opts = cq.opts
+    scorer = opts.scorer
+    tree = cq.tree
+    pos_stride = seg_proto.text.pos_stride
+    n_pad_static = seg_proto.n_pad
+    seg_dirty = seg_proto.n_deleted > 0
+    seg_ttl = seg_proto.has_ttl
+    text_field_ttl = seg_proto.text_fexp is not None
+    fexp_attrs = frozenset(seg_proto.field_fexp)
+    tag_code_ords = frozenset(_tag_codes_ords(cq, seg_proto))
+    seg_uniform_ds = seg_proto.uniform_docscore
+    norm_from_postings = scorer in ("BM25STD", "BM25STD.TANH",
+                                    "TFIDF.DOCNORM")
+    slop_info = (_slop_root_children(tree)
+                 if scorer in _SLOP_SCORERS else None)
+    slop_buckets = buckets.get(-1)
+    if slop_buckets is None:
+        slop_info = None
+
+    def gen_bucket(t) -> int:
+        return _gen_bucket(t, buckets, n_pad_static)
+
+    def run(seg, dyn):
+        n_pad = seg["alive"].shape[0]
+        dev = seg["alive"].device
+        f32 = torch.float32
+
+        def zeros_f(shape):
+            return torch.zeros(shape, dtype=f32, device=dev)
+
+        def clampdoc(docs):
+            return docs.clamp(max=n_pad - 1).long()
+
+        normcol = (seg["max_freq"] if scorer in ("TFIDF", "DISMAX",
+                                                 "DOCSCORE")
+                   else seg["doclen"])
+
+        def transform(tf, nv, slot):
+            """Scorer math given tf and the norm-column values `nv` at the
+            same docs (reference formulas, ext/default.c)."""
+            w = dyn["tweight"][slot]
+            if scorer == "BM25":
+                norm = 1.2 * (1.0 - 0.5 + 0.5 * dyn["avgdl"])
+                return w * tf / (tf + norm)
+            if scorer.startswith("BM25"):
+                return T.bm25_transform(tf, w, nv, dyn["avgdl"])
+            if scorer == "DISMAX":
+                return w * tf
+            return T.tfidf_transform(tf, w, nv)
+
+        emask = (WIN.expired_field_mask(seg["text_fexp"], dyn["now"])
+                 if text_field_ttl else None)
+
+        def field_alive(kind: str, ordn: int, docs, valid):
+            """Leaf-level TTL check for non-text fields."""
+            fe = seg[f"{kind}{ordn}_fexp"][clampdoc(docs)]
+            return valid & ~((fe > 0) & (fe <= dyn["now"]))
+
+        def slot_raw(slot: int, Wn: int):
+            return WIN.slot_window(
+                seg["doc_ids"], seg["freqs"], seg["field_masks"],
+                dyn["tstarts"][slot], dyn["tlens"][slot],
+                dyn["tmasks"][slot], Wn, emask=emask)
+
+        def slot_scored(slot: int, Wn: int):
+            """(docs, score, valid, nv): nv is the norm operand aligned
+            with the window (a slice of the per-posting doc lengths for
+            BM25/DOCNORM, else a gather of the norm column)."""
+            docs, tf, valid = slot_raw(slot, Wn)
+            if norm_from_postings:
+                nv = WIN._slice(seg["posting_dl"], dyn["tstarts"][slot], Wn)
+            else:
+                nv = normcol[clampdoc(docs)]
+            s = transform(tf, nv, slot)
+            return docs, torch.where(valid, s, 0.0), valid, nv
+
+        # ---- leaf generators
+        def gen_leaf(leaf, idx):
+            const = dyn["leaf_const"][idx]
+            if isinstance(leaf, LTerms):
+                nu, Wn = buckets[idx]
+                wins = [slot_scored(leaf.lo + j, Wn) for j in range(nu)]
+                if len(wins) == 1:
+                    return wins[0]
+                return WIN.union_windows([w[:3] for w in wins],
+                                         dismax=False,
+                                         extra=[w[3] for w in wins])
+            if isinstance(leaf, LPhrase):
+                return gen_phrase(leaf, idx)
+            if isinstance(leaf, LTag):
+                nu, Wn = buckets[idx]
+                wins = []
+                for j in range(nu):
+                    d, v = WIN.tag_window(
+                        seg[f"tag{leaf.ord}_docs"],
+                        dyn[f"tag{leaf.ord}_starts"][j],
+                        dyn[f"tag{leaf.ord}_lens"][j], Wn)
+                    wins.append((d, None, v))
+                if len(wins) == 1:
+                    d, _, v = wins[0]
+                else:
+                    d, _, v = WIN.union_windows(wins)
+                if leaf.field in fexp_attrs:
+                    v = field_alive("tag", leaf.ord, d, v)
+                return d, torch.where(v, const, 0.0), v, None
+            if isinstance(leaf, LNumeric):
+                Wn, multi = buckets[idx]
+                d, v = WIN.numeric_window(
+                    seg[f"num{leaf.ord}_sd"], dyn["numw_start"][leaf.ord],
+                    dyn["numw_len"][leaf.ord], Wn)
+                if multi:   # a doc appears once per in-range value
+                    d, v = WIN.dedup_window(d, v)
+                if leaf.field in fexp_attrs:
+                    v = field_alive("num", leaf.ord, d, v)
+                return d, torch.where(v, const, 0.0), v, None
+            if isinstance(leaf, LAll):
+                d, v = WIN.iota_window(n_pad, dev)
+                v = v & (d < dyn["n_docs"])  # exclude padding rows
+                return d, torch.where(v, const, 0.0), v, normcol
+            if isinstance(leaf, LNone):
+                d = torch.full((1,), WIN.INVALID, dtype=torch.int32,
+                               device=dev)
+                return d, zeros_f((1,)), d != WIN.INVALID, None
+            raise AssertionError(leaf)
+
+        def gen_phrase(leaf, idx):
+            Wn, Pc, Pm, pivot_j, bigs, big_rounds, n_chunks = buckets[idx]
+            starts = torch.stack([dyn["tstarts"][s] for s in leaf.slots])
+            lens = torch.stack([dyn["tlens"][s] for s in leaf.slots])
+            anylen = torch.all(lens > 0)
+            if n_chunks > 1:
+                # the pivot's positions overflow the window cap: the dense
+                # accumulator path (exact, no truncation)
+                _, acc = _phrase_chain_pivot(
+                    seg["poskeys"], seg["pos_offsets"], starts, lens,
+                    pos_stride, leaf.slop, leaf.inorder, Pc, Pm, pivot_j,
+                    bigs=bigs, big_rounds=big_rounds, n_chunks=n_chunks,
+                    n_pad=n_pad)
+                docs, _vi = WIN.iota_window(n_pad, dev)
+                valid = acc & anylen
+                score = zeros_f((n_pad,))
+                for s in range(leaf.score_lo, leaf.score_hi):
+                    sd, ss, sv, _nv = slot_scored(s, Wn)
+                    score = score.index_add(0, clampdoc(sd),
+                                            torch.where(sv, ss, 0.0))
+                return docs, torch.where(valid, score, 0.0), valid, normcol
+            cand, alive_c = _phrase_chain_pivot(
+                seg["poskeys"], seg["pos_offsets"], starts, lens,
+                pos_stride, leaf.slop, leaf.inorder, Pc, Pm, pivot_j,
+                bigs=bigs, big_rounds=big_rounds)
+            alive_c = alive_c & anylen
+            docs = torch.where(alive_c, torch.div(cand, pos_stride,
+                                                  rounding_mode="floor"),
+                               WIN.INVALID)
+            docs, valid = WIN.dedup_adjacent(docs, alive_c)
+            score = zeros_f(docs.shape)
+            for s in range(leaf.score_lo, leaf.score_hi):
+                sd, ss, sv, _nv = slot_scored(s, Wn)
+                _hit, add = WIN.member(sd, sv, ss, docs)
+                score = score + add
+            return docs, torch.where(valid, score, 0.0), valid, None
+
+        # ---- predicates: fn(docs, dl) -> (match, score); `dl` is the
+        # norm column at `docs`, computed once by the caller
+        def pred_leaf(leaf, idx):
+            const = dyn["leaf_const"][idx]
+            if isinstance(leaf, LTerms):
+                nu, Wn = buckets[idx]
+                wins = [slot_raw(leaf.lo + j, Wn) for j in range(nu)]
+
+                def f(docs, dl, _wins=wins, _lo=leaf.lo):
+                    m = torch.zeros(docs.shape, dtype=torch.bool, device=dev)
+                    s = zeros_f(docs.shape)
+                    for j, (wd, wtf, wv) in enumerate(_wins):
+                        hit, tf = WIN.member(wd, wv, wtf, docs)
+                        m = m | hit
+                        s = s + torch.where(hit, transform(tf, dl, _lo + j),
+                                            0.0)
+                    return m, s
+                return f
+            if isinstance(leaf, LTag):
+                if leaf.ord in tag_code_ords:
+                    # dense value-id column: one code gather and compare
+                    # per candidate
+                    def f(docs, dl):
+                        c = seg[f"tag{leaf.ord}_codes"][clampdoc(docs)]
+                        qc = dyn[f"tag{leaf.ord}_qcodes"]
+                        m = (c[:, None] == qc[None, :]).any(dim=1)
+                        m = m & (docs != WIN.INVALID)
+                        if leaf.field in fexp_attrs:
+                            m = field_alive("tag", leaf.ord, docs, m)
+                        return m, torch.where(m, const, 0.0)
+                    return f
+                nu, Wn = buckets[idx]
+                wins = [WIN.tag_window(
+                    seg[f"tag{leaf.ord}_docs"],
+                    dyn[f"tag{leaf.ord}_starts"][j],
+                    dyn[f"tag{leaf.ord}_lens"][j], Wn) for j in range(nu)]
+
+                def f(docs, dl, _wins=wins):
+                    m = torch.zeros(docs.shape, dtype=torch.bool, device=dev)
+                    for wd, wv in _wins:
+                        hit, _ = WIN.member(wd, wv, None, docs)
+                        m = m | hit
+                    if leaf.field in fexp_attrs:
+                        m = field_alive("tag", leaf.ord, docs, m)
+                    return m, torch.where(m, const, 0.0)
+                return f
+            if isinstance(leaf, (LPhrase, LNone)):
+                win = gen_leaf(leaf, idx)[:3]
+
+                def f(docs, dl, _w=win):
+                    return WIN.member(_w[0], _w[2], _w[1], docs)
+                return f
+            if isinstance(leaf, LNumeric):
+                multi = buckets[idx][1]
+
+                def f(docs, dl, _multi=multi):
+                    cd = clampdoc(docs)
+                    lo = dyn["num_lo"][leaf.ord]
+                    hi = dyn["num_hi"][leaf.ord]
+                    if _multi:
+                        # any value in range (multi-value numerics)
+                        v = seg[f"num{leaf.ord}_mv"][cd]
+                        p = seg[f"num{leaf.ord}_mp"][cd]
+                        m = T.numeric_range_mask(v, p, lo, hi, leaf.lo_excl,
+                                                 leaf.hi_excl).any(dim=-1)
+                    else:
+                        m = T.numeric_range_mask(
+                            seg[f"num{leaf.ord}_v"][cd],
+                            seg[f"num{leaf.ord}_p"][cd], lo, hi,
+                            leaf.lo_excl, leaf.hi_excl)
+                    m = m & (docs != WIN.INVALID)
+                    if leaf.field in fexp_attrs:
+                        m = field_alive("num", leaf.ord, docs, m)
+                    return m, torch.where(m, const, 0.0)
+                return f
+            if isinstance(leaf, LHostMask):
+                def f(docs, dl):
+                    m = (dyn[f"hm{leaf.ord}"][clampdoc(docs)]
+                         & (docs != WIN.INVALID))
+                    return m, torch.where(m, const, 0.0)
+                return f
+            if isinstance(leaf, LMissing):
+                # a field whose TTL lapsed counts as missing
+                def f(docs, dl):
+                    cdk = clampdoc(docs)
+                    m = ~seg[f"has_{leaf.field}"][cdk]
+                    if f"has_{leaf.field}_fexp" in seg:
+                        fe = seg[f"has_{leaf.field}_fexp"][cdk]
+                        m = m | ((fe > 0) & (fe <= dyn["now"]))
+                    m = m & (docs != WIN.INVALID)
+                    return m, zeros_f(docs.shape)
+                return f
+            if isinstance(leaf, LAll):
+                def f(docs, dl):
+                    m = docs != WIN.INVALID
+                    return m, torch.where(m, const, 0.0)
+                return f
+            raise AssertionError(leaf)
+
+        # ---- recursive evaluation
+        def eval_gen(t):
+            tag = t[0]
+            if tag == "leaf":
+                return gen_leaf(t[1], t[2])
+            if tag == "and":
+                gens = [c for c in t[1] if _can_gen(c)]
+                pivot = min(gens, key=gen_bucket)
+                docs, score, valid, dl = eval_gen(pivot)
+                needs_dl = any(_tree_has_terms(c) for c in t[1]
+                               if c is not pivot)
+                if dl is None:
+                    dl = (normcol[clampdoc(docs)] if needs_dl
+                          else zeros_f(docs.shape))
+                for c in t[1]:
+                    if c is pivot:
+                        continue
+                    m, s = eval_pred(c)(docs, dl)
+                    valid = valid & m
+                    score = score + s
+                return docs, torch.where(valid, score, 0.0), valid, dl
+            if tag in ("or", "dismax"):
+                if tag == "or":
+                    # a union of unions folds in ONE merge (sum is
+                    # associative); DISMAX keeps its nesting
+                    wins = []
+                    for c in t[1]:
+                        wins.extend(gen_windows(c))
+                else:
+                    wins = [eval_gen(c) for c in t[1]]
+                return WIN.union_windows([w[:3] for w in wins],
+                                         dismax=(tag == "dismax"),
+                                         extra=[w[3] for w in wins])
+            raise AssertionError(tag)
+
+        def gen_windows(t):
+            """Window list for a sum-fold union child, flattened."""
+            if t[0] == "or":
+                out = []
+                for c in t[1]:
+                    out.extend(gen_windows(c))
+                return out
+            if t[0] == "leaf" and isinstance(t[1], LTerms):
+                nu, Wn = buckets[t[2]]
+                return [slot_scored(t[1].lo + j, Wn) for j in range(nu)]
+            return [eval_gen(t)]
+
+        def eval_pred(t):
+            tag = t[0]
+            if tag == "leaf":
+                return pred_leaf(t[1], t[2])
+            if tag == "and":
+                preds = [eval_pred(c) for c in t[1]]
+
+                def f(docs, dl):
+                    m = docs != WIN.INVALID
+                    s = zeros_f(docs.shape)
+                    for p in preds:
+                        mi, si = p(docs, dl)
+                        m = m & mi
+                        s = s + si
+                    return m, torch.where(m, s, 0.0)
+                return f
+            if tag in ("or", "dismax"):
+                preds = [eval_pred(c) for c in t[1]]
+                mx = tag == "dismax"
+
+                def f(docs, dl):
+                    m = torch.zeros(docs.shape, dtype=torch.bool, device=dev)
+                    s = zeros_f(docs.shape)
+                    for p in preds:
+                        mi, si = p(docs, dl)
+                        m = m | mi
+                        s = torch.maximum(s, si) if mx else s + si
+                    return m, s
+                return f
+            if tag == "not":
+                child = eval_pred(t[1])
+
+                def f(docs, dl):
+                    mi, _ = child(docs, dl)
+                    return ~mi & (docs != WIN.INVALID), zeros_f(docs.shape)
+                return f
+            if tag == "opt":
+                child = eval_pred(t[1])
+
+                def f(docs, dl):
+                    _, si = child(docs, dl)
+                    return docs != WIN.INVALID, si
+                return f
+            raise AssertionError(tag)
+
+        def slop_divide(sc, dcs):
+            """Divide TFIDF/legacy-BM25 scores by the match's proximity
+            distance, the reference's GetSlop divisor: dist = the sum of
+            squared minimal offset deltas over consecutive offset-bearing
+            root children; slop = floor(sqrt(dist)), or (children - 1)
+            when dist == 0, or 1 for non-aggregate results."""
+            smode, childs = slop_info
+            INF32 = WIN.INVALID
+            dlz = zeros_f(dcs.shape)
+            okeys = []
+            for ci, ch in enumerate(childs):
+                if ch[0] != "slots":
+                    okeys.append(None)
+                    continue
+                parts = []
+                for s_, Pj in zip(ch[1], slop_buckets[ci]):
+                    kj, _ = T.gather_poskeys(
+                        seg["poskeys"], seg["pos_offsets"],
+                        dyn["tstarts"][s_], dyn["tlens"][s_], Pj)
+                    parts.append(kj)
+                okeys.append(parts[0] if len(parts) == 1
+                             else torch.sort(torch.cat(parts))[0])
+            oidx = [ci for ci, kk in enumerate(okeys) if kk is not None]
+            m_off = len(oidx)
+            if smode == "and":
+                num = torch.full(dcs.shape, len(childs), dtype=torch.int32,
+                                 device=dev)
+                pairs = [(oidx[i], oidx[i + 1], None)
+                         for i in range(m_off - 1)]
+            else:
+                pres = {}
+                num = torch.zeros(dcs.shape, dtype=torch.int32, device=dev)
+                for ci, ch in enumerate(childs):
+                    if ch[0] == "pred" or ch[2] is not None:
+                        sub = ch[1] if ch[0] == "pred" else ch[2]
+                        pm, _ = eval_pred(sub)(dcs, dlz)
+                    else:
+                        # a single term slot of an expanded-token union
+                        s_ = ch[1][0]
+                        Wn = buckets[tree[2]][1]
+                        wd, _wtf, wv = slot_raw(s_, Wn)
+                        pm, _ = WIN.member(wd, wv, None, dcs)
+                    pres[ci] = pm
+                    num = num + pm.to(torch.int32)
+                pairs = []
+                if m_off <= 4:
+                    for i in range(m_off):
+                        for j in range(i + 1, m_off):
+                            mk = pres[oidx[i]] & pres[oidx[j]]
+                            for t_ in range(i + 1, j):
+                                mk = mk & ~pres[oidx[t_]]
+                            pairs.append((oidx[i], oidx[j], mk))
+                else:
+                    pairs = [(oidx[i], oidx[i + 1],
+                              pres[oidx[i]] & pres[oidx[i + 1]])
+                             for i in range(m_off - 1)]
+            dist = torch.zeros(dcs.shape, dtype=torch.int32, device=dev)
+            for ci, cj, mk in pairs:
+                dd, _pa = T.min_offset_delta(okeys[ci], okeys[cj],
+                                             pos_stride, dcs)
+                ok = dd != INF32
+                if mk is not None:
+                    ok = ok & mk
+                dist = dist + torch.where(ok, dd * dd, 0)
+            slop = torch.where(
+                num <= 1, 1,
+                torch.where(dist > 0,
+                            torch.floor(torch.sqrt(dist.to(f32))).to(
+                                torch.int32),
+                            torch.clamp(num - 1, min=1)))
+            return sc / torch.clamp(slop, min=1).to(f32)
+
+        # ---- root
+        root_gen = _can_gen(tree)
+        if root_gen:
+            docs, score, valid, _dl = eval_gen(tree)
+            cd = clampdoc(docs)
+            valid = valid & (docs != WIN.INVALID)
+            if seg_dirty:
+                valid = valid & seg["alive"][cd]
+            if seg_ttl:
+                exp = seg["expire_at"][cd]
+                valid = valid & ((exp == 0) | (exp > dyn["now"]))
+        else:
+            docs, valid0 = WIN.iota_window(n_pad, dev)
+            # iota window: the columns are doc-aligned, no gathers
+            m, score = eval_pred(tree)(docs, normcol)
+            valid = valid0 & m & seg["alive"]
+            exp = seg["expire_at"]
+            valid = valid & ((exp == 0) | (exp > dyn["now"]))
+            cd = clampdoc(docs)
+        if has_extra:
+            valid = valid & dyn["extra_mask"][cd]
+
+        if scorer == "DOCSCORE":
+            score = seg["docscore"][cd]
+        elif not seg_uniform_ds and scorer != "DISMAX":
+            score = score * seg["docscore"][cd]
+        if scorer == "BM25STD.TANH":
+            score = torch.tanh(score / opts.tanh_factor)
+        if slop_info is not None:
+            score = slop_divide(score, docs)
+        score = torch.where(valid, score, 0.0)
+
+        out = {"count": valid.sum(dtype=torch.int32)}
+        k_eff = min(k, docs.shape[0])
+        if mode == "window":
+            out["docs"] = docs
+            out["valid"] = valid
+            out["score"] = score
+            return out
+        if opts.sort_field:
+            keys = seg["sort_v"][cd]
+            # docs missing the sort value still match and rank LAST in
+            # either direction; 3.0e38 keeps them apart from the 3.4e38
+            # filler the result builders drop
+            worst = 3.0e38 if opts.sort_asc else -3.0e38
+            keys = torch.where(seg["sort_p"][cd], keys, worst)
+            keyvals, sel = T.topk_by_key(keys, valid, k_eff, opts.sort_asc)
+            out["idx"] = docs[sel]
+            out["scores"] = score[sel]
+            out["sortkeys"] = keyvals
+            return out
+        masked = torch.where(valid, score, -3.4e38)
+        vals, sel = T.fast_top_k(masked, k_eff)
+        out["idx"] = docs[sel]
+        out["scores"] = vals
+        return out
+
+    return run
+
+
+def _phrase_chain_pivot(poskeys, pos_offsets, starts, lens, pos_stride,
+                        slop, inorder, Pc, Pm, pivot_j, bigs=None,
+                        big_rounds=None, n_chunks=1, n_pad=None):
+    """Proximity check anchored at one member term (the JAX function's
+    semantics, which mirror the reference's proximity.rs):
+
+    - in order: positions ascend in query order (equal allowed) and the
+      running signed span sum(pos_i - pos_{i-1} - 1) stays <= slop; the
+      chain anchors on term 0 and advances greedily.
+    - unordered: one position per term fits a window of n + slop tokens
+      that covers the pivot's position, with min != max.
+
+    Candidates are the pivot term's position keys (window Pc); the other
+    terms are probed by binary search into their key windows (Pm), or,
+    for terms whose positions overflow that window (`bigs`), into the
+    position-key array directly.  Returns (candidate keys, alive), or,
+    when the pivot's positions overflow (`n_chunks` > 1), (None, a dense
+    bool[n_pad] doc-match accumulator) built chunk by chunk."""
+    Tn = starts.shape[0]
+    INF = WIN.INVALID
+    if bigs is None:
+        bigs = (False,) * Tn
+    member_keys: dict[int, Any] = {}
+    for j in range(Tn):
+        if j != pivot_j and not bigs[j]:
+            member_keys[j] = T.gather_poskeys(
+                poskeys, pos_offsets, starts[j], lens[j], Pm)[0]
+
+    def probe_ge(j, q):
+        """Smallest position key of term j that is >= q (INF if none)."""
+        q = q.contiguous()
+        if not bigs[j]:
+            keys_j = member_keys[j]
+            idx = torch.searchsorted(keys_j, q)
+            return keys_j[idx.clamp(0, Pm - 1)]
+        lo = pos_offsets[starts[j].long()]
+        hi = pos_offsets[(starts[j] + lens[j]).long()]
+        idx = T.searchsorted_dynamic(
+            poskeys, q, lo, hi,
+            rounds=big_rounds[j] if big_rounds else None)
+        v = poskeys[idx.clamp(max=poskeys.shape[0] - 1).long()]
+        return torch.where(idx < hi, v, INF)
+
+    def div(x):
+        return torch.div(x, pos_stride, rounding_mode="floor")
+
+    def chain(cand):
+        alive_c = cand != INF
+        doc = div(cand)
+        if inorder:
+            span = torch.zeros(cand.shape, dtype=torch.int32,
+                               device=cand.device)
+            anchor = cand
+            ok = alive_c
+            for j in range(1, Tn):
+                found = probe_ge(j, anchor)
+                ok = (ok & (found >= anchor) & (found != INF)
+                      & (div(found) == doc))
+                span = torch.where(ok, span + (found - anchor - 1), span)
+                ok = ok & (span <= max(slop, 0))
+                anchor = torch.where(ok, found, anchor)
+            return ok
+        Wl = Tn + slop
+        match = torch.zeros(cand.shape, dtype=torch.bool, device=cand.device)
+        offsets = range(Wl) if Wl <= 64 else [0, Wl - 1]
+        for o in offsets:
+            lo_t = cand - o
+            hi_t = lo_t + (Wl - 1)
+            ok_o = alive_c
+            sel_min, sel_max = cand, cand
+            for j in range(Tn):
+                if j == pivot_j:
+                    continue
+                found = probe_ge(j, lo_t)
+                ok_o = (ok_o & (found >= lo_t) & (found <= hi_t)
+                        & (div(found) == doc))
+                sel_min = torch.minimum(sel_min, found)
+                sel_max = torch.maximum(sel_max, found)
+            match = match | (ok_o & (sel_max != sel_min))
+        return match
+
+    if n_chunks <= 1:
+        cand, _ = T.gather_poskeys(poskeys, pos_offsets, starts[pivot_j],
+                                   lens[pivot_j], Pc)
+        return cand, chain(cand)
+    ps = starts[pivot_j].long()
+    kstart = pos_offsets[ps]
+    klen_total = pos_offsets[ps + lens[pivot_j]] - kstart
+    acc = torch.zeros(n_pad, dtype=torch.int32, device=poskeys.device)
+    lane = torch.arange(Pc, dtype=torch.int32, device=poskeys.device)
+    for c in range(n_chunks):
+        keys = WIN._slice(poskeys, kstart + c * Pc, Pc)
+        cand = torch.where(lane < klen_total - c * Pc, keys, INF)
+        m = chain(cand) & (cand != INF)
+        d = div(cand).clamp(max=n_pad - 1).long()
+        acc.scatter_reduce_(0, d, m.to(torch.int32), reduce="amax")
+    return None, acc != 0

@@ -11,7 +11,10 @@ compared with
     interpret mode (the kernel-raw branch the port mirrors),
 
 on the 900-doc corpus of tests/test_device_groupby.py and on bench.py's
-aggregate shape at 2k docs (one segment and two).  Totals, group keys
+aggregate shape at 2k docs (one segment and two).  The window branch
+(MIN/MAX, match-all `*`, pivots past the kernel's bound) and the single
+request `run_aggregate` are compared with the JAX package's
+`run_aggregate_many` / `run_aggregate` on its CPU device path.  Totals, group keys
 and row order must be equal.  Floats agree within rtol 1e-5 against (a)
 (f32 device sums against float64 host sums) and within 2e-3 against (b),
 whose bf16 one-hot split the JAX package's own test allows.  A STDDEV
@@ -23,8 +26,8 @@ that the f32 rounding scales with.
 The compiled APPLY/FILTER closures (`agg/device_expr.py`) are compared
 operator by operator with the JAX closures on columns with NULLs, zeros
 and negatives (values within rtol 1e-6, presence equal; results below
-the smallest normal f32 may flush to zero on one side).  Requests off
-the kernel-raw branch raise "not ported yet".
+the smallest normal f32 may flush to zero on one side).  Requests that
+need the host pipeline raise "not ported yet".
 """
 
 import numpy as np
@@ -41,7 +44,7 @@ from redisearch_tpu.agg import expr as JE
 from redisearch_tpu.agg import pipeline as JP
 from redisearch_tpu.ops import groupby as JGB
 from redisearch_tpu.ops import intersect as JIK
-from redisearch_tpu_torch._host.agg import expr as TE
+from redisearch_tpu_torch.agg import expr as TE
 from redisearch_tpu_torch.agg import device_expr as TDX
 from redisearch_tpu_torch.agg import pipeline as TP
 from redisearch_tpu_torch.ops import groupby as TGB
@@ -415,9 +418,8 @@ def test_async_handle_and_kernel_counts(bench_idx):
 
 
 def test_client_front_door(bench_idx):
-    """Client.ft_create + hset + ft_aggregate_many serve what the JAX
-    Client serves on the same documents; single-request ft_aggregate is
-    not ported."""
+    """Client.ft_create + hset + ft_aggregate_many and ft_aggregate serve
+    what the JAX Client serves on the same documents."""
     jix, _tix, qt = bench_idx
     jc, tc = rs.Client(), rt.Client(device="cpu")
     docs = [(jix.doctable.get(g).key, jix.doctable.get(g).fields)
@@ -431,30 +433,156 @@ def test_client_front_door(bench_idx):
     tres = tc.ft_aggregate_many("bm25", [req_bench(rt, q) for q in qs])
     _assert_same(tres, jres, RTOL_KERNEL, qs)
     assert all(r.total > 0 for r in tres)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tc.ft_aggregate("bm25", req_bench(rt, qs[0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tc._index("bm25").aggregate(req_bench(rt, qs[0]))
+    # single-request FT.AGGREGATE, through the Client and the index
+    for q in qs[:2]:
+        j = jc.ft_aggregate("bm25", req_minmax(JP, q))
+        _assert_same([tc.ft_aggregate("bm25", req_minmax(rt, q)),
+                      tc._index("bm25").aggregate(req_minmax(rt, q))],
+                     [j, j], RTOL_HOST, [q, q])
 
 
 @pytest.mark.parametrize("mk,item", [
     (lambda q: TP.AggregateRequest(q).group_by(
-        "@grp", ("MIN", ["@price"], "lo")), "B4/B5"),
+        "@grp", ("MIN", ["@price"], "lo")), "served"),
     (lambda q: TP.AggregateRequest(q).group_by(
-        "@grp", ("MAX", ["@price"], "hi"), ("COUNT", [], "n")), "B4/B5"),
+        "@grp", ("MAX", ["@price"], "hi"), ("COUNT", [], "n")), "served"),
     (lambda q: TP.AggregateRequest("*").group_by(
-        "@grp", ("COUNT", [], "n")), "A6"),
+        "@grp", ("COUNT", [], "n")), "served"),
     (lambda q: TP.AggregateRequest(q).load("@price").group_by(
-        "@grp", ("COUNT", [], "n")), "A9/A6"),
+        "@grp", ("COUNT", [], "n")), "A9"),
     (lambda q: TP.AggregateRequest(q).group_by(
-        "@grp", ("TOLIST", ["@price"], "l")), "A9/A6"),
+        "@grp", ("TOLIST", ["@price"], "l")), "A9"),
     (lambda q: TP.AggregateRequest(q).group_by(
-        "@cat", ("COUNT", [], "n")), "A9/A6"),
+        "@cat", ("COUNT", [], "n")), "A9"),
 ], ids=["min", "max", "match-all", "load", "tolist", "unsortable-key"])
 def test_off_branch_requests_raise(bench_idx, mk, item):
-    """What the kernel-raw branch does not serve raises, naming the
-    ROADMAP item, and launches nothing for the rest of the batch."""
-    _jix, tix, qt = bench_idx
+    """Requests off the kernel-raw branch: MIN/MAX and match-all run on
+    the window branch and equal the JAX package's device path (groups in
+    id order); what needs the host pipeline raises, naming the ROADMAP
+    item, and launches nothing for the rest of the batch."""
+    jix, tix, qt = bench_idx
     q = _bench_queries(qt, 1)[0]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tix.aggregate_many([req_bench(TP, q), mk(q)])
+    if item != "served":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            tix.aggregate_many([req_bench(TP, q), mk(q)])
+        return
+    treq = mk(q)
+    jreq = JP.AggregateRequest(treq.query)
+    jreq.steps = [JP.GroupStep(s.by, s.reducers) for s in treq.steps]
+    tres, stats = _port(tix, [req_bench(TP, q), treq])
+    assert stats == {"device-tail": 1, "device": 1}
+    _assert_same(tres[1:], JP.run_aggregate_many(jix, [jreq]), RTOL_HOST,
+                 [q])
+    assert tres[1].total > 0
+
+
+# ---------------------------------------------------------------------------
+# the window branch and the single-request path (kernels B4/B5)
+# ---------------------------------------------------------------------------
+
+def req_minmax(P, q):
+    """bench.py's aggregate request with MIN and MAX of the price."""
+    return (P.AggregateRequest(q)
+            .group_by("@grp", ("COUNT", [], "n"), ("SUM", ["@price"], "s"),
+                      ("AVG", ["@price"], "a"), ("MIN", ["@price"], "lo"),
+                      ("MAX", ["@price"], "hi"))
+            .sort_by(("@s", P.DESC)).limit(0, 10))
+
+
+def req_star(P, _q):
+    """bench.py's bench_agg_star request: match-all over every row."""
+    return (P.AggregateRequest("*")
+            .group_by("@grp", ("COUNT", [], "n"), ("SUM", ["@price"], "s"))
+            .sort_by(("@s", P.DESC)).limit(0, 10))
+
+
+def req_kgb_minmax(P, q):
+    return (P.AggregateRequest(q)
+            .apply("@x * 2", "x2")
+            .group_by("@cat", ("COUNT", [], "n"), ("MIN", ["@x"], "lo"),
+                      ("MAX", ["@x2"], "hi"), ("STDDEV", ["@x"], "dx"),
+                      ("AVG", ["@x"], "ax"))
+            .sort_by(("@cat", P.ASC)))
+
+
+@pytest.mark.parametrize("mk", [req_minmax, req_star, req_bench,
+                                req_multikey],
+                         ids=["minmax", "star", "bench", "multikey"])
+def test_single_run_aggregate_matches_jax(bench_idx, mk):
+    """run_aggregate: the window program per segment, then B4/B5 (their
+    plain twins here), against the JAX package's run_aggregate on its
+    device path (segment reductions on the CPU)."""
+    jix, tix, qt = bench_idx
+    qs = _bench_queries(qt, 3)
+    TP.AGG_PATH_STATS.clear()
+    tres = [TP.run_aggregate(tix, mk(TP, q)) for q in qs]
+    assert TP.AGG_PATH_STATS == {"device": len(qs)}
+    jres = [JP.run_aggregate(jix, mk(JP, q)) for q in qs]
+    _assert_same(tres, jres, RTOL_HOST, qs)
+    assert all(r.rows for r in tres)
+
+
+@pytest.mark.parametrize("mk,path", [(req_minmax, "device-tail"),
+                                     (req_star, "device-tail"),
+                                     (req_stddev, "device")],
+                         ids=["minmax", "star", "stddev"])
+def test_window_branch_batch_matches_jax(bench_idx, mk, path):
+    """run_aggregate_many off the kernel-raw branch: MIN/MAX take the
+    single-query kernels per query, `*` stages its windows for the
+    batched group-by; against the JAX package's run_aggregate_many."""
+    jix, tix, qt = bench_idx
+    qs = _bench_queries(qt, 4)
+    tres, stats = _port(tix, [mk(TP, q) for q in qs])
+    assert stats == {path: len(qs)}
+    jres = JP.run_aggregate_many(jix, [mk(JP, q) for q in qs])
+    _assert_same(tres, jres, RTOL_HOST, qs, std_centred=True)
+
+
+def test_wide_pivots_take_the_window_branch(bench_idx, monkeypatch):
+    """A pivot window past the kernel's pivot bound (32,768 on the card;
+    lowered here so that the 2k-doc corpus reaches it) takes the window
+    branch and serves what the kernel-raw branch serves."""
+    jix, tix, qt = bench_idx
+    qs = _bench_queries(qt, 4)
+    want, _ = _port(tix, [req_bench(TP, q) for q in qs])
+    monkeypatch.setattr(TIK, "MAX_W_PIVOT", 1024)
+    TP._PLAN_CACHE.clear()
+    calls = []
+    real = TP._make_fused_cols
+    monkeypatch.setattr(TP, "_make_fused_cols",
+                        lambda *a: calls.append(1) or real(*a))
+    got, stats = _port(tix, [req_bench(TP, q) for q in qs])
+    assert stats == {"device-tail": len(qs)} and calls
+    _assert_same(got, want, 0.0, qs)
+    jres = JP.run_aggregate_many(jix, [req_bench(JP, q) for q in qs])
+    _assert_same(got, jres, RTOL_HOST, qs)
+
+
+@pytest.mark.parametrize("mk", [req_minmax, req_star],
+                         ids=["minmax", "star"])
+def test_two_segments_window_branch_match_jax(bench_idx2, mk):
+    """Two segments: per-segment MIN/MAX merged with np.minimum.at /
+    np.maximum.at on the host, single and batched."""
+    jix, tix, qt = bench_idx2
+    qs = _bench_queries(qt, 3)
+    jres = [JP.run_aggregate(jix, mk(JP, q)) for q in qs]
+    _assert_same([TP.run_aggregate(tix, mk(TP, q)) for q in qs], jres,
+                 RTOL_HOST, qs)
+    tres, stats = _port(tix, [mk(TP, q) for q in qs])
+    assert stats == {"device": len(qs)}
+    _assert_same(tres, jres, RTOL_HOST, qs)
+
+
+def test_kgb_minmax_matches_jax(kgb_idx):
+    """tests/test_device_groupby.py's corpus: MIN/MAX over a column and
+    over an APPLY alias, with STDDEV, single and batched."""
+    jix, tix = kgb_idx
+    jres = [JP.run_aggregate(jix, req_kgb_minmax(JP, q))
+            for q in KGB_QUERIES]
+    single = [TP.run_aggregate(tix, req_kgb_minmax(TP, q))
+              for q in KGB_QUERIES]
+    _assert_same(single, jres, RTOL_HOST, KGB_QUERIES, std_centred=True)
+    batch, stats = _port(tix, [req_kgb_minmax(TP, q) for q in KGB_QUERIES])
+    assert stats == {"device": len(KGB_QUERIES)}
+    _assert_same(batch, jres, RTOL_HOST, KGB_QUERIES, std_centred=True)
+    assert all(r.total > 0 and r.rows for r in batch)

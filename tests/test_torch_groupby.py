@@ -162,3 +162,133 @@ def test_kernel_layout_helpers():
                        "g.1.sum"]
     assert torch.equal(d["g.1.sum"], out[:, 4, :100])
     assert 3 * 1024 * 4 <= TGB.SMEM_MAX < 65536 * 4
+
+
+# ---------------------------------------------------------------------------
+# single-query groupby_aggregate (kernels B4/B5) and its plain twin
+# ---------------------------------------------------------------------------
+
+def _single_inputs(seed, n, G, p_invalid=0.2, empty_every=3):
+    """gids with out-of-range ids, invalid rows, and every
+    `empty_every`-th group left empty."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(-2, G + 3, n).astype(np.int32)
+    g[(g >= 0) & (g % empty_every == 1)] = 0
+    valid = rng.random(n) > p_invalid
+    v = rng.normal(0.0, 50.0, n).astype(np.float32)
+    return g, valid, v
+
+
+def _single_plain(g, valid, v, G, mm=True):
+    res = TGB.groupby_aggregate(torch.from_numpy(g), torch.from_numpy(valid),
+                                torch.from_numpy(v), G, want_minmax=mm)
+    return {k: x.numpy() for k, x in res.items()}
+
+
+def _single_jax(g, valid, v, G, mm=True):
+    res = JGB.groupby_aggregate(jnp.asarray(g), jnp.asarray(valid),
+                                jnp.asarray(v), G, want_minmax=mm)
+    return {k: np.asarray(x) for k, x in res.items()}
+
+
+@pytest.mark.parametrize("G,n", [(1, 500), (7, 3000), (300, 5000),
+                                 (1001, 9000)])
+def test_plain_single_matches_jax_fallback(G, n):
+    """Against the JAX CPU segment reductions: counts equal, sums within
+    1e-5 of the group's sum of |v|, min/max equal on non-empty groups
+    (the fallback leaves +-inf in empty ones; the twin the kernels'
+    +-3.4e38)."""
+    g, valid, v = _single_inputs(G, n, G)
+    t = _single_plain(g, valid, v, G)
+    x = _single_jax(g, valid, v, G)
+    assert sorted(t) == sorted(x) == ["count", "max", "min", "sum", "sumsq"]
+    np.testing.assert_array_equal(t["count"], x["count"])
+    ok = valid & (g >= 0) & (g < G)
+    gg = np.where(ok, g, G)
+    absum = np.bincount(gg, np.abs(v).astype(np.float64), G + 1)[:G]
+    sqsum = np.bincount(gg, (v.astype(np.float64)) ** 2, G + 1)[:G]
+    assert (np.abs(t["sum"] - x["sum"]) <= 1e-5 * absum + 1e-6).all()
+    assert (np.abs(t["sumsq"] - x["sumsq"]) <= 1e-5 * sqsum + 1e-6).all()
+    live = t["count"] > 0
+    np.testing.assert_array_equal(t["min"][live], x["min"][live])
+    np.testing.assert_array_equal(t["max"][live], x["max"][live])
+    if G > 1:
+        assert (~live).any()
+    assert (t["min"][~live] == 3.4e38).all()
+    assert (t["max"][~live] == np.float32(-3.4e38)).all()
+
+
+@pytest.mark.parametrize("G,n", [(7, 3000), (300, 9000)])
+def test_plain_single_matches_pallas_interpret(G, n):
+    """Against the Pallas B4/B5 in interpret mode (the tolerances of
+    tests/test_pallas_interpret.py): counts rtol 1e-6, sums rtol 1e-4 /
+    atol 1e-2, min/max rtol 1e-5, empty groups included."""
+    g, valid, v = _single_inputs(3 * G, n, G)
+    JGB._INTERPRET = True
+    jax.clear_caches()
+    try:
+        x = _single_jax(g, valid, v, G)
+    finally:
+        JGB._INTERPRET = False
+        jax.clear_caches()
+    t = _single_plain(g, valid, v, G)
+    np.testing.assert_allclose(t["count"], x["count"], rtol=1e-6)
+    np.testing.assert_allclose(t["sum"], x["sum"], rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(t["sumsq"], x["sumsq"], rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(t["min"], x["min"], rtol=1e-5)
+    np.testing.assert_allclose(t["max"], x["max"], rtol=1e-5)
+    assert (t["count"] == 0).any()
+
+
+def test_plain_single_nan_and_signed_zero():
+    """A NaN value makes its group's min and max NaN, as the JAX CPU
+    reductions give; -0.0 and 0.0 compare equal."""
+    g = np.array([0, 0, 1, 1, 2, 2], np.int32)
+    v = np.array([1.0, np.nan, -0.0, 0.0, 3.0, -2.0], np.float32)
+    valid = np.ones(6, bool)
+    t = _single_plain(g, valid, v, 3)
+    x = _single_jax(g, valid, v, 3)
+    for k in ("min", "max", "sum"):
+        np.testing.assert_array_equal(np.isnan(t[k]), np.isnan(x[k]))
+        ok = ~np.isnan(x[k])
+        assert (t[k][ok] == x[k][ok]).all(), k
+    assert np.isnan(t["min"][0]) and np.isnan(t["max"][0])
+
+
+def test_single_without_minmax_and_constant_values():
+    """want_minmax=False returns the three sums; a 0-dim value (an APPLY
+    constant) broadcasts over the rows."""
+    g, valid, _v = _single_inputs(5, 400, 9)
+    res = TGB.groupby_aggregate(torch.from_numpy(g), torch.from_numpy(valid),
+                                torch.tensor(2.0), 9, want_minmax=False)
+    assert sorted(res) == ["count", "sum", "sumsq"]
+    np.testing.assert_array_equal(res["sum"].numpy(),
+                                  2.0 * res["count"].numpy())
+
+
+def test_single_device_routing(monkeypatch):
+    """CPU tensors run the plain twin, CUDA tensors the kernel launcher
+    (never the plain twin), any other device raises."""
+    calls = []
+    monkeypatch.setattr(TGB, "groupby_aggregate_plain",
+                        lambda *a, **k: calls.append("plain"))
+    monkeypatch.setattr(TGB, "_launch_single",
+                        lambda *a, **k: calls.append("kernel"))
+    cuda = types.SimpleNamespace(device=torch.device("cuda", 0))
+    TGB.groupby_aggregate(cuda, None, None, 7)
+    TGB.groupby_aggregate(torch.zeros(4, dtype=torch.int32),
+                          torch.ones(4, dtype=torch.bool), torch.zeros(4), 7)
+    assert calls == ["kernel", "plain"]
+    with pytest.raises(RuntimeError, match="no groupby kernel"):
+        TGB.groupby_aggregate(torch.zeros(4, device="meta"), None, None, 7)
+
+
+def test_single_launch_geometry():
+    """The shared-memory branch covers G up to about 19k groups (3
+    channels of G_pad floats); the grid fills the card at 1M rows and
+    shrinks with the group space."""
+    assert 3 * TGB._g_pad(16384) * 4 <= TGB.SMEM_MAX
+    assert 3 * TGB._g_pad(65536) * 4 > TGB.SMEM_MAX
+    assert TGB._single_grid(1_000_064, 1024) == 264
+    assert TGB._single_grid(1_000_064, 65536) == 16
+    assert TGB._single_grid(1000, 1024) == 1

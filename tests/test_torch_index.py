@@ -165,7 +165,7 @@ def test_unported_schemas_raise(field, item):
     fields = [F("t", T.TEXT)]
     kw = {}
     if field == "vector":
-        from redisearch_tpu_torch._host.schema import VectorParams
+        from redisearch_tpu_torch.schema import VectorParams
         fields.append(F("v", T.VECTOR, vector=VectorParams(dim=4)))
     elif field == "geo":
         fields.append(F("g", T.GEO))

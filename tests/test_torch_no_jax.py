@@ -3,13 +3,16 @@
 A subprocess imports `redisearch_tpu_torch`, builds a 600-doc index on
 the CPU (the smallest corpus whose posting windows reach the kernel's
 1024 bucket), serves a `search_many` batch, a batch of exact and
-in-order slop phrases (the phrase op) and an `ft_aggregate_many` batch
-(GROUPBY through the raw intersection and the group-by op), then
-reports which modules it loaded.  The aggregation's host modules
-(`agg/expr.py`, `agg/reducers.py`) must load through `_host`.  Two environments: jax, jaxlib and ml_dtypes blocked
-on `sys.meta_path` (the card's machine may have none of them), and jax
-importable (the port must still not load it).  Neither may load `jax`
-or any `redisearch_tpu.*` module.
+in-order slop phrases (the phrase op), an `ft_aggregate_many` batch
+(GROUPBY through the raw intersection and the group-by op), a
+single-query `ft_search` and a single `ft_aggregate` with MIN/MAX (the
+general window program and the single-query group-by), then reports
+which modules it loaded.  The host modules the port needs are its own
+copies: no loaded module's file may lie under `redisearch_tpu/`.  Two
+environments: jax, jaxlib and ml_dtypes blocked on `sys.meta_path` (the
+card's machine may have none of them), and jax importable (the port must
+still not load it).  Neither may load `jax` or any `redisearch_tpu.*`
+module.
 """
 
 import json
@@ -56,14 +59,26 @@ agg = client.ft_aggregate_many("idx", [
                                     ("SUM", ["@p"], "s"))
     .sort_by(("@s", rt.DESC)).limit(0, 3)
     for q in ("alpha beta", "alpha gamma")])
+engine.QUERY_PATH_STATS.clear()
+win = client.ft_search("idx", "@p:[2 5] -beta", num=5)
+win_paths = dict(engine.QUERY_PATH_STATS)
+single = client.ft_aggregate("idx", rt.AggregateRequest("*").group_by(
+    "@g", ("MIN", ["@p"], "lo"), ("MAX", ["@p"], "hi"),
+    ("COUNT", [], "n")).sort_by("@g"))
+import os
+jax_pkg = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(rt.__file__))), "redisearch_tpu") + os.sep
 print(json.dumps({
     "totals": [r.total for r in res],
     "keys": [[h.key for h in r.hits] for r in res],
     "phrase": [[r.total, [h.key for h in r.hits]] for r in phr],
     "phrase_paths": phr_paths,
     "agg": [[r.total, r.rows] for r in agg],
-    "host_agg": sorted(m for m in sys.modules
-                       if m.startswith("redisearch_tpu_torch._host.agg")),
+    "window": [win.total, [h.key for h in win.hits], win_paths],
+    "single": [single.total, single.rows],
+    "files": sorted(m for m, v in list(sys.modules.items())
+                    if (getattr(v, "__file__", None) or "").startswith(
+                        jax_pkg)),
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
                                             "redisearch_tpu")),
@@ -89,9 +104,19 @@ def test_port_serves_without_jax(block):
     assert out["phrase_paths"] == {"phrase-kernel": 3}
     assert out["phrase"] == [[300, ["d1", "d3", "d5", "d7", "d9"]], [0, []],
                              [300, ["d0", "d2", "d4", "d6", "d8"]]]
-    assert out["host_agg"] == ["redisearch_tpu_torch._host.agg",
-                               "redisearch_tpu_torch._host.agg.expr",
-                               "redisearch_tpu_torch._host.agg.reducers"]
+    assert out["files"] == [], out["files"]
+    # the window program: p in [2, 5] and no "beta" (the even docs)
+    want = [i for i in range(0, 600, 2) if 2 <= i % 13 <= 5]
+    assert out["window"][0] == len(want)
+    # equal scores: the first lanes of the value-sorted numeric window
+    assert out["window"][1] == [f"d{i}" for i in want if i % 13 == 2][:5]
+    assert out["window"][2] == {}       # single queries count no batch
+    total, rows = out["single"]
+    assert total == 600
+    assert rows == [{"g": f"g{j}",
+                     "lo": float(min(i % 13 for i in range(j, 600, 5))),
+                     "hi": float(max(i % 13 for i in range(j, 600, 5))),
+                     "n": 120.0} for j in range(5)]
     for (total, rows), odd in zip(out["agg"], (1, 0)):
         docs = [i for i in range(600) if i % 2 == odd]
         want = {}

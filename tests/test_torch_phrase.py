@@ -525,21 +525,38 @@ def test_inorder_matches_proximity_model(seed):
 
 def test_refused_phrases_raise(phrase_idx, monkeypatch):
     """Unordered slop, more than 4 terms and phrases over ultra-common
-    terms (position lists past POS_SLICE_PAD) raise "not ported yet"
-    and name the general window path, with no fallback."""
-    _jix, tix = phrase_idx
+    terms (position lists past POS_SLICE_PAD) are refused by the phrase
+    kernel's plan and served by the general window program, equal to the
+    JAX package's results."""
+    jix, tix = phrase_idx
     cases = [
         (["w000 w001"], dict(slop=2, inorder=False)),
         (['"w000 w001 w002 w003 w004"'], {}),
     ]
     for queries, kw in cases:
-        with pytest.raises(NotImplementedError,
-                           match=r"not ported yet.*ROADMAP A6"):
-            tix.search_many(queries, k=10,
+        TE.QUERY_PATH_STATS.clear()
+        t = tix.search_many(queries, k=10,
                             opts_list=_opts(rt, len(queries), **kw))
+        assert TE.QUERY_PATH_STATS == {"window": len(queries)}
+        j = jix.search_many(queries, k=10,
+                            opts_list=_opts(rs, len(queries), **kw))
+        for q, a, b in zip(queries, j, t):
+            assert b.total == a.total, q
+            assert [h.key for h in b.hits] == [h.key for h in a.hits], q
+            np.testing.assert_allclose([h.score for h in b.hits],
+                                       [h.score for h in a.hits], rtol=RTOL)
     import redisearch_tpu_torch.index.segment as tseg
     monkeypatch.setattr(tseg, "POS_SLICE_PAD", 1024)
     tix._prepared.clear()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tix.search_many(['"w000 w001"'], k=10,
-                        opts_list=_opts(rt, 1, nostopwords=True))
+    TE.QUERY_PATH_STATS.clear()
+    t = tix.search_many(['"w000 w001"'], k=10,
+                        opts_list=_opts(rt, 1, nostopwords=True))[0]
+    assert TE.QUERY_PATH_STATS == {"window": 1}
+    # the exact slow paths (chunked pivot, binary-search probes) serve
+    # what the kernel serves with the full window
+    monkeypatch.setattr(tseg, "POS_SLICE_PAD", 262144)
+    tix._prepared.clear()
+    want = tix.search_many(['"w000 w001"'], k=10,
+                           opts_list=_opts(rt, 1, nostopwords=True))[0]
+    assert t.total == want.total > 0
+    assert [h.key for h in t.hits] == [h.key for h in want.hits]

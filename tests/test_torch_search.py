@@ -7,8 +7,8 @@ multi-slot stem queries) and bench.py's seven intersection-kernel
 families on a 2k-doc corpus of the bench's shape.  Totals and hit keys
 must be equal and in the same order; scores agree to rtol 1e-5.  The
 planner is a copy of the JAX one, so its transport rows and kernel plans
-must be byte-identical.  Queries outside the kernel raise "not ported
-yet" instead of falling back.
+must be byte-identical.  Queries outside the kernel run on the general
+window program, as single `search()` does.
 """
 
 import numpy as np
@@ -201,19 +201,35 @@ def test_transport_rows_and_plans_match_jax(which, plain_idx, tag_idx,
 
 @pytest.mark.parametrize("query,item", [
     # a phrase of 5 terms: past the phrase kernel's 2-4
-    ('"w000001 w000002 w000003 w000004 w000005"', "A6"),
-    ("@price:[1 5000]", "A6"),            # numeric leaf
-    ("w000001 @price:[1 5000]", "A6"),    # numeric inside an AND
+    ('"w000001 w000002 w000003 w000004 w000005"', "window"),
+    ("@price:[1 5000]", "window"),            # numeric leaf
+    ("w000001 @price:[1 5000]", "window"),    # numeric inside an AND
 ])
 def test_queries_outside_the_kernel_raise(bench_idx, query, item):
-    _jix, tix, _qt = bench_idx
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tix.search_many([query], k=10)
+    """Queries outside the kernels' shapes no longer raise: their groups
+    run on the general window program and serve what the JAX package
+    serves."""
+    jix, tix, _qt = bench_idx
+    TE.QUERY_PATH_STATS.clear()
+    t = tix.search_many([query], k=10, opts_list=_opts(rt, 1))[0]
+    assert TE.QUERY_PATH_STATS == {item: 1}
+    j = jix.search_many([query], k=10, opts_list=_opts(rs, 1))[0]
+    assert t.total == j.total, query
+    assert [h.key for h in t.hits] == [h.key for h in j.hits], query
+    np.testing.assert_allclose([h.score for h in t.hits],
+                               [h.score for h in j.hits], rtol=RTOL)
 
 
 def test_single_query_search_is_not_ported(plain_idx):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        plain_idx[1].search("alpha beta")
+    """Single-query search() rides the general window program and serves
+    what the JAX package's serves."""
+    jix, tix = plain_idx
+    for q in ("alpha beta", "alpha | beta", "omega -alpha"):
+        j, t = jix.search(q), tix.search(q)
+        assert t.total == j.total > 0, q
+        assert [h.key for h in t.hits] == [h.key for h in j.hits], q
+        np.testing.assert_allclose([h.score for h in t.hits],
+                                   [h.score for h in j.hits], rtol=RTOL)
 
 
 def test_client_front_door(bench_idx):
