@@ -27,11 +27,16 @@ script exits non-zero:
    without sums of squares, batches below and above its grid: counts
    exact, sums exact on integer inputs whose group sums stay below
    2^24, otherwise within 1e-5 of the group's sum of |v|.  Then the
-   single-query group-by kernels (B4 sums, B5 min/max) against their
-   plain versions at n = 1,000 / 65,536 / 1,000,064 rows and G = 1 /
-   1,001 / 16,384 / 65,536 (both branches), with masked rows, empty
-   groups, negative values and NaNs: counts, min and max equal, sums
-   within 1e-5 of the float64 sums.
+   fused single-query group-by kernel (B4 sums and B5 min/max in one
+   pass, `groupby_aggregate_multi`) against its plain version at n =
+   1,000 / 65,536 / 1,000,064 rows and G = 1 / 1,001 / 16,384 / 65,536
+   (one and two passes, and the global branch), with and without
+   min/max, 0 / 1 / 3 operands, a 0-dim constant operand, masked rows,
+   empty groups, negative values, -0.0s and NaNs: counts, min and max
+   equal, sums within 1e-5 of the float64 sums; a second launch gives
+   bit-identical sums wherever the histograms are in shared memory.
+   The one-operand entry `groupby_aggregate` against its plain version
+   too.
 4. main path: `Client.ft_create` with bench.py's BM25 schema, a 1M-doc
    FTSB-enwiki-shaped corpus (4+20 zipf(1.25) tokens over a 200k vocab,
    seed 0) through `add_documents`, then `ft_search_many` at batch 8192,
@@ -66,12 +71,17 @@ script exits non-zero:
    against its plain version's at the bench shapes and one batch's
    host/device split are printed for information.  Then bench.py's
    bench_agg_star request ('*' GROUPBY @grp COUNT/SUM over all 1M rows)
-   at batch 64 on the window branch with B4 (every request equal to a
-   numpy group-by of the host-copied columns), and bench_agg with MIN
-   and MAX added at batch 1024 with B4 and B5 (every request equal to
-   its plain recomputation, 16 to numpy, 16 single `ft_aggregate` calls
-   to the batch), each with its QPS; B4 and B5 are timed at the '*'
-   shape beside their plain versions and one library call each.
+   at batch 64 on the window branch (every request equal to a numpy
+   group-by of the host-copied columns), and bench_agg with MIN and MAX
+   added at batch 1024 (every request equal to its plain recomputation,
+   16 to numpy, 16 single `ft_aggregate` calls to the batch), each with
+   its QPS.  In both, each request makes one call of the fused
+   single-query group-by, and the kernel launches counted must be those
+   its calls' windows need (two a `*` request: the row pass and its
+   merge; one or two a MIN/MAX request).  The fused kernel is timed at
+   the '*' shape in sums-only mode (B4's row) and min/max mode (B5's
+   row) beside its plain version and one library call each, at the
+   median and the largest MIN/MAX window, and at a G = 1 '*' window.
    Kernel times are device times (CUDA events behind a device sleep
    that covers the host's enqueue); each is printed beside its bytes
    bound.
@@ -547,18 +557,26 @@ def phase_groupby_vs_plain(dev) -> float:
 
 
 # (n, G, integer values): n in {1,000; 65,536; a 1M-doc segment's n_pad},
-# G in {1; 1,001; 16,384 (shared branch); 65,536 (global branch)}
+# G in {1; 1,001; 16,384 and 65,536 (the global branch)}; each with one
+# operand, with and without min/max
 N_PAD_1M = 1_000_064
 GB1_CASES = [(n, G, (i + j) % 2 == 0)
              for i, n in enumerate((1000, 65536, N_PAD_1M))
              for j, G in enumerate((1, 1001, 16384, 65536))]
+# (n, G, n_ops, last operand a 0-dim constant, integer values); 17
+# operands take two launches (16 a launch)
+GB1_OPS_CASES = [(1000, 7, 0, False, True), (65536, 1001, 0, False, False),
+                 (3000, 7, 17, True, False),
+                 (1000, 7, 3, False, False), (65536, 1001, 3, True, True),
+                 (N_PAD_1M, 1001, 3, True, False),
+                 (N_PAD_1M, 1, 1, True, True), (9000, 65536, 3, True, False)]
 
 
 def single_gb_inputs(rng, n, G, integer):
-    """Raw groupby_aggregate inputs: gids with out-of-range ids (-1 and
-    >= G), invalid rows, every third group left empty (its rows masked),
-    negative values;
-    one NaN per 100,000 rows in the normal-valued cases."""
+    """Raw group-by inputs: gids with out-of-range ids (-1 and >= G),
+    invalid rows, every third group left empty (its rows masked),
+    negative values, one in 50 values -0.0; one NaN per 100,000 rows in
+    the normal-valued cases."""
     g = rng.integers(-1, G + 2, n).astype(np.int32)
     if G > 2:
         g[(g >= 0) & (g % 3 == 1)] = -1
@@ -568,7 +586,26 @@ def single_gb_inputs(rng, n, G, integer):
     else:
         v = rng.normal(0.0, 1000.0, n).astype(np.float32)
         v[rng.integers(0, n, max(1, n // 100_000))] = np.nan
+    v[rng.random(n) < 0.02] = -0.0
     return g, valid, v
+
+
+def single_gb_operands(rng, dev, n, G, n_ops, const, integer):
+    """(gid, valid, [(values, present)]) on the card; with `const` the
+    last operand is a 0-dim constant expanded with stride 0, as the
+    pipeline's `_lanes` leaves an APPLY constant."""
+    g, valid, v = single_gb_inputs(rng, n, G, integer)
+    ops = []
+    for j in range(n_ops):
+        if const and j == n_ops - 1:
+            ops.append((torch.tensor(-2.5, device=dev).expand(n),
+                        torch.tensor(True, device=dev).expand(n)))
+            continue
+        vj = v if j == 0 else single_gb_inputs(rng, n, G, integer)[2]
+        ops.append((torch.as_tensor(vj, device=dev),
+                    torch.as_tensor(rng.random(n) < 0.7, device=dev)))
+    return (torch.as_tensor(g, device=dev), torch.as_tensor(valid, device=dev),
+            ops)
 
 
 def f64_sums(g, valid, v, G):
@@ -623,33 +660,89 @@ def compare_single(kres, pres, truth, integer, what) -> dict:
     return err
 
 
+def bits_equal(a: dict, b: dict) -> bool:
+    """Whether two stat dicts hold the same bits (NaNs included)."""
+    return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+               for k in a)
+
+
+def compare_multi(kres, pres, g, valid, ops, G, integer, what) -> dict:
+    """The fused kernel's dict against its plain version's: the base
+    count equal, then each operand under `compare_single`."""
+    if sorted(kres) != sorted(pres):
+        raise AssertionError(f"{what}: keys {sorted(kres)}")
+    if not torch.equal(kres["g.None.count"], pres["g.None.count"]):
+        raise AssertionError(f"{what}: base count differs")
+    err = {"count": 0.0}
+    for j, (v, p) in enumerate(ops):
+        pre = f"g.{j}."
+        e = compare_single(
+            {k[len(pre):]: x for k, x in kres.items() if k.startswith(pre)},
+            {k[len(pre):]: x for k, x in pres.items() if k.startswith(pre)},
+            f64_sums(g, valid & p, v, G), integer, f"{what} operand {j}")
+        for k, x in e.items():
+            err[k] = max(err.get(k, 0.0), x)
+    return err
+
+
 def phase_single_groupby_vs_plain(dev) -> tuple:
-    """Kernels B4 (sums) and B5 (min/max) against their plain versions on
-    every GB1_CASES case, through `groupby_aggregate` (masking included)
-    and on the pre-masked rows.  Returns the two max errors."""
+    """The fused single-query kernel against its plain version on every
+    GB1_CASES case (one operand) and every GB1_OPS_CASES case, with and
+    without min/max, through `groupby_aggregate_multi` (masking
+    included); where the histograms sit in shared memory a second launch
+    must give bit-identical sums.  The one-operand entry
+    `groupby_aggregate` against `groupby_aggregate_plain` on the
+    GB1_CASES.  Returns the max errors of the sums and of min/max."""
     rng = np.random.default_rng(19)
     err_s = err_m = 0.0
-    for n, G, integer in GB1_CASES:
-        g, valid, v = (torch.as_tensor(a, device=dev)
-                       for a in single_gb_inputs(rng, n, G, integer))
-        kres = GB.groupby_aggregate(g, valid, v, G, want_minmax=True)
-        pres = GB.groupby_aggregate_plain(g, valid, v, G, want_minmax=True)
-        torch.cuda.synchronize()
-        what = f"B4/B5 vs plain [n={n} G={G}]"
-        e = compare_single(kres, pres, f64_sums(g, valid, v, G), integer,
-                           what)
-        err_s = max(err_s, e["count"], e["sum"], e["sumsq"])
-        err_m = max(err_m, e["min"], e["max"])
-        cnt = pres["count"].cpu().numpy()
-        smem = 3 * GB._g_pad(G) * 4 <= GB.SMEM_MAX
-        log(f"phase single-groupby-vs-plain: n={n} G={G} "
-            f"{'integer' if integer else 'normal+NaN'} values, "
-            f"{'shared' if smem else 'global'} branch, grid="
-            f"{GB._single_grid(n, GB._g_pad(G))}, rows={int(cnt.sum())}, "
-            f"empty groups={int((cnt == 0).sum())}, max_abs_err="
-            f"{max(e.values()):.3g} ok")
-        del g, valid, v, kres, pres
+    cases = ([(n, G, 1, False, integer) for n, G, integer in GB1_CASES]
+             + GB1_OPS_CASES)
+    for n, G, n_ops, const, integer in cases:
+        g, valid, ops = single_gb_operands(rng, dev, n, G, n_ops, const,
+                                           integer)
+        for mm in (True, False):
+            kres = GB.groupby_aggregate_multi(g, valid, ops, G, mm)
+            again = GB.groupby_aggregate_multi(g, valid, ops, G, mm)
+            pres = GB.groupby_aggregate_multi_plain(g, valid, ops, G, mm)
+            torch.cuda.synchronize()
+            what = (f"fused single-query kernel vs plain [n={n} G={G} "
+                    f"ops={n_ops} const={const} minmax={mm}]")
+            e = compare_multi(kres, pres, g, valid, ops, G, integer, what)
+            err_s = max(err_s, *(e.get(k, 0.0)
+                                 for k in ("count", "sum", "sumsq")))
+            err_m = max(err_m, e.get("min", 0.0), e.get("max", 0.0))
+            C = GB._single_channels(min(n_ops, GB.MAX_OPS), mm)  # launch 1
+            blocks, warps, rpb, shared = GB._single_geometry(
+                n, C, GB._g_pad(G), GB._n_sm(dev.index))
+            stable = bits_equal(kres, again)
+            if shared and not stable:
+                raise AssertionError(f"{what}: two launches differ")
+            cnt = pres["g.None.count"].cpu().numpy()
+            log(f"phase single-groupby-vs-plain: n={n} G={G} ops={n_ops}"
+                f"{' (last a 0-dim constant)' if const else ''} minmax={mm} "
+                f"{'integer' if integer else 'normal+NaN'} values, "
+                f"{'shared' if shared else 'global'} branch, blocks="
+                f"{blocks} warps={warps} rows/block={rpb}"
+                f"{' + merge pass' if shared and blocks > 1 else ''}, rows="
+                f"{int(cnt.sum())}, empty groups={int((cnt == 0).sum())}, "
+                f"bit-identical relaunch={stable}, max_abs_err="
+                f"{max(e.values()):.3g} ok")
+            del kres, again, pres
+        if n_ops == 1 and not const:
+            v = ops[0][0]
+            kres = GB.groupby_aggregate(g, valid, v, G, want_minmax=True)
+            pres = GB.groupby_aggregate_plain(g, valid, v, G,
+                                              want_minmax=True)
+            torch.cuda.synchronize()
+            e = compare_single(kres, pres, f64_sums(g, valid, v, G), integer,
+                               f"groupby_aggregate vs plain [n={n} G={G}]")
+            err_s = max(err_s, e["count"], e["sum"], e["sumsq"])
+            err_m = max(err_m, e["min"], e["max"])
+            del kres, pres
+        del g, valid, ops
     torch.cuda.synchronize()
+    log(f"phase single-groupby-vs-plain: {2 * len(cases)} fused cases and "
+        f"{len(GB1_CASES)} one-operand cases == plain")
     return err_s, err_m
 
 
@@ -1307,15 +1400,15 @@ class plain_versions:
 
     def __enter__(self):
         self.saved = (IK.intersect_batch, IK.phrase_batch,
-                      GB.groupby_aggregate_batch, GB.groupby_aggregate)
+                      GB.groupby_aggregate_batch, GB.groupby_aggregate_multi)
         IK.intersect_batch = IK.intersect_plain
         IK.phrase_batch = IK.phrase_plain
         GB.groupby_aggregate_batch = GB.groupby_plain
-        GB.groupby_aggregate = GB.groupby_aggregate_plain
+        GB.groupby_aggregate_multi = GB.groupby_aggregate_multi_plain
 
     def __exit__(self, *exc):
         (IK.intersect_batch, IK.phrase_batch, GB.groupby_aggregate_batch,
-         GB.groupby_aggregate) = self.saved
+         GB.groupby_aggregate_multi) = self.saved
 
 
 class capture_shapes:
@@ -1553,59 +1646,99 @@ def batch_library_call(gslots, vals, n_groups, want_sumsq=True):
     return lambda: out.index_add_(0, idx, src)
 
 
-def single_library_calls(g, vm, n_groups):
-    """One PyTorch call for each single-query kernel, on its pre-masked
-    rows: B4 as one `index_add_` of [ones, v, v*v] into [3, G + 1]; B5 as
-    one `scatter_reduce_` amin of [v, -v] onto +3.4e38 (min, and -max).
-    Timed for comparison only; the port never calls them."""
+def single_library_calls(gid, valid, ops, n_groups):
+    """One PyTorch call for each mode of the fused single-query kernel,
+    its masks, indices and sources built outside the timed call: the
+    sums (base count, then per operand count, sum, sumsq) as one
+    `index_add_` into [C, G + 1]; min/max as one `scatter_reduce_` amin
+    of [v, -v] per operand onto +3.4e38 (min, and -max).  Timed for
+    comparison only; the port never calls them."""
     G1 = n_groups + 1
-    gi = torch.where(g >= 0, g, n_groups).long()
-    idx3 = torch.cat([gi, gi + G1, gi + 2 * G1])
-    src3 = torch.cat([(g >= 0).to(torch.float32), vm, vm * vm])
-    out3 = torch.zeros(3 * G1, dtype=torch.float32, device=g.device)
-    idx2 = torch.cat([gi, gi + G1])
-    src2 = torch.cat([vm, -vm])
-    out2 = torch.full((2 * G1,), GB.BIG, dtype=torch.float32,
-                      device=g.device)
-    return (lambda: out3.index_add_(0, idx3, src3),
+    ok = valid & (gid >= 0) & (gid < n_groups)
+    gi = torch.where(ok, gid, n_groups).long()
+    idx, src, idx2, src2 = [gi], [ok.to(torch.float32)], [], []
+    for j, (v, p) in enumerate(ops):
+        okj = ok & p
+        gj = torch.where(okj, gid, n_groups).long()
+        vm = torch.where(okj, v, 0.0)
+        c = 1 + 3 * j
+        idx += [gj + c * G1, gj + (c + 1) * G1, gj + (c + 2) * G1]
+        src += [okj.to(torch.float32), vm, vm * vm]
+        idx2 += [gj + 2 * j * G1, gj + (2 * j + 1) * G1]
+        src2 += [vm, -vm]
+    idx, src = torch.cat(idx), torch.cat(src)
+    out = torch.zeros((1 + 3 * len(ops)) * G1, dtype=torch.float32,
+                      device=gid.device)
+    idx2, src2 = torch.cat(idx2), torch.cat(src2)
+    out2 = torch.full((2 * len(ops) * G1,), GB.BIG, dtype=torch.float32,
+                      device=gid.device)
+    return (lambda: out.index_add_(0, idx, src),
             lambda: out2.scatter_reduce_(0, idx2, src2, "amin",
                                          include_self=True))
 
 
-def phase_single_groupby_times(ix, dev) -> dict:
-    """B4 and B5 against their plain versions and one library call each
-    at the `*` shape: every row of the 1M-doc segment, G = 1,001 (grp),
-    the price column (device ms, plain/kernel/plain/kernel); each pair
-    also compared.  Returns {name: (kernel ms, plain ms, bound ms,
-    library ms, max abs err)}."""
+def single_bytes(gid, valid, ops, res) -> int:
+    """Bytes the fused kernel must move: the gid and valid columns, each
+    operand's present and values (one element for a broadcast constant),
+    and the outputs."""
+    n = nbytes(gid, valid, *res.values())
+    for v, p in ops:
+        n += sum(x.element_size() * (x.numel() if x.stride(0) else 1)
+                 for x in (v, p))
+    return n
+
+
+def time_single(gid, valid, ops, G, mm, lib, what, integer=True) -> tuple:
+    """The fused kernel in one mode against its plain version (checked
+    first) and one library call: (kernel ms, plain ms, bound ms,
+    library ms, max abs err), device ms, plain/kernel/plain/kernel."""
+    kres = GB.groupby_aggregate_multi(gid, valid, ops, G, mm)
+    pres = GB.groupby_aggregate_multi_plain(gid, valid, ops, G, mm)
+    e = compare_multi(kres, pres, gid, valid, ops, G, integer, what)
+    b = bound_ms(single_bytes(gid, valid, ops, kres))
+    del kres, pres
+    p1 = time_ms(lambda: GB.groupby_aggregate_multi_plain(
+        gid, valid, ops, G, mm), 5)
+    k1 = time_ms(lambda: GB.groupby_aggregate_multi(gid, valid, ops, G, mm))
+    p2 = time_ms(lambda: GB.groupby_aggregate_multi_plain(
+        gid, valid, ops, G, mm), 5)
+    k2 = time_ms(lambda: GB.groupby_aggregate_multi(gid, valid, ops, G, mm))
+    lib_ms = time_ms(lib)
+    log(f"phase single-groupby-times: {what} (n={gid.shape[0]}, G={G}, "
+        f"ops={len(ops)}, minmax={mm}): kernel {k1:.4f}/{k2:.4f} ms, plain "
+        f"{p1:.4f}/{p2:.4f} ms (device ms, plain/kernel/plain/kernel), "
+        f"bytes bound {b:.3g} ms, library call {lib_ms:.4f} ms; kernel == "
+        f"plain")
+    return min(k1, k2), min(p1, p2), b, lib_ms, max(e.values())
+
+
+def phase_single_groupby_times(ix, dev, windows) -> dict:
+    """The fused single-query kernel at the `*` shape (every row of the
+    1M-doc segment, G = 1,001 (grp), the price column) in sums-only mode
+    (B4's row) and min/max mode (B5's row), and in min/max mode at the
+    median and the largest window of the MIN/MAX batch (`windows`, its
+    captured arguments); each beside its plain version and one library
+    call; and at the `*` shape with every row in one group (G = 1, the
+    one-group warp steps).  Returns {name: (kernel ms, plain ms, bound
+    ms, library ms, max abs err)}."""
     seg = ix.segments[0]
     ids = seg.strcols["grp"].value_ids
     G = len(seg.strcols["grp"].table) + 1
     gid = torch.where(ids < 0, G - 1, ids)
     valid = torch.arange(seg.n_pad, device=dev) < seg.n_docs
-    price = seg.numerics["price"].values
-    g, vm = GB._premask(gid, valid & seg.numerics["price"].present, price,
-                        G)
-    lib_sums, lib_mm = single_library_calls(g, vm, G)
-    truth = f64_sums(gid, valid & seg.numerics["price"].present, price, G)
-    out = {}
-    for name, kern, plain_fn, lib in (
-            ("groupby_sums", GB.sums_kernel, GB.sums_plain, lib_sums),
-            ("groupby_minmax", GB.minmax_kernel, GB.minmax_plain, lib_mm)):
-        kres, pres = kern(g, vm, G), plain_fn(g, vm, G)
-        e = compare_single(kres, pres, truth, True, f"{name} at the * shape")
-        b = bound_ms(nbytes(g, vm, *kres.values()))
-        p1 = time_ms(lambda: plain_fn(g, vm, G), 5)
-        k1 = time_ms(lambda: kern(g, vm, G))
-        p2 = time_ms(lambda: plain_fn(g, vm, G), 5)
-        k2 = time_ms(lambda: kern(g, vm, G))
-        lib_ms = time_ms(lib)
-        out[name] = (min(k1, k2), min(p1, p2), b, lib_ms, max(e.values()))
-        log(f"phase aggregate: {name} at the * shape (n={seg.n_pad}, "
-            f"G={G}): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
-            f"{p2:.4f} ms (device ms, plain/kernel/plain/kernel), bytes "
-            f"bound {b:.4f} ms, library call {lib_ms:.4f} ms; kernel == "
-            f"plain")
+    ops = [(seg.numerics["price"].values, seg.numerics["price"].present)]
+    lib_sums, lib_mm = single_library_calls(gid, valid, ops, G)
+    out = {"groupby_sums": time_single(gid, valid, ops, G, False, lib_sums,
+                                       "the * shape, sums only"),
+           "groupby_minmax": time_single(gid, valid, ops, G, True, lib_mm,
+                                         "the * shape, min/max")}
+    for name, (a, k) in windows.items():
+        lib = single_library_calls(a[0], a[1], a[2], a[3])[1]
+        out[name] = time_single(*a, True, lib, f"the {name} MIN/MAX window")
+    one = torch.zeros_like(gid)
+    out["one group"] = time_single(one, valid, ops, 1, False,
+                                   single_library_calls(one, valid, ops, 1)[0],
+                                   "the * shape, G = 1, sums only")
     return out
 
 
@@ -1623,20 +1756,51 @@ def agg_qps(client, batches) -> float:
     return sum(len(b) for b in batches) / best
 
 
+def multi_calls(client, reqs) -> list:
+    """The (args, kwargs) of every `groupby_aggregate_multi` call that
+    one more run of the batch `reqs` makes, in window width order."""
+    calls = []
+    real = GB.groupby_aggregate_multi
+    GB.groupby_aggregate_multi = lambda *a, **k: (calls.append((a, k))
+                                                  or real(*a, **k))
+    try:
+        client.ft_aggregate_many("bm25", reqs)
+    finally:
+        GB.groupby_aggregate_multi = real
+    calls.sort(key=lambda c: c[0][0].shape[0])
+    return calls
+
+
+def single_kernels(calls, dev) -> int:
+    """Kernel launches that the fused group-by's `calls` need: per
+    launcher call (MAX_OPS operands each), from its window by the
+    wrapper's geometry."""
+    total = 0
+    for (gid, _valid, ops, G), k in calls:
+        for j0 in range(0, max(len(ops), 1), GB.MAX_OPS):
+            C = GB._single_channels(len(ops[j0:j0 + GB.MAX_OPS]),
+                                    k["want_minmax"], j0 == 0)
+            blocks, _w, _r, shared = GB._single_geometry(
+                gid.shape[0], C, GB._g_pad(G), GB._n_sm(dev.index))
+            total += GB._single_kernels(blocks, shared)
+    return total
+
+
 def zero_counts():
     AP.AGG_PATH_STATS.clear()
     E.QUERY_PATH_STATS.clear()
     IK.LAUNCHES = IK.PHRASE_LAUNCHES = 0
-    GB.LAUNCHES = GB.SUMS_LAUNCHES = GB.MINMAX_LAUNCHES = 0
+    GB.LAUNCHES = GB.SINGLE_LAUNCHES = 0
 
 
 def phase_agg_star(client, ix, dev) -> dict:
     """bench.py's bench_agg_star at batch 64 on the 1M-doc index: the
     window branch (match-all, 1M rows a request; its staged windows would
-    exceed _MAX_BATCH_STAGE, so each request runs B4 for the base count
-    and the price).  Every request must equal a numpy group-by of the
-    host-copied columns.  QPS, memory and one batch's host/device split
-    are printed."""
+    exceed _MAX_BATCH_STAGE, so each request makes one call of the fused
+    single-query group-by for the base count and the price, which
+    launches its row pass and merge pass: 128 launches).  Every request
+    must equal a numpy group-by of the host-copied columns.  QPS, memory
+    and one batch's host/device split are printed."""
     seg = ix.segments[0]
     base = int(time.time())
     reqs = [star_request(base + i) for i in range(STAR_BATCH)]
@@ -1645,15 +1809,21 @@ def phase_agg_star(client, ix, dev) -> dict:
     zero_counts()
     res = client.ft_aggregate_many("bm25", reqs)
     torch.cuda.synchronize(dev)
-    launches = GB.SUMS_LAUNCHES
+    launches = GB.SINGLE_LAUNCHES
     stats = dict(AP.AGG_PATH_STATS)
-    log(f"phase aggregate-star: batch {STAR_BATCH}: B4 launches={launches}, "
-        f"B5 launches={GB.MINMAX_LAUNCHES}, batched group-by launches="
-        f"{GB.LAUNCHES}, intersect launches={IK.LAUNCHES}, path stats="
-        f"{stats}, max_memory_allocated="
-        f"{torch.cuda.max_memory_allocated(dev)}")
-    if launches != 2 * STAR_BATCH or stats != {"device-tail": STAR_BATCH}:
-        raise AssertionError(f"star batch: {launches} B4 launches, {stats}")
+    calls = multi_calls(client, reqs)
+    need = single_kernels(calls, dev)
+    log(f"phase aggregate-star: batch {STAR_BATCH}: fused single-query "
+        f"calls={len(calls)}, kernel launches={launches} (its calls' "
+        f"windows need {need}), batched group-by launches={GB.LAUNCHES}, "
+        f"intersect launches={IK.LAUNCHES}, path stats={stats}, "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
+    if (len(calls) != STAR_BATCH or launches != need
+            or launches != 2 * STAR_BATCH
+            or stats != {"device-tail": STAR_BATCH}):
+        raise AssertionError(f"star batch: {len(calls)} calls, {launches} "
+                             f"single-query launches (need {need}), {stats}")
+    del calls
     grp_ids = seg.strcols["grp"].value_ids.cpu().numpy()
     price = seg.numerics["price"].values.cpu().numpy()
     total, top = numpy_agg_top(seg, ix, None, grp_ids,
@@ -1675,10 +1845,13 @@ def phase_agg_star(client, ix, dev) -> dict:
 
 def phase_agg_minmax(client, ix, dev) -> dict:
     """The MIN/MAX variant of bench_agg at batch 1024: the window branch
-    (MIN/MAX leave the kernel-raw branch) with B4 and B5 per request.
-    Every request must equal its plain recomputation on the card, 16
-    must equal numpy, and 16 single `ft_aggregate` calls must equal the
-    batch's results.  QPS is printed."""
+    (MIN/MAX leave the kernel-raw branch), one call of the fused
+    single-query group-by a request (1,024 calls; one kernel launch for a
+    window of at most 2,048 rows, two above).  Every request must equal
+    its plain recomputation
+    on the card, 16 must equal numpy, and 16 single `ft_aggregate` calls
+    must equal the batch's results.  QPS is printed; the arguments of
+    the median and the largest window are returned for the timings."""
     seg = ix.segments[0]
     _mk, _mk_sd, mk_mm = agg_request_fn()
     reqs = [mk_mm(i) for i in range(AGG_BATCH)]
@@ -1686,15 +1859,25 @@ def phase_agg_minmax(client, ix, dev) -> dict:
     zero_counts()
     res = client.ft_aggregate_many("bm25", reqs)
     torch.cuda.synchronize(dev)
-    sums_l, mm_l = GB.SUMS_LAUNCHES, GB.MINMAX_LAUNCHES
+    launches = GB.SINGLE_LAUNCHES
     stats = dict(AP.AGG_PATH_STATS)
-    log(f"phase aggregate-minmax: batch {AGG_BATCH}: B4 launches={sums_l}, "
-        f"B5 launches={mm_l}, intersect launches={IK.LAUNCHES}, path "
+    calls = multi_calls(client, reqs)
+    need = single_kernels(calls, dev)
+    log(f"phase aggregate-minmax: batch {AGG_BATCH}: fused single-query "
+        f"calls={len(calls)}, kernel launches={launches} (its calls' "
+        f"windows need {need}), intersect launches={IK.LAUNCHES}, path "
         f"stats={stats}, requests with rows="
         f"{sum(1 for r in res if r.rows)}, mean total="
         f"{np.mean([r.total for r in res]):.1f}")
-    if sums_l <= 0 or mm_l <= 0 or stats != {"device-tail": AGG_BATCH}:
-        raise AssertionError(f"minmax batch: {sums_l} {mm_l} {stats}")
+    if (len(calls) != AGG_BATCH or launches != need
+            or stats != {"device-tail": AGG_BATCH}):
+        raise AssertionError(f"minmax batch: {len(calls)} calls, {launches} "
+                             f"single-query launches (need {need}), {stats}")
+    widths = [c[0][0].shape[0] for c in calls]
+    windows = {"median": calls[len(calls) // 2], "largest": calls[-1]}
+    log(f"phase aggregate-minmax: window widths of the {len(widths)} "
+        f"requests: min {widths[0]}, median {widths[len(widths) // 2]}, "
+        f"max {widths[-1]}")
     with plain_versions():
         plain = client.ft_aggregate_many("bm25", reqs)
     for req, k, p in zip(reqs, res, plain):
@@ -1723,7 +1906,7 @@ def phase_agg_minmax(client, ix, dev) -> dict:
     qps = agg_qps(client, [reqs])
     log(f"phase aggregate-minmax: qps {qps:.1f} (batch {AGG_BATCH}, best of "
         f"2, host clock)")
-    return dict(sums_launches=sums_l, mm_launches=mm_l, qps=qps)
+    return dict(launches=launches, qps=qps, windows=windows)
 
 
 def phase_agg_profile(ix, batch, dev, what="aggregate"):
@@ -1746,15 +1929,15 @@ def phase_agg_profile(ix, batch, dev, what="aggregate"):
         torch.cuda.synchronize(dev)
         traced = (time.perf_counter() - ts) * 1e3
     busy, kern = device_busy_us(prof, ("intersect_kernel", "groupby_kernel",
-                                       "gb_sums_kernel", "gb_minmax_kernel"))
+                                       "gb_single_kernel", "gb_single_merge"))
     log(f"phase profile: {what} (batch {len(batch)}) host ms: submit "
         f"{(t1 - t0) * 1e3:.3f}, wait {(t2 - t1) * 1e3:.3f}, finish "
         f"{(t3 - t2) * 1e3:.3f}, whole {(t3 - t0) * 1e3:.3f}; traced "
         f"{traced:.3f} ms with device busy {busy:.1f} us (intersect "
         f"{kern['intersect_kernel']:.1f} us, batched groupby "
-        f"{kern['groupby_kernel']:.1f} us, B4 "
-        f"{kern['gb_sums_kernel']:.1f} us, B5 "
-        f"{kern['gb_minmax_kernel']:.1f} us), idle share "
+        f"{kern['groupby_kernel']:.1f} us, fused single-query "
+        f"{kern['gb_single_kernel']:.1f} us and its merge "
+        f"{kern['gb_single_merge']:.1f} us), idle share "
         f"{1.0 - busy / (traced * 1e3):.4f}")
 
 
@@ -1771,7 +1954,7 @@ def main():
     agg = phase_aggregate(main["client"], main["ix"], dev)
     star = phase_agg_star(main["client"], main["ix"], dev)
     mm = phase_agg_minmax(main["client"], main["ix"], dev)
-    single = phase_single_groupby_times(main["ix"], dev)
+    single = phase_single_groupby_times(main["ix"], dev, mm["windows"])
     k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
     pk_ms, pp_ms, pk_err, pk_b = main["times"]["phrase"]
     jax_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1806,10 +1989,9 @@ def main():
             agg["raw_ms"][0], agg["raw_ms"][1], agg["raw_ms"][2], None),
         rec("groupby_sums_batch", GB_SRC, GB_REPLACES, agg["gb_launches"],
             max(err_gb3, agg["err_gb"]), *agg["gb_ms"]),
-        rec("groupby_sums", GB_SRC, SUMS_REPLACES,
-            star["launches"] + mm["sums_launches"], max(err_sums3, ss[4]),
-            *ss[:4]),
-        rec("groupby_minmax", GB_SRC, MINMAX_REPLACES, mm["mm_launches"],
+        rec("groupby_sums", GB_SRC, SUMS_REPLACES, star["launches"],
+            max(err_sums3, ss[4]), *ss[:4]),
+        rec("groupby_minmax", GB_SRC, MINMAX_REPLACES, mm["launches"],
             max(err_mm3, sm[4]), *sm[:4])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

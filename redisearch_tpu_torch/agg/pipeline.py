@@ -14,8 +14,9 @@ Counterpart of `redisearch_tpu/agg/pipeline.py` on its device paths:
   - the window branch, for what that kernel does not serve (match-all,
     pivots over 32,768, MIN/MAX, ...): the general window program per
     query (`query.engine._build_fn`, mode "window") and either B3 over
-    the staged (gid, value) windows (`_make_fused_cols`) or the
-    single-query kernels B4/B5 (`_make_fused`, `groupby_aggregate`);
+    the staged (gid, value) windows (`_make_fused_cols`) or one call a
+    query of the fused single-query kernel (B4/B5; `_make_fused`,
+    `groupby_aggregate_multi`);
   then an on-device SORT/LIMIT head (`_make_device_tail`) or the host
   merge (`_device_group_finish`);
 * single, `run_aggregate` -> `_device_group_submit` -> `_make_fused` per
@@ -505,9 +506,9 @@ def _composite_gid(seg_args_, sizes, cd, like):
 def _make_fused(cq, raw, G, sizes, in_fields, compiled_pre, operands,
                 want_minmax):
     """The per-query fused program: window program -> compiled pre steps
-    -> key/operand gathers -> `groupby_aggregate` (B4, and B5 for
-    MIN/MAX) for the base count and each operand.  Shared by the single
-    request path and the window branch of the batch path."""
+    -> key/operand gathers -> ONE `groupby_aggregate_multi` call (the
+    fused B4/B5 kernel) for the base count and every operand.  Shared by
+    the single request path and the window branch of the batch path."""
     # match-all roots emit the iota window: every column is already
     # doc-aligned, so no gathers
     iota_root = cq.tree[0] == "leaf" and isinstance(cq.tree[1], LAll)
@@ -520,21 +521,13 @@ def _make_fused(cq, raw, G, sizes, in_fields, compiled_pre, operands,
         cols = _gather_cols(seg_args_, in_fields, cd)
         valid = _run_pre(compiled_pre, cols, valid, docs)
         gid = _composite_gid(seg_args_, sizes, cd, docs)
+        # an APPLY constant stays a stride-0 view: the kernel reads its
+        # one element
+        ops = [(_lanes(cols[op_][0], docs), _lanes(cols[op_][1], docs))
+               for op_ in operands]
         res = {"count": out["count"]}
-        base = GB.groupby_aggregate(
-            gid, valid, torch.zeros(docs.shape, dtype=torch.float32,
-                                    device=docs.device),
-            G, want_minmax=False)
-        for stat, arr in base.items():
-            res[f"g.None.{stat}"] = arr
-        for j, op_ in enumerate(operands):
-            vals, pres = cols[op_]
-            gr = GB.groupby_aggregate(
-                gid, valid & _lanes(pres, docs),
-                _lanes(vals, docs).to(torch.float32), G,
-                want_minmax=want_minmax)
-            for stat, arr in gr.items():
-                res[f"g.{j}.{stat}"] = arr
+        res.update(GB.groupby_aggregate_multi(gid, valid, ops, G,
+                                              want_minmax=want_minmax))
         return res
 
     return fused
@@ -1060,9 +1053,9 @@ def _device_group_submit_batch(index, items):
 
 def _device_group_submit(index, req: AggregateRequest, cq):
     """One request's device GROUPBY on every segment: the window program
-    and `_make_fused` (kernels B4/B5), its outputs copied to the host in
-    one tensor per segment.  Returns the finish handle, or None when the
-    plan is not device-eligible."""
+    and `_make_fused` (the fused B4/B5 kernel), its outputs copied to the
+    host in one tensor per segment.  Returns the finish handle, or None
+    when the plan is not device-eligible."""
     plan = _plan_device_group_cached(index, req, cq)
     if plan is None:
         return None

@@ -22,7 +22,8 @@ from .index.index import SearchIndex, SearchResult, default_device
 
 class Client:
     """An embedded search service instance; its indexes keep their
-    segments on `device` (default: the card when there is one)."""
+    segments on `device` (default: the card; `device="cpu"` asks for the
+    CPU, and without a card the default raises)."""
 
     def __init__(self, device=None):
         self.device = torch.device(device) if device is not None \

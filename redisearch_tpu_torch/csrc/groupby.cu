@@ -1,5 +1,6 @@
 // GROUPBY kernels for Hopper (sm_90a): the batched per-query sums (B3,
-// below) and the single-query sums and min/max (B4 and B5, after it).
+// below) and one request's count/sum/sumsq and min/max in one fused pass
+// (B4 and B5, after it).
 //
 // ---- B3: batched per-query sums
 //
@@ -92,130 +93,479 @@ groupby_kernel(const int* __restrict__ gslots, const float* __restrict__ vals,
   }
 }
 
-// ---- B4 and B5: one query's count/sum/sumsq and min/max per group
+// ---- B4 and B5 fused: one request's group-by in one pass (gb_single_kernel)
 //
-// Replace the Pallas TPU kernels `redisearch_tpu/ops/groupby.py`
-// `_sums_kernel` (B4) and `_minmax_kernel` (B5), entry `groupby_aggregate`
-// (via `_groupby_pallas`), which the window program's fused aggregation
-// (`agg/pipeline.py` `_make_fused`) calls once per (query, reducer
-// operand).  Inputs: gids int32 [n] (-1 or >= G_pad = skip; the wrapper
-// masks invalid rows to -1) and values f32 [n] (0 on skipped rows), n up
-// to a segment's n_pad (about 1M), G_pad <= 65,536.
+// Replaces the Pallas TPU kernels `redisearch_tpu/ops/groupby.py`
+// `_sums_kernel` (B4, count/sum/sumsq) and `_minmax_kernel` (B5, min/max),
+// entry `groupby_aggregate` (via `_groupby_pallas`).  The window program's
+// fused aggregation (`agg/pipeline.py` `_make_fused`) calls it once per
+// request: the base count and every reducer operand of the request in one
+// call, where the JAX package calls `groupby_aggregate` once for the base
+// and once per operand, and the port's earlier kernels ran B4 twice and
+// B5 once behind about twenty small torch ops (masking, fills, `where`).
 //
-// The TPU kernels contract bf16 one-hot tiles on the MXU (sums, with a
-// two-term bf16 split) and run a masked [chunk, 128] reduce per group
-// tile (min/max).  Here: a grid-stride pass over the rows sized to fill
-// the 132 SMs; each block histograms its rows in shared memory when the
-// group space fits (3 * G_pad * 4 bytes <= 227 KB: G up to about 19k),
-// then merges its non-empty groups into the output with global atomics;
-// above that it updates the output with global atomics directly.  Min and
-// max are float atomics by the sign trick (atomicMin on the int bits of a
-// non-negative float, atomicMax on the unsigned bits of a negative one),
-// after -0.0 is made +0.0 (equal under the reference's minimum); a NaN
-// value sets the group's flag, and the wrapper turns flagged groups'
-// min and max into NaN, as jnp.minimum / jnp.maximum propagate it.  The
-// wrapper initialises the outputs: sums to 0, min/max to +3.4e38 /
-// -3.4e38 (the empty-group identities).
+// Inputs are the raw columns, masked here: gid int32 [n], valid bool [n],
+// and per operand j its present bool [n] and values f32 [n], each either
+// a column (step 1) or a broadcast constant passed as one element (step 0:
+// an APPLY constant, which `_lanes` expands with stride 0, is never
+// materialised).  A row counts for the base iff valid & 0 <= gid <
+// n_groups, for operand j iff also present_j.  Output f32 [C, G_pad], C =
+// has_base + n_ops * (3 + 2 * want_minmax): the base count, then per
+// operand count, sum, sumsq (, min, max).  The kernel writes every cell:
+// 0 for empty sums, +-3.4e38 for empty min/max (the Pallas identities:
+// min = min(3.4e38, values)), NaN min and max for a group holding a NaN
+// value, -0.0 taken as +0.0.  So the wrapper allocates the output and
+// fills nothing.
 //
-// Bounds: one read of the [n] gids and values (8 bytes a row: 2.4 us at
-// 1M rows and 3.35 TB/s) against atomic contention on hot groups (all
-// rows of one group serialise on one shared-memory word) and the merge
-// (grid x non-empty groups global atomics).  Later work: warp-aggregated
-// atomics (__match_any_sync over the gids), a sort-by-gid segmented
-// reduce, and one pass for the base count and every operand of a query.
+// Bound: bytes.  The rows are read once (gid and valid once for the base
+// and every operand, where a call per operand read them again and masked
+// them in separate torch ops), n * (4 + 1 + n_ops * 5) bytes,
+// plus the C * G_pad * 4 output: 10 MB and 3.0 us at 3.35 TB/s for the
+// `*` request (1,000,064 rows, one operand).  Operations are a few per
+// byte, far below any compute rate.
+//
+// Design:
+//   * Warp-private histograms.  Each warp of a block owns a [C, G_pad]
+//     histogram in shared memory, so no two warps ever touch one bin.
+//     Counts are uint32 (integer shared atomics are native: exact in any
+//     order), min and max an order-preserving uint32 code of the float
+//     (native atomicMin / atomicMax; a NaN takes the extreme code, 0 for
+//     min and ~0 for max, so it wins and decodes back to NaN with no
+//     flag).  Sums are plain read-modify-writes in a fixed order: this
+//     card has no f32 add on shared memory (atomicAdd becomes a
+//     compare-and-swap loop), and a fixed order makes them bit-stable.
+//     (Plain updates of the counts and codes too measured slower than
+//     the fire-and-forget integer atomics.)
+//   * A warp takes 256 rows a step, 8 a lane: their gid, valid and first
+//     operand in one round trip (every load in flight before any is used;
+//     windows of a few thousand rows are latency-bound, not
+//     bandwidth-bound).  For each group of 32 rows the lanes write their
+//     lane id into a per-warp tag byte of their group and read it back:
+//     if no lane lost, every group has one lane and each lane adds its
+//     own row; else `__match_any_sync` finds each group's lanes, they
+//     stage their values and the lowest lane adds the sums in lane
+//     order.  A __syncwarp between groups of 32 rows orders the writes.
+//   * Hot groups: where every counted row of a warp step is one group (a
+//     G = 1 window), each lane sums its rows in order, the warp sums its
+//     lanes with a shuffle butterfly and one lane adds the result, where
+//     its 32 lanes would otherwise update one bin one after another.
+//   * Small windows (n <= the wrapper's rows a block, 2,048): one block
+//     reduces its warps' histograms in warp order and writes the final
+//     values.  One launch, no second pass, no global atomics.
+//   * Larger windows (up to the `*` request): one block per 2,048 rows, at
+//     most one per SM, each a contiguous run of rows, store their reduced
+//     histograms with plain coalesced stores into a scratch [blocks, C,
+//     G_pad] that the wrapper allocates (132 x 4 x 1,024 x 4 B = 2.2 MB
+//     for `*`, in L2); then gb_single_merge_kernel, one thread per (cell,
+//     slice of the blocks), reduces them in block order and writes the
+//     final values.  Every order is fixed (rows to lanes, lanes, warps,
+//     blocks), so two launches on the same inputs give bit-identical
+//     sums.
+//   * Group spaces whose histogram does not fit four warps (about 56 KB
+//     a warp, e.g. G = 16,384 or 65,536): gb_single_init_kernel
+//     initialises the output, the rows add into it with global atomics,
+//     and gb_single_decode_kernel turns counts and min/max codes into
+//     floats.  Correct at every G up to 65,536; its sums are not
+//     bit-stable (blocks add in any order).
 
-constexpr int T1 = 256;
+constexpr int MAX_OPS = 16;
+constexpr int U = 8;               // rows a lane takes per step
+constexpr int TILE = 32 * U;       // rows a warp takes per step
+constexpr int MAX_WARPS = 16;
+constexpr int MAX_CH = 1 + MAX_OPS * 5;
+constexpr int MERGE_SLICES = 32;
+// dynamic shared memory a block may use: 227 KB less 1 KB for the static
+constexpr int SMEM_OPT_IN = 232448 - 1024;
 constexpr float BIG = 3.4e38f;
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ void atomic_min_f(float* a, float v) {
-  if (v >= 0.0f) {
-    atomicMin(reinterpret_cast<int*>(a), __float_as_int(v));
-  } else {
-    atomicMax(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
+// channel kinds
+constexpr int K_SUM = 0, K_MIN = 1, K_MAX = 2, K_CNT = 3;
+
+struct SingleOps {
+  const unsigned char* pres[MAX_OPS];
+  const float* vals[MAX_OPS];
+  int pres_step[MAX_OPS];          // 1, or 0 for a broadcast constant
+  int vals_step[MAX_OPS];
+};
+
+// order-preserving code of a float (a < b <=> code(a) < code(b)); -0.0 is
+// made +0.0 first
+__device__ __forceinline__ unsigned f2code(float x) {
+  const unsigned u = __float_as_uint(x + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// the inverse; codes 0 and ~0 (a NaN's, below) decode to NaNs
+__device__ __forceinline__ float code2f(unsigned c) {
+  return __uint_as_float((c & 0x80000000u) ? (c & 0x7fffffffu) : ~c);
+}
+
+__device__ __forceinline__ unsigned min_code(float x) {
+  return isnan(x) ? 0u : f2code(x);
+}
+
+__device__ __forceinline__ unsigned max_code(float x) {
+  return isnan(x) ? FULL : f2code(x);
+}
+
+__device__ __forceinline__ int chan_kind(int c, int has_base, int per_op) {
+  if (c < has_base) return K_CNT;
+  const int k = (c - has_base) % per_op;
+  return k == 0 ? K_CNT : (k < 3 ? K_SUM : k - 2);
+}
+
+__device__ __forceinline__ unsigned chan_init(int kind) {
+  return kind == K_MIN ? f2code(BIG) : (kind == K_MAX ? f2code(-BIG) : 0u);
+}
+
+__device__ __forceinline__ unsigned combine(int kind, unsigned a,
+                                            unsigned b) {
+  switch (kind) {
+    case K_SUM:
+      return __float_as_uint(__uint_as_float(a) + __uint_as_float(b));
+    case K_MIN: return min(a, b);
+    case K_MAX: return max(a, b);
+    default: return a + b;
   }
 }
 
-__device__ __forceinline__ void atomic_max_f(float* a, float v) {
-  if (v >= 0.0f) {
-    atomicMax(reinterpret_cast<int*>(a), __float_as_int(v));
-  } else {
-    atomicMin(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
-  }
+__device__ __forceinline__ uint4 combine4(int kind, uint4 a, uint4 b) {
+  return make_uint4(combine(kind, a.x, b.x), combine(kind, a.y, b.y),
+                    combine(kind, a.z, b.z), combine(kind, a.w, b.w));
 }
 
+__device__ __forceinline__ float final_value(int kind, unsigned v) {
+  return kind == K_SUM ? __uint_as_float(v)
+                       : (kind == K_CNT ? (float)v : code2f(v));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  return x;
+}
+
+// A sum into bin i: plain in a warp-private shared histogram (the caller
+// orders the writers), an atomic in the global branch.
 template <bool SMEM>
-__global__ void __launch_bounds__(T1)
-gb_sums_kernel(const int* __restrict__ gids, const float* __restrict__ vals,
-               float* __restrict__ out, long long n, int G_pad) {
-  extern __shared__ float s_sums[];
-  float* h = SMEM ? s_sums : out;
+__device__ __forceinline__ void add_sum(unsigned* h, int i, float v) {
+  float* f = reinterpret_cast<float*>(h) + i;
   if (SMEM) {
-    for (int i = threadIdx.x; i < 3 * G_pad; i += T1) s_sums[i] = 0.0f;
-    __syncthreads();
-  }
-  const long long stride = (long long)gridDim.x * T1;
-  for (long long i = (long long)blockIdx.x * T1 + threadIdx.x; i < n;
-       i += stride) {
-    const int g = gids[i];
-    if (g < 0 || g >= G_pad) continue;
-    const float x = vals[i];
-    atomicAdd(h + g, 1.0f);
-    atomicAdd(h + G_pad + g, x);
-    atomicAdd(h + 2 * G_pad + g, x * x);
-  }
-  if (SMEM) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < G_pad; i += T1) {
-      const float c = s_sums[i];
-      if (c == 0.0f) continue;
-      atomicAdd(out + i, c);
-      atomicAdd(out + G_pad + i, s_sums[G_pad + i]);
-      atomicAdd(out + 2 * G_pad + i, s_sums[2 * G_pad + i]);
-    }
+    *f += v;
+  } else {
+    atomicAdd(f, v);
   }
 }
 
+// SMEM: each warp's histogram (C * G_pad words), its group tags (G_pad
+// bytes) and its staging words (32) in shared memory; the block's reduced
+// histogram goes to part[blockIdx] (counts and codes as they are) when
+// part is given, else straight to out as final values.  !SMEM: atomics
+// into out (initialised and decoded by the kernels below).
 template <bool SMEM>
-__global__ void __launch_bounds__(T1)
-gb_minmax_kernel(const int* __restrict__ gids, const float* __restrict__ vals,
-                 float* __restrict__ out, int* __restrict__ nan_flag,
-                 long long n, int G_pad) {
-  extern __shared__ float s_mm[];
-  float* mn = SMEM ? s_mm : out;
-  float* mx = SMEM ? s_mm + G_pad : out + G_pad;
-  int* nf = SMEM ? reinterpret_cast<int*>(s_mm + 2 * G_pad) : nan_flag;
-  if (SMEM) {
-    for (int i = threadIdx.x; i < G_pad; i += T1) {
-      mn[i] = BIG;
-      mx[i] = -BIG;
-      nf[i] = 0;
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+gb_single_kernel(const int* __restrict__ gid,
+                 const unsigned char* __restrict__ valid, const SingleOps ops,
+                 int n_ops, long long n, long long rows_per_block,
+                 int n_groups, int G_pad, int has_base, int want_minmax,
+                 float* __restrict__ out,
+                 unsigned* __restrict__ part) {
+  extern __shared__ uint4 s_mem4[];
+  __shared__ unsigned char s_kind[MAX_CH];
+  unsigned* s_mem = reinterpret_cast<unsigned*>(s_mem4);
+  const int per_op = 3 + 2 * want_minmax;
+  const int C = has_base + n_ops * per_op;
+  const int W = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // words a warp owns: histogram, a tag byte per group, staging
+  const int wstride = C * G_pad + G_pad / 4 + 32;
+  unsigned* h = SMEM ? s_mem + (threadIdx.x >> 5) * wstride
+                     : reinterpret_cast<unsigned*>(out);
+  unsigned char* tag = reinterpret_cast<unsigned char*>(h + C * G_pad);
+  unsigned* stage = h + C * G_pad + G_pad / 4;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    s_kind[c] = (unsigned char)chan_kind(c, has_base, per_op);
+  }
+  __syncthreads();
+  const int g4 = G_pad / 4;
+  const int ws4 = wstride / 4;
+  if (SMEM) {   // every warp's channels: zeros, then the min/max codes
+    for (int i = threadIdx.x; i < W * ws4; i += blockDim.x) {
+      s_mem4[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (want_minmax) {
+      __syncthreads();
+      const unsigned lo = f2code(BIG), hi = f2code(-BIG);
+      for (int w = 0; w < W; ++w) {
+        for (int j = 0; j < n_ops; ++j) {
+          uint4* m = s_mem4 + w * ws4 + (has_base + j * per_op + 3) * g4;
+          for (int i = threadIdx.x; i < g4; i += blockDim.x) {
+            m[i] = make_uint4(lo, lo, lo, lo);
+            m[g4 + i] = make_uint4(hi, hi, hi, hi);
+          }
+        }
+      }
     }
     __syncthreads();
   }
-  const long long stride = (long long)gridDim.x * T1;
-  for (long long i = (long long)blockIdx.x * T1 + threadIdx.x; i < n;
-       i += stride) {
-    const int g = gids[i];
-    if (g < 0 || g >= G_pad) continue;
-    const float x = vals[i];
-    if (isnan(x)) {
-      nf[g] = 1;    // every writer stores 1
-      continue;
+
+  const unsigned char* P0 = n_ops > 0 ? ops.pres[0] : nullptr;
+  const float* V0 = n_ops > 0 ? ops.vals[0] : nullptr;
+  const long long ps0 = ops.pres_step[0], vs0 = ops.vals_step[0];
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min(n, r0 + rows_per_block);
+  // a step's rows: gid, valid and the first operand in one round trip;
+  // the next step's are loaded before this one is added
+  int gv[U];
+  unsigned char vv[U], pn[U];
+  float xn[U];
+  auto load_step = [&](long long t) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long r = t + u * 32 + lane;
+      const bool ok = r < r1;
+      gv[u] = ok ? gid[r] : -1;
+      vv[u] = ok ? valid[r] : 0;
+      pn[u] = ok && P0 != nullptr ? P0[r * ps0] : 0;
+      xn[u] = ok && V0 != nullptr ? V0[r * vs0] : 0.0f;
     }
-    const float y = x + 0.0f;   // -0.0 -> +0.0
-    atomic_min_f(mn + g, y);
-    atomic_max_f(mx + g, y);
-  }
-  if (SMEM) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < G_pad; i += T1) {
-      if (nf[i]) nan_flag[i] = 1;
-      if (mn[i] <= mx[i]) {
-        atomic_min_f(out + i, mn[i]);
-        atomic_max_f(out + G_pad + i, mx[i]);
+  };
+  load_step(r0 + (long long)(threadIdx.x >> 5) * TILE);
+  for (long long t = r0 + (long long)(threadIdx.x >> 5) * TILE; t < r1;
+       t += (long long)W * TILE) {
+    int key[U];
+    unsigned char p0[U];
+    float x0[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      key[u] = (vv[u] && gv[u] >= 0 && gv[u] < n_groups) ? gv[u] : -1;
+      p0[u] = pn[u];
+      x0[u] = xn[u];
+    }
+    load_step(t + (long long)W * TILE);
+    // uni: every counted row of the step is one group k0 (hot groups)
+    bool uni = false;
+    int k0 = -1;
+    int first = -1;
+#pragma unroll
+    for (int u = U - 1; u >= 0; --u) first = key[u] >= 0 ? key[u] : first;
+    const unsigned has = __ballot_sync(FULL, first >= 0);
+    if (has != 0) {
+      k0 = __shfl_sync(FULL, first, __ffs(has) - 1);
+      bool one = true;
+#pragma unroll
+      for (int u = 0; u < U; ++u) one = one && (key[u] < 0 || key[u] == k0);
+      uni = __all_sync(FULL, one);
+    }
+    // per group of 32 rows: does any group hold two lanes?  (tags)
+    unsigned conf = 0;
+    unsigned peers[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) peers[u] = 1u << lane;
+    if (SMEM && !uni) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (key[u] >= 0) tag[key[u]] = (unsigned char)lane;
+        __syncwarp();
+        const bool lost = key[u] >= 0 && tag[key[u]] != (unsigned char)lane;
+        if (__any_sync(FULL, lost)) {
+          conf |= 1u << u;
+          peers[u] = __match_any_sync(FULL, key[u]);
+        }
+        __syncwarp();
+      }
+    }
+    if (has_base) {   // counts: integer atomics, exact in any order
+      if (uni) {
+        int c = 0;
+#pragma unroll
+        for (int u = 0; u < U; ++u) c += key[u] >= 0;
+        c = __reduce_add_sync(FULL, c);
+        if (lane == 0) atomicAdd(h + k0, (unsigned)c);
+      } else {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (key[u] >= 0) atomicAdd(h + key[u], 1u);
+        }
+      }
+    }
+    for (int j = 0; j < n_ops; ++j) {
+      unsigned char pv[U];
+      float xv[U];
+      if (j == 0) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          pv[u] = key[u] >= 0 ? p0[u] : 0;
+          xv[u] = x0[u];
+        }
+      } else {
+        const unsigned char* P = ops.pres[j];
+        const float* V = ops.vals[j];
+        const long long ps = ops.pres_step[j], vs = ops.vals_step[j];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const long long r = t + u * 32 + lane;
+          pv[u] = key[u] >= 0 ? P[r * ps] : 0;
+          xv[u] = key[u] >= 0 ? V[r * vs] : 0.0f;
+        }
+      }
+      const int c0 = (has_base + j * per_op) * G_pad;
+      if (uni) {    // each lane's rows in order, then a butterfly
+        int c = 0;
+        float s = 0.0f, q = 0.0f;
+        unsigned lo = FULL, hi = 0u;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (pv[u]) {
+            const float x = xv[u];
+            ++c;
+            s += x;
+            q += x * x;
+            lo = min(lo, min_code(x));
+            hi = max(hi, max_code(x));
+          }
+        }
+        c = __reduce_add_sync(FULL, c);
+        if (c == 0) continue;                  // warp-uniform
+        s = warp_sum(s);
+        q = warp_sum(q);
+        lo = __reduce_min_sync(FULL, lo);
+        hi = __reduce_max_sync(FULL, hi);
+        if (lane == 0) {
+          atomicAdd(h + c0 + k0, (unsigned)c);
+          add_sum<SMEM>(h, c0 + G_pad + k0, s);
+          add_sum<SMEM>(h, c0 + 2 * G_pad + k0, q);
+          if (want_minmax) {
+            atomicMin(h + c0 + 3 * G_pad + k0, lo);
+            atomicMax(h + c0 + 4 * G_pad + k0, hi);
+          }
+        }
+        continue;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float x = xv[u];
+        const int g = key[u];
+        if (pv[u]) {      // counts, min and max: exact in any order
+          atomicAdd(h + c0 + g, 1u);
+          if (want_minmax) {
+            atomicMin(h + c0 + 3 * G_pad + g, min_code(x));
+            atomicMax(h + c0 + 4 * G_pad + g, max_code(x));
+          }
+        }
+        if (!(conf >> u & 1u)) {              // every group one lane
+          if (pv[u]) {
+            add_sum<SMEM>(h, c0 + G_pad + g, x);
+            add_sum<SMEM>(h, c0 + 2 * G_pad + g, x * x);
+          }
+        } else {    // the group's lowest lane adds its lanes in lane order
+          const unsigned mine = __ballot_sync(FULL, pv[u] != 0) & peers[u];
+          stage[lane] = __float_as_uint(x);
+          __syncwarp();
+          if (mine != 0 && lane == __ffs(peers[u]) - 1) {
+            float s = 0.0f, q = 0.0f;
+            for (unsigned m = mine; m; m &= m - 1) {
+              const float y = __uint_as_float(stage[__ffs(m) - 1]);
+              s += y;
+              q += y * y;
+            }
+            add_sum<SMEM>(h, c0 + G_pad + g, s);
+            add_sum<SMEM>(h, c0 + 2 * G_pad + g, q);
+          }
+        }
+        if (SMEM) __syncwarp();
       }
     }
   }
+
+  if (SMEM) {   // the warps' histograms in warp order, 4 cells a thread
+    __syncthreads();
+    for (int c = 0; c < C; ++c) {
+      const int kind = s_kind[c];
+      for (int i = c * g4 + threadIdx.x; i < (c + 1) * g4;
+           i += blockDim.x) {
+        uint4 v = s_mem4[i];
+        switch (kind) {
+          case K_SUM:
+#pragma unroll 4
+            for (int w = 1; w < W; ++w) {
+              v = combine4(K_SUM, v, s_mem4[w * ws4 + i]);
+            }
+            break;
+          case K_MIN:
+#pragma unroll 4
+            for (int w = 1; w < W; ++w) {
+              v = combine4(K_MIN, v, s_mem4[w * ws4 + i]);
+            }
+            break;
+          case K_MAX:
+#pragma unroll 4
+            for (int w = 1; w < W; ++w) {
+              v = combine4(K_MAX, v, s_mem4[w * ws4 + i]);
+            }
+            break;
+          default:
+#pragma unroll 4
+            for (int w = 1; w < W; ++w) {
+              v = combine4(K_CNT, v, s_mem4[w * ws4 + i]);
+            }
+        }
+        if (part != nullptr) {
+          reinterpret_cast<uint4*>(part)[(long long)blockIdx.x * C * g4 + i] =
+              v;
+        } else {
+          reinterpret_cast<float4*>(out)[i] =
+              make_float4(final_value(kind, v.x), final_value(kind, v.y),
+                          final_value(kind, v.z), final_value(kind, v.w));
+        }
+      }
+    }
+  }
+}
+
+// The second pass of a large window: per output cell, the blocks'
+// partials in block order (slice k combines blocks k, k + 32, ...; the
+// slices are then combined in slice order), final values out.
+__global__ void __launch_bounds__(32 * MERGE_SLICES)
+gb_single_merge_kernel(const unsigned* __restrict__ part,
+                       float* __restrict__ out, int P, int cells, int G_pad,
+                       int has_base, int per_op) {
+  __shared__ unsigned s[MERGE_SLICES][32];
+  const int c = threadIdx.x & 31;
+  const int sl = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + c;
+  const int kind = i < cells ? chan_kind(i / G_pad, has_base, per_op) : 0;
+  unsigned v = 0u;
+  if (i < cells && sl < P) {
+    v = part[(long long)sl * cells + i];
+#pragma unroll 4
+    for (int p = sl + MERGE_SLICES; p < P; p += MERGE_SLICES) {
+      v = combine(kind, v, part[(long long)p * cells + i]);
+    }
+  }
+  s[sl][c] = v;
+  __syncthreads();
+  if (sl != 0 || i >= cells) return;
+  for (int k = 1; k < MERGE_SLICES && k < P; ++k) v = combine(kind, v, s[k][c]);
+  out[i] = final_value(kind, v);
+}
+
+// global branch: the output's identities (0 counts and sums, min/max
+// codes) ...
+__global__ void gb_single_init_kernel(unsigned* __restrict__ out, int cells,
+                                      int G_pad, int has_base, int per_op) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < cells) out[i] = chan_init(chan_kind(i / G_pad, has_base, per_op));
+}
+
+// ... and, after the atomics, counts and min/max codes made floats in place
+__global__ void gb_single_decode_kernel(float* __restrict__ out, int cells,
+                                        int G_pad, int has_base, int per_op) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cells) return;
+  const int kind = chan_kind(i / G_pad, has_base, per_op);
+  if (kind != K_SUM) out[i] = final_value(kind, __float_as_uint(out[i]));
 }
 
 }  // namespace
@@ -249,49 +599,78 @@ int rs_groupby_launch(const void* gslots, const void* vals, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-// B4: count/sum/sumsq of one query into out f32 [3, G_pad] (zeroed by
-// the caller).  Returns cudaGetLastError() (0 = launched).
-int rs_gb_sums_launch(const void* gids, const void* vals, void* out,
-                      long long n, int G_pad, int grid, int use_smem,
-                      void* stream) {
-  if (grid < 1 || G_pad < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* g = static_cast<const int*>(gids);
-  const float* v = static_cast<const float*>(vals);
-  float* o = static_cast<float*>(out);
-  if (use_smem) {
-    const size_t bytes = (size_t)3 * G_pad * sizeof(float);
-    cudaError_t e = cudaFuncSetAttribute(
-        gb_sums_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    gb_sums_kernel<true><<<grid, T1, bytes, st>>>(g, v, o, n, G_pad);
-  } else {
-    gb_sums_kernel<false><<<grid, T1, 0, st>>>(g, v, o, n, G_pad);
+// B4/B5 fused: one request's base count and up to MAX_OPS operands into
+// out f32 [C, G_pad] (see gb_single_kernel).  pres / vals / *_step are
+// host arrays of n_ops entries.  use_smem with blocks > 1 needs `part`,
+// blocks * C * G_pad uint32 of scratch.  Launches one kernel (one small
+// window), two (a large one) or three (the global branch) on `stream`;
+// returns cudaGetLastError() (0 = launched).
+int rs_gb_single_launch(const void* gid, const void* valid,
+                        const void* const* pres, const void* const* vals,
+                        const int* pres_step, const int* vals_step,
+                        int n_ops, long long n, int n_groups, int G_pad,
+                        int has_base, int want_minmax, int blocks,
+                        int warps, long long rows_per_block, int use_smem,
+                        void* out, void* part, void* stream) {
+  if (n_ops < 0 || n_ops > MAX_OPS || blocks < 1 || warps < 1 ||
+      warps > MAX_WARPS || G_pad < 1 || n_groups < 1 || n_groups > G_pad ||
+      rows_per_block < 1 || (has_base == 0 && n_ops == 0) ||
+      (use_smem && blocks > 1 && part == nullptr)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-// B5: min/max of one query into out f32 [2, G_pad] (+3.4e38 / -3.4e38 set
-// by the caller) and nan_flag int32 [G_pad] (zeroed by the caller).
-int rs_gb_minmax_launch(const void* gids, const void* vals, void* out,
-                        void* nan_flag, long long n, int G_pad, int grid,
-                        int use_smem, void* stream) {
-  if (grid < 1 || G_pad < 1) return (int)cudaErrorInvalidValue;
+  SingleOps ops = {};
+  for (int j = 0; j < n_ops; ++j) {
+    ops.pres[j] = static_cast<const unsigned char*>(pres[j]);
+    ops.vals[j] = static_cast<const float*>(vals[j]);
+    ops.pres_step[j] = pres_step[j];
+    ops.vals_step[j] = vals_step[j];
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* g = static_cast<const int*>(gids);
-  const float* v = static_cast<const float*>(vals);
+  const int* g = static_cast<const int*>(gid);
+  const unsigned char* v = static_cast<const unsigned char*>(valid);
   float* o = static_cast<float*>(out);
-  int* nf = static_cast<int*>(nan_flag);
-  if (use_smem) {
-    const size_t bytes = (size_t)3 * G_pad * sizeof(float);
-    cudaError_t e = cudaFuncSetAttribute(
-        gb_minmax_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+  const int per_op = 3 + 2 * want_minmax;
+  const int cells = (has_base + n_ops * per_op) * G_pad;
+  const int threads = warps * 32;
+  cudaError_t e;
+  if (use_smem) {   // per warp: histogram, group tag bytes, staging words
+    const size_t bytes =
+        (size_t)warps * (cells + G_pad / 4 + 32) * sizeof(unsigned);
+    // opt in once per device to all the shared memory a block may have
+    static bool opted[64];
+    int dev = 0;
+    e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
-    gb_minmax_kernel<true><<<grid, T1, bytes, st>>>(g, v, o, nf, n, G_pad);
+    if (bytes > 48 * 1024 && (dev >= 64 || !opted[dev])) {
+      e = cudaFuncSetAttribute(gb_single_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_OPT_IN);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < 64) opted[dev] = true;
+    }
+    unsigned* p = blocks > 1 ? static_cast<unsigned*>(part) : nullptr;
+    gb_single_kernel<true><<<blocks, threads, bytes, st>>>(
+        g, v, ops, n_ops, n, rows_per_block, n_groups, G_pad, has_base,
+        want_minmax, o, p);
+    if (blocks > 1) {
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+      gb_single_merge_kernel<<<(cells + 31) / 32, 32 * MERGE_SLICES, 0, st>>>(
+          p, o, blocks, cells, G_pad, has_base, per_op);
+    }
   } else {
-    gb_minmax_kernel<false><<<grid, T1, 0, st>>>(g, v, o, nf, n, G_pad);
+    const int cb = (cells + 255) / 256;
+    gb_single_init_kernel<<<cb, 256, 0, st>>>(reinterpret_cast<unsigned*>(o),
+                                              cells, G_pad, has_base, per_op);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    gb_single_kernel<false><<<blocks, threads, 0, st>>>(
+        g, v, ops, n_ops, n, rows_per_block, n_groups, G_pad, has_base,
+        want_minmax, o, nullptr);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    gb_single_decode_kernel<<<cb, 256, 0, st>>>(o, cells, G_pad, has_base,
+                                                per_op);
   }
   return (int)cudaGetLastError();
 }

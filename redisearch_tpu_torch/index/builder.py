@@ -91,8 +91,7 @@ class SegmentBuilder:
     Segment on `device`."""
 
     def __init__(self, schema: Schema,
-                 stopwords: Optional[StopWordList] = None,
-                 synonyms=None, device="cpu"):
+                 stopwords: Optional[StopWordList], synonyms, device):
         check_schema_ported(schema)
         self.device = torch.device(device)
         self.schema = schema

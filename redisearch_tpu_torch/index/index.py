@@ -34,8 +34,14 @@ from .segment import Segment
 
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card: the port's entry points run on CUDA unless the caller
+    passes `device="cpu"`.  Raises when no CUDA device is present rather
+    than falling back to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is present (torch.cuda.is_available() is "
+            "false); pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 class Hit:

@@ -45,12 +45,14 @@ _LAUNCH = {
         _i32, _i32, _i64,                          # B, S, n
         _i32, _i32,                                # G_pad, want_sumsq
         _i32, _i32, _vp]),                         # grid, use_smem, stream
-        ("rs_gb_sums_launch", [
-            _vp, _vp, _vp, _i64, _i32,             # gids, vals, out, n, G_pad
-            _i32, _i32, _vp]),                     # grid, use_smem, stream
-        ("rs_gb_minmax_launch", [
-            _vp, _vp, _vp, _vp, _i64, _i32,        # gids, vals, out, nan, n,
-            _i32, _i32, _vp])],                    # G_pad, grid, smem, stream
+        ("rs_gb_single_launch", [
+            _vp, _vp,                              # gid, valid
+            ctypes.POINTER(_vp), ctypes.POINTER(_vp),  # pres, vals
+            ctypes.POINTER(_i32), ctypes.POINTER(_i32),  # their steps
+            _i32, _i64, _i32, _i32,                # n_ops, n, n_groups, G_pad
+            _i32, _i32,                            # has_base, want_minmax
+            _i32, _i32, _i64, _i32,                # blocks, warps, rpb, smem
+            _vp, _vp, _vp])],                      # out, part, stream
     "phrase": [("rs_phrase_launch", [
         _vp, _vp,                                  # meta, fmeta
         _vp, _vp, _vp, _vp, _i64,                  # postings, n_post

@@ -6,12 +6,16 @@ Counterpart of `redisearch_tpu/ops/groupby.py`, with its two entries:
   and (optional) sum of squares per group over pre-masked gid slots, the
   serving path of batched FT.AGGREGATE.  Plain twin: `groupby_plain`, the
   segment sums of the JAX CPU fallback (`ops/groupby.py:250-268`).
-* `groupby_aggregate` (kernels B4 sums and B5 min/max): one query's
-  count/sum/sumsq (and min/max) per group, reached through the window
-  program's fused aggregation.  Plain twin: `groupby_aggregate_plain`,
-  the segment reductions of the JAX CPU fallback (`:307-320`), with
-  +-3.4e38 for empty groups (the Pallas kernels' identities; the JAX CPU
-  fallback leaves +-inf there, which no consumer reads).
+* `groupby_aggregate_multi` (kernels B4 sums and B5 min/max, fused into
+  one CUDA kernel): one request's base count and every operand's
+  count/sum/sumsq (and min/max) per group in one pass, the window
+  program's fused aggregation.  Plain twin:
+  `groupby_aggregate_multi_plain`, built from `sums_plain` and
+  `minmax_plain`, the segment reductions of the JAX CPU fallback
+  (`:307-320`), with +-3.4e38 for empty groups (the Pallas kernels'
+  identities; the JAX CPU fallback leaves +-inf there, which no consumer
+  reads).  `groupby_aggregate`, the JAX package's one-operand entry,
+  runs the same kernel (plain twin `groupby_aggregate_plain`).
 
 The plain twins serve CPU tensors (the tests) and are what the CUDA
 kernels (`csrc/groupby.cu`) are held against on the card.  A CUDA tensor
@@ -19,6 +23,9 @@ launches the kernels or raises; nothing falls back.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -31,10 +38,17 @@ _MAX_GRID = 4096
 #: kernel launches made by `groupby_aggregate_batch` (plain int; callers
 #: reset it)
 LAUNCHES = 0
-#: launches of the single-query kernels B4 (sums) and B5 (min/max) by
-#: `groupby_aggregate`
-SUMS_LAUNCHES = 0
-MINMAX_LAUNCHES = 0
+#: kernel launches of the fused single-query group-by (B4 and B5) by
+#: `groupby_aggregate_multi` and `groupby_aggregate`: `gb_single_kernel`
+#: and, where a call needs them, its merge pass or the global branch's
+#: init and decode kernels (`_single_kernels`)
+SINGLE_LAUNCHES = 0
+#: operands one single-query launcher call takes (csrc/groupby.cu MAX_OPS)
+MAX_OPS = 16
+_ROWS_PER_BLOCK = 2048    # a window of at most this many rows is one block
+_TILE = 256               # rows a warp takes per step (32 lanes x 8)
+_MIN_WARPS = 4            # warp histograms the shared branch needs
+_MAX_WARPS = 16
 #: the empty-group identities of min and max
 BIG = 3.4e38
 
@@ -192,98 +206,199 @@ def groupby_aggregate_plain(gids, valid, values, n_groups: int,
     return out
 
 
-def _single_grid(n: int, G_pad: int) -> int:
-    """Blocks of a single-query launch: enough to fill the card's SMs
-    (two per SM), at most one per 2,048 rows, and no more than rows per
-    group, so that the per-block merge (G_pad atomics a block) stays
-    below the rows' own atomics."""
-    return max(1, min(-(-n // 2048), 264, -(-n // G_pad)))
+def _single_channels(n_ops: int, want_minmax: bool,
+                     has_base: bool = True) -> int:
+    """Channels of the fused single-query kernel: the base count (with
+    has_base), then per operand count, sum, sumsq (, min, max)."""
+    return int(has_base) + n_ops * (3 + 2 * int(want_minmax))
 
 
-def _single_args(g, vm, n_groups: int):
+def _single_stats(want_minmax: bool) -> tuple:
+    return ("count", "sum", "sumsq") + (("min", "max") if want_minmax
+                                        else ())
+
+
+def _single_dict(out, n_ops: int, n_groups: int, want_minmax: bool) -> dict:
+    """[C, >= n_groups] channels -> the JAX package's stat keys."""
+    stats = _single_stats(want_minmax)
+    rows = out[:, :n_groups].unbind(0)     # one call for every view
+    res = {"g.None.count": rows[0]}
+    for j in range(n_ops):
+        for k, st in enumerate(stats):
+            res[f"g.{j}.{st}"] = rows[1 + j * len(stats) + k]
+    return res
+
+
+def groupby_aggregate_multi_plain(gid, valid, operands, n_groups: int,
+                                  want_minmax: bool = True) -> dict:
+    """Plain torch version of `groupby_aggregate_multi`: the base count
+    and each operand's stats through `sums_plain` / `minmax_plain` (the
+    JAX CPU fallback's segment reductions, one call per operand)."""
+    g, vm = _premask(gid, valid, torch.zeros((), dtype=torch.float32,
+                                             device=gid.device), n_groups)
+    res = {"g.None.count": sums_plain(g, vm, n_groups)["count"]}
+    for j, (vals, pres) in enumerate(operands):
+        st = groupby_aggregate_plain(gid, valid & pres, vals, n_groups,
+                                     want_minmax)
+        res.update({f"g.{j}.{k}": x for k, x in st.items()})
+    return res
+
+
+def _single_geometry(n: int, C: int, G_pad: int, n_sm: int = 132) -> tuple:
+    """(blocks, warps, rows per block, shared) of one fused single-query
+    launch.  Each warp of the shared branch holds its own [C, G_pad]
+    histogram, a tag byte per group and 32 staging words, so the branch
+    needs (C * G_pad + G_pad / 4 + 32) * 4 bytes for at least _MIN_WARPS
+    warps (within 1 KB less than SMEM_MAX); a larger group space takes
+    the global branch (8 warps a block).  A window of at most
+    _ROWS_PER_BLOCK rows is one block; a larger one is cut into
+    contiguous runs of rows, at most one block per SM, so the partials of
+    the shared branch stay under 132 x 57 KB = 7.5 MB.  Warps: one per
+    256-row step of a block's rows, at least _MIN_WARPS (they share the
+    histograms' set-up and merge), at most as many as fit."""
+    fit = (SMEM_MAX - 1024) // ((C * G_pad + G_pad // 4 + 32) * 4)
+    shared = fit >= _MIN_WARPS
+    blocks = max(1, min(-(-n // _ROWS_PER_BLOCK), n_sm))
+    rpb = max(1, -(-n // blocks))
+    warps = (min(fit, _MAX_WARPS, max(_MIN_WARPS, -(-rpb // _TILE)))
+             if shared else 8)
+    return blocks, warps, rpb, shared
+
+
+def _single_kernels(blocks: int, shared: bool) -> int:
+    """Kernels one launcher call starts: `gb_single_kernel` alone (one
+    block of the shared branch), with its merge pass (several blocks), or
+    between the global branch's init and decode kernels."""
+    return 3 if not shared else (1 if blocks == 1 else 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _lane_arg(x, dtype, n: int, dev, what: str) -> tuple:
+    """(tensor, step) of one operand column: a contiguous [n] column has
+    step 1; a broadcast constant (0-dim, or [n] expanded with stride 0, as
+    `_lanes` leaves an APPLY constant) is passed as its one element with
+    step 0, never materialised."""
+    if x.dim() == 0 or (x.dim() == 1 and x.shape[0] == n and n > 0
+                        and x.stride(0) == 0):
+        return x.reshape(-1)[:1].to(device=dev, dtype=dtype).contiguous(), 0
+    if tuple(x.shape) != (n,):
+        raise ValueError(f"{what}: shape {tuple(x.shape)}, expected ({n},)")
+    if x.device != dev:
+        raise ValueError(f"{what}: on {x.device}, expected {dev}")
+    return x.to(dtype).contiguous(), 1
+
+
+def _launch_multi(gid, valid, operands, n_groups: int, want_minmax: bool,
+                  has_base: bool = True):
+    """The fused kernel over the raw columns: one launcher call per
+    MAX_OPS operands, the first with the base count, each adding its
+    kernels to SINGLE_LAUNCHES.  Returns f32 [C, G_pad], every cell
+    written by the kernel."""
+    from . import _build
     from .intersect import _check
-    dev = g.device
-    _check(g, "g", torch.int32, dev, 1)
-    _check(vm, "vm", torch.float32, dev, 1)
-    if vm.shape != g.shape:
-        raise ValueError(f"vm {tuple(vm.shape)} vs g {tuple(g.shape)}")
-    if n_groups < 1 or n_groups > 65536:
+    dev = gid.device
+    _check(gid, "gid", torch.int32, dev, 1)
+    _check(valid, "valid", torch.bool, dev, 1)
+    n = gid.shape[0]
+    if valid.shape != gid.shape:
+        raise ValueError(f"valid {tuple(valid.shape)} vs gid "
+                         f"{tuple(gid.shape)}")
+    if not 1 <= n_groups <= 65536:
         raise ValueError(f"n_groups={n_groups}")
     G_pad = _g_pad(n_groups)
-    return (dev, g.shape[0], G_pad, int(3 * G_pad * 4 <= SMEM_MAX),
-            _single_grid(g.shape[0], G_pad),
-            torch.cuda.current_stream(dev).cuda_stream)
+    out = torch.empty((_single_channels(len(operands), want_minmax,
+                                        has_base), G_pad),
+                      dtype=torch.float32, device=dev)
+    lib = _build.load("groupby")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    global SINGLE_LAUNCHES
+    ch = 0
+    for j0 in range(0, max(len(operands), 1), MAX_OPS):
+        chunk = operands[j0:j0 + MAX_OPS]
+        base = has_base and j0 == 0
+        k = len(chunk)
+        vals = [_lane_arg(v, torch.float32, n, dev, f"operand {j0 + i} "
+                          "values") for i, (v, _p) in enumerate(chunk)]
+        pres = [_lane_arg(p, torch.bool, n, dev, f"operand {j0 + i} "
+                          "present") for i, (_v, p) in enumerate(chunk)]
+        C = _single_channels(k, want_minmax, base)
+        blocks, warps, rpb, shared = _single_geometry(n, C, G_pad,
+                                                      _n_sm(dev.index))
+        part = (torch.empty((blocks, C, G_pad), dtype=torch.int32,
+                            device=dev) if shared and blocks > 1 else None)
+        ptrs = ctypes.c_void_p * max(k, 1)
+        steps = ctypes.c_int * max(k, 1)
+        rc = lib.rs_gb_single_launch(
+            gid.data_ptr(), valid.data_ptr(),
+            ptrs(*[t.data_ptr() for t, _s in pres]),
+            ptrs(*[t.data_ptr() for t, _s in vals]),
+            steps(*[s for _t, s in pres]), steps(*[s for _t, s in vals]),
+            k, n, n_groups, G_pad, int(base), int(want_minmax),
+            blocks, warps, rpb, int(shared),
+            out[ch].data_ptr(),
+            0 if part is None else part.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"single-query groupby kernel launch failed: "
+                               f"CUDA error {rc} "
+                               f"({_build.error_string('groupby', rc)})")
+        SINGLE_LAUNCHES += _single_kernels(blocks, shared)
+        ch += C
+    return out
 
 
-def sums_kernel(g, vm, n_groups: int) -> dict:
-    """Kernel B4 on pre-masked CUDA rows (one launch, counted in
-    SUMS_LAUNCHES): {"count", "sum", "sumsq"} f32 [n_groups]."""
-    from . import _build
-    dev, n, G_pad, smem, grid, stream = _single_args(g, vm, n_groups)
-    out = torch.zeros((3, G_pad), dtype=torch.float32, device=dev)
-    rc = _build.load("groupby").rs_gb_sums_launch(
-        g.data_ptr(), vm.data_ptr(), out.data_ptr(), n, G_pad, grid, smem,
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"groupby sums kernel launch failed: CUDA error "
-                           f"{rc} ({_build.error_string('groupby', rc)})")
-    global SUMS_LAUNCHES
-    SUMS_LAUNCHES += 1
-    return {"count": out[0, :n_groups], "sum": out[1, :n_groups],
-            "sumsq": out[2, :n_groups]}
+def groupby_aggregate_multi(gid, valid, operands, n_groups: int,
+                            want_minmax: bool = True) -> dict:
+    """One request's GROUPBY: the base count and every operand's
+    COUNT/SUM/SUMSQ (and MIN/MAX) per group, in one pass.
 
+    gid: int32 [n] composite group id per row (< 0 or >= n_groups:
+        ignored)
+    valid: bool [n] the base row mask (query match, FILTER steps)
+    operands: [(values f32 [n], present bool [n])], each possibly a
+        broadcast constant (0-dim, or expanded with stride 0)
+    Returns {"g.None.count", "g.{j}.count" / "g.{j}.sum" / "g.{j}.sumsq"
+    (/ "g.{j}.min" / "g.{j}.max")}: f32 [n_groups] each, the JAX
+    package's keys.  An empty group's min/max are +3.4e38 / -3.4e38, a
+    group holding a NaN value has NaN min and max.
 
-def minmax_kernel(g, vm, n_groups: int) -> dict:
-    """Kernel B5 on pre-masked CUDA rows (one launch, counted in
-    MINMAX_LAUNCHES): {"min", "max"} f32 [n_groups], +-3.4e38 for empty
-    groups, NaN for a group holding a NaN value."""
-    from . import _build
-    dev, n, G_pad, smem, grid, stream = _single_args(g, vm, n_groups)
-    mm = torch.empty((2, G_pad), dtype=torch.float32, device=dev)
-    mm[0].fill_(BIG)
-    mm[1].fill_(-BIG)
-    nan_flag = torch.zeros(G_pad, dtype=torch.int32, device=dev)
-    rc = _build.load("groupby").rs_gb_minmax_launch(
-        g.data_ptr(), vm.data_ptr(), mm.data_ptr(), nan_flag.data_ptr(), n,
-        G_pad, grid, smem, stream)
-    if rc != 0:
-        raise RuntimeError(f"groupby min/max kernel launch failed: CUDA "
-                           f"error {rc} "
-                           f"({_build.error_string('groupby', rc)})")
-    global MINMAX_LAUNCHES
-    MINMAX_LAUNCHES += 1
-    mm = torch.where(nan_flag[None, :] != 0, float("nan"), mm)
-    return {"min": mm[0, :n_groups], "max": mm[1, :n_groups]}
+    CPU tensors run `groupby_aggregate_multi_plain`; CUDA tensors launch
+    the fused kernel (one launcher call for up to MAX_OPS operands, its
+    kernels counted in SINGLE_LAUNCHES) or raise."""
+    if gid.device.type == "cpu":
+        return groupby_aggregate_multi_plain(gid, valid, operands, n_groups,
+                                             want_minmax)
+    if gid.device.type != "cuda":
+        raise RuntimeError(f"no groupby kernel for device {gid.device}")
+    out = _launch_multi(gid, valid, list(operands), n_groups, want_minmax)
+    return _single_dict(out, len(operands), n_groups, want_minmax)
 
 
 def _launch_single(gids, valid, values, n_groups: int, want_minmax: bool):
-    if gids.dtype != torch.int32 or gids.dim() != 1:
-        raise TypeError(f"gids: expected int32 [n], got {gids.dtype} "
-                        f"{tuple(gids.shape)}")
-    if valid.shape != gids.shape:
-        raise ValueError(f"valid {tuple(valid.shape)} vs gids "
-                         f"{tuple(gids.shape)}")
-    g, vm = _premask(gids, valid, values, n_groups)
-    out = sums_kernel(g, vm, n_groups)
-    if want_minmax:
-        out.update(minmax_kernel(g, vm, n_groups))
-    return out
+    present = torch.ones((), dtype=torch.bool, device=gids.device)
+    out = _launch_multi(gids, valid, [(values, present)], n_groups,
+                        want_minmax, has_base=False)
+    return dict(zip(_single_stats(want_minmax),
+                    out[:, :n_groups].unbind(0)))
 
 
 def groupby_aggregate(gids, valid, values, n_groups: int,
                       want_minmax: bool = True) -> dict:
-    """Per-group COUNT/SUM/SUMSQ (and MIN/MAX) of one query in one pass.
+    """Per-group COUNT/SUM/SUMSQ (and MIN/MAX) of one operand: the JAX
+    package's entry, over the same fused kernel (without the base count).
 
     gids: int32 [n] group id per row (< 0 or >= n_groups: ignored)
     valid: bool [n] row mask (query match and key present)
-    values: float32 [n] (or broadcastable) the reduced operand
+    values: float32 [n] (or a broadcast constant) the reduced operand
     Returns f32 [n_groups] tensors "count", "sum", "sumsq" (, "min",
-    "max"), the JAX package's keys; an empty group's min/max are
-    +3.4e38 / -3.4e38, a group holding a NaN value has NaN min and max.
+    "max"), the JAX package's keys, with the identities and NaNs of
+    `groupby_aggregate_multi`.
 
-    CPU tensors run `groupby_aggregate_plain`; CUDA tensors launch B4
-    (and B5 for min/max), each counted in SUMS_LAUNCHES /
-    MINMAX_LAUNCHES, or raise."""
+    CPU tensors run `groupby_aggregate_plain`; CUDA tensors launch the
+    fused kernel (counted in SINGLE_LAUNCHES) or raise."""
     if gids.device.type == "cpu":
         return groupby_aggregate_plain(gids, valid, values, n_groups,
                                        want_minmax)

@@ -586,3 +586,115 @@ def test_kgb_minmax_matches_jax(kgb_idx):
     assert stats == {"device": len(KGB_QUERIES)}
     _assert_same(batch, jres, RTOL_HOST, KGB_QUERIES, std_centred=True)
     assert all(r.total > 0 and r.rows for r in batch)
+
+
+# ---------------------------------------------------------------------------
+# two numeric operands (one multi-valued) through the fused kernel's entry
+# ---------------------------------------------------------------------------
+
+def _pq_fields(p):
+    F, T = p.Field, p.FieldType
+    return [F("t", T.TEXT), F("grp", T.TAG, sortable=True),
+            F("price", T.NUMERIC, sortable=True), F("qty", T.NUMERIC)]
+
+
+@pytest.fixture(scope="module")
+def pq_idx():
+    """1,200 docs with a price on every doc and a qty on four in five,
+    multi-valued on every 13th; 11 groups."""
+    rng = np.random.default_rng(41)
+    words = ["alpha", "beta", "gamma", "delta", "eps", "zeta"]
+    docs = []
+    for i in range(1200):
+        f = {"t": " ".join(rng.choice(words, 4)), "grp": f"g{i % 11}",
+             "price": float(rng.integers(1, 1000)) / 4.0}
+        if i % 5:
+            f["qty"] = ([float(i % 4), float(i % 9)] if i % 13 == 0
+                        else float(rng.normal(3.0, 7.0)))
+        docs.append((f"d{i}", f))
+    jix = rs.SearchIndex(rs.Schema(name="pq", fields=_pq_fields(rs)))
+    tix = rt.SearchIndex(rt.Schema(name="pq", fields=_pq_fields(rt)),
+                         device="cpu")
+    for ix in (jix, tix):
+        ix.add_documents(docs)
+    return jix, tix
+
+
+def req_pq(P, q):
+    """COUNT, SUM, AVG, STDDEV, MIN and MAX over price and qty."""
+    return (P.AggregateRequest(q)
+            .group_by("@grp", ("COUNT", [], "n"), ("SUM", ["@price"], "s"),
+                      ("AVG", ["@price"], "a"), ("STDDEV", ["@price"], "sd"),
+                      ("MIN", ["@price"], "plo"), ("MAX", ["@price"], "phi"),
+                      ("SUM", ["@qty"], "sq"), ("AVG", ["@qty"], "ax"),
+                      ("STDDEV", ["@qty"], "dx"), ("MIN", ["@qty"], "qlo"),
+                      ("MAX", ["@qty"], "qhi"))
+            .sort_by(("@grp", P.ASC)))
+
+
+PQ_QUERIES = ["alpha beta", "gamma -delta", "*", "eps|zeta", "beta ~alpha"]
+
+
+def test_two_operands_match_jax(pq_idx):
+    """The window branch with two operands (price, and qty with NULLs and
+    multi-valued docs) gives the JAX package's rows and totals, batched
+    and single, through one fused call a request."""
+    jix, tix = pq_idx
+    jres = JP.run_aggregate_many(jix, [req_pq(JP, q) for q in PQ_QUERIES])
+    tres, stats = _port(tix, [req_pq(TP, q) for q in PQ_QUERIES])
+    assert stats == {"device": len(PQ_QUERIES)}
+    _assert_same(tres, jres, RTOL_HOST, PQ_QUERIES, std_centred=True)
+    single = [TP.run_aggregate(tix, req_pq(TP, q)) for q in PQ_QUERIES]
+    _assert_same(single, jres, RTOL_HOST, PQ_QUERIES, std_centred=True)
+    assert all(len(r.rows) == 11 for r in tres)
+    assert any(r["qlo"] != r["qhi"] for res in tres for r in res.rows)
+
+
+def test_fused_call_once_per_request(pq_idx, bench_idx2, monkeypatch):
+    """`_make_fused` makes one `groupby_aggregate_multi` call a request
+    and segment (base count and both operands together), and never the
+    one-operand entry."""
+    calls = []
+    real = TGB.groupby_aggregate_multi
+
+    def counted(gid, valid, ops, G, want_minmax=True):
+        calls.append((len(ops), want_minmax))
+        return real(gid, valid, ops, G, want_minmax=want_minmax)
+
+    def refused(*a, **k):
+        raise AssertionError("groupby_aggregate called")
+
+    monkeypatch.setattr(TGB, "groupby_aggregate_multi", counted)
+    monkeypatch.setattr(TGB, "groupby_aggregate", refused)
+    _jix, tix = pq_idx
+    tix.aggregate_many([req_pq(TP, q) for q in PQ_QUERIES])
+    assert calls == [(2, True)] * len(PQ_QUERIES)
+    calls.clear()
+    TP.run_aggregate(tix, req_pq(TP, PQ_QUERIES[0]))
+    assert calls == [(2, True)]
+    calls.clear()
+    _jix2, tix2, qt = bench_idx2          # two segments: one call each
+    qs = _bench_queries(qt, 3)
+    tix2.aggregate_many([req_minmax(TP, q) for q in qs])
+    assert calls == [(1, True)] * (2 * len(qs))
+
+
+def test_constant_operand_matches_jax(pq_idx):
+    """An APPLY constant as a reducer operand (a 0-dim value the fused
+    entry takes as a broadcast column) beside a column operand."""
+    jix, tix = pq_idx
+
+    def mk(P, q):
+        return (P.AggregateRequest(q).apply("3", "three")
+                .group_by("@grp", ("SUM", ["@three"], "s3"),
+                          ("MIN", ["@three"], "m3"), ("MAX", ["@qty"], "hi"),
+                          ("COUNT", [], "n"))
+                .sort_by(("@grp", P.ASC)))
+
+    qs = PQ_QUERIES[:3]
+    jres = JP.run_aggregate_many(jix, [mk(JP, q) for q in qs])
+    tres, stats = _port(tix, [mk(TP, q) for q in qs])
+    assert stats == {"device": len(qs)}
+    _assert_same(tres, jres, RTOL_HOST, qs)
+    assert all(r["s3"] == 3.0 * r["n"] and r["m3"] == 3.0
+               for res in tres for r in res.rows)

@@ -267,28 +267,221 @@ def test_single_without_minmax_and_constant_values():
 
 
 def test_single_device_routing(monkeypatch):
-    """CPU tensors run the plain twin, CUDA tensors the kernel launcher
-    (never the plain twin), any other device raises."""
+    """Both single-query entries: CPU tensors run their plain twins, CUDA
+    tensors the fused kernel's launcher (never a plain twin), any other
+    device raises."""
     calls = []
-    monkeypatch.setattr(TGB, "groupby_aggregate_plain",
-                        lambda *a, **k: calls.append("plain"))
+    for name in ("groupby_aggregate_plain", "groupby_aggregate_multi_plain"):
+        monkeypatch.setattr(TGB, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
     monkeypatch.setattr(TGB, "_launch_single",
-                        lambda *a, **k: calls.append("kernel"))
+                        lambda *a, **k: calls.append("single kernel"))
+    monkeypatch.setattr(TGB, "_launch_multi",
+                        lambda *a, **k: calls.append("multi kernel"))
+    monkeypatch.setattr(TGB, "_single_dict", lambda *a: {})
     cuda = types.SimpleNamespace(device=torch.device("cuda", 0))
+    cpu = torch.zeros(4, dtype=torch.int32)
+    ones = torch.ones(4, dtype=torch.bool)
     TGB.groupby_aggregate(cuda, None, None, 7)
-    TGB.groupby_aggregate(torch.zeros(4, dtype=torch.int32),
-                          torch.ones(4, dtype=torch.bool), torch.zeros(4), 7)
-    assert calls == ["kernel", "plain"]
-    with pytest.raises(RuntimeError, match="no groupby kernel"):
-        TGB.groupby_aggregate(torch.zeros(4, device="meta"), None, None, 7)
+    TGB.groupby_aggregate(cpu, ones, torch.zeros(4), 7)
+    TGB.groupby_aggregate_multi(cuda, None, [], 7)
+    TGB.groupby_aggregate_multi(cpu, ones, [], 7)
+    assert calls == ["single kernel", "groupby_aggregate_plain",
+                     "multi kernel", "groupby_aggregate_multi_plain"]
+    meta = torch.zeros(4, device="meta")
+    for fn in (lambda: TGB.groupby_aggregate(meta, None, None, 7),
+               lambda: TGB.groupby_aggregate_multi(meta, None, [], 7)):
+        with pytest.raises(RuntimeError, match="no groupby kernel"):
+            fn()
 
 
 def test_single_launch_geometry():
-    """The shared-memory branch covers G up to about 19k groups (3
-    channels of G_pad floats); the grid fills the card at 1M rows and
-    shrinks with the group space."""
-    assert 3 * TGB._g_pad(16384) * 4 <= TGB.SMEM_MAX
-    assert 3 * TGB._g_pad(65536) * 4 > TGB.SMEM_MAX
-    assert TGB._single_grid(1_000_064, 1024) == 264
-    assert TGB._single_grid(1_000_064, 65536) == 16
-    assert TGB._single_grid(1000, 1024) == 1
+    """The fused kernel's geometry: a window of at most 2,048 rows is one
+    block (one pass); a larger one one block per 2,048 rows, at most one
+    per SM, whose partials a second pass merges.  A warp holds its [C,
+    G_pad] histogram, a tag byte per group and 32 staging words: the `*`
+    window (1M rows, G = 1,001, base + one operand: 4 channels) is 132
+    blocks of 13 warps (2.2 MB of partials), the MIN/MAX request's 6
+    channels fit 8 warps; group spaces where fewer than 4 warps fit (G =
+    16,384 / 65,536) take the global branch.  A call launches one kernel
+    (one block), two (with the merge pass) or three (the global branch's
+    init, rows and decode), and counts each."""
+    g = TGB._single_geometry
+    k = TGB._single_kernels
+    assert k(*g(2048, 6, 1024)[::3]) == 1
+    assert k(*g(8192, 6, 1024)[::3]) == 2
+    assert k(*g(1_000_064, 4, 1024)[::3]) == 2
+    assert k(*g(1000, 6, 65536)[::3]) == 3
+    assert k(*g(65536, 6, 65536)[::3]) == 3
+    assert TGB._single_channels(1, False) == 4
+    assert TGB._single_channels(1, True) == 6
+    assert TGB._single_channels(3, True, has_base=False) == 15
+    assert g(1000, 6, 1024) == (1, 4, 1000, True)
+    assert g(2048, 6, 1024) == (1, 8, 2048, True)
+    assert g(8192, 6, 1024) == (4, 8, 2048, True)
+    assert g(131072, 6, 1024) == (64, 8, 2048, True)
+    assert g(1_000_064, 4, 1024) == (132, 13, 7577, True)
+    assert g(1_000_064, 4, 128) == (132, 16, 7577, True)
+    assert g(0, 6, 1024) == (1, 4, 1, True)
+    assert g(1_000_064, 4, 16384) == (132, 8, 7577, False)
+    assert g(65536, 6, 65536) == (32, 8, 2048, False)
+    # the largest histograms of the shared branch: 4 warps
+    assert g(9000, 16, 768) == (5, 4, 1800, True)
+    assert g(9000, 16, 896) == (5, 8, 1800, False)
+    assert g(9000, 6, 2304)[1:] == (4, 1800, True)
+    assert g(9000, 6, 2432)[1:] == (8, 1800, False)
+
+
+def test_single_lane_args():
+    """The launcher's operand columns: a contiguous [n] column is passed
+    as it is (step 1); a 0-dim constant or a stride-0 expansion (`_lanes`'
+    APPLY constant) as its one element (step 0), never materialised;
+    other shapes raise.  The [C, G_pad] channels map onto the JAX keys."""
+    dev = torch.device("cpu")
+    col = torch.arange(5, dtype=torch.float32)
+    t, step = TGB._lane_arg(col, torch.float32, 5, dev, "v")
+    assert step == 1 and t.data_ptr() == col.data_ptr()
+    for const in (torch.tensor(2.5), torch.tensor(2.5).expand(5)):
+        t, step = TGB._lane_arg(const, torch.float32, 5, dev, "v")
+        assert step == 0 and t.shape == (1,) and float(t[0]) == 2.5
+    t, step = TGB._lane_arg(torch.tensor(True).expand(5), torch.bool, 5,
+                            dev, "p")
+    assert step == 0 and t.dtype == torch.bool and bool(t[0])
+    with pytest.raises(ValueError, match="shape"):
+        TGB._lane_arg(torch.zeros(4), torch.float32, 5, dev, "v")
+    out = torch.arange(11 * 128, dtype=torch.float32).reshape(11, 128)
+    d = TGB._single_dict(out, 2, 100, True)
+    assert list(d) == ["g.None.count"] + [
+        f"g.{j}.{s}" for j in range(2)
+        for s in ("count", "sum", "sumsq", "min", "max")]
+    assert torch.equal(d["g.1.min"], out[9, :100])
+    assert list(TGB._single_dict(out[:7], 2, 100, False))[-1] == "g.1.sumsq"
+
+
+# ---------------------------------------------------------------------------
+# fused single-query entry `groupby_aggregate_multi` and its plain twin
+# ---------------------------------------------------------------------------
+
+def _multi_inputs(seed, n, G, n_ops, const=False, nan=True):
+    """gid with out-of-range ids, invalid rows, every third group empty;
+    per operand its own presence, normal values with -0.0s (and one NaN
+    per operand); with `const` the last operand is a 0-dim constant (an
+    APPLY constant) present everywhere."""
+    g, valid, _v = _single_inputs(seed, n, G)
+    rng = np.random.default_rng(seed + 1)
+    ops = []
+    for j in range(n_ops):
+        if const and j == n_ops - 1:
+            ops.append((np.float32(-2.5), np.bool_(True)))
+            continue
+        v = rng.normal(0.0, 50.0, n).astype(np.float32)
+        v[rng.random(n) < 0.05] = -0.0
+        p = rng.random(n) > 0.3
+        if nan:     # in a counted row
+            v[np.flatnonzero(valid & p & (g >= 0) & (g < G))[j]] = np.nan
+        ops.append((v, p))
+    return g, valid, ops
+
+
+def _multi_plain(g, valid, ops, G, mm):
+    res = TGB.groupby_aggregate_multi(
+        torch.from_numpy(g), torch.from_numpy(valid),
+        [(torch.tensor(v), torch.tensor(p)) for v, p in ops], G,
+        want_minmax=mm)
+    return {k: x.numpy() for k, x in res.items()}
+
+
+def _multi_jax(g, valid, ops, G, mm):
+    """The JAX package's entry once for the base and once per operand,
+    the constant broadcast to the rows."""
+    n = len(g)
+    res = {"g.None.count": _single_jax(g, valid, np.zeros(n, np.float32), G,
+                                       False)["count"]}
+    for j, (v, p) in enumerate(ops):
+        st = _single_jax(g, valid & np.broadcast_to(p, (n,)),
+                         np.broadcast_to(v, (n,)).astype(np.float32), G, mm)
+        res.update({f"g.{j}.{k}": x for k, x in st.items()})
+    return res
+
+
+def _abs_scale(g, valid, ops, G):
+    """Per operand the group sums of |v| and v*v (float64), NaNs as 0."""
+    n = len(g)
+    out = {}
+    for j, (v, p) in enumerate(ops):
+        ok = valid & np.broadcast_to(p, (n,)) & (g >= 0) & (g < G)
+        vv = np.nan_to_num(np.broadcast_to(v, (n,)).astype(np.float64))
+        gg = np.where(ok, g, G)
+        out[f"g.{j}.sum"] = np.bincount(gg, np.abs(vv), G + 1)[:G]
+        out[f"g.{j}.sumsq"] = np.bincount(gg, vv * vv, G + 1)[:G]
+    return out
+
+
+MULTI_CASES = [(1, 0, False), (1, 2, False), (7, 1, False), (7, 3, True),
+               (1001, 2, True), (1001, 3, False)]
+
+
+@pytest.mark.parametrize("G,n_ops,const", MULTI_CASES,
+                         ids=[f"G{c[0]}-ops{c[1]}{'-const' * c[2]}"
+                              for c in MULTI_CASES])
+def test_multi_plain_matches_jax_fallback(G, n_ops, const):
+    """groupby_aggregate_multi_plain against the JAX `groupby_aggregate`
+    on its CPU segment reductions, operand by operand: counts equal, sums
+    within 1e-5 of the group's sum of |v| (of v*v), min/max equal on
+    non-empty groups, NaN in the same places (a NaN value makes its
+    group's sums, min and max NaN); -0.0 equals 0.0."""
+    g, valid, ops = _multi_inputs(10 * G + n_ops, 3000, G, n_ops, const)
+    for mm in (False, True):
+        t = _multi_plain(g, valid, ops, G, mm)
+        x = _multi_jax(g, valid, ops, G, mm)
+        assert list(t) == list(TGB._single_dict(
+            torch.zeros(TGB._single_channels(n_ops, mm), 128), n_ops, G,
+            mm))
+        assert sorted(t) == sorted(x)
+        scale = _abs_scale(g, valid, ops, G)
+        for k in x:
+            np.testing.assert_array_equal(np.isnan(t[k]), np.isnan(x[k]),
+                                          err_msg=k)
+            ok = ~np.isnan(x[k])
+            if k.endswith(".count"):
+                np.testing.assert_array_equal(t[k], x[k], err_msg=k)
+            elif k.endswith(("min", "max")):
+                live = ok & (t[k.rsplit(".", 1)[0] + ".count"] > 0)
+                np.testing.assert_array_equal(t[k][live], x[k][live],
+                                              err_msg=k)
+                empty = t[k.rsplit(".", 1)[0] + ".count"] == 0
+                assert (np.abs(t[k][empty]) == np.float32(3.4e38)).all()
+            else:
+                assert (np.abs(t[k][ok] - x[k][ok])
+                        <= 1e-5 * scale[k][ok] + 1e-6).all(), k
+    assert t["g.None.count"].sum() > 0
+    if n_ops and not const:
+        assert np.isnan(t["g.0.min"]).any()
+
+
+@pytest.mark.parametrize("G,n_ops,const", [(7, 2, True), (1001, 1, False)],
+                         ids=["G7-ops2-const", "G1001-ops1"])
+def test_multi_plain_matches_pallas_interpret(G, n_ops, const):
+    """Against the Pallas B4/B5 in interpret mode, operand by operand
+    (the tolerances of test_plain_single_matches_pallas_interpret); no
+    NaN, which the Pallas sums spread across a 128-group tile through
+    their one-hot products."""
+    g, valid, ops = _multi_inputs(5 * G, 1500, G, n_ops, const, nan=False)
+    JGB._INTERPRET = True
+    jax.clear_caches()
+    try:
+        x = _multi_jax(g, valid, ops, G, True)
+    finally:
+        JGB._INTERPRET = False
+        jax.clear_caches()
+    t = _multi_plain(g, valid, ops, G, True)
+    assert sorted(t) == sorted(x)
+    for k in x:
+        if k.endswith(".count"):
+            np.testing.assert_allclose(t[k], x[k], rtol=1e-6, err_msg=k)
+        elif k.endswith(("sum", "sumsq")):
+            np.testing.assert_allclose(t[k], x[k], rtol=1e-4, atol=1e-2,
+                                       err_msg=k)
+        else:
+            np.testing.assert_allclose(t[k], x[k], rtol=1e-5, err_msg=k)
+    assert (t["g.None.count"] == 0).any()

@@ -7,6 +7,11 @@ array of the sealed segments must be equal — values, dtypes, pads and
 layouts — and so must the host mirrors and the clean-segment flags.
 `segment_from_jax` must carry a JAX segment across unchanged.
 Tolerance: none; every comparison is exact.
+
+The two packages' bulk paths each run a native tokenizer or, without
+one, the pure-Python builder, and the two kinds number terms in
+different orders.  `align_builders` makes both sides the same kind
+before a comparison, so the comparison is always exact and always made.
 """
 
 import numpy as np
@@ -15,6 +20,8 @@ import torch
 
 import redisearch_tpu as rs
 import redisearch_tpu_torch as rt
+from redisearch_tpu import native as JN
+from redisearch_tpu_torch import native as TN
 from redisearch_tpu_torch.convert import segment_from_jax
 
 WORDS = ["running", "runs", "jumped", "jumping", "quickly", "quicker",
@@ -45,6 +52,28 @@ def _fields(pkg):
     return [F("a", T.TEXT, weight=2.0), F("b", T.TEXT), F("cat", T.TAG),
             F("labels", T.TAG), F("grp", T.TAG, sortable=True),
             F("price", T.NUMERIC, sortable=True), F("qty", T.NUMERIC)]
+
+
+def align_builders(monkeypatch) -> bool:
+    """Make both packages' bulk builders the same kind; returns whether
+    both run native.
+
+    The JAX package compiles its native library straight onto its final
+    path, so a process that loads it while another process is still
+    writing it gets an OSError and keeps the pure-Python builder for the
+    rest of its life (`_tried` set, `_lib` None).  The library is whole
+    by the time a test runs, so that state is loaded once more.  Where the
+    JAX side still has no native library, the port's loader is pinned to
+    None too (and the other way round): both sides then run pure Python.
+    """
+    if JN._tried and JN._lib is None:
+        JN._tried = False
+    if not JN.available():
+        monkeypatch.setattr(TN, "_load", lambda: None)
+    elif not TN.available():
+        monkeypatch.setattr(JN, "_load", lambda: None)
+    assert JN.available() == TN.available()
+    return TN.available()
 
 
 def _build(mode, n=400):
@@ -122,7 +151,8 @@ def assert_same_segment(js, ts):
 
 
 @pytest.mark.parametrize("mode", ["add_document", "add_documents"])
-def test_builder_matches_jax(mode):
+def test_builder_matches_jax(mode, monkeypatch):
+    align_builders(monkeypatch)
     jix, tix = _build(mode)
     assert_same_segment(jix.segments[0], tix.segments[0])
     # the doc tables agree too (BM25 reads N and avgdl from them)
@@ -139,12 +169,46 @@ def test_bulk_matches_incremental_in_the_port():
     assert a.memory_bytes() > 0
 
 
-def test_segment_from_jax_round_trip():
+def test_segment_from_jax_round_trip(monkeypatch):
+    align_builders(monkeypatch)
     jix, tix = _build("add_documents")
     conv = segment_from_jax(jix.segments[0], "cpu")
     assert conv.device == torch.device("cpu")
     assert_same_segment(jix.segments[0], conv)
     assert_same_segment(jix.segments[0], tix.segments[0])
+
+
+@pytest.mark.parametrize("jax_side", ["raced", "no-native"])
+def test_builder_parity_when_jax_falls_back(jax_side, monkeypatch):
+    """The JAX side's fallback forced: a raced load (`_tried` set, `_lib`
+    None), which `align_builders` loads again, and a JAX side with no
+    native library at all, which pins the port to pure Python.  Both
+    parity tests still run and compare exactly."""
+    if jax_side == "raced":
+        monkeypatch.setattr(JN, "_tried", True)
+        monkeypatch.setattr(JN, "_lib", None)
+    else:
+        monkeypatch.setattr(JN, "_load", lambda: None)
+    native = align_builders(monkeypatch)
+    assert native == (jax_side == "raced" and JN._lib is not None)
+    test_builder_matches_jax("add_documents", monkeypatch)
+    test_segment_from_jax_round_trip(monkeypatch)
+
+
+def test_entry_points_need_a_card_or_cpu(monkeypatch):
+    """Without a CUDA device, `Client()` and `SearchIndex(schema)` raise
+    and name `device="cpu"`; with it they run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    schema = rt.Schema(name="ix", fields=_fields(rt))
+    for make in (rt.Client, lambda: rt.SearchIndex(schema)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+    c = rt.Client(device="cpu")
+    ix = c.ft_create("ix", _fields(rt))
+    assert ix.device == torch.device("cpu")
+    ix.add_documents(_docs(20))
+    assert ix.segments[0].device == torch.device("cpu")
+    assert rt.SearchIndex(schema, device="cpu").device.type == "cpu"
 
 
 def test_mark_deleted_writes_in_place():
