@@ -1,12 +1,13 @@
 """Drive the torch port's main path once on one CUDA card, and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --save-groups PATH   # only: save_b1_groups
 
 Phases, each reported on its own lines; any failure raises and the
 script exits non-zero:
 
-1. card: no CUDA device is a failure; prints the device and nvidia-smi's
-   name and power limit.
+1. card: no CUDA device is a failure; prints the device, nvidia-smi's
+   name and power limit, and the english stemmer in effect.
 2. build: compiles `redisearch_tpu_torch/csrc/intersect.cu`,
    `csrc/phrase.cu` and `csrc/groupby.cu` with nvcc for sm_90a (one nvcc
    each, started together) and prints each one's seconds and ptxas'
@@ -14,10 +15,15 @@ script exits non-zero:
 3. kernel vs plain: random posting windows at the serving buckets (pivot
    2048/8192/32768, members up to 131072), the AND/NOT/OPT/OR families,
    tag-aux and dense-tag plans, k = 1/16/64, multi-phase ORs, and
-   batches larger than the kernel's grid.  Docs and counts must be
-   equal, scores within rtol 1e-6.  The same windows in raw mode
-   (`raw=True`): lane for lane equal docs, bit-identical scores, equal
-   counts.  Then the phrase kernel against `phrase_plain`, top-k and
+   batches larger than the kernel's grid; the wide route's pivots
+   (65,536 and 131,072 lanes: or2, and2 with both slots wide, a NOT
+   member, a batch past the grid); score ties across a tile boundary
+   of the narrow, mid and wide block shapes (batches of 1,200, 320 and
+   16 queries, which pick those shapes), a wide pivot against a
+   131,072-lane member range and phases of at most k matches.  Lane for lane
+   equal docs, bit-identical scores, equal counts, in top-k mode and,
+   where the pivot is within 32,768 lanes, in raw mode (`raw=True`).
+   Then the phrase kernel against `phrase_plain`, top-k and
    raw, on random posting and position-key windows (W0/PW 2048..131072,
    T = 2..4, slop 0/1/3, k = 1/16/64, repeated terms, clamped keys, a
    1024 stride, batches larger than its grid): lane for lane equal,
@@ -33,19 +39,22 @@ script exits non-zero:
    (one and two passes, and the global branch), with and without
    min/max, 0 / 1 / 3 operands, a 0-dim constant operand, masked rows,
    empty groups, negative values, -0.0s and NaNs: counts, min and max
-   equal, sums within 1e-5 of the float64 sums; a second launch gives
-   bit-identical sums wherever the histograms are in shared memory.
-   The one-operand entry `groupby_aggregate` against its plain version
-   too.
+   equal (a zero's sign bit too), sums within 1e-5 of the float64
+   sums; a second launch gives bit-identical sums wherever the
+   histograms are in shared memory; groups of signed zeros read -0.0 /
+   +0.0 in IEEE-754 minimum/maximum order.  The one-operand entry
+   `groupby_aggregate` against its plain version too.
 4. main path: `Client.ft_create` with bench.py's BM25 schema, a 1M-doc
    FTSB-enwiki-shaped corpus (4+20 zipf(1.25) tokens over a 200k vocab,
    seed 0) through `add_documents`, then `ft_search_many` at batch 8192,
    k=10 on bench.py's eight query families (kernel_hit_pct and the
-   window share printed).  Every served query must count under its
-   executor ("kernel", "phrase-kernel", or "window" for the few no
-   kernel takes) and both kernels must have launched; every query of
-   each family is recomputed with the plain versions on the card and
-   must agree; a few and2 counts are checked against numpy set
+   window share printed).  Every served query must count under the
+   executor the router gives it ("kernel", "kernel-wide" for pivots past
+   32,768 postings, "phrase-kernel"; none on the window program), and
+   the kernels must have launched on both routes; every query of each
+   family is recomputed with the plain versions on the card and must
+   agree, and every kernel-wide query must equal the window program's
+   result for it (as the JAX package serves it); a few and2 counts are checked against numpy set
    intersections of the host-copied postings; single `ix.search()` (the
    general window program) must equal the batch for 64 queries of each
    family.  Then 1024 exact and 1024
@@ -55,7 +64,8 @@ script exits non-zero:
    proximity model over the host-copied tokens.  QPS (sequential
    batches, and bench.py's pipelined loop at depth 2), memory and the
    kernels' times against the plain versions' (the largest and2 group,
-   every phrase group) are printed for information.
+   the largest kernel-wide group beside the window program's time for
+   the same queries, every phrase group) are printed for information.
 5. profile, for information: per family, the host stages of one batch
    and the device's busy share from torch.profiler.
 6. aggregate path: on the same 1M-doc index, `Client.ft_aggregate_many`
@@ -168,7 +178,18 @@ def phase_card() -> str:
     log(f"phase card: {name}, device_count={torch.cuda.device_count()}, "
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
     log(f"phase card: nvidia-smi: {smi}")
+    log(f"phase card: stemmer in effect for english: {stemmer_in_effect()}")
     return smi
+
+
+def stemmer_in_effect() -> str:
+    """Which english stemmer the analysis uses on this machine: Snowball
+    english where nltk is installed, else the Porter (1980) fallback,
+    whose stems (and so `+stem` expansions) can differ."""
+    from redisearch_tpu_torch.analysis import stemmer as S
+    if S.Stemmer("english")._fn is S.porter_stem:
+        return "Porter-1980 fallback (no nltk: not Snowball english)"
+    return "Snowball english (nltk)"
 
 
 # ---------------------------------------------------------------- phase 2
@@ -190,10 +211,11 @@ def phase_build():
 
 
 # ---------------------------------------------------------------- phase 3
-def make_windows(rng, B, Ws, n_docs=2_000_000, overlap=0.5):
+def make_windows(rng, B, Ws, n_docs=2_000_000, overlap=0.5, full=False):
     """Random doc-sorted posting windows sharing a per-query doc pool (so
     slots genuinely intersect), at arbitrary offsets of flat arrays —
-    the layout of tests/test_pallas_interpret.py's _make_windows."""
+    the layout of tests/test_pallas_interpret.py's _make_windows.  Each
+    window's live length is drawn from [W/2, W], or is W with `full`."""
     T = len(Ws)
     total = B * sum(w + 128 for w in Ws) + 4096
     doc_ids = np.full(total, 2**31 - 1, np.int32)
@@ -206,7 +228,7 @@ def make_windows(rng, B, Ws, n_docs=2_000_000, overlap=0.5):
     for b in range(B):
         pool = np.unique(rng.integers(0, n_docs, 2 * max(Ws)))
         for t, W in enumerate(Ws):
-            live = int(rng.integers(max(1, W // 2), W + 1))
+            live = W if full else int(rng.integers(max(1, W // 2), W + 1))
             shared = pool[rng.random(len(pool)) < overlap][:live]
             extra = rng.integers(0, n_docs, live)
             docs = np.unique(np.concatenate([shared, extra]))[:live]
@@ -277,24 +299,115 @@ def kernel_cases(rng, B=48):
     out.append(("dense-tag", (meta, fmeta, d, f, m, dl, codes),
                 dict(T=2, Ws=Ws, groups=((R, (0,), -1), (R, (1,), -1)),
                      k=16, dense=((R, 0, 2), (N, 0, 1)))))
+    return out + wide_kernel_cases(rng) + tile_kernel_cases(rng)
+
+
+def wide_kernel_cases(rng):
+    """The wide route's shapes: pivots past MAX_W_PIVOT (top-k mode
+    only), up to MAX_W_MEMBER, at k = 16 and 64, and a batch past the
+    grid (8 distinct queries repeated)."""
+    R, N = IK.REQ, IK.NOT
+    out = []
+    for label, Ws, groups, k, B in (
+            ("wide-or2-65536x2048", (65536, 2048), ((R, (0, 1)),), 16, 16),
+            ("wide-or2-131072x131072", (131072, 131072), ((R, (0, 1)),),
+             64, 8),
+            ("wide-and2-both", (131072, 65536), ((R, (0,)), (R, (1,))), 16,
+             8),
+            ("wide-not", (65536, 131072), ((R, (0,)), (N, (1,))), 64, 8)):
+        out.append((label, make_windows(rng, B, Ws),
+                    dict(T=2, Ws=Ws, groups=groups, k=k)))
+    Ws = (65536, 2048)
+    args = make_windows(rng, 8, Ws)
+    pick = rng.integers(0, 8, IK._MAX_GRID + 517)
+    out.append(("wide-or2-gridstride", (args[0][pick], args[1][pick])
+                + args[2:], dict(T=2, Ws=Ws, groups=((R, (0, 1)),), k=16)))
     return out
 
 
-def compare(kd, ks, kc, pd, ps, pc, what):
-    """Kernel vs plain outputs: docs and counts equal, scores rtol 1e-6.
-    Returns the max abs score difference over live lanes."""
-    kd, ks, kc = kd.cpu().numpy(), ks.cpu().numpy(), kc.cpu().numpy()
-    pd, ps, pc = pd.cpu().numpy(), ps.cpu().numpy(), pc.cpu().numpy()
-    if not np.array_equal(kc, pc):
-        raise AssertionError(f"{what}: counts differ at "
-                             f"{np.flatnonzero(kc != pc)[:5]}")
-    if not np.array_equal(kd, pd):
-        bad = np.argwhere(kd != pd)[:5]
-        raise AssertionError(f"{what}: docs differ at {bad.tolist()}")
-    np.testing.assert_allclose(ks, ps, rtol=SCORE_RTOL, atol=0,
-                               err_msg=what)
-    live = ps > -3.3e38
-    return float(np.abs(ks[live] - ps[live]).max()) if live.any() else 0.0
+def with_tie_band(args, lo, hi):
+    """Every query's pivot (slot 0) lanes [lo, hi) get one score (tf 7,
+    doc length 24, mask-valid; the other lanes tf 1), above every other
+    lane: a tie that straddles a tile boundary inside [lo, hi)."""
+    meta, fmeta, d, f, m, dl = (a.copy() for a in args)
+    T = meta.shape[1] // 3
+    for b in range(meta.shape[0]):
+        s_, n = int(meta[b, 0]), int(meta[b, T])
+        if n < hi:
+            raise AssertionError("tie band past the live lanes")
+        f[s_:s_ + n] = 1.0
+        f[s_ + lo:s_ + hi] = 7.0
+        dl[s_ + lo:s_ + hi] = 24.0
+        m[s_ + lo:s_ + hi] = 3
+    return meta, fmeta, d, f, m, dl
+
+
+def tile_kernel_cases(rng):
+    """Cases aimed at the kernel's tiles and top-k paths, in the wide
+    block shape (16 queries or fewer): a tie across its 2,048-lane tile
+    boundary (the running top-k full before it at k = 16, not at k = 64),
+    a wide pivot against a 131,072-lane member range, and phases of at
+    most k matches (some empty)."""
+    R, N, O = IK.REQ, IK.NOT, IK.OPT
+    out = []
+    for label, Ws, groups, k, B in (
+            ("tile-tie-not-k16", (4096, 2048), ((R, (0,)), (N, (1,))), 16,
+             16),
+            ("tile-tie-not-k64", (4096, 2048), ((R, (0,)), (N, (1,))), 64,
+             16),
+            ("tile-tie-or2-k16", (4096, 2048), ((R, (0, 1)),), 16, 16),
+            ("wide-tile-tie-not-k16", (65536, 2048), ((R, (0,)), (N, (1,))),
+             16, 8)):
+        args = with_tie_band(make_windows(rng, B, Ws, full=True), 2030,
+                             2070)
+        out.append((label, args, dict(T=2, Ws=Ws, groups=groups, k=k)))
+    Ws = (65536, 131072)
+    out.append(("wide-member-131072", make_windows(rng, 8, Ws,
+                                                       full=True),
+                dict(T=2, Ws=Ws, groups=((R, (0,)), (R, (1,))), k=16)))
+    Ws = (8192, 2048)
+    meta, *rest = make_windows(rng, 48, Ws)
+    meta = meta.copy()
+    meta[:, 2] = rng.integers(0, 40, 48)          # pivot lens, some 0
+    out.append(("count-le-k", (meta, *rest),
+                dict(T=2, Ws=Ws, groups=((R, (0,)), (O, (1,))), k=64)))
+    return out + shape_kernel_cases(rng)
+
+
+def shape_kernel_cases(rng):
+    """Batches for the narrow and mid block shapes (the kernel picks its
+    shape from the pivot bucket and the batch; the cases above mostly take
+    the mid and wide ones): narrow, 1,200 queries with 2,048-lane pivots
+    (at least 8 an SM of an H100's 132); mid, 320 queries with pivots of
+    4,096-32,768 lanes (at least 2 an SM).  OR, NOT and OPT members, k =
+    16 and 64, ties across a tile boundary (lane 256 of the narrow shape's
+    tiles, lane 2,048 of the mid's), phases of at most k matches."""
+    R, N, O = IK.REQ, IK.NOT, IK.OPT
+    out = []
+    Ws = (2048, 2048)
+    for label, groups, k in (
+            ("narrow-tile-tie-not-k16", ((R, (0,)), (N, (1,))), 16),
+            ("narrow-tile-tie-or2-k64", ((R, (0, 1)),), 64)):
+        args = with_tie_band(make_windows(rng, 1200, Ws, full=True), 240,
+                             270)
+        out.append((label, args, dict(T=2, Ws=Ws, groups=groups, k=k)))
+    meta, *rest = make_windows(rng, 1200, Ws)
+    meta = meta.copy()
+    meta[:, 2] = rng.integers(0, 40, 1200)        # pivot lens, some 0
+    out.append(("narrow-count-le-k", (meta, *rest),
+                dict(T=2, Ws=Ws, groups=((R, (0,)), (O, (1,))), k=64)))
+    for label, Ws, groups, k in (
+            ("mid-or2-8192x2048", (8192, 2048), ((R, (0, 1)),), 16),
+            ("mid-not-32768x2048", (32768, 2048), ((R, (0,)), (N, (1,))),
+             64),
+            ("mid-opt-8192x8192", (8192, 8192), ((R, (0,)), (O, (1,))), 16)):
+        out.append((label, make_windows(rng, 320, Ws),
+                    dict(T=2, Ws=Ws, groups=groups, k=k)))
+    Ws = (4096, 2048)
+    args = with_tie_band(make_windows(rng, 320, Ws, full=True), 2030, 2070)
+    out.append(("mid-tile-tie-not-k16", args,
+                dict(T=2, Ws=Ws, groups=((R, (0,)), (N, (1,))), k=16)))
+    return out
 
 
 def compare_raw(kout, pout, what):
@@ -319,7 +432,9 @@ def compare_raw(kout, pout, what):
 
 
 def phase_kernel_vs_plain(dev, B: int = 48) -> tuple:
-    """Top-k and raw mode of every case; returns the two max errors."""
+    """Top-k and raw mode of every case (raw where the pivot is within
+    MAX_W_PIVOT), lane for lane with bit-identical scores; returns the
+    two max errors (0)."""
     rng = np.random.default_rng(7)
     err, err_raw = 0.0, 0.0
     for label, args, kw in kernel_cases(rng, B):
@@ -327,13 +442,20 @@ def phase_kernel_vs_plain(dev, B: int = 48) -> tuple:
         kout = IK.intersect_batch(*t, **kw)
         pout = IK.intersect_plain(*t, **kw)
         torch.cuda.synchronize()
-        e = compare(*kout, *pout, f"kernel vs plain [{label}]")
+        e = compare_raw(kout, pout, f"kernel vs plain [{label}]")
         err = max(err, e)
         n_hit = int((pout[1] > -3.3e38).sum())
         log(f"phase kernel-vs-plain: {label} Ws={kw['Ws']} k={kw['k']} "
             f"B={args[0].shape[0]} live lanes={n_hit} "
-            f"matches={int(pout[2].sum())} max_abs_err={e:.3g} ok")
+            f"matches={int(pout[2].sum())} lane for lane equal, scores "
+            f"bit-identical")
+        if not n_hit:
+            raise AssertionError(f"kernel vs plain [{label}]: no matches")
         del kout, pout
+        piv = kw["groups"][kw.get("pivot_g", 0)][1]
+        if max(kw["Ws"][p] for p in piv) > IK.MAX_W_PIVOT:
+            del t
+            continue
         kout = IK.intersect_batch(*t, raw=True, **kw)
         pout = IK.intersect_plain(*t, raw=True, **kw)
         torch.cuda.synchronize()
@@ -623,7 +745,8 @@ def f64_sums(g, valid, v, G):
 
 def compare_single(kres, pres, truth, integer, what) -> dict:
     """B4/B5 against their plain versions: counts, min and max equal (NaN
-    where the plain one is NaN).  A sum is within 1e-5 of the group's
+    where the plain one is NaN; where a min or max is zero, its sign bit
+    too, since -0.0 == 0.0).  A sum is within 1e-5 of the group's
     sum of |v| (of v*v) of the float64 sum, exactly equal to it on
     integer inputs below 2^24, and within that plus the plain version's
     own distance from it of the plain sum (f32 sums in one bin over
@@ -645,6 +768,9 @@ def compare_single(kres, pres, truth, integer, what) -> dict:
             if (d != 0).any():
                 i = int(np.argmax(d))
                 raise AssertionError(f"{what}: {key} {k[i]} vs {p[i]}")
+            z = p == 0
+            if (np.signbit(k[z]) != np.signbit(p[z])).any():
+                raise AssertionError(f"{what}: {key} signs of zero differ")
         else:
             sc = truth["scale." + key][~nan]
             t = truth[key][~nan]
@@ -743,7 +869,44 @@ def phase_single_groupby_vs_plain(dev) -> tuple:
     torch.cuda.synchronize()
     log(f"phase single-groupby-vs-plain: {2 * len(cases)} fused cases and "
         f"{len(GB1_CASES)} one-operand cases == plain")
+    phase_signed_zero_groups(dev)
     return err_s, err_m
+
+
+def phase_signed_zero_groups(dev):
+    """MIN/MAX of signed zeros in IEEE-754 minimum/maximum order, as the
+    JAX package gives them: group 0 holds only -0.0 (min and max -0.0),
+    group 1 -0.0 and +0.0 (min -0.0, max +0.0), group 2 those and -1.0
+    (min -1.0, max +0.0).  One block (1,000 rows), many blocks and the
+    merge pass (the `*` shape's 1,000,064 rows) and the global branch (G
+    = 65,536); kernel against plain under `compare_multi` (sign bits
+    compared) and against the wanted values, sign bits included."""
+    rng = np.random.default_rng(23)
+    want_lo = np.array([-0.0, -0.0, -1.0], np.float32)
+    want_hi = np.array([-0.0, 0.0, 0.0], np.float32)
+    for n, G in ((1000, 3), (N_PAD_1M, 3), (9000, 65536)):
+        g = rng.integers(0, 3, n).astype(np.int32)
+        v = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
+        v[g == 0] = -0.0
+        v[np.flatnonzero(g == 1)[:2]] = (-0.0, 0.0)
+        v[np.flatnonzero(g == 2)[:3]] = (-0.0, 0.0, -1.0)
+        gt = torch.as_tensor(g, device=dev)
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        ops = [(torch.as_tensor(v, device=dev), valid)]
+        kres = GB.groupby_aggregate_multi(gt, valid, ops, G, True)
+        pres = GB.groupby_aggregate_multi_plain(gt, valid, ops, G, True)
+        torch.cuda.synchronize()
+        what = f"signed zeros [n={n} G={G}]"
+        compare_multi(kres, pres, gt, valid, ops, G, True, what)
+        for key, want in (("min", want_lo), ("max", want_hi)):
+            got = kres[f"g.0.{key}"][:3].cpu().numpy()
+            if not (np.array_equal(got, want)
+                    and np.array_equal(np.signbit(got), np.signbit(want))):
+                raise AssertionError(f"{what}: {key} {got.tolist()} != "
+                                     f"{want.tolist()}")
+        log(f"phase single-groupby-vs-plain: signed zeros n={n} G={G}: min "
+            f"{want_lo.tolist()} max {want_hi.tolist()} (sign bits equal) "
+            f"== plain")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -775,14 +938,38 @@ def bm25_fields():
             F("price", T.NUMERIC, sortable=True)]
 
 
-def kernel_eligible(ix, seg, q: str, opts=None) -> bool:
-    """Whether a kernel serves `q`: the intersection kernel's plan, else
-    the phrase kernel's (the order of the engine's `_rows_executor`)."""
+def query_route(ix, seg, q: str, opts=None) -> str:
+    """The executor the engine's router gives `q`, in `_rows_executor`'s
+    order: the intersection kernel's route ("kernel" or "kernel-wide",
+    `_kernel_route`), else "phrase-kernel", else "window"."""
     cq = ix.prepare(q, None, opts or E.QueryOptions(k=K), 2)
     _row, ent = cq.bind_row(seg)
     k_pad = int(min(E.next_pow2(K), seg.n_pad))
-    return (E._kernel_plan(cq, seg, ent[4], k_pad) is not None
-            or E._kernel_plan_phrase(cq, seg, ent[4], k_pad) is not None)
+    route = E._kernel_route(cq, seg, ent[4], k_pad)
+    if route is not None:
+        return route[0]
+    if E._kernel_plan_phrase(cq, seg, ent[4], k_pad) is not None:
+        return "phrase-kernel"
+    return "window"
+
+
+def kernel_eligible(ix, seg, q: str, opts=None) -> bool:
+    """Whether a kernel serves `q` (any route but the window program)."""
+    return query_route(ix, seg, q, opts) != "window"
+
+
+class window_program:
+    """Within the block the engine's router sends every batch group to
+    the general window program (no kernel route), as the JAX package
+    serves the queries its kernel planner refuses."""
+
+    def __enter__(self):
+        self.saved = E._kernel_route, E._kernel_plan_phrase
+        E._kernel_route = lambda *a, **k: None
+        E._kernel_plan_phrase = lambda *a, **k: None
+
+    def __exit__(self, *exc):
+        E._kernel_route, E._kernel_plan_phrase = self.saved
 
 
 def plain_results(ix, seg, queries, opts=None):
@@ -936,42 +1123,46 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
         f"({n_docs / ingest_s:.0f} docs/s), segment nnz={seg.text.nnz} "
         f"device bytes={seg.memory_bytes()} pos_stride={seg.text.pos_stride}")
 
-    batches, n_kern = {}, {}
+    batches, routes = {}, {}
+    want: dict = {}
     for fam, fn in FAMILIES.items():
         qs = [fn(qt, i) for i in range(batch)]
-        n_kern[fam] = sum(kernel_eligible(ix, seg, q) for q in qs)
+        routes[fam] = [query_route(ix, seg, q) for q in qs]
         batches[fam] = qs
-        log(f"phase main-path: {fam}: {n_kern[fam]}/{len(qs)} "
-            f"kernel-eligible ({100.0 * n_kern[fam] / len(qs):.2f}%), the "
-            f"rest on the window program")
-        if not n_kern[fam]:
-            raise AssertionError(f"{fam}: no kernel-eligible query")
+        for r in routes[fam]:
+            want[r] = want.get(r, 0) + 1
+        n_win = routes[fam].count("window")
+        log(f"phase main-path: {fam}: routes "
+            f"{ {r: routes[fam].count(r) for r in sorted(set(routes[fam]))} }"
+            f", kernel-eligible {100.0 * (len(qs) - n_win) / len(qs):.2f}%")
     # bench.py's kernel_hit_pct: the share of the eight families' queries
-    # that ride a kernel; the window program serves the rest
+    # that ride a kernel; since the wide route, the window program none
     n_all = batch * len(FAMILIES)
-    n_ok = sum(n_kern.values())
+    n_ok = n_all - want.get("window", 0)
     log(f"phase main-path: kernel_hit_pct {100.0 * n_ok / n_all:.2f} "
         f"({n_ok} of {n_all} queries of the {len(FAMILIES)} families), "
         f"window share {100.0 * (n_all - n_ok) / n_all:.2f} "
-        f"({n_all - n_ok} queries)")
+        f"({n_all - n_ok} queries), kernel-wide "
+        f"{want.get('kernel-wide', 0)} queries")
+    if n_ok != n_all or not want.get("kernel-wide"):
+        raise AssertionError(f"the router leaves queries to the window "
+                             f"program or has no wide query: {want}")
     seg.tag_pcodes("cat")     # set-up: the dense code column, built once
 
     # the counted main-path run: counters zeroed just before, read after
     E.QUERY_PATH_STATS.clear()
-    IK.LAUNCHES = 0
+    IK.LAUNCHES = IK.WIDE_LAUNCHES = 0
     IK.PHRASE_LAUNCHES = 0
     results = {fam: client.ft_search_many("bm25", qs, k=K)
                for fam, qs in batches.items()}
     torch.cuda.synchronize(dev)
     launches, p_launches = IK.LAUNCHES, IK.PHRASE_LAUNCHES
-    stats = dict(E.QUERY_PATH_STATS)
-    n_phrase = n_kern["phrase"]
-    want = {"kernel": n_ok - n_phrase, "phrase-kernel": n_phrase}
-    if n_all > n_ok:
-        want["window"] = n_all - n_ok
-    log(f"phase main-path: intersect launches={launches}, phrase launches="
-        f"{p_launches}, path stats={stats}, served={n_all}")
-    if launches <= 0 or p_launches <= 0:
+    w_launches = IK.WIDE_LAUNCHES
+    stats = {r: n for r, n in E.QUERY_PATH_STATS.items() if n}
+    log(f"phase main-path: intersect launches={launches} (wide "
+        f"{w_launches}), phrase launches={p_launches}, path stats={stats}, "
+        f"served={n_all}")
+    if launches - w_launches <= 0 or w_launches <= 0 or p_launches <= 0:
         raise AssertionError("a kernel of the main path never launched")
     if stats != want:
         raise AssertionError(f"not every served query rode its kernel: "
@@ -1003,6 +1194,7 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
             raise AssertionError(f"{fam}: served hits {hits} != {want}")
         log(f"phase main-path: {fam}: all {len(qs)} queries kernel == "
             f"plain (largest group {largest})")
+    check_wide_against_window(ix, seg, batches, routes, results)
     for q in batches["and2"][:16]:
         r = client.ft_search_many("bm25", [q], k=K)[0]
         want = numpy_and2_count(seg, ix, q)
@@ -1019,8 +1211,40 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
         f"{torch.cuda.max_memory_allocated(dev)}")
     times = phase_kernel_times(ix, seg, batches, dev)
     phase_profile(client, ix, seg, batches, dev)
-    return dict(launches=launches, p_launches=p_launches, err=err,
-                times=times, client=client, ix=ix)
+    return dict(launches=launches - w_launches, w_launches=w_launches,
+                p_launches=p_launches, err=err, times=times, client=client,
+                ix=ix)
+
+
+def check_wide_against_window(ix, seg, batches, routes, results):
+    """The served hits of every query on the wide route against the
+    engine's results for the same queries with the window program forced
+    on (what the JAX package serves them with): totals, hit docs in
+    order, scores within 1e-5."""
+    n = 0
+    for fam, qs in batches.items():
+        wide = [q for q, r in zip(qs, routes[fam]) if r == "kernel-wide"]
+        if not wide:
+            continue
+        served = [r for r, rt_ in zip(results[fam], routes[fam])
+                  if rt_ == "kernel-wide"]
+        cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2) for q in wide]
+        with window_program():
+            wres = E.execute_batch(cqs, seg, K)
+        for q, s_, w in zip(wide, served, wres):
+            live = w.scores > -3.3e38
+            keys = [ix.doctable.get(int(seg.gids_np[d])).key
+                    for d in w.local_idx[live]]
+            if s_.total != w.count or [h.key for h in s_.hits] != keys:
+                raise AssertionError(f"wide {q!r}: served {s_.total} "
+                                     f"{[h.key for h in s_.hits]} vs window "
+                                     f"program {w.count} {keys}")
+            np.testing.assert_allclose([h.score for h in s_.hits],
+                                       w.scores[live], rtol=1e-5, atol=0,
+                                       err_msg=f"wide {q!r}")
+        n += len(wide)
+    log(f"phase main-path: all {n} kernel-wide queries == the window "
+        f"program's results (totals, hits in order, scores rtol 1e-5)")
 
 
 def same_hits(a, b, what):
@@ -1201,18 +1425,9 @@ def phase_qps(client, ix, seg, batches, dev, iters: int = 4):
         f"{total_q / total_s:.1f}")
 
 
-def phase_kernel_times(ix, seg, batches, dev) -> dict:
-    """Information only: each kernel against its plain version at the
-    main path's shapes (device ms, plain/kernel/plain/kernel): the
-    largest and2 group, and every group of the phrase family (one per
-    window-bucket combination).  Each pair is also compared.  Returns
-    {name: (kernel ms, plain ms, max abs err)} of the largest group."""
-    out = {}
-    cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
-           for q in batches["and2"]]
-    subs = [s_ for s_ in E._prep_subs(cqs, seg, K)
-            if isinstance(s_[1], E._KernelExecutor)]
-    idxs, entry, seg_args, rows = max(subs, key=lambda s: len(s[0]))
+def intersect_group_args(entry, seg_args, rows, dev) -> tuple:
+    """(args, kwargs) of the intersection kernel's call for one batch
+    group on its executor."""
     stacked = E._device_unpack_rows(entry.layout,
                                     torch.from_numpy(rows).to(dev))
     meta, fmeta, aux = E._kernel_batched_inputs(
@@ -1221,20 +1436,75 @@ def phase_kernel_times(ix, seg, batches, dev) -> dict:
             seg_args["field_masks"], seg_args["posting_dl"], *aux)
     kw = dict(T=len(entry.descs), Ws=entry.Ws, groups=entry.groups,
               pivot_g=entry.pivot_g, k=entry.k_pad, dense=entry.dense)
+    return args, kw
+
+
+def time_intersect_group(what, idxs, args, kw) -> tuple:
+    """The intersection kernel on one group against its plain version:
+    compared lane for lane, then timed (device ms, plain/kernel/plain/
+    kernel).  Returns (kernel ms, plain ms, max abs err, bound ms)."""
     kout = IK.intersect_batch(*args, **kw)
-    e = compare(*kout, *IK.intersect_plain(*args, **kw),
-                f"kernel vs plain [and2 group of {len(idxs)}]")
-    b = bound_ms(intersect_bytes(meta, fmeta, kw["T"], kw["groups"],
+    e = compare_raw(kout, IK.intersect_plain(*args, **kw),
+                    f"kernel vs plain [{what} group of {len(idxs)}]")
+    b = bound_ms(intersect_bytes(args[0], args[1], kw["T"], kw["groups"],
                                  kw["pivot_g"], kout))
     p1 = time_ms(lambda: IK.intersect_plain(*args, **kw), 5)
     k1 = time_ms(lambda: IK.intersect_batch(*args, **kw))
     p2 = time_ms(lambda: IK.intersect_plain(*args, **kw), 5)
     k2 = time_ms(lambda: IK.intersect_batch(*args, **kw))
-    out["intersect"] = (min(k1, k2), min(p1, p2), e, b)
-    log(f"phase main-path: and2 largest group B={len(idxs)} Ws={entry.Ws} "
-        f"groups={entry.groups} k={entry.k_pad}: kernel lanes == plain "
-        f"lanes; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
-        f"(device ms, plain/kernel/plain/kernel), bytes bound {b:.4f} ms")
+    log(f"phase main-path: {what} largest group B={len(idxs)} Ws={kw['Ws']} "
+        f"groups={kw['groups']} k={kw['k']}: kernel lanes == plain lanes "
+        f"(bit-identical); kernel {k1:.4f}/{k2:.4f} ms, plain "
+        f"{p1:.4f}/{p2:.4f} ms (device ms, plain/kernel/plain/kernel), "
+        f"bytes bound {b:.4f} ms")
+    return min(k1, k2), min(p1, p2), e, b
+
+
+def phase_kernel_times(ix, seg, batches, dev) -> dict:
+    """Information only: each kernel against its plain version at the
+    main path's shapes (device ms, plain/kernel/plain/kernel): the
+    largest and2 group, the largest kernel-wide group of or2 (beside the
+    window program's device and host time for the same queries), and
+    every group of the phrase family (one per window-bucket
+    combination).  Each pair is also compared.  Returns {name: (kernel
+    ms, plain ms, max abs err, bound ms)} of the largest group."""
+    out = {}
+    cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
+           for q in batches["and2"]]
+    subs = [s_ for s_ in E._prep_subs(cqs, seg, K)
+            if isinstance(s_[1], E._KernelExecutor)]
+    idxs, entry, seg_args, rows = max(subs, key=lambda s: len(s[0]))
+    out["intersect"] = time_intersect_group(
+        "and2", idxs, *intersect_group_args(entry, seg_args, rows, dev))
+
+    cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
+           for q in batches["or2"]]
+    subs = [s_ for s_ in E._prep_subs(cqs, seg, K)
+            if s_[1].path == "kernel-wide"]
+    idxs, entry, seg_args, rows = max(subs, key=lambda s: len(s[0]))
+    out["intersect_wide"] = time_intersect_group(
+        "or2 kernel-wide", idxs,
+        *intersect_group_args(entry, seg_args, rows, dev))
+    # the window program on the same queries (as the JAX package serves
+    # them): the device's busy time in a torch.profiler trace of one run
+    # (its ops are many and small), and the host clock of that run
+    from torch.profiler import ProfilerActivity, profile
+    with window_program():
+        wsub = E._prep_subs([cqs[i] for i in idxs], seg, K)
+    (_wi, wentry, wargs, wrows), = wsub
+    wentry.run(wargs, wrows)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wentry.run(wargs, wrows)
+        w_host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    w_dev = device_busy_us(prof)[0] / 1e3
+    out["window_wide"] = (w_dev, w_host)
+    log(f"phase main-path: the same {len(idxs)} or2 queries on the window "
+        f"program: device {w_dev:.4f} ms, host launch {w_host:.3f} ms "
+        f"(kernel-wide: {out['intersect_wide'][0]:.4f} ms)")
 
     cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
            for q in batches["phrase"]]
@@ -1265,6 +1535,62 @@ def phase_kernel_times(ix, seg, batches, dev) -> dict:
             f"ms (device ms, plain/kernel/plain/kernel), bytes bound "
             f"{b:.4f} ms")
     return out
+
+
+def save_b1_groups(path: str) -> None:
+    """`--save-groups PATH`: build the main path's index, route the seven
+    term-query families at BATCH and the aggregate request's batch of
+    AGG_BATCH, and save every intersection-kernel group (both routes and
+    raw mode) to PATH for `redisearch_tpu_torch/bench/ab.py intersect`:
+    {"arrays": {key: CPU tensor}, "groups": [{"fam", "path", "n", "args"
+    (keys of "arrays"), "kw", "bound_ms"}]}, largest group of a family
+    first.  Runs no other phase."""
+    phase_card()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    docs, qt, _toks = make_corpus(N_DOCS)
+    client = rt.Client(device=dev)
+    ix = client.ft_create("bm25", bm25_fields())
+    ix.add_documents(docs)
+    del docs
+    seg = ix.segments[0]
+    seg.tag_pcodes("cat")
+    arrays, groups = {}, []
+
+    def keep(fam, path, n, args, kw):
+        outs = IK.intersect_plain(*args, **kw)
+        b = bound_ms(intersect_bytes(args[0], args[1], kw["T"], kw["groups"],
+                                     kw.get("pivot_g", 0), outs))
+        names = []
+        for t in args:     # the segment's arrays are saved once
+            key = f"{t.data_ptr()}:{tuple(t.shape)}:{t.dtype}"
+            arrays.setdefault(key, t)
+            names.append(key)
+        groups.append(dict(fam=fam, path=path, n=n, args=names, kw=kw,
+                           bound_ms=b))
+
+    for fam in FAMILIES:
+        if fam == "phrase":
+            continue
+        cqs = [ix.prepare(FAMILIES[fam](qt, i), None, E.QueryOptions(k=K), 2)
+               for i in range(BATCH)]
+        subs = [s_ for s_ in E._prep_subs(cqs, seg, K)
+                if isinstance(s_[1], E._KernelExecutor)]
+        for idxs, entry, seg_args, rows in sorted(subs,
+                                                  key=lambda s: -len(s[0])):
+            keep(fam, entry.path, len(idxs),
+                 *intersect_group_args(entry, seg_args, rows, dev))
+    mk, _sd, _mm = agg_request_fn()
+    reqs = [r for r in (mk(i) for i in range(2 * AGG_BATCH))
+            if agg_eligible(ix, seg, r)][:AGG_BATCH]
+    with capture_shapes() as cap:
+        client.ft_aggregate_many("bm25", reqs)
+    for args, kw in sorted(cap.args["intersect"].values(),
+                           key=lambda c: -c[0][0].shape[0]):
+        keep("raw-agg", "raw", args[0].shape[0], args, kw)
+    torch.save({"arrays": {k: v.cpu() for k, v in arrays.items()},
+                "groups": groups}, path)
+    log(f"saved {len(groups)} intersection-kernel groups to {path}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1956,6 +2282,7 @@ def main():
     mm = phase_agg_minmax(main["client"], main["ix"], dev)
     single = phase_single_groupby_times(main["ix"], dev, mm["windows"])
     k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
+    wk_ms, wp_ms, wk_err, wk_b = main["times"]["intersect_wide"]
     pk_ms, pp_ms, pk_err, pk_b = main["times"]["phrase"]
     jax_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "redisearch_tpu") + os.sep
@@ -1981,6 +2308,9 @@ def main():
         rec("intersect", KERNEL_SRC, KERNEL_REPLACES, main["launches"],
             max(err3, main["err"]["intersect"], k_err), k_ms, p_ms, k_b,
             None),
+        rec("intersect_wide", KERNEL_SRC, KERNEL_REPLACES,
+            main["w_launches"], max(err3, main["err"]["intersect"], wk_err),
+            wk_ms, wp_ms, wk_b, None),
         rec("phrase", PHRASE_SRC, PHRASE_REPLACES, main["p_launches"],
             max(err3_phrase, main["err"]["phrase"], pk_err), pk_ms, pp_ms,
             pk_b, None),
@@ -1999,4 +2329,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--save-groups"] and len(sys.argv) == 3:
+        save_b1_groups(sys.argv[2])
+    elif len(sys.argv) > 1:
+        raise SystemExit(__doc__)
+    else:
+        main()

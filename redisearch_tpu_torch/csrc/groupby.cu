@@ -114,8 +114,9 @@ groupby_kernel(const int* __restrict__ gslots, const float* __restrict__ vals,
 // operand count, sum, sumsq (, min, max).  The kernel writes every cell:
 // 0 for empty sums, +-3.4e38 for empty min/max (the Pallas identities:
 // min = min(3.4e38, values)), NaN min and max for a group holding a NaN
-// value, -0.0 taken as +0.0.  So the wrapper allocates the output and
-// fills nothing.
+// value, and -0.0 ordered just below +0.0 (a group of -0.0s reads -0.0,
+// one of -0.0 and +0.0 min -0.0 and max +0.0).  So the wrapper allocates
+// the output and fills nothing.
 //
 // Bound: bytes.  The rows are read once (gid and valid once for the base
 // and every operand, where a call per operand read them again and masked
@@ -189,10 +190,11 @@ struct SingleOps {
   int vals_step[MAX_OPS];
 };
 
-// order-preserving code of a float (a < b <=> code(a) < code(b)); -0.0 is
-// made +0.0 first
+// order-preserving code of a float's raw bits (a < b <=> code(a) <
+// code(b)), -0.0 just below +0.0: IEEE-754 minimum/maximum order, as the
+// JAX package's jnp.minimum / jnp.maximum give
 __device__ __forceinline__ unsigned f2code(float x) {
-  const unsigned u = __float_as_uint(x + 0.0f);
+  const unsigned u = __float_as_uint(x);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 

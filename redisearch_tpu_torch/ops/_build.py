@@ -38,7 +38,6 @@ _LAUNCH = {
         ctypes.POINTER(_vp), ctypes.POINTER(_i64),  # aux ptrs / lens
         _vp,                                       # plan (host)
         _vp, _vp, _vp, _i32,                       # outputs, out_cols
-        _vp, _vp, _i32,                            # scratch, scr_cols
         _i32, _i32, _vp])],                        # B, grid, stream
     "groupby": [("rs_groupby_launch", [
         _vp, _vp, _vp,                             # gslots, vals, out

@@ -185,14 +185,25 @@ def sums_plain(g, vm, n_groups: int) -> dict:
 
 def minmax_plain(g, vm, n_groups: int) -> dict:
     """Plain torch version of kernel B5 on pre-masked rows: segment
-    min/max onto the +-3.4e38 identities (NaN propagates)."""
+    min/max onto the +-3.4e38 identities (NaN propagates), with -0.0
+    below +0.0 as the JAX package's jnp.minimum / jnp.maximum order them
+    (`scatter_reduce_` alone keeps whichever zero comes first)."""
     idx = torch.where(g >= 0, g, n_groups).long()
     G1 = n_groups + 1
     dev = vm.device
-    return {"min": torch.full((G1,), BIG, device=dev).scatter_reduce_(
-                0, idx, vm, "amin", include_self=True)[:n_groups],
-            "max": torch.full((G1,), -BIG, device=dev).scatter_reduce_(
-                0, idx, vm, "amax", include_self=True)[:n_groups]}
+
+    def seg(how, init, x):
+        return torch.full((G1,), init, dtype=torch.float32,
+                          device=dev).scatter_reduce_(
+            0, idx, x, how, include_self=True)[:n_groups]
+
+    zero = vm == 0
+    neg0 = seg("amax", 0.0, (zero & torch.signbit(vm)).to(torch.float32))
+    pos0 = seg("amax", 0.0, (zero & ~torch.signbit(vm)).to(torch.float32))
+    mn, mx = seg("amin", BIG, vm), seg("amax", -BIG, vm)
+    return {"min": torch.where(mn == 0, torch.where(neg0 > 0, -0.0, 0.0), mn),
+            "max": torch.where(mx == 0, torch.where(pos0 > 0, 0.0, -0.0),
+                               mx)}
 
 
 def groupby_aggregate_plain(gids, valid, values, n_groups: int,

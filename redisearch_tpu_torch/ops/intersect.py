@@ -32,7 +32,10 @@ import torch
 
 BLK = 128
 R_EXTRA = 8             # raw sections carry W // 128 + R_EXTRA rows
-MAX_W_PIVOT = 32768     # pivot windows bound the phase scratch
+#: the JAX kernel's pivot bound (its VMEM), kept for the raw mode and the
+#: planner's narrow route; the CUDA top-k mode takes pivots up to
+#: MAX_W_MEMBER
+MAX_W_PIVOT = 32768
 MAX_W_MEMBER = 131072
 NEG_INF = -3.4e38
 K1 = 1.2
@@ -44,6 +47,9 @@ REQ, NOT, OPT = 0, 1, 2
 
 #: kernel launches made by `intersect_batch` (plain int; callers reset it)
 LAUNCHES = 0
+#: of those, the launches whose pivot is wider than MAX_W_PIVOT (the wide
+#: route's shapes)
+WIDE_LAUNCHES = 0
 
 
 def _slot_srcs(T: int, groups) -> list:
@@ -426,7 +432,6 @@ _P_WS, _P_PIV, _P_GRP, _P_DNS, _P_RAW = 6, 14, 22, 110, 120
 _GRP_REC, _DNS_REC = 11, 4
 _MAX_AUX = 4
 #: blocks in flight: each walks queries blockIdx, blockIdx + grid, ...
-#: and owns one pivot-sized row of the phase scratch
 _MAX_GRID = 4096
 
 
@@ -505,8 +510,10 @@ def _launch(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
     for (_fl, src, _nv) in dense:
         if src >= len(aux) or aux[src].shape[0] < N:
             raise ValueError("dense code column shorter than the postings")
-    if max(Ws[p] for p in groups[pivot_g][1]) > MAX_W_PIVOT:
-        raise ValueError("pivot window exceeds MAX_W_PIVOT")
+    w_piv = MAX_W_PIVOT if raw else MAX_W_MEMBER
+    if max(Ws[p] for p in groups[pivot_g][1]) > w_piv:
+        raise ValueError(f"pivot window exceeds {w_piv} "
+                         f"({'raw' if raw else 'top-k'} mode)")
     if not 1 <= k <= 64:
         raise ValueError(f"k={k} outside [1, 64]")
     plan = _plan_array(T, Ws, groups, pivot_g, k, dense, raw)
@@ -518,10 +525,6 @@ def _launch(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
     if B == 0:
         return out_docs, out_scores, out_counts
     grid = min(B, _MAX_GRID)
-    # raw mode writes its lanes straight to the output: no scratch
-    Wp = 0 if raw else max(Ws[p] for p in groups[pivot_g][1])
-    scr_docs = torch.empty((grid, Wp), dtype=torch.int32, device=dev)
-    scr_scores = torch.empty((grid, Wp), dtype=torch.float32, device=dev)
     aux_p = [a.data_ptr() for a in aux] + [0] * (_MAX_AUX - len(aux))
     aux_n = [a.shape[0] for a in aux] + [0] * (_MAX_AUX - len(aux))
     rc = lib.rs_intersect_launch(
@@ -532,13 +535,15 @@ def _launch(meta, fmeta, doc_ids, freqs, masks, posting_dl, aux, *,
         (ctypes.c_longlong * _MAX_AUX)(*aux_n),
         plan.ctypes.data_as(ctypes.c_void_p),
         out_docs.data_ptr(), out_scores.data_ptr(), out_counts.data_ptr(),
-        L, scr_docs.data_ptr(), scr_scores.data_ptr(), Wp, B, grid,
+        L, B, grid,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"intersect kernel launch failed: CUDA error "
                            f"{rc} ({_build.error_string('intersect', rc)})")
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     LAUNCHES += 1
+    WIDE_LAUNCHES += int(max(Ws[p] for p in groups[pivot_g][1])
+                         > MAX_W_PIVOT)
     return out_docs, out_scores, out_counts
 
 
@@ -563,8 +568,10 @@ def intersect_batch(meta, fmeta, doc_ids, freqs, masks, posting_dl, *aux,
     doc on ties) with INT32_MAX / NEG_INF filler — merge phases with
     iter_topk — plus the total match count.
 
-    CPU tensors run `intersect_plain`; CUDA tensors launch the kernel
-    (`LAUNCHES` counts each launch) or raise.
+    Pivot windows up to MAX_W_MEMBER in top-k mode, MAX_W_PIVOT in raw
+    mode.  CPU tensors run `intersect_plain`; CUDA tensors launch the
+    kernel (`LAUNCHES` counts each launch, `WIDE_LAUNCHES` those with a
+    pivot past MAX_W_PIVOT) or raise.
     """
     if meta.device.type == "cpu":
         return intersect_plain(meta, fmeta, doc_ids, freqs, masks,

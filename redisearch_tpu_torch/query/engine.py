@@ -867,7 +867,8 @@ def _lev(a: str, b: str) -> int:
     return prev[-1]
 
 
-def _kernel_plan(cq0: CompiledQuery, seg: Segment, bk: dict, k_pad: int):
+def _kernel_plan(cq0: CompiledQuery, seg: Segment, bk: dict, k_pad: int,
+                 wide: bool = False):
     """Eligibility for the term-query intersection kernel
     (ops/intersect.py).  Returns (slot_descs, Ws, groups, pivot_g,
     aux_keys) or None.  Covered: BM25STD top-k over AND/OR/NOT/OPT of
@@ -877,7 +878,13 @@ def _kernel_plan(cq0: CompiledQuery, seg: Segment, bk: dict, k_pad: int):
     leaf constant once per doc), on a clean segment — the serving hot
     path.  slot_descs: ("t", term_slot) or ("g", tag_ord, value_j,
     leaf_idx); aux_keys name the segment-arg arrays the tag slots read
-    from."""
+    from.
+
+    By default the JAX planner's bounds hold (pivot windows up to
+    MAX_W_PIVOT, the 12 MB window budget), so that both packages route
+    the same queries to the kernel.  `wide=True` lifts those two, which
+    are the TPU kernel's VMEM limits: pivots up to MAX_W_MEMBER, no
+    budget; every other gate stays (`_kernel_route`)."""
     if not _kernel_seg_ok(cq0, seg, k_pad):
         return None
 
@@ -997,10 +1004,11 @@ def _kernel_plan(cq0: CompiledQuery, seg: Segment, bk: dict, k_pad: int):
     # the pivot group's windows bound the per-phase scratch; member
     # windows are only searched — a rare pivot can intersect against an
     # ultra-common member term without falling back
+    w_piv = IK.MAX_W_MEMBER if wide else IK.MAX_W_PIVOT
     req = [(i, sum(Ws[j] for j in g[1]))
            for i, g in enumerate(groups)
            if g[0] == IK.REQ and g[2] < 0
-           and all(Ws[j] <= IK.MAX_W_PIVOT for j in g[1])]
+           and all(Ws[j] <= w_piv for j in g[1])]
     if not req:
         return None
     pivot_g = min(req, key=lambda e: e[1])[0]
@@ -1017,7 +1025,7 @@ def _kernel_plan(cq0: CompiledQuery, seg: Segment, bk: dict, k_pad: int):
                for j in range(len(Ws)))
     vmem += 3 * (max(Ws[j] for j in pivs) + 1024) * 4
     vmem += len(dense_descs) * sum((Ws[j] + 1024) * 4 for j in pivs)
-    if vmem > 12 * 1024 * 1024:
+    if vmem > 12 * 1024 * 1024 and not wide:
         return None
     aux_keys = tuple(f"tag{o}_docs" for o in aux_ords) + tuple(
         f"tag{o}_pcodes" for (_fl, o, _nv, _idx) in dense_descs)
@@ -1026,6 +1034,20 @@ def _kernel_plan(cq0: CompiledQuery, seg: Segment, bk: dict, k_pad: int):
     dmeta = tuple((o, nv, idx) for (_fl, o, nv, idx) in dense_descs)
     return (tuple(slot_descs), tuple(Ws), tuple(groups), pivot_g,
             aux_keys, kdense, dmeta)
+
+
+def _kernel_route(cq0: CompiledQuery, seg: Segment, bk: dict, k_pad: int):
+    """The intersection kernel's route for a query: ("kernel", plan)
+    where the JAX planner's `_kernel_plan` takes it, ("kernel-wide",
+    plan) where only its pivot bound or window budget refuses it (the
+    JAX package serves those on its window program), else None."""
+    kplan = _kernel_plan(cq0, seg, bk, k_pad)
+    if kplan is not None:
+        return "kernel", kplan
+    kplan = _kernel_plan(cq0, seg, bk, k_pad, wide=True)
+    if kplan is not None:
+        return "kernel-wide", kplan
+    return None
 
 
 def _kernel_seg_ok(cq0: CompiledQuery, seg: Segment, k_pad: int) -> bool:
@@ -1215,8 +1237,8 @@ def decode_blob(raw, field) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 #: how many batched queries rode which executor family (callers reset it)
-QUERY_PATH_STATS: dict[str, int] = {"kernel": 0, "phrase-kernel": 0,
-                                    "window": 0}
+QUERY_PATH_STATS: dict[str, int] = {"kernel": 0, "kernel-wide": 0,
+                                    "phrase-kernel": 0, "window": 0}
 
 
 @dataclasses.dataclass
@@ -1297,12 +1319,14 @@ def _prep_subs(cqs: list, seg: Segment, k: int) -> list:
 
 
 class _KernelExecutor:
-    """One batch group on the intersection kernel (the JAX executor's
-    kernel branch, `_rows_executor` with `_kernel_plan` set)."""
+    """One batch group on the intersection kernel: the JAX executor's
+    kernel branch (`_rows_executor` with `_kernel_plan` set; path
+    "kernel"), or the wide route (path "kernel-wide"), which takes the
+    queries the JAX package serves on its window program."""
 
-    path = "kernel"
-
-    def __init__(self, layout: list, kplan: tuple, k_pad: int, ke: int):
+    def __init__(self, layout: list, kplan: tuple, k_pad: int, ke: int,
+                 path: str):
+        self.path = path
         self.layout = layout
         (self.descs, self.Ws, self.groups, self.pivot_g, self.aux_keys,
          self.dense, self.dmeta) = kplan
@@ -1327,8 +1351,16 @@ class _KernelExecutor:
             # one phase: the kernel's lanes are already the exact top-k
             return {"idx": docs[:, :ke], "scores": scores[:, :ke],
                     "count": count}
-        # per-phase top-k lanes merge by score, lowest lane on ties;
-        # exhausted lanes keep the INT32_MAX doc filler
+        if self.path == "kernel-wide":
+            # the window program breaks ties by the lowest doc, and each
+            # phase's lanes are doc-ascending within a score: order the
+            # lanes by doc, then stably by score
+            order = torch.argsort(docs, dim=1, stable=True)
+            docs = torch.gather(docs, 1, order)
+            scores = torch.gather(scores, 1, order)
+        # per-phase top-k lanes merge by score, lowest lane on ties (the
+        # JAX kernel branch's order); exhausted lanes keep the INT32_MAX
+        # doc filler
         vals, sel = IK.iter_topk(scores, docs, ke)
         idx = torch.gather(docs, 1, sel)
         idx = torch.where(vals > -3e38, idx, IK.INT32_MAX)
@@ -1419,13 +1451,15 @@ class _WindowExecutor:
 
 
 def _rows_executor(cq0: CompiledQuery, ent: tuple, seg: Segment, k: int):
-    """The executor of one batch group: the intersection kernel, else
-    the phrase kernel, else the general window program."""
+    """The executor of one batch group: the intersection kernel (its
+    narrow or wide route), else the phrase kernel, else the general
+    window program."""
     _static, _patches, layout, _total, bk, P2, _gsig, _lfp = ent
     k_pad = int(min(next_pow2(max(k, 1)), seg.n_pad))
-    kplan = _kernel_plan(cq0, seg, bk, k_pad)
-    if kplan is not None:
-        return _KernelExecutor(layout, kplan, k_pad, min(k, k_pad))
+    route = _kernel_route(cq0, seg, bk, k_pad)
+    if route is not None:
+        return _KernelExecutor(layout, route[1], k_pad, min(k, k_pad),
+                               route[0])
     pplan = _kernel_plan_phrase(cq0, seg, bk, k_pad)
     if pplan is not None:
         return _PhraseExecutor(layout, pplan, k_pad, min(k, k_pad))

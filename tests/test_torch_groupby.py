@@ -485,3 +485,55 @@ def test_multi_plain_matches_pallas_interpret(G, n_ops, const):
         else:
             np.testing.assert_allclose(t[k], x[k], rtol=1e-5, err_msg=k)
     assert (t["g.None.count"] == 0).any()
+
+
+# groups of signed zeros: (values in row order); min and max as the JAX
+# package gives them, IEEE-754 minimum/maximum order (-0.0 below +0.0)
+# whatever the rows' order
+SIGNED_ZERO_GROUPS = [
+    ([-0.0], -0.0, -0.0),
+    ([-0.0, -0.0, -0.0], -0.0, -0.0),
+    ([-0.0, 0.0], -0.0, 0.0),
+    ([0.0, -0.0], -0.0, 0.0),
+    ([0.0, -0.0, 0.0, -0.0], -0.0, 0.0),
+    ([0.0, 0.0], 0.0, 0.0),
+    ([-0.0, 2.0], -0.0, 2.0),
+    ([-3.0, -0.0], -3.0, -0.0),
+]
+
+
+@pytest.mark.parametrize("interpret", [False, True],
+                         ids=["jax-fallback", "pallas-interpret"])
+@pytest.mark.parametrize("entry", ["multi", "single"])
+def test_signed_zero_minmax_matches_jax(interpret, entry):
+    """A group of only -0.0 reads -0.0 for min and max, one of -0.0 and
+    +0.0 min -0.0 and max +0.0 in either row order: the JAX package's
+    `groupby_aggregate` (CPU fallback and the Pallas kernel in interpret
+    mode) and the port's plain versions, sign bits compared (`==` holds
+    -0.0 equal to 0.0).  The card's fused kernel orders the raw bits the
+    same way (csrc/groupby.cu `f2code`)."""
+    g = np.concatenate([np.full(len(v), i, np.int32)
+                        for i, (v, _lo, _hi) in enumerate(SIGNED_ZERO_GROUPS)])
+    v = np.concatenate([np.array(v, np.float32)
+                        for v, _lo, _hi in SIGNED_ZERO_GROUPS])
+    valid = np.ones(len(g), bool)
+    G = len(SIGNED_ZERO_GROUPS)
+    JGB._INTERPRET = interpret
+    jax.clear_caches()
+    try:
+        x = _single_jax(g, valid, v, G)
+    finally:
+        JGB._INTERPRET = False
+        jax.clear_caches()
+    if entry == "multi":
+        t = _multi_plain(g, valid, [(v, np.ones(len(g), bool))], G, True)
+        t = {k: t[f"g.0.{k}"] for k in ("min", "max")}
+    else:
+        t = _single_plain(g, valid, v, G)
+    lo = np.array([c[1] for c in SIGNED_ZERO_GROUPS], np.float32)
+    hi = np.array([c[2] for c in SIGNED_ZERO_GROUPS], np.float32)
+    for got in (x, t):
+        for key, want in (("min", lo), ("max", hi)):
+            np.testing.assert_array_equal(got[key], want, err_msg=key)
+            np.testing.assert_array_equal(np.signbit(got[key]),
+                                          np.signbit(want), err_msg=key)
