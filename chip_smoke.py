@@ -95,7 +95,34 @@ script exits non-zero:
    Kernel times are device times (CUDA events behind a device sleep
    that covers the host's enqueue); each is printed beside its bytes
    bound.
-7. the module check (no jax, no module file under `redisearch_tpu/`),
+7. vector path (FLAT search; no Pallas kernel lies on it, so its ops
+   are torch ops: a GEMM, elementwise masks and `torch.topk`).  First
+   bench.py's knn shape at the op level: `ops.vector.knn_scan_batches`
+   over 4 chunks of 2048 queries (bench.py scans 48) against 1M x 128
+   f32 rows, L2, the bf16 scan copy, k = 10: recall@10 of 256 queries
+   against exact float64 distances on the card must reach 0.99, and
+   every returned distance must be within 1e-4 relative of its float64
+   value; the device time of each part of one chunk (GEMM, epilogue,
+   mask, candidate top-C, f32 rescore, final top-k) is printed beside
+   its bound.  Then bench.py's filtered-KNN corpus end to end: 500k docs
+   x 384-dim unit vectors, COSINE, title 3 of 10 words, year NUMERIC
+   sortable, cat TAG, seed 0, through `Client.ft_create` and
+   `add_documents`; its fulltext, numeric and tag families, pure KNN and
+   a check-only narrow family (text AND one year, HYBRID_POLICY
+   ADHOC_BF), batch 2048, KNN 25.  Each family must count under its
+   route ("knn-batches", "knn-dense", "knn-dense", "knn-pure",
+   "knn-row"); every hit must pass its filter, each distance must be
+   within 1e-5 of its float64 value, recall@25 must reach 0.99 against
+   an exact float64 top-25 over the filter's docs computed on the card;
+   64 single `ft_search` calls must equal the batch; a batch with TF32
+   switched on by the caller must give the same results and leave the
+   caller's setting as it was.  QPS (one `ft_search_many` batch, and
+   `execute_batch` pipelined at depth 2 over 3 batches), peak memory,
+   ingest seconds, one batch's device busy and idle share
+   (torch.profiler; an eighth of a batch for the two families that run
+   the window program per query) and the parts' times at the pure
+   family's shape are printed for information.
+8. the module check (no jax, no module file under `redisearch_tpu/`),
    then the last three lines: nvidia-smi's name and power limit, the
    kernels' JSON record, then {"ok": true, "device": {...}}.
 """
@@ -116,6 +143,8 @@ from redisearch_tpu_torch.agg import pipeline as AP
 from redisearch_tpu_torch.ops import _build
 from redisearch_tpu_torch.ops import groupby as GB
 from redisearch_tpu_torch.ops import intersect as IK
+from redisearch_tpu_torch.ops import text as T
+from redisearch_tpu_torch.ops import vector as V
 from redisearch_tpu_torch.query import engine as E
 
 N_DOCS = 1_000_000
@@ -2267,6 +2296,379 @@ def phase_agg_profile(ix, batch, dev, what="aggregate"):
         f"{1.0 - busy / (traced * 1e3):.4f}")
 
 
+# ---------------------------------------------------------------- phase 7
+#: bench.py's knn section: 1M x 128 f32 rows, L2, k = 10, batches of 2048
+KNN_N, KNN_D, KNN_K, KNN_B = 1_000_000, 128, 10, 2048
+#: query chunks scanned (bench.py scans 48; 4 hold the checks and times)
+KNN_CHUNKS = 4
+#: bench.py's filtered-KNN section: 500k x 384 unit vectors, COSINE
+FKNN_N, FKNN_D, FKNN_B, FKNN_K = 500_000, 384, 2048, 25
+#: batches of the pipelined QPS loop (the hoisted and knn-row families
+#: take about 5 s a batch on the host)
+FKNN_PIPE = 3
+FKNN_WORDS = ["algebra", "graph", "neural", "quantum", "protein", "market",
+              "vision", "speech", "logic", "random"]
+#: H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside them
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+
+def bound2(n_bytes: float, n_ops: float, peak: float) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over their type's peak."""
+    b, o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def vector_parts(vecs, scan, sq, Q, k, metric, valid2d, calls) -> list:
+    """Device ms of each part of one `knn_batch_masked` call (two-phase:
+    bf16 scan copy, f32 rescore) at these inputs, each beside its bound:
+    the GEMM (`_scores`, f32 out), the metric epilogue, the mask, the
+    candidate top-C (`_cand_top`), the f32 rescore and the final top-k.
+    `calls` is how many such calls a batch makes."""
+    B, N, d = Q.shape[0], vecs.shape[0], vecs.shape[1]
+    C = V._cand_k(N, k)
+    dots = V._scores(scan, Q)
+    qf = Q.float()
+    qn = torch.sqrt((qf * qf).sum(1))
+    vn = torch.sqrt(torch.clamp(sq, min=1e-30))
+
+    def epilogue():
+        if metric == "L2":
+            return sq[None, :] - 2.0 * dots + (qf * qf).sum(1)[:, None]
+        return 1.0 - dots / (vn[None, :] * torch.clamp(qn[:, None],
+                                                       min=1e-30))
+
+    dist = epilogue()
+    dm = torch.where(valid2d, dist, V.BIG)
+    avals, aidx = V._cand_top(-dm, C)
+    dr = V._rescore(vecs, sq, Q, aidx, metric)
+    f4 = 4 * B * N
+    parts = [
+        ("GEMM (bf16 in, f32 out)", lambda: V._scores(scan, Q),
+         bound2(nbytes(scan, Q) + f4, 2.0 * B * N * d, BF16_FLOPS)),
+        (f"{metric} epilogue", epilogue,
+         bound2(2 * f4 + nbytes(sq, Q), 3.0 * B * N, F32_FLOPS)),
+        ("mask", lambda: torch.where(valid2d, dist, V.BIG),
+         bound2(2 * f4 + nbytes(valid2d), B * N, F32_FLOPS)),
+        (f"_cand_top (C={C})", lambda: V._cand_top(-dm, C),
+         bound2(f4 + 12 * B * C, B * N, F32_FLOPS)),
+        ("rescore", lambda: V._rescore(vecs, sq, Q, aidx, metric),
+         bound2(4 * B * C * d + nbytes(Q, aidx) + 8 * B * C,
+                2.0 * B * C * d, F32_FLOPS)),
+        (f"final top-k (k={k})", lambda: T.fast_top_k(-dr, k),
+         bound2(nbytes(dr) + 12 * B * k, B * C, F32_FLOPS))]
+    out = []
+    for name, fn, (b, by) in parts:
+        ms = time_ms(fn, iters=5)
+        out.append({"part": name, "ms": ms, "bound_ms": b, "bound_by": by,
+                    "calls": calls})
+    del dots, dist, dm, avals, aidx, dr
+    return out
+
+
+def log_parts(what: str, parts: list) -> None:
+    for p in parts:
+        log(f"phase vector: {what} part {p['part']}: {p['ms']:.4f} ms "
+            f"against {p['bound_ms']:.4f} ms ({p['bound_by']}), "
+            f"{p['calls']} calls a batch")
+    log(f"phase vector: {what} parts json " + json.dumps(parts))
+
+
+def phase_knn_ops(dev) -> list:
+    """bench.py's knn shape at the op level: `knn_scan_batches` over
+    KNN_CHUNKS chunks of 2048 queries (f32 L2, bf16 scan copy, k = 10).
+    Recall@10 of 256 queries against exact float64 distances on the card
+    must reach 0.99 (the JAX package's contract), and every returned
+    distance must be within 1e-4 relative of its float64 value."""
+    from redisearch_tpu_torch.index.segment import bf16_scan_copy
+    g = torch.Generator(device=dev).manual_seed(0)
+    vecs = torch.randn(KNN_N, KNN_D, generator=g, device=dev)
+    Q = torch.randn(KNN_CHUNKS, KNN_B, KNN_D, generator=g, device=dev)
+    sq = (vecs.double() ** 2).sum(1).float()
+    scan = bf16_scan_copy(vecs)
+    present = torch.ones(KNN_N, dtype=torch.bool, device=dev)
+    V.knn_scan_batches(vecs, sq, present, Q[:1], KNN_K, "L2",
+                       scan_vecs=scan)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    dists, idx = V.knn_scan_batches(vecs, sq, present, Q, KNN_K, "L2",
+                                    scan_vecs=scan)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    q64, v64 = Q[0, :256].double(), vecs.double()
+    d64 = ((v64 * v64).sum(1)[None, :] - 2.0 * (q64 @ v64.t())
+           + (q64 * q64).sum(1)[:, None])
+    truth = torch.topk(d64, KNN_K, dim=1, largest=False).indices
+    del d64, v64
+    recall = float((idx[0, :256, :, None] == truth[:, None, :]).any(-1)
+                   .double().mean())
+    g64 = ((vecs[idx.long()].double() - Q[:, :, None, :].double()) ** 2
+           ).sum(-1)
+    rel = float(((dists.double() - g64).abs()
+                 / g64.abs().clamp(min=1e-30)).max())
+    log(f"phase vector: knn ops {KNN_CHUNKS} chunks x {KNN_B} queries over "
+        f"{KNN_N:,} x {KNN_D} f32 L2 (bf16 scan copy), k={KNN_K}: "
+        f"{KNN_CHUNKS * KNN_B / dt:.1f} qps (host clock, one call), peak "
+        f"transient {peak / 2**30:.2f} GiB; recall@10 of 256 queries "
+        f"against float64 {recall:.4f}; max relative distance error "
+        f"{rel:.3e}")
+    if recall < 0.99 or not rel <= 1e-4:
+        raise AssertionError(f"knn ops: recall {recall}, rel err {rel}")
+    parts = vector_parts(vecs, scan, sq, Q[0], KNN_K, "L2",
+                         present[None, :], KNN_CHUNKS)
+    log_parts(f"knn ops ({KNN_N:,} x {KNN_D}, B {KNN_B})", parts)
+    del vecs, Q, scan, dists, idx, g64
+    torch.cuda.empty_cache()
+    return parts
+
+
+def fknn_corpus(n: int, dim: int, seed: int = 0):
+    """bench.py's arxiv-shaped filtered-KNN corpus (bench_filtered_knn):
+    titles of 3 of 10 words, year 1990 + i % 35, cat c{i % 20}, unit
+    normal vectors, from `seed`, drawn in bulk; and 512 query vectors."""
+    rng = np.random.default_rng(seed)
+    words = np.array(FKNN_WORDS)
+    vecs = rng.normal(size=(n, dim)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    tidx = rng.integers(0, 10, size=(n, 3))
+    titles = [" ".join(t) for t in words[tidx]]
+    docs = [(f"p{i}", {"title": titles[i], "year": int(1990 + i % 35),
+                       "cat": f"c{i % 20}", "emb": vecs[i]})
+            for i in range(n)]
+    qvecs = rng.normal(size=(512, dim)).astype(np.float32)
+    return docs, vecs, tidx, qvecs
+
+
+def fknn_families():
+    """(query fn, route, host filter fn) per family: bench.py's fulltext,
+    numeric and tag families, pure KNN, and a check-only narrow family.
+    At 500k docs every leaf of the narrow family has a 32,768-lane
+    window, which the planner sends to BATCHES; HYBRID_POLICY ADHOC_BF
+    keeps it on the knn-row executor."""
+    W = FKNN_WORDS
+    return {
+        "fulltext": (lambda i: f"(@title:{W[i % 10]})"
+                     "=>[KNN 25 @emb $b EF_RUNTIME 64]", "knn-batches",
+                     lambda i, tidx, year, cat: (tidx == i % 10).any(1)),
+        "numeric": (lambda i: f"(@year:[{1990 + i % 30} {1995 + i % 30}])"
+                    "=>[KNN 25 @emb $b EF_RUNTIME 64]", "knn-dense",
+                    lambda i, tidx, year, cat: (year >= 1990 + i % 30)
+                    & (year <= 1995 + i % 30)),
+        "tag": (lambda i: f"(@cat:{{c{i % 20}}})"
+                "=>[KNN 25 @emb $b EF_RUNTIME 64]", "knn-dense",
+                lambda i, tidx, year, cat: cat == i % 20),
+        "pure": (lambda i: "*=>[KNN 25 @emb $b]", "knn-pure",
+                 lambda i, tidx, year, cat: np.ones(len(year), bool)),
+        "narrow": (lambda i: f"(@title:{W[i % 10]} "
+                   f"@year:[{1990 + i % 35} {1990 + i % 35}])"
+                   "=>[KNN 25 @emb $b HYBRID_POLICY ADHOC_BF]", "knn-row",
+                   lambda i, tidx, year, cat: (tidx == i % 10).any(1)
+                   & (year == 1990 + i % 35)),
+    }
+
+
+def check_fknn(res, qs, qvecs, v64, ffn, what) -> float:
+    """Every hit passes its filter, each distance within 1e-5 of its
+    float64 value, and recall@25 of the batch against an exact float64
+    top-25 over the filter's docs, computed on the card.  The filters are
+    evaluated on the host from the corpus's own arrays, once per query
+    string.  Returns the recall."""
+    masks_by_q: dict = {}
+
+    def fmask(r):
+        m = masks_by_q.get(qs[r])
+        if m is None:
+            m = masks_by_q[qs[r]] = ffn(r)
+        return m
+
+    hit_sum = live_sum = 0
+    for c0 in range(0, len(res), 256):
+        rows = range(c0, min(len(res), c0 + 256))
+        q = torch.from_numpy(qvecs[[r % 512 for r in rows]]).to(
+            v64.device).double()
+        qn = q / q.norm(dim=1, keepdim=True)
+        d64 = 1.0 - qn @ v64.t()                       # unit rows
+        masks = torch.from_numpy(np.stack([fmask(r) for r in rows])).to(
+            v64.device)
+        d64 = torch.where(masks, d64, float("inf"))
+        n_valid = masks.sum(1)
+        truth = torch.topk(d64, FKNN_K, dim=1, largest=False).indices.cpu()
+        d64 = d64.cpu().numpy()
+        for j, r in enumerate(rows):
+            keys = [int(h.key[1:]) for h in res[r].hits]
+            m = fmask(r)
+            if not all(m[i] for i in keys):
+                raise AssertionError(f"{what}: query {r} returned a doc "
+                                     "that fails its filter")
+            got = np.array([h.vector_distance for h in res[r].hits])
+            err = np.abs(got - d64[j, keys]).max() if keys else 0.0
+            if not err <= 1e-5:
+                raise AssertionError(f"{what}: query {r} distance error "
+                                     f"{err}")
+            want = set(truth[j, :min(FKNN_K, int(n_valid[j]))].tolist())
+            hit_sum += len(set(keys) & want)
+            live_sum += len(want)
+    return hit_sum / max(live_sum, 1)
+
+
+def same_knn_hits(a, b, what, tol=1e-5):
+    """Two KNN results agree: as many hits, distances within tol lane
+    for lane, and equal keys wherever neighbouring distances differ by
+    more than tol.  (Totals differ by design: a pure KNN batch counts
+    every live vector, a single search at most k, in both packages.)"""
+    if len(a.hits) != len(b.hits):
+        raise AssertionError(f"{what}: hits {len(a.hits)} / "
+                             f"{len(b.hits)}")
+    da = np.array([h.vector_distance for h in a.hits])
+    db = np.array([h.vector_distance for h in b.hits])
+    if len(da) and not np.abs(da - db).max() <= tol:
+        raise AssertionError(f"{what}: distances differ")
+    for j in range(len(da)):
+        near = ((j > 0 and da[j] - da[j - 1] <= tol)
+                or (j + 1 < len(da) and da[j + 1] - da[j] <= tol))
+        if not near and a.hits[j].key != b.hits[j].key:
+            raise AssertionError(f"{what}: lane {j} key differs")
+
+
+def phase_fknn(dev) -> dict:
+    """bench.py's filtered-KNN corpus end to end (see the docstring's
+    phase 7)."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    docs, vecs, tidx, qvecs = fknn_corpus(FKNN_N, FKNN_D)
+    year = 1990 + np.arange(FKNN_N) % 35
+    cat = np.arange(FKNN_N) % 20
+    t1 = time.perf_counter()
+    client = rt.Client(device=dev)
+    ix = client.ft_create("arxivb", [
+        rt.Field("title", rt.FieldType.TEXT),
+        rt.Field("year", rt.FieldType.NUMERIC, sortable=True),
+        rt.Field("cat", rt.FieldType.TAG),
+        rt.Field("emb", rt.FieldType.VECTOR, vector=rt.VectorParams(
+            dim=FKNN_D, metric="COSINE"))])
+    ix.add_documents(docs)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    del docs
+    seg = ix.segments[0]
+    log(f"phase vector: fknn corpus {FKNN_N:,} x {FKNN_D} built in "
+        f"{t1 - t0:.1f}s, ingest (ft_create + add_documents) "
+        f"{t2 - t1:.1f}s, segment {seg.memory_bytes() / 2**30:.2f} GiB")
+    v64 = torch.from_numpy(vecs).to(dev).double()
+    out = {}
+    for fam, (qfn, route, ffn) in fknn_families().items():
+        qs = [qfn(i) for i in range(FKNN_B)]
+        params = [{"b": qvecs[i % 512]} for i in range(FKNN_B)]
+        E.QUERY_PATH_STATS.clear()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ts = time.perf_counter()
+        res = client.ft_search_many("arxivb", qs, params=params, k=FKNN_K)
+        torch.cuda.synchronize(dev)
+        first = time.perf_counter() - ts
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if E.QUERY_PATH_STATS != {route: FKNN_B}:
+            raise AssertionError(f"fknn {fam}: routes "
+                                 f"{E.QUERY_PATH_STATS}, want {route}")
+        ts = time.perf_counter()
+        rec = check_fknn(res, qs, qvecs, v64,
+                         lambda r: ffn(r, tidx, year, cat), f"fknn {fam}")
+        if rec < 0.99:
+            raise AssertionError(f"fknn {fam}: recall@25 {rec}")
+        check_s = time.perf_counter() - ts
+        ts = time.perf_counter()
+        for i in range(0, FKNN_B, FKNN_B // 64):
+            one = client.ft_search("arxivb", qs[i], params=params[i],
+                                   num=FKNN_K)
+            same_knn_hits(res[i], one, f"fknn {fam} single {i}")
+        single_s = time.perf_counter() - ts
+        prev = torch.get_float32_matmul_precision()
+        torch.backends.cuda.matmul.allow_tf32 = True    # the caller's
+        tf = client.ft_search_many("arxivb", qs, params=params, k=FKNN_K)
+        kept = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision(prev)
+        if kept != "high":
+            raise AssertionError(f"fknn {fam}: the caller's TF32 setting "
+                                 f"became {kept!r}")
+        for i, (a, b) in enumerate(zip(res, tf)):
+            if ([h.key for h in a.hits] != [h.key for h in b.hits]
+                    or [h.vector_distance for h in a.hits]
+                    != [h.vector_distance for h in b.hits]):
+                raise AssertionError(f"fknn {fam}: query {i} differs with "
+                                     "TF32 on")
+        ts = time.perf_counter()
+        client.ft_search_many("arxivb", qs, params=params, k=FKNN_K)
+        torch.cuda.synchronize(dev)
+        seq = time.perf_counter() - ts
+        opts = E.QueryOptions(k=FKNN_K)
+        ts = time.perf_counter()
+        pending = []
+        for _ in range(FKNN_PIPE):
+            cqs = [ix.prepare(q, p, opts, 2) for q, p in zip(qs, params)]
+            pending.append(E.execute_batch(cqs, seg, FKNN_K, async_=True))
+            if len(pending) > 2:
+                pending.pop(0).result()
+        for h in pending:
+            h.result()
+        piped = time.perf_counter() - ts
+        # the per-query executors launch some 10^5 ops a batch, whose
+        # trace takes minutes to read back: they trace an eighth of one
+        nt = FKNN_B // 8 if route in ("knn-batches", "knn-row") else FKNN_B
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ts = time.perf_counter()
+            client.ft_search_many("arxivb", qs[:nt], params=params[:nt],
+                                  k=FKNN_K)
+            torch.cuda.synchronize(dev)
+            traced = (time.perf_counter() - ts) * 1e3
+        ts = time.perf_counter()
+        busy, _ = device_busy_us(prof, ())
+        read_s = time.perf_counter() - ts
+        out[fam] = {"qps": FKNN_B / seq,
+                    "piped_qps": FKNN_PIPE * FKNN_B / piped,
+                    "recall": rec, "peak": peak}
+        log(f"phase vector: fknn {fam} ({route}, batch {FKNN_B}, k "
+            f"{FKNN_K}): recall@25 {rec:.4f}, 64 single ft_search equal, "
+            f"TF32-on batch equal; qps {FKNN_B / seq:.1f} (one batch "
+            f"after the checks), pipelined "
+            f"{FKNN_PIPE * FKNN_B / piped:.1f} ({FKNN_PIPE} batches, depth "
+            "2, no hits built); "
+            f"first batch {first:.3f}s, checks {check_s:.1f}s, 64 single "
+            f"calls {single_s:.1f}s, peak transient "
+            f"{peak / 2**30:.2f} GiB; traced batch of {nt} {traced:.3f} ms "
+            f"with device busy {busy:.1f} us, idle share "
+            f"{1.0 - busy / (traced * 1e3):.4f} (trace read in "
+            f"{read_s:.1f}s)")
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("the caller's matmul precision was not kept")
+    col = seg.vectors["emb"]
+    qs = torch.from_numpy(qvecs[:512]).to(dev)
+    qs = torch.cat([qs] * (E._knn_chunk(seg.n_pad) // 512))
+    parts = vector_parts(col.vecs, col.scan_vecs, col.sq_norms, qs,
+                         FKNN_K, "COSINE", (col.present & seg.alive)[None],
+                         -(-FKNN_B // qs.shape[0]))
+    log_parts(f"fknn pure ({FKNN_N:,} x {FKNN_D}, chunk {qs.shape[0]})",
+              parts)
+    log("phase vector: fknn path stats " + json.dumps(
+        {fam: fknn_families()[fam][1] for fam in out}))
+    del v64, ix, client
+    torch.cuda.empty_cache()
+    return {"families": out, "parts": parts}
+
+
+def phase_vector(dev) -> dict:
+    t0 = time.perf_counter()
+    ops = phase_knn_ops(dev)
+    fk = phase_fknn(dev)
+    log(f"phase vector: done in {time.perf_counter() - t0:.1f}s")
+    return {"ops": ops, **fk}
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -2281,6 +2683,7 @@ def main():
     star = phase_agg_star(main["client"], main["ix"], dev)
     mm = phase_agg_minmax(main["client"], main["ix"], dev)
     single = phase_single_groupby_times(main["ix"], dev, mm["windows"])
+    phase_vector(dev)
     k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
     wk_ms, wp_ms, wk_err, wk_b = main["times"]["intersect_wide"]
     pk_ms, pp_ms, pk_err, pk_b = main["times"]["phrase"]

@@ -12,15 +12,19 @@ kernel `csrc/intersect.cu` on a card, its plain torch version on the
 CPU); and batched FT.AGGREGATE GROUPBY: `Client.ft_aggregate_many` ->
 `agg.pipeline.run_aggregate_many` -> the intersection kernel's raw mode
 and `ops.groupby.groupby_aggregate_batch` (the CUDA kernel
-`csrc/groupby.cu`).  See ROADMAP.md for what is still to port.
+`csrc/groupby.cu`).  FLAT vector search (`VectorParams`, KNN and
+VECTOR_RANGE queries with PARAMS blobs) runs through `ops.vector` and the
+engine's KNN executors.  See ROADMAP.md for what is still to port.
 """
 
-from .schema import Field, FieldType, Schema
+from .schema import (Field, FieldType, Schema, VectorAlgo,
+                     VectorMetric, VectorParams)
 from .agg.pipeline import ASC, DESC, AggregateRequest, AggregateResult
 from .api import Client
 from .index.index import Hit, SearchIndex, SearchResult
 from .query.engine import QueryOptions
 
-__all__ = ["Schema", "Field", "FieldType", "QueryOptions", "SearchIndex",
+__all__ = ["Schema", "Field", "FieldType", "VectorParams", "VectorAlgo",
+           "VectorMetric", "QueryOptions", "SearchIndex",
            "SearchResult", "Hit", "Client", "AggregateRequest",
            "AggregateResult", "ASC", "DESC"]

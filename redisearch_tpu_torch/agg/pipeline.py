@@ -20,12 +20,16 @@ Counterpart of `redisearch_tpu/agg/pipeline.py` on its device paths:
   then an on-device SORT/LIMIT head (`_make_device_tail`) or the host
   merge (`_device_group_finish`);
 * single, `run_aggregate` -> `_device_group_submit` -> `_make_fused` per
-  segment -> `_device_group_finish`.
+  segment -> `_device_group_finish`;
+* a KNN source (`(filter)=>[KNN k @v $b]`), single or batched: each
+  segment's k nearest through `query.engine.execute` (the window
+  program's KNN branches), then the steps on the host rows
+  (`_run_knn`, `_run_steps`), as the JAX package runs it.
 
 What the device paths do not serve raises NotImplementedError naming the
-ROADMAP item, and never falls back: the host pipeline (`_run_steps`:
-LOAD, non-algebraic reducers, unencodable keys, more than 65,536 groups:
-A9), cursors (A9) and KNN (A7).
+ROADMAP item, and never falls back: the host pipeline for other sources
+(`_run_steps` over a window: LOAD, non-algebraic reducers, unencodable
+keys, more than 65,536 groups: A9) and cursors (A9).
 
 Left out as TPU-attach machinery: the packed executors and their compile
 cache, async host copies, pow2 batch padding and the 1024-query
@@ -50,7 +54,7 @@ from ..query.engine import (LAll, QueryOptions, _device_unpack,
                             _device_unpack_rows, _kernel_batched_inputs,
                             _kernel_plan, _layout_of, _pack_into, _pack_out,
                             _program, _segment_args, _unpack_out,
-                            _window_width, next_pow2)
+                            _window_width, execute, next_pow2)
 from .device_expr import compile_device_expr
 
 ASC = True
@@ -184,7 +188,8 @@ class AggregateResult:
 # ---------------------------------------------------------------------------
 
 #: served-path counters: "device-tail" = GROUPBY with the on-device
-#: SORT/LIMIT head, "device" = GROUPBY with the host finish
+#: SORT/LIMIT head, "device" = GROUPBY with the host finish, "knn" = a
+#: KNN source with the steps on the host
 AGG_PATH_STATS: dict = {}
 
 
@@ -223,7 +228,7 @@ def run_aggregate(index, req: "AggregateRequest") -> "AggregateResult":
     index.commit()
     cq = index.prepare(req.query, req.params, _options(req), req.dialect)
     if cq.knn is not None:
-        raise _not_ported("KNN aggregations", "A7")
+        return _run_knn(index, req, cq)
     fast = _try_device_group(index, req, cq)
     if fast is None:
         raise _not_ported(
@@ -239,16 +244,20 @@ def run_aggregate_many(index, reqs: list, async_: bool = False):
     shape and the same per-segment transport-row structure run as one
     group (per segment: the kernel-raw branch, or the window branch), and
     every group's outputs are collected together.  With async_=True
-    returns an _AggBatchHandle at once; .result() collects.  A request
-    the device paths do not serve raises NotImplementedError before
-    anything launches."""
+    returns an _AggBatchHandle at once; .result() collects.  A KNN
+    request runs `_run_knn` when the batch is collected.  A request the
+    device paths do not serve raises NotImplementedError before anything
+    launches."""
     index.commit()
     prepared = []
     groups: dict = {}
+    knn_reqs: list = []
     for req in reqs:
         cq = index.prepare(req.query, req.params, _options(req), req.dialect)
         if cq.knn is not None:
-            raise _not_ported("KNN aggregations", "A7")
+            knn_reqs.append((len(prepared), req, cq))
+            prepared.append((req, cq, None))
+            continue
         plan = _plan_device_group_cached(index, req, cq)
         if plan is None:
             raise _not_ported(
@@ -285,9 +294,161 @@ def run_aggregate_many(index, reqs: list, async_: bool = False):
                         else _device_group_finish)
                 out[i] = fin_(index, (group, tail, op_list, mm, rspec,
                                       parts))
+        for i, req, cq in knn_reqs:
+            out[i] = _run_knn(index, req, cq)
         return out
 
     return _AggBatchHandle(fin) if async_ else fin()
+
+
+def _run_knn(index, req: AggregateRequest, cq) -> AggregateResult:
+    """FT.AGGREGATE over a KNN query (the JAX `run_aggregate`'s KNN
+    source): each segment's `knn.k` nearest docs through `execute` (mode
+    "topk"; lanes past the live distances dropped) become host rows, and
+    the steps run on them (`_run_steps`)."""
+    _count_path("knn")
+    rows: list[dict] = []
+    total = 0
+    for seg in index.segments:
+        res = execute(cq, seg, cq.knn.k, mode="topk")
+        keep = res.knn_dists < 3.3e38
+        sel = res.local_idx[keep]
+        scores = res.scores[keep]
+        total += res.count
+        gids = seg.gids_host
+        for j, li in enumerate(sel):
+            gid = int(gids[li])
+            meta = index.doctable.get(gid)
+            if meta is None or meta.deleted:
+                continue
+            rows.append({"__key": meta.key, "__score": float(scores[j]),
+                         "__gid": gid, "__meta": meta})
+    return AggregateResult(total=total, rows=_run_steps(index, req, rows))
+
+
+def _run_steps(index, req: AggregateRequest, rows: list[dict]) -> list:
+    """The steps of a request over host rows (the JAX package's
+    `_run_steps`, without its profile timings): fields a step reads load
+    from the stored docs unless an earlier APPLY/GROUPBY produced them.
+    Only KNN sources reach it here; the host pipeline for every other
+    source is ROADMAP A9."""
+    produced: set[str] = set()
+    for step in req.steps:
+        needed = _step_props(step) - produced
+        if needed:
+            _materialize(index, rows, needed)
+        if isinstance(step, LoadStep):
+            _materialize(index, rows, step.fields)
+            if step.fields:
+                produced |= set(step.fields)
+        elif isinstance(step, ApplyStep):
+            for row in rows:
+                row[step.alias] = E.evaluate(step.parsed, row)
+            produced.add(step.alias)
+        elif isinstance(step, FilterStep):
+            rows = [r for r in rows if E._truthy(E.evaluate(step.parsed, r))]
+        elif isinstance(step, GroupStep):
+            rows = _group(rows, step)
+            produced = set(step.by)
+            for name, args, alias in step.reducers:
+                produced.add(alias or make_reducer(name, args)
+                             .default_alias())
+        elif isinstance(step, SortStep):
+            rows = _sort(rows, step)
+        elif isinstance(step, LimitStep):
+            rows = rows[step.offset:step.offset + step.num]
+    for row in rows:                      # scrub internals
+        row.pop("__meta", None)
+        row.pop("__gid", None)
+        if not req.add_scores:
+            row.pop("__score", None)
+    return rows
+
+
+def _step_props(step) -> set[str]:
+    if isinstance(step, (ApplyStep, FilterStep)):
+        return E.properties(step.parsed)
+    if isinstance(step, GroupStep):
+        out = set(step.by)
+        for _name, args, _ in step.reducers:
+            out |= {a.lstrip("@") for a in args
+                    if isinstance(a, str) and a.startswith("@")}
+            if args and not args[0].startswith("@"):
+                out.add(args[0].lstrip("@"))
+        return out
+    if isinstance(step, SortStep):
+        return {k for k, _ in step.keys}
+    return set()
+
+
+def _materialize(index, rows: list[dict], fields) -> None:
+    """Pull stored field values into rows (reference: RP_LOADER)."""
+    for row in rows:
+        meta = row.get("__meta")
+        if meta is None:
+            continue
+        if fields is None:
+            for k, v in meta.fields.items():
+                row.setdefault(k, v)
+            continue
+        for f in fields:
+            if f in ("__key", "__score") or f in row:
+                continue
+            if f == "key" and f not in meta.fields:
+                row[f] = meta.key
+                continue
+            if f in meta.fields:
+                row[f] = _coerce(index, f, meta.fields[f])
+
+
+def _coerce(index, field: str, value):
+    f = index.schema.try_field(field)
+    if f is not None and f.type == FieldType.NUMERIC:
+        try:
+            return float(value)
+        except (TypeError, ValueError):
+            return E.NULL
+    return value
+
+
+def _group(rows: list[dict], step: GroupStep) -> list[dict]:
+    """Reference: Grouper (src/aggregate/group_by.c:63-158)."""
+    groups: dict[tuple, tuple] = {}
+    for row in rows:
+        key = tuple(tuple(v) if isinstance(v, list) else v
+                    for v in (row.get(b, E.NULL) for b in step.by))
+        ent = groups.get(key)
+        if ent is None:
+            ent = ({b: row.get(b, E.NULL) for b in step.by},
+                   [make_reducer(n, a) for n, a, _ in step.reducers])
+            groups[key] = ent
+        for red in ent[1]:
+            red.add(row)
+    out = []
+    for grow, reds in groups.values():
+        for (_name, _args, alias), red in zip(step.reducers, reds):
+            grow[alias or red.default_alias()] = red.finalize()
+        out.append(grow)
+    return out
+
+
+def _sort(rows: list[dict], step: SortStep) -> list[dict]:
+    """Stable multi-pass sort; a missing value ranks last either way
+    (reference: value/src/comparison.rs cmp_fields)."""
+    out = rows
+    for prop, asc in reversed(step.keys):
+        def single(row, p=prop, a=asc):
+            v = row.get(p, E.NULL)
+            if v is E.NULL:
+                return (2, 0.0, "") if a else (-1, 0.0, "")
+            n = E._num(v)
+            if n is not None:
+                return (0, n, "")
+            return (1, 0.0, str(v))
+        out = sorted(out, key=single, reverse=not asc)
+    if step.max:
+        out = out[:step.max]
+    return out
 
 
 def _try_device_group(index, req: AggregateRequest, cq):

@@ -3,8 +3,11 @@
 Counterpart of `redisearch_tpu/api.py` for the port's paths: FT.CREATE
 (`ft_create`), HSET (`hset`: writes the document store and routes to
 every index whose rule matches), FT.SEARCH (`ft_search`, and batched
-`ft_search_many`) and FT.AGGREGATE (`ft_aggregate`, and batched
-`ft_aggregate_many`).  The other FT.* commands are not ported yet.
+`ft_search_many`; KNN and VECTOR_RANGE queries take their vectors as
+PARAMS blobs: `params={"b": vec}`, one dict a query in the batched
+call) and FT.AGGREGATE (`ft_aggregate`, and batched `ft_aggregate_many`).
+FT.HYBRID (`ft_hybrid`) raises "not ported yet (ROADMAP A10)"; the other
+FT.* commands are not ported yet.
 """
 
 from __future__ import annotations
@@ -165,6 +168,12 @@ class Client:
                 if meta.field_expired(f):
                     del hit.fields[f]
         return res
+
+    def ft_hybrid(self, name: str, hq, tail=None):
+        """FT.HYBRID (text and vector branches fused by RRF or LINEAR):
+        not ported yet."""
+        raise NotImplementedError(
+            "FT.HYBRID is not ported yet (ROADMAP A10)")
 
     def ft_aggregate(self, name: str, req):
         """FT.AGGREGATE of one request (agg.pipeline.run_aggregate).

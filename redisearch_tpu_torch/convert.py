@@ -4,7 +4,8 @@
 `redisearch_tpu.index.segment.Segment` with `np.asarray` (which needs no
 jax import) and returns the port's `Segment` holding the same values as
 torch tensors on `device`.  The parity tests use it to run both packages
-on one index.
+on one index.  bf16 vector matrices cross as their 16-bit patterns
+(`_t`), so the port needs no bf16 numpy type.
 """
 
 from __future__ import annotations
@@ -13,15 +14,34 @@ import numpy as np
 import torch
 
 from .index.segment import (NumericColumn, Segment, StrColumn, TagPostings,
-                            TermDict, TextPostings)
+                            TermDict, TextPostings, VectorColumn)
 
 
 def _t(a, device):
-    """Host copy of a JAX (or numpy) array as a tensor on `device`."""
+    """Host copy of a JAX (or numpy) array as a tensor on `device`; a
+    bf16 array (the JAX package's `ml_dtypes.bfloat16`) crosses as its
+    bit patterns, reinterpreted as `torch.bfloat16`."""
     if a is None:
         return None
     # a writable copy: np.asarray of a JAX array is a read-only view
-    return torch.as_tensor(np.array(a), device=device)
+    h = np.array(a)
+    if h.dtype.name == "bfloat16":
+        return torch.as_tensor(h.view(np.int16), device=device).view(
+            torch.bfloat16)
+    return torch.as_tensor(h, device=device)
+
+
+def _vector_column(c, device) -> VectorColumn:
+    """The port's VectorColumn of a JAX FLAT `storage="hbm"` column."""
+    if c.host or c.ivf is not None or c.compression:
+        raise NotImplementedError(
+            "IVF, host-tier and LVQ vector columns are not ported yet "
+            "(ROADMAP A8)")
+    return VectorColumn(
+        vecs=_t(c.vecs, device), present=_t(c.present, device),
+        dim=int(c.dim), sq_norms=_t(c.sq_norms, device),
+        scan_vecs=_t(c.scan_vecs, device), doc_rows=_t(c.doc_rows, device),
+        multi=bool(c.multi))
 
 
 def segment_from_jax(seg, device) -> Segment:
@@ -30,9 +50,9 @@ def segment_from_jax(seg, device) -> Segment:
         raise NotImplementedError(
             "cold (storage='host') segments are not ported yet "
             "(ROADMAP A6-cold)")
-    if seg.vectors or seg.geos:   # the port has no such columns yet
+    if seg.geos:   # the port has no GEO columns yet
         raise NotImplementedError(
-            "VECTOR and GEO columns are not ported yet (ROADMAP A6-geo/A7)")
+            "GEO columns are not ported yet (ROADMAP A6-geo)")
     tx = seg.text
     text = TextPostings(
         term_offsets=_t(tx.term_offsets, device),
@@ -86,6 +106,8 @@ def segment_from_jax(seg, device) -> Segment:
                        doc_freq=np.asarray(seg.terms.doc_freq)),
         text=text, tags=tags, numerics=numerics, strcols=strcols,
         missing={a: _t(m, device) for a, m in seg.missing.items()},
+        vectors={a: _vector_column(c, device)
+                 for a, c in seg.vectors.items()},
         gid_to_local=dict(seg.gid_to_local),
         gids_np=gids_np, alive_np=alive_np, doclen_np=doclen_np,
         geometries={a: list(v) for a, v in seg.geometries.items()},

@@ -20,26 +20,40 @@ from ..analysis.phonetics import dm_code
 from ..analysis.stemmer import Stemmer
 from ..analysis.stopwords import StopWordList
 from ..analysis.tokenizer import Tokenizer, normalize_token
-from ..schema import Field, FieldType, Schema
+from ..schema import Field, FieldType, Schema, VectorAlgo
 from ..utils import wkt
 from ..utils.errors import IndexError_, WrongFieldType
 from ..utils.jsonpath import get_field_value
 from .doctable import DocMeta
 from .segment import (LANE, POS_SLICE_PAD, Segment, StrColumn, TagPostings,
                       TermDict, TextPostings, build_tag_codes,
-                      make_numeric_column, mask_words, next_pow2,
-                      pack_mask_words, posting_pad, round_up, tail_pad)
+                      make_numeric_column, make_vector_column, mask_words,
+                      next_pow2, pack_mask_words, posting_pad, round_up,
+                      tail_pad)
 
 def check_schema_ported(schema: Schema) -> None:
-    """Refuse what the port cannot seal yet, naming the ROADMAP item."""
+    """Refuse what the port cannot seal yet, naming the ROADMAP item.
+    VECTOR fields are served as FLAT scans of device (`storage="hbm"`)
+    matrices; the IVF family (IVF, its HNSW/SVS aliases, TIERED), the
+    host tier and LVQ8 compression are refused here, so that no query
+    returns FLAT's exact answer where the JAX package returns IVF's."""
     if schema.storage == "host":
         raise NotImplementedError(
             "cold (storage='host') segments are not ported yet "
             "(ROADMAP A6-cold)")
     for f in schema.fields:
         if f.type == FieldType.VECTOR:
-            raise NotImplementedError(
-                f"VECTOR field {f.name!r} is not ported yet (ROADMAP A7)")
+            vp = f.vector
+            if vp.algo != VectorAlgo.FLAT:
+                raise NotImplementedError(
+                    f"VECTOR field {f.name!r}: algorithm {vp.algo.value} "
+                    "(IVF, HNSW, SVS, TIERED) is not ported yet "
+                    "(ROADMAP A8)")
+            if vp.storage != "hbm" or vp.compression:
+                raise NotImplementedError(
+                    f"VECTOR field {f.name!r}: storage={vp.storage!r}"
+                    f"{' with ' + vp.compression if vp.compression else ''}"
+                    " is not ported yet (ROADMAP A8)")
         if f.type == FieldType.GEO:
             raise NotImplementedError(
                 f"GEO field {f.name!r} is not ported yet (ROADMAP A6-geo)")
@@ -55,24 +69,24 @@ DEVICE_MAX_TEXT_FIELDS = 128
 # local_doc * pos_stride + pos fits in int32 (see segment.py poskeys).
 MAX_POS_STRIDE = 4096
 
-def _bf16():
-    import ml_dtypes
-    return ml_dtypes.bfloat16
-
-
 _VEC_NP_DTYPES = {
     "FLOAT32": np.float32,
     "FLOAT64": np.float64,
     "FLOAT16": np.float16,
     "INT8": np.int8,
     "UINT8": np.uint8,
+    "BFLOAT16": np.uint16,     # raw bf16 bits; see decode_vector_bytes
 }
 
 
-def _vec_np_dtype(name: str):
-    if name == "BFLOAT16":
-        return _bf16()
-    return _VEC_NP_DTYPES[name]
+def decode_vector_bytes(raw: bytes, dtype_name: str) -> np.ndarray:
+    """A binary vector blob of the field's type as f32 values.  bf16
+    reads as uint16 bit patterns widened to f32 bits (exact), so that no
+    bf16 numpy type (`ml_dtypes`, which comes with jax) is needed."""
+    arr = np.frombuffer(raw, dtype=_VEC_NP_DTYPES[dtype_name])
+    if dtype_name == "BFLOAT16":
+        return (arr.astype(np.uint32) << 16).view(np.float32)
+    return arr.astype(np.float32)
 
 
 class _TermStage:
@@ -347,12 +361,11 @@ class SegmentBuilder:
         if raw is None:
             return None
         vp = field.vector
-        npdt = _vec_np_dtype(vp.dtype)
         if isinstance(raw, str):
             # RESP clients send vector blobs as binary-safe strings
             raw = raw.encode("latin-1", "surrogateescape")
         if isinstance(raw, bytes):
-            arr = np.frombuffer(raw, dtype=npdt).astype(np.float32)
+            arr = decode_vector_bytes(raw, vp.dtype)
             if arr.shape[0] != vp.dim and arr.shape[0] % vp.dim == 0:
                 return list(arr.reshape(-1, vp.dim))  # concatenated blobs
             if arr.shape[0] != vp.dim:
@@ -529,6 +542,10 @@ class SegmentBuilder:
             m = np.zeros(n_pad, bool)
             m[:n] = pres
             missing[attr] = dev(m)
+        vectors = {attr: make_vector_column(
+            rows, n_pad, self.schema.field(attr).vector.dim,
+            self.schema.field(attr).vector.dtype, self.device)
+            for attr, rows in self._vectors.items()}
 
         return Segment(
             n_docs=n, n_pad=n_pad, device=self.device,
@@ -536,7 +553,7 @@ class SegmentBuilder:
             max_freq=dev(max_freq), docscore=dev(docscore),
             expire_at=dev(expire),
             terms=terms, text=text, tags=tags, numerics=numerics,
-            strcols=strcols, missing=missing,
+            strcols=strcols, missing=missing, vectors=vectors,
             gid_to_local={g: i for i, g in enumerate(self._gids)},
             gids_np=gids, alive_np=alive, doclen_np=doclen,
             geometries={a: list(v) for a, v in self._geoms.items()},

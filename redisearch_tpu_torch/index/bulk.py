@@ -24,8 +24,8 @@ from ..utils.jsonpath import get_field_value
 from .builder import MAX_POS_STRIDE, SegmentBuilder
 from .segment import (LANE, POS_SLICE_PAD, Segment, StrColumn, TagPostings,
                       TermDict, TextPostings, build_tag_codes,
-                      make_numeric_column, next_pow2, posting_pad,
-                      round_up, tail_pad)
+                      make_numeric_column, make_vector_column, next_pow2,
+                      posting_pad, round_up, tail_pad)
 
 
 def can_use_native(index) -> bool:
@@ -87,6 +87,8 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
                  if f.type == FieldType.NUMERIC}
     str_stage = {f.attribute: [] for f in schema.fields
                  if f.sortable and f.type in (FieldType.TEXT, FieldType.TAG)}
+    vec_stage = {f.attribute: [] for f in schema.fields
+                 if f.type == FieldType.VECTOR}
     present_stage = {f.attribute: [] for f in schema.fields}
     geom_stage = {f.attribute: [] for f in schema.fields
                   if f.type == FieldType.GEOMETRY}
@@ -120,6 +122,8 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
                 joined = _stage_tag(f, raw, local, tag_stage[f.attribute])
                 if f.sortable:
                     str_stage[f.attribute].append(joined)
+            elif f.type == FieldType.VECTOR:
+                vec_stage[f.attribute].append(helper._parse_vector(f, raw))
             elif f.type == FieldType.GEOMETRY:
                 from ..utils import wkt
                 geom_stage[f.attribute].append(
@@ -247,12 +251,17 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
         m = np.zeros(n_pad, bool)
         m[:n] = pres
         missing[attr] = dev(m)
+    vectors = {attr: make_vector_column(
+        rows, n_pad, schema.field(attr).vector.dim,
+        schema.field(attr).vector.dtype, device)
+        for attr, rows in vec_stage.items()}
 
     seg = Segment(
         n_docs=n, n_pad=n_pad, device=device, gids=dev(gids),
         alive=dev(alive), doclen=dev(dl), max_freq=dev(mf),
         docscore=dev(ds), expire_at=dev(exp), terms=td, text=text,
         tags=tags, numerics=numerics, strcols=strcols, missing=missing,
+        vectors=vectors,
         gid_to_local={m.gid: i for i, m in enumerate(metas)},
         gids_np=gids, alive_np=alive, doclen_np=dl,
         geometries={a: list(v) for a, v in geom_stage.items()},

@@ -4,10 +4,10 @@ query path, for the torch port.
 Counterpart of `redisearch_tpu/index/index.py`, for the port:
 documents stage on the host and seal on `commit()` into an immutable
 segment on the index's device; `search_many` serves a batch of queries
-through the intersection and phrase kernels (the general window program
-for groups neither takes), `aggregate_many` a batch of FT.AGGREGATE
-GROUPBYs; single-query `search()` and `aggregate()` ride the general
-window program.
+through the intersection and phrase kernels, the KNN executors, or the
+general window program for groups none of those takes, `aggregate_many`
+a batch of FT.AGGREGATE GROUPBYs; single-query `search()` and
+`aggregate()` ride the general window program.
 """
 
 from __future__ import annotations
@@ -61,7 +61,9 @@ class Hit:
         self.payload = payload
 
     def __repr__(self):
-        return f"Hit({self.key!r}, score={self.score:.4f})"
+        return (f"Hit({self.key!r}, score={self.score:.4f}"
+                + (f", dist={self.vector_distance:.4f}"
+                   if self.vector_distance is not None else "") + ")")
 
 
 class SearchResult:
@@ -229,18 +231,26 @@ class SearchIndex:
     def prepare(self, query: str, params: Optional[dict], opts: QueryOptions,
                 dialect: int = 2) -> CompiledQuery:
         """Prepared-query cache: parse+lower once per (query string,
-        params, options).  A hit with other per-call options (k, clock)
-        returns a view owning its own options over the shared compiled
-        structure and its row/bind caches."""
-        for v in (params or {}).values():
+        scalar params, options).  Vector $params (bytes, arrays) rebind on
+        every call: a hit with vector params or a KNN node, or with other
+        per-call options (k, clock), returns a view owning its options,
+        KNN node and vector blobs over the shared compiled structure and
+        its row/bind caches, so that a batch of one KNN query string with
+        a different blob per row never collapses to one blob."""
+        scalar_items = []
+        vec_params = {}
+        for k, v in (params or {}).items():
             if isinstance(v, (bytes, np.ndarray)):
-                raise NotImplementedError(
-                    "vector query parameters are not ported yet "
-                    "(ROADMAP A7)")
-        scalar_items = tuple(sorted(
-            (k, repr(v) if isinstance(v, (list, tuple)) else str(v))
-            for k, v in (params or {}).items()))
-        key = (query, scalar_items, dialect,
+                vec_params[k] = v
+            elif isinstance(v, (list, tuple)):
+                # list params (vectors as lists, id lists) are baked into
+                # the AST at parse time: their values key the cache
+                vec_params[k] = v
+                scalar_items.append((k, repr(v)))
+            else:
+                scalar_items.append((k, str(v)))
+        key = (query, tuple(sorted(scalar_items)),
+               tuple(sorted(vec_params)), dialect,
                opts.scorer, opts.sort_field, opts.sort_asc, opts.slop,
                opts.inorder, opts.verbatim, opts.language,
                opts.max_expansions, opts.expander, opts.in_fields,
@@ -254,15 +264,31 @@ class SearchIndex:
             if len(self._prepared) >= 32768:
                 self._prepared.clear()
             self._prepared[key] = cq
-        if cq.opts == opts:
+        if not vec_params and cq.knn is None and cq.opts == opts:
             return cq
         view = CompiledQuery.__new__(CompiledQuery)
         view.__dict__.update(cq.__dict__)
         vo = QueryOptions.__new__(QueryOptions)
         vo.__dict__.update(cq.opts.__dict__)
+        view.opts = vo
+        view.vec_blobs = list(cq.vec_blobs)
+        if cq.knn is not None:
+            kn = cq.knn.__class__.__new__(cq.knn.__class__)
+            kn.__dict__.update(cq.knn.__dict__)
+            view.knn = kn
+        if vec_params:
+            from ..query.engine import decode_blob
+            from ..query.parser import _coerce_vector
+            if view.knn is not None and view.knn.blob_param in vec_params:
+                view.knn.blob = _coerce_vector(
+                    vec_params[view.knn.blob_param])
+            for i, pname in enumerate(view.vec_blob_params):
+                if pname in vec_params:
+                    view.vec_blobs[i] = decode_blob(
+                        _coerce_vector(vec_params[pname]),
+                        view.vec_blob_fields[i])
         vo.k = opts.k
         vo.now = opts.now
-        view.opts = vo
         return view
 
     def search(
@@ -291,9 +317,10 @@ class SearchIndex:
     ) -> SearchResult:
         """FT.SEARCH: one query through the general window program
         (`query.engine.execute`) on every segment, then the merge by
-        score (or sort key) and doc id.  in_keys/in_fields mirror
-        INKEYS/INFIELDS.  The HAMMING scorer and registered custom
-        scorers are not ported yet."""
+        score, sort key or (KNN) vector distance, then doc id; a KNN
+        query returns at most its k results and a total of at most k.
+        in_keys/in_fields mirror INKEYS/INFIELDS.  The HAMMING scorer and
+        registered custom scorers are not ported yet."""
         self.commit()
         self.stats["queries"] += 1
         oom = self._check_oom()
@@ -319,7 +346,7 @@ class SearchIndex:
         deadline = (time.perf_counter() + self.timeout_ms / 1e3
                     if self.timeout_ms else None)
         warnings: list[str] = []
-        merged: list[tuple] = []   # (rank, gid, score, sortkey, segment)
+        merged: list[tuple] = []   # (rank, gid, score, dist, sortkey, seg)
         total = 0
         inkey_gids = None
         if in_keys is not None:
@@ -348,7 +375,12 @@ class SearchIndex:
             for j in range(min(k, res.local_idx.shape[0])):
                 li = int(res.local_idx[j])
                 sc = float(res.scores[j])
-                if sort_by is not None:
+                if cq.knn is not None:
+                    dist = float(res.knn_dists[j])
+                    if dist >= 3.3e38:
+                        continue
+                    rank = dist
+                elif sort_by is not None:
                     kv = float(res.sortkeys[j])
                     if abs(kv) >= 3.3e38:
                         continue
@@ -370,11 +402,15 @@ class SearchIndex:
                         continue
                     rank = -sc
                 merged.append((rank, int(gids[li]), sc,
+                               float(res.knn_dists[j])
+                               if res.knn_dists is not None else None,
                                float(res.sortkeys[j])
                                if res.sortkeys is not None else None, seg))
         merged.sort(key=lambda x: (x[0], x[1]))
+        if cq.knn is not None:
+            merged = merged[:cq.knn.k]  # KNN returns at most k results
         hits = []
-        for _rank, gid, sc, skey, seg in merged[offset:offset + num]:
+        for _rank, gid, sc, dist, skey, seg in merged[offset:offset + num]:
             meta = self.doctable.get(gid)
             if meta is None or meta.deleted:
                 continue
@@ -390,7 +426,10 @@ class SearchIndex:
                     and abs(skey) < 2.9e38):   # missing-value sentinel
                 sortkey = self._resolve_sortkey(seg, sort_by, skey)
             hits.append(Hit(meta.key, sc, fields=fields, sortkey=sortkey,
-                            gid=gid, payload=meta.payload))
+                            vector_distance=dist, gid=gid,
+                            payload=meta.payload))
+        if cq.knn is not None:
+            total = min(total, cq.knn.k)
         out = SearchResult(total=total, hits=hits, query_ast=cq.root)
         out.warnings = warnings
         return out
@@ -437,8 +476,9 @@ class SearchIndex:
                     dialect: int = 2,
                     opts_list: Optional[list] = None) -> list:
         """Batched FT.SEARCH: every group of same-shaped queries is one
-        kernel launch; all groups are collected together.  opts_list
-        overrides QueryOptions per query."""
+        executor call; all groups are collected together.  opts_list
+        overrides QueryOptions per query.  KNN hits carry their vector
+        distance and merge across segments by (distance, doc id)."""
         self.commit()
         oom = self._check_oom()
         if oom is not None:
@@ -448,31 +488,43 @@ class SearchIndex:
             p = params[i] if params else None
             o = (opts_list[i] if opts_list
                  else QueryOptions(scorer=scorer, k=k))
+            # a per-call view owns its vector payloads (see prepare)
             cqs.append(self.prepare(q, p, o, dialect))
         all_hits: list = [[] for _ in cqs]
         totals = [0] * len(cqs)
+        knn_q = [False] * len(cqs)
         for seg in self.segments:
             results = execute_batch(cqs, seg, k)
             gids = seg.gids_host
             for i, res in enumerate(results):
+                is_knn = res.knn_dists is not None
+                knn_q[i] = is_knn
                 totals[i] += res.count
                 n_hit = 0
                 for j in range(res.local_idx.shape[0]):
                     if n_hit >= k:
                         break
                     sc = float(res.scores[j])
-                    if sc <= -3.3e38:
+                    dist = float(res.knn_dists[j]) if is_knn else None
+                    if is_knn:
+                        if dist >= 3.3e38:
+                            continue
+                    elif sc <= -3.3e38:
                         continue
                     meta = self.doctable.get(
                         int(gids[int(res.local_idx[j])]))
                     if meta is None or meta.deleted:
                         continue
                     all_hits[i].append(Hit(meta.key, sc, fields=meta.fields,
+                                           vector_distance=dist,
                                            gid=meta.gid))
                     n_hit += 1
-        # deterministic merge: score first, then doc id (the reference
-        # sorter's docid tiebreak)
-        return [SearchResult(total=totals[i],
-                             hits=sorted(all_hits[i],
-                                         key=lambda h: (-h.score, h.gid))[:k])
-                for i in range(len(cqs))]
+        # deterministic merge: score (or distance) first, then doc id
+        # (the reference sorter's docid tiebreak)
+        out = []
+        for i in range(len(cqs)):
+            key = ((lambda h: (h.vector_distance, h.gid)) if knn_q[i]
+                   else (lambda h: (-h.score, h.gid)))
+            out.append(SearchResult(total=totals[i],
+                                    hits=sorted(all_hits[i], key=key)[:k]))
+        return out

@@ -261,6 +261,115 @@ def make_numeric_column(col_with_nan: np.ndarray, n: int, device,
     )
 
 
+#: torch storage of each VECTOR dtype (FLOAT64 is stored as f32, as in
+#: the JAX segment)
+VEC_TORCH_DTYPES = {
+    "BFLOAT16": torch.bfloat16, "INT8": torch.int8, "UINT8": torch.uint8,
+    "FLOAT16": torch.float16, "FLOAT32": torch.float32,
+    "FLOAT64": torch.float32,
+}
+
+
+@dataclasses.dataclass
+class VectorColumn:
+    """Per-field vector data (reference: VecSim FLAT storage), on the
+    segment's device.  The JAX column's IVF, host-tier and LVQ members
+    are not ported (ROADMAP A8): the port serves `storage="hbm"` FLAT
+    fields only."""
+
+    vecs: Any      # dtype[n_pad, dim]  (multi: dtype[R_pad, dim] rows)
+    present: Any   # bool[n_pad]  (always per-doc)
+    dim: int
+    # squared L2 norms of the f32 values (taken in float64 before the
+    # storage cast), f32[n_pad] (multi: [R_pad])
+    sq_norms: Any = None
+    # bf16 copy of `vecs` for the two-phase candidate scan (f32 storage
+    # only; ops/vector.py)
+    scan_vecs: Any = None
+    # multi-value columns: every vector a row, doc_rows[n_pad, M] maps
+    # each doc to its rows (-1 pad); a doc's distance is its best row's
+    doc_rows: Any = None
+    multi: bool = False
+
+
+def bf16_scan_copy(mat):
+    """bf16 copy of an f32 vector matrix for the two-phase KNN candidate
+    scan (`VectorColumn.scan_vecs`): half the scan's memory reads, at
+    +50% vector memory; the f32 matrix stays the source of truth for the
+    rescore.  None for other storage types."""
+    if mat.dtype != torch.float32:
+        return None
+    return mat.to(torch.bfloat16)
+
+
+def _sq_norms(mat: np.ndarray) -> np.ndarray:
+    """Row sums of squares in float64, stored as f32 (the JAX package's
+    `(mat.astype(np.float64) ** 2).sum(1)`, taken a block of rows at a
+    time: each row's sum is the same)."""
+    out = np.empty(mat.shape[0], np.float32)
+    for a in range(0, mat.shape[0], 65536):
+        out[a:a + 65536] = (mat[a:a + 65536].astype(np.float64) ** 2).sum(1)
+    return out
+
+
+def _store(mat: np.ndarray, dtype_name: str, device) -> torch.Tensor:
+    """The f32 matrix in the field's storage type on `device`: integer
+    and f16 types through numpy's casts (the JAX package's), bf16
+    through torch's round-to-nearest-even (ml_dtypes' and XLA's)."""
+    tdt = VEC_TORCH_DTYPES.get(dtype_name, torch.float32)
+    if tdt == torch.bfloat16:
+        return torch.from_numpy(mat).to(torch.bfloat16).to(device)
+    npdt = {torch.int8: np.int8, torch.uint8: np.uint8,
+            torch.float16: np.float16}.get(tdt, np.float32)
+    return torch.as_tensor(np.ascontiguousarray(mat.astype(npdt)),
+                           device=device)
+
+
+def make_vector_column(rows_per_doc: list, n_pad: int, dim: int,
+                       dtype_name: str, device) -> VectorColumn:
+    """Build a VectorColumn from per-doc vector lists (the JAX
+    `make_vector_column` for `storage="hbm"`).  rows_per_doc[i]: None |
+    ndarray[dim] | list[ndarray[dim]].  A doc with more than one vector
+    switches the column to the row layout (VecSim multi-value)."""
+    norm = []
+    for r in rows_per_doc:
+        if r is None:
+            norm.append([])
+        elif isinstance(r, (list, tuple)):
+            norm.append(list(r))
+        else:
+            norm.append([r])
+    norm += [[]] * (n_pad - len(norm))
+    multi = any(len(v) > 1 for v in norm)
+    present = torch.as_tensor(np.array([len(v) > 0 for v in norm], bool),
+                              device=device)
+    if not multi:
+        mat = np.zeros((n_pad, dim), np.float32)
+        for i, v in enumerate(norm):
+            if v:
+                mat[i] = v[0]
+        vecs = _store(mat, dtype_name, device)
+        return VectorColumn(
+            vecs=vecs, present=present, dim=dim,
+            sq_norms=torch.as_tensor(_sq_norms(mat), device=device),
+            scan_vecs=bf16_scan_copy(vecs))
+    M = next_pow2(max(len(v) for v in norm))
+    R = sum(len(v) for v in norm)
+    R_pad = max(round_up(R, 8), 8)
+    rows = np.zeros((R_pad, dim), np.float32)
+    doc_rows = np.full((n_pad, M), -1, np.int32)
+    r = 0
+    for i, v in enumerate(norm):
+        for j, vec in enumerate(v):
+            rows[r] = vec
+            doc_rows[i, j] = r
+            r += 1
+    return VectorColumn(
+        vecs=_store(rows, dtype_name, device), present=present, dim=dim,
+        sq_norms=torch.as_tensor(_sq_norms(rows), device=device),
+        doc_rows=torch.as_tensor(doc_rows, device=device), multi=True)
+
+
 def build_tag_codes(stage: dict, values: list, n_pad: int, device):
     """Dense value-id column of a single-valued TAG field (see
     `TagPostings.codes`); None when any doc carries more than one value.
@@ -303,9 +412,7 @@ class Segment:
     alive_np: np.ndarray = None
     doclen_np: np.ndarray = None
     geometries: dict = dataclasses.field(default_factory=dict)
-    # no VECTOR columns yet (the builder refuses such schemas); the
-    # planner looks vector fields up here
-    vectors: dict = dataclasses.field(default_factory=dict)
+    vectors: dict = dataclasses.field(default_factory=dict)  # VectorColumn
     # clean-segment flags: the intersection kernel serves only segments
     # with no deletions, no TTLs and uniform doc scores
     n_deleted: int = 0
@@ -389,6 +496,10 @@ class Segment:
             acc(s.value_ids), acc(s.order)
         for m in self.missing.values():
             acc(m)
+        for v in self.vectors.values():
+            for a in (v.vecs, v.present, v.sq_norms, v.scan_vecs,
+                      v.doc_rows):
+                acc(a)
         for p in self._pcode_cache.values():
             for t in (p if isinstance(p, tuple) else (p,)):
                 acc(t)

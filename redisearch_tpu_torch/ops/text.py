@@ -7,11 +7,14 @@ which no engine path calls; `tfidf_transform` serves both TFIDF and
 TFIDF.DOCNORM (the JAX module's two functions differ only in the norm
 they are given).
 
-`fast_top_k` is exact at every width.  The JAX module switches to
-`approx_max_k` above 65,536 lanes, a TPU cost trade; its CPU reference is
-exact, and so is this one.  Ties keep the lowest lane first, as
-`lax.top_k` does (a stable descending sort; `torch.topk` leaves the order
-of ties undefined).
+`fast_top_k` returns the exact top-k values at every width.  The JAX
+module switches to `approx_max_k` above 65,536 lanes, a TPU cost trade;
+its CPU reference is exact, and so is this one.  Ties keep the lowest
+lane first, as `lax.top_k` does (`torch.topk` leaves the order of ties
+undefined): a 1-D input takes a stable descending sort; rows of a 2-D
+input take `torch.topk`, then their k lanes are reordered by (value,
+lane), and up to 65,536 lanes (where the JAX module runs `lax.top_k`)
+the lanes that tie with the k-th value are the lowest ones.
 """
 
 from __future__ import annotations
@@ -133,11 +136,38 @@ def numeric_range_mask(values, present, lo, hi, lo_excl: bool,
     return present & ge & le
 
 
+#: widths up to which the JAX module's top-k is `lax.top_k` (its
+#: EXACT_TOPK_LIMIT): here the lanes tying with the k-th value are the
+#: lowest ones, as there
+EXACT_TOPK_LIMIT = 65536
+
+
 def fast_top_k(x, k: int):
-    """Exact top-k of a 1-D tensor: (values [k], lanes [k]), descending,
-    ties by lowest lane (`lax.top_k`'s order)."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """Top-k along the last axis of a 1-D or 2-D tensor: (values [..., k],
+    lanes [..., k]), descending, ties by lowest lane (`lax.top_k`'s
+    order; see the module docstring for rows past 65,536 lanes)."""
+    if x.dim() == 1:
+        vals, idx = torch.sort(x, descending=True, stable=True)
+        return vals[:k], idx[:k]
+    n = x.shape[-1]
+    vals, idx = torch.topk(x, k, dim=-1, largest=True, sorted=True)
+    if n <= EXACT_TOPK_LIMIT:
+        # lanes equal to the k-th value: the lowest ones, in lane order,
+        # fill the positions after the strictly greater values
+        kth = vals[:, -1:]
+        n_gt = (vals > kth).sum(dim=1, keepdim=True)
+        lane = torch.arange(n, dtype=torch.int32, device=x.device)
+        tie_key = torch.where(x == kth, -lane, -n - 1)
+        ties = torch.topk(tie_key, k, dim=-1, sorted=True)[1]
+        pos = torch.arange(k, device=x.device)[None, :]
+        from_ties = torch.gather(ties, 1, (pos - n_gt).clamp(min=0))
+        idx = torch.where(pos >= n_gt, from_ties, idx)
+    # (value desc, lane asc): order by lane, then a stable sort by value
+    order = torch.argsort(idx, dim=1)
+    idx = torch.gather(idx, 1, order)
+    vals, order = torch.sort(torch.gather(vals, 1, order), dim=1,
+                             descending=True, stable=True)
+    return vals, torch.gather(idx, 1, order)
 
 
 def topk_by_key(keys, valid, k: int, ascending: bool):

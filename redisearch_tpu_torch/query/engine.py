@@ -8,27 +8,37 @@ in both packages (a test pins the rows byte for byte):
 * the leaf classes, `QueryOptions`, `SegmentBinding` and `CompiledQuery`
   with `bind` / `bind_row`;
 * `_kernel_plan` and `_kernel_seg_ok`, `_kernel_plan_phrase`,
-  `_layout_of` and `_pack_into`, and the slop-scorer helpers `bind`
-  consults.
+  `_knn_dense_plan`, `_knn_hoist_info`, `_layout_of` and `_pack_into`,
+  and the slop-scorer helpers `bind` consults.
 
 Two spots differ: the BM25 avgdl fallback reads the segment's host
-mirror of the doc lengths, and `decode_blob` (vector payloads) raises
-"not ported yet".
+mirror of the doc lengths, and `decode_blob` returns bf16 query vectors
+as f32 arrays of bf16 values (the JAX function's `ml_dtypes.bfloat16`
+comes with jax).
 
 Executors:
 
-* batched, `execute_batch` -> `_prep_subs` (bind rows, group by
-  structure and buckets) -> `_rows_executor`: the intersection kernel
-  (`_KernelExecutor`), else the phrase kernel (`_PhraseExecutor`), else
-  the general window program once per query (`_WindowExecutor`) ->
-  `_BatchHandle.result`;
+* batched, `execute_batch` -> pure KNN batches (`*=>[KNN ...]`, one
+  product for the batch: `_PureKnnExecutor`, path "knn-pure"), else
+  `_prep_subs` (bind rows, group by structure and buckets) ->
+  `_rows_executor`: the intersection kernel (`_KernelExecutor`), else the
+  phrase kernel (`_PhraseExecutor`), else for KNN queries the
+  dense-filter executor (`_DenseKnnExecutor`, "knn-dense"), the hoisted
+  windowed executor (`_HoistKnnExecutor`, "knn-batches") or the window
+  program with the batch's distance rows (`_WindowExecutor`,
+  "knn-row"), else the general window program once per query
+  (`_WindowExecutor`, "window") -> `_BatchHandle.result`, which re-runs
+  underfilled hoisted queries through `execute` on the same device;
 * single, `execute` -> the general window program (`_build_fn`, a plain
   function over device tensors, cached per signature in
   `_PROGRAM_CACHE`), in mode "topk" (FT.SEARCH) or "window" (the
   aggregation source).
 
-GEO and vector fields, KNN payloads and cold segments are refused
-before they reach an executor (the builder, `bind`).
+The JAX executors' `lax.scan` over a batch is a Python loop over its
+queries here; GEO leaves and cold segments are refused before they reach
+an executor (the builder).  Vector fields are FLAT `storage="hbm"` ones
+(the builder refuses IVF, the host tier and LVQ: ROADMAP A8), so the
+JAX window program's IVF branch is left out.
 """
 
 from __future__ import annotations
@@ -46,9 +56,11 @@ from ..query import ast, expand
 from ..schema import FieldType, Schema
 from ..utils import wkt
 from ..utils.errors import FieldNotFound, QuerySyntaxError, WrongFieldType
+from ..index.builder import decode_vector_bytes
 from ..index.segment import Segment, next_pow2
 from ..ops import intersect as IK
 from ..ops import text as T
+from ..ops import vector as V
 from ..ops import window as WIN
 
 # ---------------------------------------------------------------------------
@@ -1127,6 +1139,150 @@ def _kernel_plan_phrase(cq0: CompiledQuery, seg: Segment, bk: dict,
             max(int(leaf.slop), 0))
 
 
+def _knn_ivf_sig(cq: CompiledQuery, seg: Segment) -> str:
+    """KNN part of a program's signature: metric, storage dtype, hybrid
+    policy, and "multi" (row-layout scan) or "flat".  The JAX function
+    also keys IVF probe shapes; the port has no IVF (ROADMAP A8)."""
+    if cq.knn is None:
+        return "none"
+    field = cq.schema.field(cq.knn.field)
+    col = seg.vectors.get(field.attribute)
+    base = (f"{field.vector.metric.value}:{field.vector.dtype}:"
+            f"{cq.knn.hybrid_policy}:")
+    if col is not None and col.multi:
+        return base + "multi"
+    return base + "flat"
+
+
+def _knn_has_scan(cq: CompiledQuery, seg: Segment) -> bool:
+    """Whether the KNN field carries a bf16 scan copy."""
+    if cq.knn is None:
+        return False
+    col = seg.vectors.get(cq.schema.field(cq.knn.field).attribute)
+    return col is not None and col.scan_vecs is not None
+
+
+def _pure_knn_eligible(cqs: list, seg: Segment) -> bool:
+    """A batch of unfiltered KNN queries over the same field and k runs
+    as one [B, dim] x [dim, N] product (`_PureKnnExecutor`) instead of a
+    scan per query (the reference's `*=>[KNN ...]` memtier shape)."""
+    cq0 = cqs[0]
+    if cq0.knn is None or cq0.opts.sort_field:
+        return False
+    field = cq0.schema.field(cq0.knn.field)
+    col = seg.vectors.get(field.attribute)
+    if col is None or col.multi:
+        return False
+    for cq in cqs:
+        if (cq.knn is None or cq.host_nodes
+                or cq.knn.field != cq0.knn.field
+                or cq.knn.k != cq0.knn.k
+                or cq.opts.sort_field):
+            return False
+        leaves = cq.leaves()
+        if len(leaves) != 1 or not isinstance(leaves[0][0], LAll):
+            return False
+    return True
+
+
+def _knn_dense_plan(cq0: CompiledQuery, seg: Segment, bk: dict):
+    """Eligibility for the dense-filter KNN executor: a KNN query whose
+    filter tree evaluates as doc-aligned column compares ([B, N]
+    elementwise, no posting windows).  Covered leaves: single-valued TAG
+    with a dense code column (at most 4 live values), single-valued
+    NUMERIC, MISSING, ALL, alone or under AND, with NOT/OPT wrapping.
+    Returns a tuple of ("tagc"|"num"|"missing"|"all", params, leaf_idx,
+    flag) specs, flag "req"/"not"/"opt", or None.  The JAX planner's,
+    without its RS_TPU_NO_DENSE_KNN switch."""
+    if cq0.knn is None or cq0.opts.sort_field is not None:
+        return None
+    if _knn_ivf_sig(cq0, seg).endswith("multi"):
+        return None
+    if cq0.host_nodes:
+        return None
+    if (cq0.opts.scorer in _SLOP_SCORERS
+            and _slop_root_children(cq0.tree) is not None):
+        return None
+    code_ords = set(_tag_codes_ords(cq0, seg))
+
+    def leaf_spec(t, flag):
+        if t[0] != "leaf":
+            return None
+        leaf, idx = t[1], t[2]
+        if isinstance(leaf, LTag):
+            if leaf.ord not in code_ords:
+                return None
+            e = bk.get(idx)
+            if not e or e[0] > 4:   # bounded [B, N] compare passes
+                return None
+            return ("tagc", (leaf.ord, leaf.n_slots, leaf.field), idx,
+                    flag)
+        if isinstance(leaf, LNumeric):
+            e = bk.get(idx)
+            if not e or e[1]:       # multi-valued numerics stay windowed
+                return None
+            return ("num", (leaf.ord, leaf.lo_excl, leaf.hi_excl,
+                            leaf.field), idx, flag)
+        if isinstance(leaf, LMissing):
+            return ("missing", (leaf.field,), idx, flag)
+        if isinstance(leaf, LAll):
+            return ("all", (), idx, flag)
+        return None
+
+    tree = cq0.tree
+    kids = tree[1] if tree[0] == "and" else (tree,)
+    if tree[0] not in ("leaf", "and"):
+        return None
+    specs = []
+    for kid in kids:
+        if kid[0] == "leaf":
+            sp = leaf_spec(kid, "req")
+        elif kid[0] in ("not", "opt"):
+            sp = leaf_spec(kid[1], "not" if kid[0] == "not" else "opt")
+        else:
+            sp = None
+        if sp is None:
+            return None
+        specs.append(sp)
+    if not any(sp[3] == "req" for sp in specs):
+        return None
+    return tuple(specs)
+
+
+def _knn_batch_M(k_eff: int, n_pad: int, Wc: int) -> int:
+    """Candidate-set size of the BATCHES filtered-KNN branch: the pow-4
+    bucket Wc can overstate the true window by 4x, so Wc/4 is the
+    selectivity lower bound; M targets >= ~2k expected survivors even at
+    worst-case bucket inflation (underfilled queries re-run exactly)."""
+    return int(min(
+        next_pow2(max(8 * k_eff * n_pad // max(Wc, 1), 4 * k_eff, 512)),
+        8192, n_pad))
+
+
+def _knn_hoist_info(cq: CompiledQuery, seg: Segment, buckets: dict,
+                    k: int):
+    """Static mirror of the window program's BATCHES decision: (M, Wc)
+    when a batched executor can hoist the per-query [N]-wide masked
+    top-M out of the per-query loop, else None."""
+    if cq.knn is None:
+        return None
+    if _knn_ivf_sig(cq, seg).endswith("multi"):
+        return None
+    policy = cq.knn.hybrid_policy
+    if policy == "ADHOC_BF":
+        return None
+    tree = cq.tree
+    window_root = _can_gen(tree) and not (
+        tree[0] == "leaf" and isinstance(tree[1], LAll))
+    if not window_root:
+        return None
+    Wc = _gen_bucket(tree, buckets, seg.n_pad)
+    if policy != "BATCHES" and Wc < 32768:
+        return None
+    k_eff = min(k, Wc)
+    return _knn_batch_M(k_eff, seg.n_pad, Wc), Wc
+
+
 def _layout_of(proto: dict) -> tuple[list, int]:
     """Canonical flat int32 transport layout for a dict of arrays:
     sorted keys, each flattened to `size` lanes.  Shared by the packed
@@ -1225,11 +1381,46 @@ def _slop_root_children(tree):
     return None
 
 
+_BLOB_STORE_DTYPES = {
+    "INT8": np.int8, "UINT8": np.uint8, "FLOAT16": np.float16,
+    "FLOAT64": np.float64, "BFLOAT16": np.uint16, "FLOAT32": np.float32}
+
+
 def decode_blob(raw, field) -> np.ndarray:
-    """Vector query payloads: not ported yet.  (The JAX version decodes
-    bf16 blobs through `ml_dtypes`, which the port must not need.)"""
-    raise NotImplementedError(
-        f"vector queries (@{field.name}) are not ported yet (ROADMAP A7)")
+    """Decode a query vector param against the field's storage dtype
+    (reference: blobs are raw arrays of the index's VecSimType): int8 and
+    uint8 stay integer (exact integer dot products), bf16 becomes an f32
+    array of bf16 values (round to nearest even: the JAX function's
+    `astype(ml_dtypes.bfloat16)`), f16 and f64 become f32.  An f32
+    ndarray of the right shape passes through without a copy."""
+    vp = field.vector
+    if (vp.dtype == "FLOAT32" and type(raw) is np.ndarray
+            and raw.dtype == np.float32 and raw.ndim == 1
+            and raw.shape[0] == vp.dim):
+        return raw
+    if isinstance(raw, (bytes, bytearray)):
+        arr = (decode_vector_bytes(bytes(raw), "BFLOAT16")
+               if vp.dtype == "BFLOAT16"
+               else np.frombuffer(raw, dtype=_BLOB_STORE_DTYPES[vp.dtype])
+               .copy())
+    else:
+        arr = np.asarray(raw)
+    arr = arr.reshape(-1)
+    if arr.shape[0] != vp.dim:
+        raise QuerySyntaxError(
+            f"query vector blob size mismatch for @{field.name}: got "
+            f"{arr.shape[0]} values, want {vp.dim}")
+    if vp.dtype in ("INT8", "UINT8"):
+        np_store = _BLOB_STORE_DTYPES[vp.dtype]
+        if arr.dtype != np_store:
+            lo, hi = (-128, 127) if vp.dtype == "INT8" else (0, 255)
+            arr = np.clip(np.rint(arr.astype(np.float32)), lo,
+                          hi).astype(np_store)
+        return arr
+    if vp.dtype == "BFLOAT16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            torch.bfloat16).to(torch.float32).numpy()
+    return arr.astype(np.float32, copy=False)
 
 
 # ---------------------------------------------------------------------------
@@ -1237,8 +1428,9 @@ def decode_blob(raw, field) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 #: how many batched queries rode which executor family (callers reset it)
-QUERY_PATH_STATS: dict[str, int] = {"kernel": 0, "kernel-wide": 0,
-                                    "phrase-kernel": 0, "window": 0}
+QUERY_PATH_STATS: dict[str, int] = {
+    "kernel": 0, "kernel-wide": 0, "phrase-kernel": 0, "window": 0,
+    "knn-pure": 0, "knn-dense": 0, "knn-batches": 0, "knn-row": 0}
 
 
 @dataclasses.dataclass
@@ -1248,6 +1440,7 @@ class SegmentResult:
     scores: np.ndarray         # float32[k] (NEG_INF for an empty tail)
     count: int                 # total matching docs
     sortkeys: Optional[np.ndarray] = None   # SORTBY keys of the lanes
+    knn_dists: Optional[np.ndarray] = None  # KNN distances of the lanes
     valid: Optional[np.ndarray] = None   # window mode: bool per window slot
     warnings: tuple = ()                 # bind-time notices
 
@@ -1255,33 +1448,64 @@ class SegmentResult:
 class _BatchHandle:
     """A launched batch: each group's outputs are device tensors that
     may still be in flight; result() copies them to the host (one copy
-    per output column per group) and builds the per-query results."""
+    per output column per group) and builds the per-query results.  A
+    query the hoisted KNN executor flags as underfilled (fewer than k of
+    its top-M candidates pass the filter) re-runs through `execute`, on
+    the same device."""
 
-    def __init__(self, parts, n: int):
+    def __init__(self, parts, n: int, cqs=None, seg=None, k: int = 10):
         self._parts = parts      # [(query indices, output tensors)]
         self._n = n
+        self._cqs = cqs
+        self._seg = seg
+        self._k = k
 
     def result(self) -> list:
         out_all: list = [None] * self._n
+        refire = []
         for idxs, out in self._parts:
             host = {kk: vv.cpu().numpy() for kk, vv in out.items()}
+            under = host.get("underfill")
             for j, slot in enumerate(idxs):
+                if under is not None and int(under[j]):
+                    refire.append(slot)
+                    continue
+                if "scores" in host:
+                    sc = host["scores"][j]
+                else:
+                    # one score per query (query-constant scores, see
+                    # _DenseKnnExecutor): expanded over the live lanes
+                    kd = host["knn"][j]
+                    sc = np.where(kd < 3.3e38, host["score1"][j],
+                                  0.0).astype(np.float32)
                 out_all[slot] = SegmentResult(
-                    local_idx=host["idx"][j], scores=host["scores"][j],
-                    count=int(host["count"][j]))
+                    local_idx=host["idx"][j], scores=sc,
+                    count=int(host["count"][j]),
+                    sortkeys=(host["sortkeys"][j] if "sortkeys" in host
+                              else None),
+                    knn_dists=host["knn"][j] if "knn" in host else None)
+        for slot in refire:
+            out_all[slot] = execute(self._cqs[slot], self._seg, self._k)
         return out_all
 
 
 def execute_batch(cqs: list, seg: Segment, k: int, async_: bool = False):
-    """Run a batch of queries: every group of queries sharing a (tree
-    structure, window buckets) signature is one kernel launch over its
-    stacked transport rows; all groups launch before any is collected.
-    Returns one SegmentResult per query; with async_=True, the
-    `_BatchHandle` at once (the card may still be working), whose
-    result() collects."""
-    parts = [(idxs, entry.run(seg_args, rows))
-             for idxs, entry, seg_args, rows in _prep_subs(cqs, seg, k)]
-    handle = _BatchHandle(parts, len(cqs))
+    """Run a batch of queries: a batch of pure KNN queries is one
+    product (`_PureKnnExecutor`); otherwise every group of queries
+    sharing a (tree structure, window buckets) signature is one
+    executor call over its stacked transport rows.  All groups launch
+    before any is collected.  Returns one SegmentResult per query; with
+    async_=True, the `_BatchHandle` at once (the card may still be
+    working), whose result() collects."""
+    if _pure_knn_eligible(cqs, seg):
+        QUERY_PATH_STATS["knn-pure"] = (
+            QUERY_PATH_STATS.get("knn-pure", 0) + len(cqs))
+        parts = [(list(range(len(cqs))),
+                  _PureKnnExecutor(cqs, seg, k).run())]
+    else:
+        parts = [(idxs, entry.run(seg_args, rows))
+                 for idxs, entry, seg_args, rows in _prep_subs(cqs, seg, k)]
+    handle = _BatchHandle(parts, len(cqs), cqs=cqs, seg=seg, k=k)
     return handle if async_ else handle.result()
 
 
@@ -1292,7 +1516,8 @@ def _prep_subs(cqs: list, seg: Segment, k: int) -> list:
     Every query binds as a packed transport row (memoized per segment),
     then groups by group_sig (tree structure + window buckets) and the
     layout fingerprint: the group's rows are patched at offsets taken
-    from its first query's layout."""
+    from its first query's layout, the clock and each query's own vector
+    payloads (KNN blob, VECTOR_RANGE blobs and radii) one column each."""
     groups: dict[tuple, list[int]] = {}
     ents = []
     for i, cq in enumerate(cqs):
@@ -1304,13 +1529,27 @@ def _prep_subs(cqs: list, seg: Segment, k: int) -> list:
     subs = []
     for idxs in groups.values():
         gr = np.stack([ents[i][0] for i in idxs])
-        for key, o, _n, _shape, _dt in ents[idxs[0]][1]:
-            if key != "now":
-                raise NotImplementedError(
-                    f"per-call payload {key!r} (vector queries) is not "
-                    "ported yet (ROADMAP A7)")
-            gr[:, o] = np.fromiter((cqs[i].opts.now for i in idxs),
-                                   np.int32, len(idxs))
+        for key, o, n, _shape, dt in ents[idxs[0]][1]:
+            if key == "now":
+                gr[:, o] = np.fromiter((cqs[i].opts.now for i in idxs),
+                                       np.int32, len(idxs))
+                continue
+            if key == "knn_blob":
+                cq0g = cqs[idxs[0]]
+                fld = cq0g.schema.field(cq0g.knn.field)
+                vals = [decode_blob(cqs[i].knn.blob, fld) for i in idxs]
+            elif key.startswith("vblob"):
+                j = int(key[5:])
+                vals = [cqs[i].vec_blobs[j] for i in idxs]
+            else:                                   # vrad{j}
+                j = int(key[4:])
+                vals = [np.float32(cqs[i].vec_radii[j]) for i in idxs]
+            M = np.stack([np.asarray(v).reshape(-1) for v in vals])
+            if dt.startswith("float") or dt == "bfloat16":
+                M = M.astype(np.float32, copy=False).view(np.int32)
+            elif dt != "int32":
+                M = M.astype(np.int32)
+            gr[:, o:o + n] = M
         entry = _rows_executor(cqs[idxs[0]], ents[idxs[0]], seg, k)
         QUERY_PATH_STATS[entry.path] = (
             QUERY_PATH_STATS.get(entry.path, 0) + len(idxs))
@@ -1423,48 +1662,340 @@ class _PhraseExecutor:
         return {"idx": idx, "scores": vals, "count": count}
 
 
+def _rows_executor(cq0: CompiledQuery, ent: tuple, seg: Segment, k: int):
+    """The executor of one batch group, in the JAX executor's order: the
+    intersection kernel (its narrow or wide route), else the phrase
+    kernel, else for KNN queries the dense-filter, hoisted or knn-row
+    executor, else the general window program."""
+    _static, _patches, layout, _total, bk, P2, _gsig, _lfp = ent
+    k_pad = int(min(next_pow2(max(k, 1)), seg.n_pad))
+    ke = min(k, k_pad)
+    route = _kernel_route(cq0, seg, bk, k_pad)
+    if route is not None:
+        return _KernelExecutor(layout, route[1], k_pad, ke, route[0])
+    pplan = _kernel_plan_phrase(cq0, seg, bk, k_pad)
+    if pplan is not None:
+        return _PhraseExecutor(layout, pplan, k_pad, ke)
+    dplan = _knn_dense_plan(cq0, seg, bk)
+    if dplan is not None:
+        return _DenseKnnExecutor(cq0, seg, dplan, layout, ke)
+    knn_row = (cq0.knn is not None
+               and not _knn_ivf_sig(cq0, seg).endswith("multi"))
+    hoist = _knn_hoist_info(cq0, seg, bk, k_pad) if knn_row else None
+    if hoist is not None:
+        return _HoistKnnExecutor(cq0, seg, bk, P2, layout, k_pad, ke, hoist)
+    program = _program(cq0, seg, bk, P2, k_pad, False, "topk",
+                       knn_row=knn_row, host_fallback=True)
+    metric = (cq0.schema.field(cq0.knn.field).vector.metric.value
+              if knn_row else None)
+    return _WindowExecutor(layout, program, ke, knn_metric=metric)
+
+
+def _knn_chunk(n_pad: int) -> int:
+    """Queries a KNN executor evaluates at once: the JAX dense executor's
+    CH, which keeps the [CH, N] distance block near 2**27 lanes (512 MB
+    of f32).  Chunking changes no result."""
+    return max(128, int(next_pow2((1 << 28) // max(n_pad, 1) + 1)) // 2)
+
+
+def _knn_valid(seg_args: dict, now, dirty: bool, has_ttl: bool,
+               fexp: bool):
+    """[B, N] validity of the KNN field's rows for queries at clock
+    `now` [B]: vector present, doc alive, doc TTL and field TTL."""
+    ok = seg_args["knn_present"]
+    if dirty:
+        ok = ok & seg_args["alive"]
+    valid = ok[None, :].expand(now.shape[0], ok.shape[0])
+    if has_ttl:
+        exp = seg_args["expire_at"][None, :]
+        valid = valid & ((exp == 0) | (exp > now[:, None]))
+    if fexp:
+        fe = seg_args["knn_fexp"][None, :]
+        valid = valid & ~((fe > 0) & (fe <= now[:, None]))
+    return valid
+
+
 class _WindowExecutor:
     """One batch group on the general window program (the JAX executor's
     last branch, `_rows_executor` without a kernel plan): one upload of
     the group's rows, unpacked on the device, then the program once per
-    query (the JAX package's `lax.scan`), `min(k, k_pad)` lanes each."""
+    query (the JAX package's `lax.scan`), `min(k, k_pad)` lanes each.
+    With `knn_metric` set (path "knn-row": KNN queries whose filter
+    window is narrow) the [CH, N] distance rows of a block of queries are
+    one product, and each query's program reads its row."""
 
-    path = "window"
-
-    def __init__(self, layout: list, program, ke: int):
+    def __init__(self, layout: list, program, ke: int,
+                 knn_metric: Optional[str] = None):
         self.layout = layout
         self.program = program
         self.ke = ke
+        self.knn_metric = knn_metric
+        self.path = "window" if knn_metric is None else "knn-row"
 
     def run(self, seg_args: dict, rows_np: np.ndarray) -> dict:
         """Returns device tensors {"idx" [B, ke], "scores" [B, ke],
-        "count" [B] (, "sortkeys" [B, ke])}."""
+        "count" [B] (, "sortkeys" [B, ke], "knn" [B, ke])}."""
         rows = torch.from_numpy(rows_np).to(seg_args["doc_ids"].device)
         stacked = _device_unpack_rows(self.layout, rows)
+        B = rows.shape[0]
+        CH = (B if self.knn_metric is None
+              else _knn_chunk(seg_args["alive"].shape[0]))
         outs = []
-        for i in range(rows.shape[0]):
-            out = self.program(seg_args,
-                               {kk: vv[i] for kk, vv in stacked.items()})
-            outs.append({kk: (vv[:self.ke] if vv.dim() == 1 else vv)
-                         for kk, vv in out.items()})
+        for c0 in range(0, B, CH):
+            D = None
+            if self.knn_metric is not None:
+                D = V.distances_to(seg_args["knn_vecs"], seg_args["knn_sq"],
+                                   stacked["knn_blob"][c0:c0 + CH],
+                                   self.knn_metric)
+            for i in range(c0, min(B, c0 + CH)):
+                dyn_i = {kk: vv[i] for kk, vv in stacked.items()}
+                if D is not None:
+                    dyn_i["knn_row"] = D[i - c0]
+                out = self.program(seg_args, dyn_i)
+                outs.append({kk: (vv[:self.ke] if vv.dim() == 1 else vv)
+                             for kk, vv in out.items()})
         return {kk: torch.stack([o[kk] for o in outs]) for kk in outs[0]}
 
 
-def _rows_executor(cq0: CompiledQuery, ent: tuple, seg: Segment, k: int):
-    """The executor of one batch group: the intersection kernel (its
-    narrow or wide route), else the phrase kernel, else the general
-    window program."""
-    _static, _patches, layout, _total, bk, P2, _gsig, _lfp = ent
-    k_pad = int(min(next_pow2(max(k, 1)), seg.n_pad))
-    route = _kernel_route(cq0, seg, bk, k_pad)
-    if route is not None:
-        return _KernelExecutor(layout, route[1], k_pad, min(k, k_pad),
-                               route[0])
-    pplan = _kernel_plan_phrase(cq0, seg, bk, k_pad)
-    if pplan is not None:
-        return _PhraseExecutor(layout, pplan, k_pad, min(k, k_pad))
-    return _WindowExecutor(layout, _program(cq0, seg, bk, P2, k_pad, False,
-                                            "topk"), min(k, k_pad))
+class _PureKnnExecutor:
+    """A batch of unfiltered KNN queries over one field (`*=>[KNN k @v
+    $b]`): one [B, d] x [d, N] product a block of `_knn_chunk` queries
+    through `ops.vector.knn_batch` (bf16 candidate scan and f32 rescore
+    for f32 storage), instead of a scan per query.  The JAX package's
+    `_execute_batch_pure_knn`, without its pow2 batch padding."""
+
+    path = "knn-pure"
+
+    def __init__(self, cqs: list, seg: Segment, k: int):
+        cq0 = cqs[0]
+        self.field = cq0.schema.field(cq0.knn.field)
+        self.col = seg.vectors[self.field.attribute]
+        self.blobs = np.stack([decode_blob(cq.knn.blob, self.field)
+                               for cq in cqs])
+        self.k_eff = min(max(k, 1), seg.n_pad)
+        self.now = int(cq0.opts.now)
+        self.seg = seg
+
+    def run(self) -> dict:
+        seg, col = self.seg, self.col
+        valid = col.present & seg.alive
+        if seg.has_ttl:
+            exp = seg.expire_at
+            valid = valid & ((exp == 0) | (exp > self.now))
+        fe = seg.field_fexp.get(self.field.attribute)
+        if fe is not None:
+            valid = valid & ~((fe > 0) & (fe <= self.now))
+        Q = torch.from_numpy(self.blobs).to(seg.device)
+        B = Q.shape[0]
+        CH = _knn_chunk(seg.n_pad)
+        dd, ii = [], []
+        for c0 in range(0, B, CH):
+            d, i = V.knn_batch(col.vecs, col.sq_norms, valid, Q[c0:c0 + CH],
+                               self.k_eff, self.field.vector.metric.value,
+                               scan_vecs=col.scan_vecs)
+            dd.append(d)
+            ii.append(i)
+        idx = torch.cat(ii)
+        return {"idx": idx, "knn": torch.cat(dd),
+                "scores": torch.zeros(idx.shape, dtype=torch.float32,
+                                      device=seg.device),
+                "count": valid.sum(dtype=torch.int32).expand(B)}
+
+
+class _DenseKnnExecutor:
+    """One batch group of KNN queries whose filter is doc-aligned column
+    compares (`_knn_dense_plan`): the [B, N] filter mask applied to the
+    shared distance product (`ops.vector.knn_batch_masked`), in blocks
+    of `_knn_chunk` queries.  The JAX package's `_make_dense_knn`: exactly
+    `ke` lanes, and when the scores are query-constant (uniform doc
+    scores, no OPT leaf, not DOCSCORE) one score a query ("score1",
+    which `_BatchHandle.result` expands)."""
+
+    path = "knn-dense"
+
+    def __init__(self, cq0: CompiledQuery, seg: Segment, dplan: tuple,
+                 layout: list, ke: int):
+        opts = cq0.opts
+        self.scorer = opts.scorer
+        field = cq0.schema.field(cq0.knn.field)
+        self.metric = field.vector.metric.value
+        self.dplan = dplan
+        self.layout = layout
+        self.has_ttl = seg.has_ttl
+        self.dirty = seg.n_deleted > 0
+        self.knn_fexp = field.attribute in seg.field_fexp
+        self.uniform_ds = seg.uniform_docscore
+        self.fexp_attrs = frozenset(seg.field_fexp)
+        self.k_eff = min(ke, seg.n_pad)
+        self.const_score = (self.scorer != "DOCSCORE"
+                            and (self.uniform_ds or self.scorer == "DISMAX")
+                            and not any(s[3] == "opt" for s in dplan))
+        self.tanh_factor = opts.tanh_factor
+        self.CH = _knn_chunk(seg.n_pad)
+
+    def _chunk(self, sa: dict, st: dict, now) -> dict:
+        N = sa["alive"].shape[0]
+        valid = _knn_valid(sa, now, self.dirty, self.has_ttl, self.knn_fexp)
+
+        def fexp_ok(kind, ordn):
+            fe = sa[f"{kind}{ordn}_fexp"][None, :]
+            return ~((fe > 0) & (fe <= now[:, None]))
+
+        const_req = torch.zeros(now.shape, dtype=torch.float32,
+                                device=now.device)
+        opt_hits = []
+        for kind, prm, lidx, flag in self.dplan:
+            if kind == "tagc":
+                ordn, ns, fattr = prm
+                codes = sa[f"tag{ordn}_codes"][None, :]
+                qc = st[f"tag{ordn}_qcodes"]
+                hit = codes == qc[:, 0:1]
+                for j in range(1, ns):
+                    hit = hit | (codes == qc[:, j:j + 1])
+                if fattr in self.fexp_attrs:
+                    hit = hit & fexp_ok("tag", ordn)
+            elif kind == "num":
+                ordn, lo_x, hi_x, fattr = prm
+                v = sa[f"num{ordn}_v"][None, :]
+                p = sa[f"num{ordn}_p"][None, :]
+                lo = st["num_lo"][:, ordn:ordn + 1]
+                hi = st["num_hi"][:, ordn:ordn + 1]
+                ge = v > lo if lo_x else v >= lo
+                le = v < hi if hi_x else v <= hi
+                hit = p & ge & le
+                if fattr in self.fexp_attrs:
+                    hit = hit & fexp_ok("num", ordn)
+            elif kind == "missing":
+                (fattr,) = prm
+                hit = ~sa[f"has_{fattr}"][None, :]
+                if f"has_{fattr}_fexp" in sa:
+                    fe = sa[f"has_{fattr}_fexp"][None, :]
+                    hit = hit | ((fe > 0) & (fe <= now[:, None]))
+            else:                                           # "all"
+                nd = st["n_docs"].reshape(-1)
+                hit = (torch.arange(N, dtype=torch.int32,
+                                    device=now.device)[None, :]
+                       < nd[:, None])
+            const = st["leaf_const"][:, lidx]               # [B]
+            if flag == "req":
+                valid = valid & hit
+                const_req = const_req + const
+            elif flag == "not":
+                valid = valid & ~hit
+            else:                                           # opt
+                opt_hits.append((hit, const))
+        dists, idx = V.knn_batch_masked(
+            sa["knn_vecs"], sa["knn_sq"], valid, st["knn_blob"], self.k_eff,
+            self.metric, scan_vecs=sa.get("knn_scan"))
+        yielded = dists < 3.3e38
+        count = yielded.sum(dim=1, dtype=torch.int32)
+        if self.const_score:
+            score1 = const_req
+            if self.scorer == "BM25STD.TANH":
+                score1 = torch.tanh(score1 / self.tanh_factor)
+            return {"idx": idx, "score1": score1, "knn": dists,
+                    "count": count}
+        score = const_req[:, None].expand(idx.shape)
+        for hit, const in opt_hits:
+            h = torch.gather(hit, 1, idx)
+            score = score + torch.where(h, const[:, None], 0.0)
+        if self.scorer == "DOCSCORE":
+            score = sa["docscore"][idx]
+        elif not self.uniform_ds and self.scorer != "DISMAX":
+            score = score * sa["docscore"][idx]
+        if self.scorer == "BM25STD.TANH":
+            score = torch.tanh(score / self.tanh_factor)
+        score = torch.where(yielded, score, 0.0)
+        return {"idx": idx, "scores": score, "knn": dists, "count": count}
+
+    def run(self, seg_args: dict, rows_np: np.ndarray) -> dict:
+        rows = torch.from_numpy(rows_np).to(seg_args["doc_ids"].device)
+        stacked = _device_unpack_rows(self.layout, rows)
+        now = stacked["now"].reshape(-1)
+        outs = []
+        for c0 in range(0, now.shape[0], self.CH):
+            st = {kk: vv[c0:c0 + self.CH] for kk, vv in stacked.items()}
+            outs.append(self._chunk(seg_args, st, now[c0:c0 + self.CH]))
+        return {kk: torch.cat([o[kk] for o in outs]) for kk in outs[0]}
+
+
+class _HoistKnnExecutor:
+    """One batch group of windowed filtered KNN queries (`_knn_hoist_info`,
+    path "knn-batches"): per block of `_knn_chunk` queries one [B, N]
+    distance product (bf16 candidate scan for f32 storage) and the masked
+    top-M of every row; then per query the window program member-checks
+    its M candidates against the filter (`knn_topm`); the C candidates of
+    f32 storage then get an exact f32 rescore and a final top-k.  A query
+    whose filter passes fewer than k of its M candidates is flagged
+    "underfill" and re-runs through `execute` (`_BatchHandle.result`)."""
+
+    path = "knn-batches"
+
+    def __init__(self, cq0: CompiledQuery, seg: Segment, bk: dict, P2: int,
+                 layout: list, k_pad: int, ke: int, hoist: tuple):
+        field = cq0.schema.field(cq0.knn.field)
+        self.metric = field.vector.metric.value
+        self.M = hoist[0]
+        self.two_phase = (seg.vectors[field.attribute].vecs.dtype
+                          == torch.float32)
+        self.C = (min(max(4 * k_pad, k_pad + 16), self.M) if self.two_phase
+                  else k_pad)
+        self.k_pad = k_pad
+        self.ke = ke
+        self.layout = layout
+        self.program = _program(cq0, seg, bk, P2, self.C, False, "topk",
+                                host_fallback=True, knn_topm=True,
+                                knn_underfill_k=k_pad)
+        self.has_ttl = seg.has_ttl
+        self.dirty = seg.n_deleted > 0
+        self.knn_fexp = field.attribute in seg.field_fexp
+        self.CH = _knn_chunk(seg.n_pad)
+
+    def run(self, seg_args: dict, rows_np: np.ndarray) -> dict:
+        rows = torch.from_numpy(rows_np).to(seg_args["doc_ids"].device)
+        stacked = _device_unpack_rows(self.layout, rows)
+        now = stacked["now"].reshape(-1)
+        B = now.shape[0]
+        tp = self.two_phase
+        src = (seg_args["knn_scan"] if tp and "knn_scan" in seg_args
+               else seg_args["knn_vecs"])
+        outs = []
+        for c0 in range(0, B, self.CH):
+            D = V.distances_to(src, seg_args["knn_sq"],
+                               stacked["knn_blob"][c0:c0 + self.CH],
+                               self.metric)
+            okd = _knn_valid(seg_args, now[c0:c0 + self.CH], self.dirty,
+                             self.has_ttl, self.knn_fexp)
+            dmd = torch.where(okd, D, V.BIG)
+            del D, okd
+            if tp:
+                negd, ids = V._cand_top(-dmd, self.M)
+            else:
+                negd, ids = T.fast_top_k(-dmd, self.M)
+            del dmd
+            ids = ids.to(torch.int32)
+            for i in range(c0, min(B, c0 + self.CH)):
+                dyn_i = {kk: vv[i] for kk, vv in stacked.items()}
+                dyn_i["knn_negd"] = negd[i - c0]
+                dyn_i["knn_ids"] = ids[i - c0]
+                outs.append(self.program(seg_args, dyn_i))
+        out = {kk: torch.stack([o[kk] for o in outs]) for kk in outs[0]}
+        ke = self.ke
+        if not tp and self.C == self.k_pad:
+            return {kk: (vv[:, :ke] if vv.dim() == 2 else vv)
+                    for kk, vv in out.items()}
+        # exact f32 rescore of the candidate set + final top-k
+        cidx = out["idx"]
+        dr = V._rescore(seg_args["knn_vecs"], seg_args["knn_sq"],
+                        stacked["knn_blob"], cidx, self.metric)
+        dr = torch.where(out["knn"] >= 3.3e38, V.BIG, dr)
+        vals, sel = T.fast_top_k(-dr, min(ke, dr.shape[1]))
+        knn_k = -vals
+        out["idx"] = torch.gather(cidx, 1, sel)
+        out["scores"] = torch.gather(out["scores"], 1, sel)
+        out["knn"] = knn_k
+        out["count"] = (knn_k < 3.3e38).sum(dim=1, dtype=torch.int32)
+        return out
 
 
 def _kernel_batched_inputs(stacked, seg_args_, descs, aux_keys, dmeta):
@@ -1537,9 +2068,10 @@ def _tag_codes_ords(cq: CompiledQuery, seg: Segment) -> tuple:
 
 def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
     """The device arrays the kernels and the window program read (the JAX
-    function's, without vector and GEO columns): postings, position keys,
+    function's, without GEO and IVF columns): postings, position keys,
     per-doc columns, per TAG leaf its doc postings and codes, per NUMERIC
-    leaf its columns, field TTL columns, the missing-field columns and the
+    leaf its columns, per VECTOR_RANGE leaf its vector column, field TTL
+    columns, the missing-field columns, the KNN field's column and the
     SORTBY column."""
     args = {
         "gids": seg.gids,
@@ -1569,9 +2101,10 @@ def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
             if pc is not None:
                 args[f"tag{j}_pcodes"] = pc
     for leaf, _idx in cq.leaves():
-        if (isinstance(leaf, (LTag, LNumeric))
+        if (isinstance(leaf, (LTag, LNumeric, LVecRange))
                 and leaf.field in seg.field_fexp):
-            kind = "tag" if isinstance(leaf, LTag) else "num"
+            kind = ("tag" if isinstance(leaf, LTag)
+                    else "num" if isinstance(leaf, LNumeric) else "vec")
             args[f"{kind}{leaf.ord}_fexp"] = seg.field_fexp[leaf.field]
         if isinstance(leaf, LMissing):
             if leaf.field in seg.field_fexp:
@@ -1592,6 +2125,25 @@ def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
             if col.multi:
                 args[f"num{leaf.ord}_mv"] = col.multi_values
                 args[f"num{leaf.ord}_mp"] = col.multi_present
+        if isinstance(leaf, LVecRange):
+            col = seg.vectors[leaf.field]
+            args[f"vec{leaf.ord}"] = col.vecs
+            args[f"vec{leaf.ord}_p"] = col.present
+            args[f"vec{leaf.ord}_sq"] = col.sq_norms
+            if col.multi:
+                args[f"vec{leaf.ord}_dr"] = col.doc_rows
+    if cq.knn is not None:
+        field = cq.schema.field(cq.knn.field)
+        col = seg.vectors[field.attribute]
+        args["knn_vecs"] = col.vecs
+        args["knn_present"] = col.present
+        args["knn_sq"] = col.sq_norms
+        if col.scan_vecs is not None:
+            args["knn_scan"] = col.scan_vecs
+        if field.attribute in seg.field_fexp:
+            args["knn_fexp"] = seg.field_fexp[field.attribute]
+        if col.multi:
+            args["knn_doc_rows"] = col.doc_rows
     if cq.opts.sort_field:
         f = cq.schema.field(cq.opts.sort_field)
         if f.type == FieldType.NUMERIC:
@@ -1618,6 +2170,7 @@ _PROGRAM_CACHE: dict[str, Any] = {}
 def _seg_sig(cq: CompiledQuery, seg: Segment) -> str:
     """The segment state a window program's structure depends on."""
     return (f"n={seg.n_pad}|stride={seg.text.pos_stride}"
+            f"|knn={_knn_ivf_sig(cq, seg)}|sc={_knn_has_scan(cq, seg)}"
             f"|tc={_tag_codes_ords(cq, seg)}"
             f"|d={seg.n_deleted > 0}|t={seg.has_ttl}"
             f"|u={seg.uniform_docscore}"
@@ -1625,14 +2178,20 @@ def _seg_sig(cq: CompiledQuery, seg: Segment) -> str:
 
 
 def _program(cq: CompiledQuery, seg: Segment, buckets: dict, P: int,
-             k_pad: int, has_extra: bool, mode: str):
+             k_pad: int, has_extra: bool, mode: str, knn_row: bool = False,
+             host_fallback: bool = False, knn_topm: bool = False,
+             knn_underfill_k: int = 0):
     """The cached window program of (query structure, buckets, segment
-    state, k, mode)."""
-    sig = cq.signature(f"{_seg_sig(cq, seg)}|extra={has_extra}|mode={mode}",
-                       buckets, P, k_pad)
+    state, k, mode, KNN executor flags; see `_build_fn`)."""
+    sig = cq.signature(
+        f"{_seg_sig(cq, seg)}|extra={has_extra}|mode={mode}"
+        f"|kr={knn_row}|hf={host_fallback}|tm={knn_topm}"
+        f"|uk={knn_underfill_k}", buckets, P, k_pad)
     fn = _PROGRAM_CACHE.get(sig)
     if fn is None:
-        fn = _build_fn(cq, seg, buckets, P, k_pad, has_extra, mode)
+        fn = _build_fn(cq, seg, buckets, P, k_pad, has_extra, mode,
+                       knn_row=knn_row, host_fallback=host_fallback,
+                       knn_topm=knn_topm, knn_underfill_k=knn_underfill_k)
         if len(_PROGRAM_CACHE) > 4096:
             _PROGRAM_CACHE.clear()
         _PROGRAM_CACHE[sig] = fn
@@ -1702,10 +2261,12 @@ def execute(cq: CompiledQuery, seg: Segment, k: int,
     if mode == "window":
         return SegmentResult(local_idx=out["docs"], scores=out["score"],
                              count=int(out["count"]), valid=out["valid"],
+                             knn_dists=out.get("knn"),
                              warnings=binding.warnings)
     return SegmentResult(local_idx=out["idx"], scores=out["scores"],
                          count=int(out["count"]),
                          sortkeys=out.get("sortkeys"),
+                         knn_dists=out.get("knn"),
                          warnings=binding.warnings)
 
 
@@ -1778,7 +2339,9 @@ def _tree_has_terms(t) -> bool:
 
 
 def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
-              P: int, k: int, has_extra: bool, mode: str = "topk"):
+              P: int, k: int, has_extra: bool, mode: str = "topk",
+              knn_row: bool = False, host_fallback: bool = False,
+              knn_topm: bool = False, knn_underfill_k: int = 0):
     """Build the window-evaluator program of one query structure: a plain
     function `run(seg_args, dyn)` over device tensors (the JAX function
     traced and compiled it; here it runs eagerly).
@@ -1788,8 +2351,17 @@ def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
     smallest window (ops/window.py).  The scorers, the clean/dirty/TTL
     flags, `extra_mask`, the doc-score multiply, the GetSlop divisor,
     mode "window" and the top-k root (with SORTBY) are the JAX
-    function's.  Vector and GEO leaves and KNN never reach it: the
-    builder refuses VECTOR and GEO fields, and `bind` KNN payloads."""
+    function's, and so are its KNN branches: an exact gather of the
+    window's distances (narrow filters), BATCHES (a masked top-M of the
+    dense distance row, member-checked against the filter: wide filters
+    or HYBRID_POLICY BATCHES), the full scan (no filter window), the
+    multi-value best-row distance, field TTL on the vector field, and the
+    VECTOR_RANGE leaf.  Executor flags: `knn_row`, the query's distance
+    row comes in `dyn["knn_row"]` (a batch's product); `knn_topm`, its
+    top-M in `dyn["knn_negd"]`/`dyn["knn_ids"]`; `host_fallback`, the
+    BATCHES branch flags "underfill" (fewer than `knn_underfill_k` or k
+    of the M candidates pass the filter) instead of running the exact
+    branch, which a single query decides on the host."""
     opts = cq.opts
     scorer = opts.scorer
     tree = cq.tree
@@ -1808,6 +2380,13 @@ def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
     slop_buckets = buckets.get(-1)
     if slop_buckets is None:
         slop_info = None
+    knn = cq.knn
+    knn_field = cq.schema.field(knn.field) if knn is not None else None
+    knn_metric = knn_field.vector.metric.value if knn is not None else None
+    knn_multi = _knn_ivf_sig(cq, seg_proto).endswith("multi")
+    knn_policy = knn.hybrid_policy if knn is not None else None
+    knn_has_fexp = (knn is not None
+                    and knn_field.attribute in seg_proto.field_fexp)
 
     def gen_bucket(t) -> int:
         return _gen_bucket(t, buckets, n_pad_static)
@@ -2027,6 +2606,27 @@ def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
                         m = field_alive("num", leaf.ord, docs, m)
                     return m, torch.where(m, const, 0.0)
                 return f
+            if isinstance(leaf, LVecRange):
+                (vmulti,) = buckets[idx]
+
+                def f(docs, dl, _vm=vmulti):
+                    cd = clampdoc(docs)
+                    q = dyn[f"vblob{leaf.ord}"]
+                    if _vm:
+                        d = _multi_doc_dist(
+                            seg[f"vec{leaf.ord}"], seg[f"vec{leaf.ord}_sq"],
+                            seg[f"vec{leaf.ord}_dr"], cd, q, leaf.metric)
+                    else:
+                        d = _metric_dist(
+                            seg[f"vec{leaf.ord}"][cd].float(),
+                            seg[f"vec{leaf.ord}_sq"][cd], q, leaf.metric)
+                    m = (seg[f"vec{leaf.ord}_p"][cd]
+                         & (d <= dyn[f"vrad{leaf.ord}"])
+                         & (docs != WIN.INVALID))
+                    if leaf.field in fexp_attrs:
+                        m = field_alive("vec", leaf.ord, docs, m)
+                    return m, torch.where(m, const, 0.0)
+                return f
             if isinstance(leaf, LHostMask):
                 def f(docs, dl):
                     m = (dyn[f"hm{leaf.ord}"][clampdoc(docs)]
@@ -2215,8 +2815,99 @@ def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
                             torch.clamp(num - 1, min=1)))
             return sc / torch.clamp(slop, min=1).to(f32)
 
+        def knn_out(out, docs, score, valid, cd, Wc, k_eff, knn_doc_dist,
+                    knn_ok):
+            """The KNN root: (idx, knn, scores[, underfill]) and the
+            count of yielded results (at most k, as the reference's
+            hybrid iterator yields)."""
+            q = dyn["knn_blob"]
+            window_root = not root_is_iota
+            use_batches = (window_root and not knn_multi
+                           and knn_policy != "ADHOC_BF"
+                           and (knn_policy == "BATCHES" or Wc >= 32768))
+            if window_root and not use_batches:
+                # exact gather over the filter window
+                dm = torch.where(valid & knn_ok(cd), knn_doc_dist(cd),
+                                 V.BIG)
+                vals, sel = T.fast_top_k(-dm, k_eff)
+                out["idx"] = docs[sel]
+                out["knn"] = -vals
+                out["scores"] = score[sel]
+            elif use_batches:
+                # the best M docs of the dense distance row (every mask
+                # doc-aligned), then the filter checked on those M only
+                if knn_topm:
+                    negd, ids = dyn["knn_negd"], dyn["knn_ids"]
+                else:
+                    d_dense = (dyn["knn_row"] if knn_row else
+                               V.distances_to(seg["knn_vecs"], seg["knn_sq"],
+                                              q, knn_metric))
+                    okd = knn_ok() & seg["alive"]
+                    if seg_ttl:
+                        expd = seg["expire_at"]
+                        okd = okd & ((expd == 0) | (expd > dyn["now"]))
+                    dmd = torch.where(okd, d_dense, V.BIG)
+                    M = _knn_batch_M(k_eff, n_pad, Wc)
+                    negd, ids = T.fast_top_k(-dmd, M)
+                    ids = ids.to(torch.int32)
+                m_ids, s_ids = eval_pred(tree)(ids, normcol[ids.long()])
+                ok_ids = m_ids
+                if has_extra:
+                    ok_ids = ok_ids & dyn["extra_mask"][ids.long()]
+                if scorer == "DOCSCORE":
+                    s_ids = seg["docscore"][ids.long()]
+                elif not seg_uniform_ds and scorer != "DISMAX":
+                    s_ids = s_ids * seg["docscore"][ids.long()]
+                if scorer == "BM25STD.TANH":
+                    s_ids = torch.tanh(s_ids / opts.tanh_factor)
+                if slop_info is not None:
+                    s_ids = slop_divide(s_ids, ids)
+                found = ok_ids.sum(dtype=torch.int32)
+                exhausted = negd[-1] <= -3.3e38  # M covered every vector
+                k_need = knn_underfill_k or k_eff
+                if host_fallback:
+                    out["underfill"] = torch.where(
+                        (found >= k_need) | exhausted, 0, 1).to(
+                            torch.int32)
+                if host_fallback or bool((found >= k_eff) | exhausted):
+                    dmm = torch.where(ok_ids, -negd, V.BIG)
+                    vals, sel = T.fast_top_k(-dmm, k_eff)
+                    out["idx"] = ids[sel]
+                    out["knn"] = -vals
+                    out["scores"] = s_ids[sel]
+                else:
+                    # too few of the M pass the filter: the exact gather
+                    dm = torch.where(valid & knn_ok(cd), knn_doc_dist(cd),
+                                     V.BIG)
+                    vals, sel = T.fast_top_k(-dm, k_eff)
+                    out["idx"] = docs[sel]
+                    out["knn"] = -vals
+                    out["scores"] = score[sel]
+            else:
+                if knn_row:
+                    d = dyn["knn_row"]
+                elif knn_multi:
+                    # row distances once, then each doc's best row
+                    d_rows = V.distances_to(seg["knn_vecs"], seg["knn_sq"],
+                                            q, knn_metric)
+                    dr = seg["knn_doc_rows"]
+                    dd = d_rows[dr.clamp(0, d_rows.shape[0] - 1).long()]
+                    d = torch.where(dr >= 0, dd, V.BIG).min(dim=-1).values
+                else:
+                    d = V.distances_to(seg["knn_vecs"], seg["knn_sq"], q,
+                                       knn_metric)
+                # the iota window: valid aligns with the doc ids
+                dm = torch.where(valid & knn_ok(), d, V.BIG)
+                vals, sel = T.fast_top_k(-dm, k_eff)
+                out["idx"] = sel
+                out["knn"] = -vals
+                out["scores"] = score[sel]
+            out["count"] = (out["knn"] < 3.3e38).sum(dtype=torch.int32)
+
         # ---- root
         root_gen = _can_gen(tree)
+        root_is_iota = (not root_gen) or (tree[0] == "leaf"
+                                          and isinstance(tree[1], LAll))
         if root_gen:
             docs, score, valid, _dl = eval_gen(tree)
             cd = clampdoc(docs)
@@ -2248,11 +2939,45 @@ def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
         score = torch.where(valid, score, 0.0)
 
         out = {"count": valid.sum(dtype=torch.int32)}
-        k_eff = min(k, docs.shape[0])
+        Wc = docs.shape[0]
+        k_eff = min(k, Wc)
+
+        def knn_doc_dist(cd_):
+            """Distance of each candidate doc to the query blob; for
+            multi-value columns the best of the doc's rows (VecSim
+            multi-value semantics)."""
+            if knn_row:
+                return dyn["knn_row"][cd_]
+            q = dyn["knn_blob"]
+            if knn_multi:
+                return _multi_doc_dist(seg["knn_vecs"], seg["knn_sq"],
+                                       seg["knn_doc_rows"], cd_, q,
+                                       knn_metric)
+            return _metric_dist(seg["knn_vecs"][cd_], seg["knn_sq"][cd_],
+                                q, knn_metric)
+
+        def knn_ok(cd_=None):
+            """Vector present and not field-expired."""
+            p = (seg["knn_present"] if cd_ is None
+                 else seg["knn_present"][cd_])
+            if knn_has_fexp:
+                fe = (seg["knn_fexp"] if cd_ is None
+                      else seg["knn_fexp"][cd_])
+                p = p & ~((fe > 0) & (fe <= dyn["now"]))
+            return p
+
         if mode == "window":
             out["docs"] = docs
             out["valid"] = valid
             out["score"] = score
+            if knn is not None:
+                out["knn"] = torch.where(valid & knn_ok(cd),
+                                         knn_doc_dist(cd), V.BIG)
+            return out
+
+        if knn is not None:
+            knn_out(out, docs, score, valid, cd, Wc, k_eff, knn_doc_dist,
+                    knn_ok)
             return out
         if opts.sort_field:
             keys = seg["sort_v"][cd]
@@ -2273,6 +2998,42 @@ def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
         return out
 
     return run
+
+
+def _mxu_dots(rows, q):
+    """<rows, q> along the last axis (rows [..., d], q [d]), with
+    `ops.vector`'s precision contract: int8/uint8 with a query of the
+    same type exact (float64), bf16 rows times the bf16 query summed in
+    f32, everything else full f32."""
+    if rows.dtype in (torch.int8, torch.uint8) and q.dtype == rows.dtype:
+        return torch.matmul(rows.double(), q.double()).float()
+    if rows.dtype == torch.bfloat16:
+        rows, q = rows.float(), q.to(torch.bfloat16).float()
+    with V._ieee_f32():
+        return torch.matmul(rows.float(), q.float())
+
+
+def _multi_doc_dist(vec_rows, sq_rows, doc_rows, cd, q, metric):
+    """Per-doc best distance over each doc's vector rows (multi-value
+    columns: the best vector wins).  cd: [W] doc ids -> [W]."""
+    rid = doc_rows[cd]                                    # [W, M]
+    ok = rid >= 0
+    r = rid.clamp(0, vec_rows.shape[0] - 1).long()
+    d = _metric_dist(vec_rows[r], sq_rows[r], q, metric)  # [W, M]
+    return torch.where(ok, d, V.BIG).min(dim=-1).values
+
+
+def _metric_dist(rows, sq, q, metric):
+    """Distances of gathered rows (with their squared norms) to q."""
+    dots = _mxu_dots(rows, q)
+    qf = q.float()
+    if metric == "L2":
+        return sq - 2.0 * dots + torch.sum(qf * qf)
+    if metric == "IP":
+        return 1.0 - dots
+    return 1.0 - dots / torch.clamp(
+        torch.sqrt(torch.clamp(sq, min=1e-30)) * torch.linalg.norm(qf),
+        min=1e-30)
 
 
 def _phrase_chain_pivot(poskeys, pos_offsets, starts, lens, pos_stride,

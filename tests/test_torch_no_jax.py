@@ -2,12 +2,14 @@
 
 A subprocess imports `redisearch_tpu_torch`, builds a 600-doc index on
 the CPU (the smallest corpus whose posting windows reach the kernel's
-1024 bucket), serves a `search_many` batch, a batch of exact and
-in-order slop phrases (the phrase op), an `ft_aggregate_many` batch
-(GROUPBY through the raw intersection and the group-by op), a
-single-query `ft_search` and a single `ft_aggregate` with MIN/MAX (the
-general window program and the single-query group-by), then reports
-which modules it loaded.  The host modules the port needs are its own
+1024 bucket) with a VECTOR field, serves a `search_many` batch, a batch
+of exact and in-order slop phrases (the phrase op), an
+`ft_aggregate_many` batch (GROUPBY through the raw intersection and the
+group-by op), a single-query `ft_search` and a single `ft_aggregate`
+with MIN/MAX (the general window program and the single-query
+group-by), a batch of KNN queries with PARAMS blobs (pure and
+TAG-filtered) and a single KNN `ft_search` with a bytes blob, then
+reports which modules it loaded.  The host modules the port needs are its own
 copies: no loaded module's file may lie under `redisearch_tpu/`.  Two
 environments: jax, jaxlib and ml_dtypes blocked on `sys.meta_path` (the
 card's machine may have none of them), and jax importable (the port must
@@ -35,16 +37,22 @@ if BLOCK:
             return None
     sys.meta_path.insert(0, Block())
 
+import numpy as np
 import redisearch_tpu_torch as rt
 
+vecs = np.random.default_rng(0).normal(size=(600, 8)).astype(np.float32)
 client = rt.Client(device="cpu")
 ix = client.ft_create("idx", [rt.Field("t", rt.FieldType.TEXT),
                               rt.Field("c", rt.FieldType.TAG),
                               rt.Field("g", rt.FieldType.TAG, sortable=True),
-                              rt.Field("p", rt.FieldType.NUMERIC)])
+                              rt.Field("p", rt.FieldType.NUMERIC),
+                              rt.Field("v", rt.FieldType.VECTOR,
+                                       vector=rt.VectorParams(
+                                           dim=8, metric="L2"))])
 ix.add_documents([(f"d{i}", {"t": "alpha beta" if i % 2 else "alpha gamma",
                              "c": "x" if i % 3 else "y",
-                             "g": f"g{i % 5}", "p": float(i % 13)})
+                             "g": f"g{i % 5}", "p": float(i % 13),
+                             "v": vecs[i]})
                   for i in range(600)])
 res = client.ft_search_many("idx", ["alpha beta", "alpha @c:{y}",
                                     "beta|gamma", "gamma -beta"], k=5)
@@ -65,6 +73,13 @@ win_paths = dict(engine.QUERY_PATH_STATS)
 single = client.ft_aggregate("idx", rt.AggregateRequest("*").group_by(
     "@g", ("MIN", ["@p"], "lo"), ("MAX", ["@p"], "hi"),
     ("COUNT", [], "n")).sort_by("@g"))
+engine.QUERY_PATH_STATS.clear()
+knn = client.ft_search_many("idx", ["*=>[KNN 3 @v $b]",
+                                    "(@c:{y})=>[KNN 3 @v $b]"],
+                            params=[{"b": vecs[5]}, {"b": vecs[9]}], k=3)
+knn_paths = dict(engine.QUERY_PATH_STATS)
+knn1 = client.ft_search("idx", "(@p:[0 3])=>[KNN 2 @v $b]",
+                        params={"b": vecs[13].tobytes()})
 import os
 jax_pkg = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(rt.__file__))), "redisearch_tpu") + os.sep
@@ -76,6 +91,9 @@ print(json.dumps({
     "agg": [[r.total, r.rows] for r in agg],
     "window": [win.total, [h.key for h in win.hits], win_paths],
     "single": [single.total, single.rows],
+    "knn": [[h.key for h in r.hits] for r in knn] + [
+        [h.key for h in knn1.hits]],
+    "knn_paths": knn_paths,
     "files": sorted(m for m, v in list(sys.modules.items())
                     if (getattr(v, "__file__", None) or "").startswith(
                         jax_pkg)),
@@ -111,6 +129,11 @@ def test_port_serves_without_jax(block):
     # equal scores: the first lanes of the value-sorted numeric window
     assert out["window"][1] == [f"d{i}" for i in want if i % 13 == 2][:5]
     assert out["window"][2] == {}       # single queries count no batch
+    # each query vector is a doc's own: that doc comes first
+    assert [r[0] for r in out["knn"]] == ["d5", "d9", "d13"]
+    assert [len(r) for r in out["knn"]] == [3, 3, 2]
+    # a mixed batch is not pure: both queries ride the dense executor
+    assert out["knn_paths"] == {"knn-dense": 2}
     total, rows = out["single"]
     assert total == 600
     assert rows == [{"g": f"g{j}",
