@@ -95,6 +95,27 @@ script exits non-zero:
    Kernel times are device times (CUDA events behind a device sleep
    that covers the host's enqueue); each is printed beside its bytes
    bound.
+6b. cursors and the host pipeline, on the same 1M-doc index: bench.py's
+   FT.AGGREGATE request WITHCURSOR COUNT 3 (four requests; the device
+   GROUPBY runs materialized) must page exactly the rows of the plain
+   `ft_aggregate`, and the fused single-query group-by must have
+   launched in the cursor runs; `*` LOAD @price CURSOR 1000 must total
+   1,000,000 with at most two stream chunks buffered after the first
+   read, five more pages must hold the host-copied price column in
+   window order, then FT.CURSOR DEL, after which a read must raise
+   CursorNotFound; 16 host-pipeline requests (2-term match, GROUPBY @grp
+   with COUNT, SUM, TOLIST and COUNT_DISTINCT of @cat, every fourth
+   keyed on the unsortable @cat instead) must equal a Python group-by of
+   the host-copied postings and columns, and their COUNT/SUM the device
+   path's for the same match (within 1e-5 of the group's sum); the same
+   requests at bench.py's batch of 1,024 through `ft_aggregate_many`
+   must count 1,024 "host" requests and equal the single calls; a mixed
+   `ft_aggregate_many` batch must count 4 "device-tail" and 4 "host"
+   requests, each result's rows equal to its single call's (the device
+   tail's SUM/AVG within 1e-5 of the group's sum, all else exact).
+   Then a second `*` LOAD @price CURSOR 1000 is drained, all 1,000
+   pages, each price equal to the column.  The drain's pages per second
+   and the batch's host-pipeline requests per second are printed.
 7. vector path (FLAT search; no Pallas kernel lies on it, so its ops
    are torch ops: a GEMM, elementwise masks and `torch.topk`).  First
    bench.py's knn shape at the op level: `ops.vector.knn_scan_batches`
@@ -122,6 +143,21 @@ script exits non-zero:
    (torch.profiler; an eighth of a batch for the two families that run
    the window program per query) and the parts' times at the pure
    family's shape are printed for information.
+7b. FT.HYBRID and the rounds API on the 500k x 384 index (bench.py's
+   bench_hybrid: single title words, window 20, limit 10, batch 1024,
+   seed 5): for RRF and LINEAR, `run_hybrid_many` must equal the
+   hit-list fusion `_run_hybrid_hits` for every query (keys and order,
+   floats within 1e-6), and route both branches of all 2,048 queries;
+   the KNN branch's top-20, as the batch runs it, must reach recall
+   0.99 against an exact float64 top-20 on the card; `run_hybrid_rounds`
+   over 4 rounds must equal 4 `run_hybrid_many` calls, and
+   `execute_batch_rounds` over 4 rounds of bench.py's fknn numeric and
+   tag families (batch 2048, KNN 25) 4 sequential `execute_batch` calls,
+   idx and distances bit for bit.  Printed for information: each
+   branch's routes and time (launch + synchronize per executor group),
+   one batch's prepare, bind, d2h, fusion and row times, a traced eighth
+   of a batch's device busy and idle share, hybrid QPS (bench.py's loop
+   at depth 2, 4 rounds, one pass) and the rounds QPS.
 8. the module check (no jax, no module file under `redisearch_tpu/`),
    then the last three lines: nvidia-smi's name and power limit, the
    kernels' JSON record, then {"ok": true, "device": {...}}.
@@ -2296,6 +2332,239 @@ def phase_agg_profile(ix, batch, dev, what="aggregate"):
         f"{1.0 - busy / (traced * 1e3):.4f}")
 
 
+# --------------------------------------------------------------- phase 6b
+CURSOR_COUNT = 3
+CURSOR_PAGE = 1000
+CURSOR_PAGES = 5
+HOST_REQS = 16
+#: bench.py's FT.AGGREGATE batch
+HOST_BATCH = 1024
+
+
+def drain(client, res) -> list:
+    """Every page of a cursor, the first read's included."""
+    pages, cid = [res.rows], res.cursor_id
+    while cid:
+        rows, cid = client.ft_cursor_read("bm25", cid)
+        pages.append(rows)
+    return pages
+
+
+def host_request_fn():
+    """Host-pipeline requests over bench.py's 2-term matches: GROUPBY
+    @grp with TOLIST and COUNT_DISTINCT of the unsortable @cat, or
+    GROUPBY @cat (unsortable: no dictionary column) with TOLIST of @grp;
+    and the device request of the same match (COUNT, SUM(@price))."""
+    rng = np.random.default_rng(3)
+    qt = ["w%06d" % i for i in rng.integers(20, 2000, size=256)]
+
+    def query(i):
+        return f"{qt[(2 * i) % 256]} {qt[(2 * i + 1) % 256]}"
+
+    def mk_host(i):
+        key, other = ("@cat", "@grp") if i % 4 == 3 else ("@grp", "@cat")
+        return (rt.AggregateRequest(query(i))
+                .group_by(key, ("COUNT", [], "n"), ("SUM", ["@price"], "s"),
+                          ("TOLIST", [other], "l"),
+                          ("COUNT_DISTINCT", [other], "dc"))
+                .sort_by(("@s", rt.DESC)))
+
+    def mk_dev(i):
+        return (rt.AggregateRequest(query(i))
+                .group_by("@grp", ("COUNT", [], "n"),
+                          ("SUM", ["@price"], "s")))
+    return mk_host, mk_dev
+
+
+def python_groupby(docs, keys, others, price) -> dict:
+    """{key: (n, sum, set of the other column)} over the matched docs."""
+    out: dict = {}
+    for d in docs:
+        n, sm, seen = out.get(keys[d], (0, 0.0, set()))
+        seen.add(others[d])
+        out[keys[d]] = (n + 1, sm + float(price[d]), seen)
+    return out
+
+
+def phase_cursor(client, ix, dev) -> dict:
+    """FT.AGGREGATE WITHCURSOR and the host pipeline on the 1M-doc index
+    (see the docstring's phase 6b)."""
+    t_phase = time.perf_counter()
+    seg = ix.segments[0]
+    mk, _mk_sd, _mk_mm = agg_request_fn()
+    # bench.py's request, paged 3 rows at a time: the device GROUPBY runs
+    # materialized (the fused single-query group-by), then pages
+    launches = 0
+    for i in range(4):
+        zero_counts()
+        res = client.ft_aggregate("bm25", mk(i).cursor(CURSOR_COUNT))
+        pages = drain(client, res)
+        launches += GB.SINGLE_LAUNCHES
+        plain = client.ft_aggregate("bm25", mk(i))
+        if (res.total != plain.total or [r for p in pages for r in p]
+                != plain.rows or any(len(p) > CURSOR_COUNT for p in pages)):
+            raise AssertionError(f"cursor {mk(i).query!r}: pages {pages} "
+                                 f"vs {plain.total} {plain.rows}")
+    if launches == 0:
+        raise AssertionError("cursor: the fused group-by never launched")
+    log(f"phase cursor: bench request WITHCURSOR COUNT {CURSOR_COUNT} x4: "
+        f"pages == ft_aggregate rows; fused single-query group-by launches "
+        f"{launches} in the cursor runs")
+
+    # '*' LOAD @price: streamed, the buffer holds a chunk
+    price = seg.numerics["price"].values.cpu().numpy()
+    t0 = time.perf_counter()
+    res = client.ft_aggregate("bm25", rt.AggregateRequest("*")
+                              .load("@price").cursor(CURSOR_PAGE))
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t0
+    buffered = len(client.cursors._cursors[res.cursor_id].rows)
+    if res.total != N_DOCS or buffered > 2 * AP._STREAM_CHUNK:
+        raise AssertionError(f"cursor '*': total {res.total}, buffer "
+                             f"{buffered}")
+    rows, cid = list(res.rows), res.cursor_id
+    for _ in range(CURSOR_PAGES):
+        page, cid = client.ft_cursor_read("bm25", cid)
+        if len(page) != CURSOR_PAGE or not cid:
+            raise AssertionError(f"cursor '*': page of {len(page)}, id {cid}")
+        rows += page
+    got = np.array([r["price"] for r in rows])
+    if not np.array_equal(got, price[:len(rows)].astype(np.float64)):
+        raise AssertionError("cursor '*': prices differ from the column")
+    if not client.ft_cursor_del("bm25", cid):
+        raise AssertionError("cursor '*': FT.CURSOR DEL found no cursor")
+    try:
+        client.ft_cursor_read("bm25", cid)
+    except rt.utils.errors.CursorNotFound:
+        pass
+    else:
+        raise AssertionError("cursor '*': read after DEL succeeded")
+    log(f"phase cursor: '*' LOAD @price CURSOR {CURSOR_PAGE}: total "
+        f"{res.total:,}, buffer after the first read {buffered} rows "
+        f"(chunk {AP._STREAM_CHUNK}); first read {first_s:.3f}s; "
+        f"{CURSOR_PAGES} pages == column; DEL ok")
+
+    # host-pipeline requests against a Python group-by of the host copies
+    mk_host, mk_dev = host_request_fn()
+    grp_ids = seg.strcols["grp"].value_ids.cpu().numpy()
+    table = list(seg.strcols["grp"].table) + [None]
+    grp = np.array(table, dtype=object)[np.where(grp_ids >= 0, grp_ids,
+                                                  len(table) - 1)]
+    didx = np.array([int(ix.doctable.get(int(g)).key[1:])
+                     for g in seg.gids_np[:seg.n_docs]])
+    cats = np.array(["cat%02d" % (i % 16) for i in range(16)],
+                    dtype=object)[didx % 16]
+    zero_counts()
+    t0 = time.perf_counter()
+    host = [client.ft_aggregate("bm25", mk_host(i))
+            for i in range(HOST_REQS)]
+    host_s = time.perf_counter() - t0
+    stats = dict(AP.AGG_PATH_STATS)
+    if stats != {"host": HOST_REQS}:
+        raise AssertionError(f"host requests: path stats {stats}")
+    # bench.py's batch size through ft_aggregate_many: the requests
+    # repeat every 128, the first HOST_REQS are held against the Python
+    # group-by below through the single calls
+    zero_counts()
+    t0 = time.perf_counter()
+    batch = client.ft_aggregate_many(
+        "bm25", [mk_host(i) for i in range(HOST_BATCH)])
+    batch_s = time.perf_counter() - t0
+    stats = dict(AP.AGG_PATH_STATS)
+    if stats != {"host": HOST_BATCH}:
+        raise AssertionError(f"host batch: path stats {stats}")
+    for i, r in enumerate(batch):
+        want = host[i] if i < HOST_REQS else batch[i % 128]
+        if r.total != want.total or r.rows != want.rows:
+            raise AssertionError(f"host batch: request {i} differs")
+    n_rows = 0
+    for i, r in enumerate(host):
+        docs = numpy_and2_docs(seg, ix, mk_host(i).query)
+        by_cat = i % 4 == 3
+        keys, others = (cats, grp) if by_cat else (grp, cats)
+        want = python_groupby(docs, keys, others, price)
+        got = {x["cat" if by_cat else "grp"]: x for x in r.rows}
+        if r.total != len(docs) or set(got) != set(want):
+            raise AssertionError(f"host {mk_host(i).query!r}: total "
+                                 f"{r.total} vs {len(docs)}, groups")
+        for key, (n, sm, seen) in want.items():
+            x = got[key]
+            if (x["n"] != n or x["s"] != sm or x["dc"] != len(seen)
+                    or sorted(x["l"]) != sorted(seen)):
+                raise AssertionError(f"host {mk_host(i).query!r} {key}: "
+                                     f"{x} vs {(n, sm, sorted(seen))}")
+        sums = [x["s"] for x in r.rows]
+        if sums != sorted(sums, reverse=True):
+            raise AssertionError(f"host {mk_host(i).query!r}: not sorted")
+        n_rows += len(r.rows)
+        if not by_cat:
+            dev_rows = {x["grp"]: x for x in client.ft_aggregate(
+                "bm25", mk_dev(i)).rows}
+            for key, x in got.items():
+                d = dev_rows[key]
+                if d["n"] != x["n"] or not abs(d["s"] - x["s"]) <= (
+                        1e-5 * x["s"]):
+                    raise AssertionError(f"host {mk_host(i).query!r} {key}:"
+                                         f" device {d} vs host {x}")
+    log(f"phase cursor: {HOST_REQS} host-pipeline requests ({n_rows} "
+        f"groups; GROUPBY @grp with TOLIST/COUNT_DISTINCT of @cat, every "
+        f"4th keyed on the unsortable @cat) == Python group-by of the host "
+        f"copies; COUNT/SUM == the device path's (within 1e-5 of the "
+        f"group's sum of |price|); {host_s:.3f}s for the {HOST_REQS}; "
+        f"ft_aggregate_many of {HOST_BATCH} == single calls, path stats "
+        f"{stats}, {batch_s:.3f}s = {HOST_BATCH / batch_s:.1f} requests/s")
+
+    # a mixed batch: device-tail and host requests, request order kept
+    reqs = [mk(i) if i % 2 == 0 else mk_host(i) for i in range(8)]
+    zero_counts()
+    mixed = client.ft_aggregate_many("bm25", reqs)
+    stats = dict(AP.AGG_PATH_STATS)
+    if stats != {"device-tail": 4, "host": 4}:
+        raise AssertionError(f"mixed batch: path stats {stats}")
+    for i, r in enumerate(mixed):
+        one = client.ft_aggregate("bm25", reqs[i])
+        if (r.total != one.total or len(r.rows) != len(one.rows)
+                or not all(same_agg_row(x, y, tail=i % 2 == 0)
+                           for x, y in zip(r.rows, one.rows))):
+            raise AssertionError(f"mixed batch: request {i}: {r.total} "
+                                 f"{r.rows} vs single {one.total} "
+                                 f"{one.rows}")
+    log(f"phase cursor: mixed ft_aggregate_many batch of 8: path stats "
+        f"{stats}, each result's rows == its single call's")
+
+    # a full drain of '*' LOAD @price: every page timed
+    t0 = time.perf_counter()
+    pages = drain(client, client.ft_aggregate(
+        "bm25", rt.AggregateRequest("*").load("@price").cursor(CURSOR_PAGE)))
+    drain_s = time.perf_counter() - t0
+    got = np.fromiter((r["price"] for p in pages for r in p), np.float64)
+    if (len(pages) != N_DOCS // CURSOR_PAGE
+            or any(len(p) != CURSOR_PAGE for p in pages)
+            or not np.array_equal(got, price[:N_DOCS].astype(np.float64))):
+        raise AssertionError(f"cursor '*' drain: {len(pages)} pages, "
+                             f"{len(got)} rows, prices differ from the "
+                             f"column")
+    log(f"phase cursor: '*' LOAD @price CURSOR {CURSOR_PAGE} drained: "
+        f"{len(pages)} pages == column in {drain_s:.3f}s = "
+        f"{len(pages) / drain_s:.1f} pages/s; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return dict(launches=launches, pages_per_s=len(pages) / drain_s,
+                host_qps=HOST_BATCH / batch_s)
+
+
+def same_agg_row(x: dict, y: dict, tail: bool) -> bool:
+    """Whether two result rows are equal: every value exactly, except,
+    where `tail` (bench.py's request on the device tail), SUM within
+    1e-5 of the group's sum of |price| (prices are positive: the SUM)
+    and AVG within that over COUNT."""
+    if not tail:
+        return x == y
+    tol = 1e-5 * abs(y["s"])
+    return (x.keys() == y.keys() and x["grp"] == y["grp"]
+            and x["n"] == y["n"] and abs(x["s"] - y["s"]) <= tol
+            and abs(x["a"] - y["a"]) <= tol / y["n"])
+
+
 # ---------------------------------------------------------------- phase 7
 #: bench.py's knn section: 1M x 128 f32 rows, L2, k = 10, batches of 2048
 KNN_N, KNN_D, KNN_K, KNN_B = 1_000_000, 128, 10, 2048
@@ -2656,9 +2925,8 @@ def phase_fknn(dev) -> dict:
               parts)
     log("phase vector: fknn path stats " + json.dumps(
         {fam: fknn_families()[fam][1] for fam in out}))
-    del v64, ix, client
-    torch.cuda.empty_cache()
-    return {"families": out, "parts": parts}
+    return {"families": out, "parts": parts,
+            "index": (client, ix, v64, qvecs)}
 
 
 def phase_vector(dev) -> dict:
@@ -2667,6 +2935,180 @@ def phase_vector(dev) -> dict:
     fk = phase_fknn(dev)
     log(f"phase vector: done in {time.perf_counter() - t0:.1f}s")
     return {"ops": ops, **fk}
+
+
+# --------------------------------------------------------------- phase 7b
+#: bench.py's bench_hybrid: batch 1024, window 20, limit 10, 4 rounds
+HYB_B, HYB_W, HYB_LIMIT, HYB_ROUNDS = 1024, 20, 10, 4
+
+
+def hybrid_queries(it: int, combine: str) -> list:
+    """bench.py's bench_hybrid round `it`: a single title word and one of
+    512 query vectors (seed 5) per query."""
+    qvecs = np.random.default_rng(5).normal(size=(512, FKNN_D)).astype(
+        np.float32)
+    return [rt.HybridQuery(
+        search=FKNN_WORDS[(it * HYB_B + i) % 10], vsim_field="emb",
+        vsim_vector=qvecs[(it * HYB_B + i) % 512], combine=combine,
+        window=HYB_W, limit=HYB_LIMIT) for i in range(HYB_B)]
+
+
+def same_fusion(a, b, what):
+    """Two fused row lists: equal keys, order and fields, floats within
+    1e-6 (the vectorized fusion takes 1/(1+dist) in f32, the hit-list
+    fusion in Python floats)."""
+    if [r["__key"] for r in a] != [r["__key"] for r in b]:
+        raise AssertionError(f"{what}: keys differ")
+    for ra, rb in zip(a, b):
+        if list(ra) != list(rb):
+            raise AssertionError(f"{what}: fields differ")
+        for k, v in rb.items():
+            if isinstance(v, float) and not abs(ra[k] - v) <= 1e-6:
+                raise AssertionError(f"{what}: {k} {ra[k]} vs {v}")
+
+
+def phase_hybrid(dev, ctx) -> dict:
+    """FT.HYBRID and the rounds API on the 500k x 384 index (see the
+    docstring's phase 7b)."""
+    from dataclasses import replace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from redisearch_tpu_torch.aux import hybrid as H
+    t_phase = time.perf_counter()
+    client, ix, v64, fqvecs = ctx
+    seg = ix.segments[0]
+    out = {}
+    for combine in ("RRF", "LINEAR"):
+        hqs = hybrid_queries(0, combine)
+        E.QUERY_PATH_STATS.clear()
+        t0 = time.perf_counter()
+        fast = H.run_hybrid_many(ix, hqs)
+        batch_s = time.perf_counter() - t0
+        routes = dict(E.QUERY_PATH_STATS)
+        slow = H._run_hybrid_hits(ix, hqs, None)
+        for i, (a, b) in enumerate(zip(fast, slow)):
+            same_fusion(a, b, f"hybrid {combine} query {i}")
+        if sum(routes.values()) != 2 * HYB_B or not all(
+                len(r) == HYB_LIMIT for r in fast):
+            raise AssertionError(f"hybrid {combine}: routes {routes}, "
+                                 f"{[len(r) for r in fast][:8]} rows")
+        out[combine] = {"batch_s": batch_s, "routes": routes}
+        log(f"phase hybrid: {combine} batch {HYB_B} (window {HYB_W}, limit "
+            f"{HYB_LIMIT}): run_hybrid_many == _run_hybrid_hits for every "
+            f"query; routes of both branches {routes}; one batch "
+            f"{batch_s:.3f}s")
+
+    # the KNN branch as the batch runs it, and where one batch's time goes
+    hqs = hybrid_queries(1, "RRF")
+    t = [time.perf_counter()]
+    cqs = H._branch_queries(ix, hqs)
+    t.append(time.perf_counter())
+    subs = E._prep_subs(cqs, seg, HYB_W)
+    t.append(time.perf_counter())
+    parts, branch_ms = [], {}
+    for idxs, entry, sa, rows in subs:
+        ts = time.perf_counter()
+        parts.append((idxs, entry.run(sa, rows)))
+        torch.cuda.synchronize(dev)
+        br = "text" if idxs[0] % 2 == 0 else "knn"
+        key = f"{br}:{entry.path}"
+        branch_ms[key] = branch_ms.get(key, 0.0) + (
+            time.perf_counter() - ts) * 1e3
+    t.append(time.perf_counter())
+    results = E._BatchHandle(parts, len(cqs), cqs=cqs, seg=seg,
+                             k=HYB_W).result()
+    t.append(time.perf_counter())
+    fused_only = H._hybrid_finish(ix, [replace(h, limit=0) for h in hqs],
+                                  None, [results], HYB_W)
+    t.append(time.perf_counter())
+    rows = H._hybrid_finish(ix, hqs, None, [results], HYB_W)
+    t.append(time.perf_counter())
+    if any(fused_only) or rows != H.run_hybrid_many(ix, hqs):
+        raise AssertionError("hybrid: the staged batch differs from "
+                             "run_hybrid_many")
+    ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+    q = torch.from_numpy(np.stack([h.vsim_vector for h in hqs])).to(
+        dev).double()
+    d64 = 1.0 - (q / q.norm(dim=1, keepdim=True)) @ v64.t()
+    truth = torch.topk(d64, HYB_W, dim=1, largest=False).indices.cpu()
+    del d64
+    hit = 0
+    for i in range(HYB_B):
+        kr = results[2 * i + 1]
+        got = kr.local_idx[kr.knn_dists < 3.3e38]
+        hit += len(set(got.tolist()) & set(truth[i].tolist()))
+    recall = hit / (HYB_B * HYB_W)
+    if recall < 0.99:
+        raise AssertionError(f"hybrid: KNN branch recall@{HYB_W} {recall}")
+    nt = HYB_B // 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        H.run_hybrid_many(ix, hqs[:nt])
+        torch.cuda.synchronize(dev)
+        traced = (time.perf_counter() - ts) * 1e3
+    busy, _ = device_busy_us(prof, ())
+    log(f"phase hybrid: KNN branch recall@{HYB_W} {recall:.4f} against an "
+        f"exact float64 top-{HYB_W} on the card; one RRF batch of {HYB_B}, "
+        f"host ms: prepare {ms[0]:.3f}, bind {ms[1]:.3f}, branch groups "
+        f"(launch + synchronize) {ms[2]:.3f} "
+        + json.dumps({k: round(v, 3) for k, v in branch_ms.items()})
+        + f", d2h and results {ms[3]:.3f}, fusion {ms[4]:.3f}, rows "
+        f"{ms[5] - ms[4]:.3f}; traced run_hybrid_many of {nt} "
+        f"{traced:.3f} ms with device busy {busy:.1f} us, idle share "
+        f"{1.0 - busy / (traced * 1e3):.4f}")
+
+    # rounds: run_hybrid_rounds == run_hybrid_many per round
+    rounds = [hybrid_queries(it, "RRF") for it in range(HYB_ROUNDS)]
+    got = H.run_hybrid_rounds(ix, rounds)
+    for r, hqs_r in enumerate(rounds):
+        if got[r] != H.run_hybrid_many(ix, hqs_r):
+            raise AssertionError(f"hybrid rounds: round {r} differs")
+    # bench.py's loop at depth 2, one pass of 4 rounds
+    ts = time.perf_counter()
+    pending = []
+    for rep in range(HYB_ROUNDS):
+        pending.append(H.run_hybrid_rounds(
+            ix, [hybrid_queries(rep, "RRF")], async_=True))
+        if len(pending) > 2:
+            pending.pop(0).result()
+    for h in pending:
+        h.result()
+    hyb_qps = HYB_ROUNDS * HYB_B / (time.perf_counter() - ts)
+    log(f"phase hybrid: run_hybrid_rounds over {HYB_ROUNDS} rounds == "
+        f"{HYB_ROUNDS} run_hybrid_many; hybrid qps {hyb_qps:.1f} (RRF, "
+        f"batch {HYB_B}, bench.py's loop at depth 2, {HYB_ROUNDS} rounds, "
+        f"one pass)")
+
+    # execute_batch_rounds on bench.py's fknn numeric and tag families
+    fams = fknn_families()
+    for fam in ("numeric", "tag"):
+        qfn = fams[fam][0]
+        opts = E.QueryOptions(k=FKNN_K)
+
+        def make(it):
+            return [ix.prepare(qfn(it * FKNN_B + i),
+                               {"b": fqvecs[(it * FKNN_B + i) % 512]},
+                               opts, 2) for i in range(FKNN_B)]
+        rounds = [make(it) for it in range(HYB_ROUNDS)]
+        ts = time.perf_counter()
+        got = E.execute_batch_rounds(rounds, seg, FKNN_K)
+        rounds_qps = HYB_ROUNDS * FKNN_B / (time.perf_counter() - ts)
+        for r, cqs_r in enumerate(rounds):
+            want = E.execute_batch(cqs_r, seg, FKNN_K)
+            for a, b in zip(got[r], want):
+                if not (np.array_equal(a.local_idx, b.local_idx)
+                        and np.array_equal(a.knn_dists, b.knn_dists)
+                        and a.count == b.count):
+                    raise AssertionError(f"rounds {fam}: round {r} differs")
+        out[f"rounds_{fam}"] = rounds_qps
+        log(f"phase hybrid: execute_batch_rounds fknn {fam} ({HYB_ROUNDS} "
+            f"rounds of {FKNN_B}, KNN {FKNN_K}) == sequential execute_batch "
+            f"(idx and distances bit for bit); rounds qps {rounds_qps:.1f}")
+    log(f"phase hybrid: done in {time.perf_counter() - t_phase:.1f}s")
+    out.update(hybrid_qps=hyb_qps, recall=recall)
+    return out
 
 
 def main():
@@ -2683,7 +3125,11 @@ def main():
     star = phase_agg_star(main["client"], main["ix"], dev)
     mm = phase_agg_minmax(main["client"], main["ix"], dev)
     single = phase_single_groupby_times(main["ix"], dev, mm["windows"])
-    phase_vector(dev)
+    phase_cursor(main["client"], main["ix"], dev)
+    vec = phase_vector(dev)
+    phase_hybrid(dev, vec.pop("index"))
+    del vec
+    torch.cuda.empty_cache()
     k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
     wk_ms, wp_ms, wk_err, wk_b = main["times"]["intersect_wide"]
     pk_ms, pp_ms, pk_err, pk_b = main["times"]["phrase"]

@@ -14,12 +14,16 @@ CPU); and batched FT.AGGREGATE GROUPBY: `Client.ft_aggregate_many` ->
 and `ops.groupby.groupby_aggregate_batch` (the CUDA kernel
 `csrc/groupby.cu`).  FLAT vector search (`VectorParams`, KNN and
 VECTOR_RANGE queries with PARAMS blobs) runs through `ops.vector` and the
-engine's KNN executors.  See ROADMAP.md for what is still to port.
+engine's KNN executors; FT.HYBRID (`HybridQuery`, `Client.ft_hybrid`,
+`run_hybrid_many`) fuses a text and a KNN branch; FT.AGGREGATE serves
+every plan (the host pipeline where the device GROUPBY does not) and
+WITHCURSOR.  See ROADMAP.md for what is still to port.
 """
 
 from .schema import (Field, FieldType, Schema, VectorAlgo,
                      VectorMetric, VectorParams)
 from .agg.pipeline import ASC, DESC, AggregateRequest, AggregateResult
+from .aux.hybrid import HybridQuery, run_hybrid_many
 from .api import Client
 from .index.index import Hit, SearchIndex, SearchResult
 from .query.engine import QueryOptions
@@ -27,4 +31,5 @@ from .query.engine import QueryOptions
 __all__ = ["Schema", "Field", "FieldType", "VectorParams", "VectorAlgo",
            "VectorMetric", "QueryOptions", "SearchIndex",
            "SearchResult", "Hit", "Client", "AggregateRequest",
-           "AggregateResult", "ASC", "DESC"]
+           "AggregateResult", "ASC", "DESC", "HybridQuery",
+           "run_hybrid_many"]

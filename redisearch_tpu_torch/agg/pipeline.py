@@ -1,6 +1,6 @@
-"""FT.AGGREGATE GROUPBY on the device, for the torch port.
+"""FT.AGGREGATE for the torch port.
 
-Counterpart of `redisearch_tpu/agg/pipeline.py` on its device paths:
+Counterpart of `redisearch_tpu/agg/pipeline.py`:
 
 * batched, `run_aggregate_many` -> `_device_group_submit_batch`, per
   segment and batch group either
@@ -23,13 +23,16 @@ Counterpart of `redisearch_tpu/agg/pipeline.py` on its device paths:
   segment -> `_device_group_finish`;
 * a KNN source (`(filter)=>[KNN k @v $b]`), single or batched: each
   segment's k nearest through `query.engine.execute` (the window
-  program's KNN branches), then the steps on the host rows
-  (`_run_knn`, `_run_steps`), as the JAX package runs it.
-
-What the device paths do not serve raises NotImplementedError naming the
-ROADMAP item, and never falls back: the host pipeline for other sources
-(`_run_steps` over a window: LOAD, non-algebraic reducers, unencodable
-keys, more than 65,536 groups: A9) and cursors (A9).
+  program's KNN branches), then the steps on the host rows;
+* the host pipeline, for what the device GROUPBY does not serve (LOAD,
+  non-algebraic reducers, keys it cannot encode, more than 65,536
+  groups, no GROUPBY at all): the window program per segment
+  (`execute(..., mode="window")`), host rows in window order, then
+  `_run_steps`; batched, such a request runs when the batch is
+  collected, in its own place in the output;
+* streaming (`run_aggregate_streaming`, FT.AGGREGATE WITHCURSOR): the
+  device GROUPBY and KNN plans run materialized, every other plan pulls
+  its host rows and steps chunk by chunk.
 
 Left out as TPU-attach machinery: the packed executors and their compile
 cache, async host copies, pow2 batch padding and the 1024-query
@@ -39,7 +42,9 @@ scalar-memory chunking.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import functools
+import time
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,7 +55,7 @@ from ..schema import FieldType
 from ..utils.errors import QuerySyntaxError
 from ..ops import groupby as GB
 from ..ops import intersect as IK
-from ..query.engine import (LAll, QueryOptions, _device_unpack,
+from ..query.engine import (Deferred, LAll, QueryOptions, _device_unpack,
                             _device_unpack_rows, _kernel_batched_inputs,
                             _kernel_plan, _layout_of, _pack_into, _pack_out,
                             _program, _segment_args, _unpack_out,
@@ -187,30 +192,18 @@ class AggregateResult:
 # Execution
 # ---------------------------------------------------------------------------
 
+#: host rows a streamed chunk holds
+_STREAM_CHUNK = 4096
+
 #: served-path counters: "device-tail" = GROUPBY with the on-device
 #: SORT/LIMIT head, "device" = GROUPBY with the host finish, "knn" = a
-#: KNN source with the steps on the host
+#: KNN source with the steps on the host, "host" = the window source with
+#: the steps on the host
 AGG_PATH_STATS: dict = {}
 
 
 def _count_path(path: str, n: int = 1) -> None:
     AGG_PATH_STATS[path] = AGG_PATH_STATS.get(path, 0) + n
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {what} (ROADMAP {item})")
-
-
-class _AggBatchHandle:
-    """A launched run_aggregate_many round: the kernels are queued on
-    the device; result() copies each group's outputs to the host and
-    finishes every request."""
-
-    def __init__(self, fin):
-        self._fin = fin
-
-    def result(self) -> list:
-        return self._fin()
 
 
 def _options(req: "AggregateRequest") -> QueryOptions:
@@ -220,51 +213,97 @@ def _options(req: "AggregateRequest") -> QueryOptions:
                         now=req.now)
 
 
-def run_aggregate(index, req: "AggregateRequest") -> "AggregateResult":
+def run_aggregate(index, req: "AggregateRequest",
+                  profile: Optional[dict] = None) -> "AggregateResult":
     """Execute one aggregation (FT.AGGREGATE): the device GROUPBY over
-    the general window program on every segment, then the host merge.
-    A request the device path does not serve raises NotImplementedError:
-    the host pipeline is ROADMAP A9."""
+    the general window program on every segment when the plan is device-
+    eligible, else the host pipeline over the source's rows.  When
+    `profile` is given, per-stage timings land in
+    profile["result_processors"] (reference: per-RP profile sections,
+    result_processor.h)."""
     index.commit()
     cq = index.prepare(req.query, req.params, _options(req), req.dialect)
-    if cq.knn is not None:
-        return _run_knn(index, req, cq)
+    t_start = time.perf_counter()
     fast = _try_device_group(index, req, cq)
-    if fast is None:
-        raise _not_ported(
-            "this aggregation's steps (LOAD, non-algebraic reducers, or "
-            "group keys the device path cannot encode) need the host "
-            "pipeline", "A9")
-    _count_path("device")
-    return fast
+    if fast is not None:
+        _count_path("device")
+        if profile is not None:
+            profile["result_processors"] = [
+                {"name": "RP_INDEX+DeviceGroupBy(fused)",
+                 "time_ms": round((time.perf_counter() - t_start) * 1e3, 3),
+                 "rows": len(fast.rows)}]
+        return fast
+    t_index0 = time.perf_counter()
+    seg_results = _source_results(index, cq)
+    total = sum(int(res.count) for _seg, res, _keep in seg_results)
+    rows = [r for chunk in _row_chunks(index, seg_results) for r in chunk]
+    _count_path("knn" if cq.knn is not None else "host")
+    timings = None
+    if profile is not None:
+        timings = [{"name": "RP_INDEX", "rows": len(rows),
+                    "time_ms": round(
+                        (time.perf_counter() - t_index0) * 1e3, 3)}]
+    rows = _run_steps(index, req, rows, timings=timings)
+    if profile is not None:
+        profile["result_processors"] = timings
+    return AggregateResult(total=total, rows=rows)
+
+
+def _source_results(index, cq) -> list:
+    """Each segment's (segment, SegmentResult, lanes kept) for the host
+    rows of a query: a KNN source's `knn.k` nearest (mode "topk"; lanes
+    past the live distances dropped), else the window program's valid
+    slots (mode "window").  The results are host arrays."""
+    out = []
+    for seg in index.segments:
+        if cq.knn is not None:
+            res = execute(cq, seg, cq.knn.k, mode="topk")
+            out.append((seg, res, res.knn_dists < 3.3e38))
+        else:
+            res = execute(cq, seg, 1, mode="window")
+            out.append((seg, res, res.valid))
+    return out
+
+
+def _row_chunks(index, seg_results):
+    """Host rows of the kept lanes, segment by segment in lane (window)
+    order, at most `_STREAM_CHUNK` a chunk; deleted docs are skipped."""
+    for seg, res, keep in seg_results:
+        sel = res.local_idx[keep]
+        scores = res.scores[keep]
+        gids = seg.gids_host
+        for start in range(0, len(sel), _STREAM_CHUNK):
+            rows = []
+            for j in range(start, min(start + _STREAM_CHUNK, len(sel))):
+                gid = int(gids[int(sel[j])])
+                meta = index.doctable.get(gid)
+                if meta is None or meta.deleted:
+                    continue
+                rows.append({"__key": meta.key, "__score": float(scores[j]),
+                             "__gid": gid, "__meta": meta})
+            if rows:
+                yield rows
 
 
 def run_aggregate_many(index, reqs: list, async_: bool = False):
     """Execute a batch of aggregations: requests with the same plan
     shape and the same per-segment transport-row structure run as one
     group (per segment: the kernel-raw branch, or the window branch), and
-    every group's outputs are collected together.  With async_=True
-    returns an _AggBatchHandle at once; .result() collects.  A KNN
-    request runs `_run_knn` when the batch is collected.  A request the
-    device paths do not serve raises NotImplementedError before anything
-    launches."""
+    every group's outputs are collected together.  A request without a
+    device plan (a KNN source, or steps the device GROUPBY does not
+    serve), or in a group `_device_group_submit_batch` turns down, runs
+    `run_aggregate` when the batch is collected, after every group has
+    launched, in its own place in the output.  With async_=True returns
+    a Deferred at once; .result() collects."""
     index.commit()
     prepared = []
     groups: dict = {}
-    knn_reqs: list = []
     for req in reqs:
         cq = index.prepare(req.query, req.params, _options(req), req.dialect)
-        if cq.knn is not None:
-            knn_reqs.append((len(prepared), req, cq))
-            prepared.append((req, cq, None))
-            continue
         plan = _plan_device_group_cached(index, req, cq)
-        if plan is None:
-            raise _not_ported(
-                "this aggregation's steps (LOAD, non-algebraic reducers, "
-                "or group keys the device path cannot encode) need the "
-                "host pipeline", "A9")
         prepared.append((req, cq, plan))
+        if plan is None:
+            continue
         # batchable = equal plan (the memoized plan object pins step
         # shape, reducers and the tail) AND equal per-segment row
         # structure (group signature + layout fingerprint)
@@ -275,13 +314,15 @@ def run_aggregate_many(index, reqs: list, async_: bool = False):
         groups.setdefault((id(plan), tuple(segsig)), []).append(
             len(prepared) - 1)
 
-    submitted = [_device_group_submit_batch(index, [prepared[i]
-                                                    for i in idxs])
-                 for idxs in groups.values()]
+    submitted = []
+    for idxs in groups.values():
+        sub = _device_group_submit_batch(index, [prepared[i] for i in idxs])
+        if sub is not None:
+            submitted.append((idxs, sub))
 
     def fin():
         out: list = [None] * len(prepared)
-        for idxs, (handles, seg_outs) in zip(groups.values(), submitted):
+        for idxs, (handles, seg_outs) in submitted:
             host = [{kk: vv.cpu().numpy() for kk, vv in so.items()}
                     for so in seg_outs]
             for j, (i, h) in enumerate(zip(idxs, handles)):
@@ -294,75 +335,77 @@ def run_aggregate_many(index, reqs: list, async_: bool = False):
                         else _device_group_finish)
                 out[i] = fin_(index, (group, tail, op_list, mm, rspec,
                                       parts))
-        for i, req, cq in knn_reqs:
-            out[i] = _run_knn(index, req, cq)
+        for i, (req, _cq, _plan) in enumerate(prepared):
+            if out[i] is None:
+                out[i] = run_aggregate(index, req)
         return out
 
-    return _AggBatchHandle(fin) if async_ else fin()
+    return Deferred(fin) if async_ else fin()
 
 
-def _run_knn(index, req: AggregateRequest, cq) -> AggregateResult:
-    """FT.AGGREGATE over a KNN query (the JAX `run_aggregate`'s KNN
-    source): each segment's `knn.k` nearest docs through `execute` (mode
-    "topk"; lanes past the live distances dropped) become host rows, and
-    the steps run on them (`_run_steps`)."""
-    _count_path("knn")
-    rows: list[dict] = []
-    total = 0
-    for seg in index.segments:
-        res = execute(cq, seg, cq.knn.k, mode="topk")
-        keep = res.knn_dists < 3.3e38
-        sel = res.local_idx[keep]
-        scores = res.scores[keep]
-        total += res.count
-        gids = seg.gids_host
-        for j, li in enumerate(sel):
-            gid = int(gids[li])
-            meta = index.doctable.get(gid)
-            if meta is None or meta.deleted:
-                continue
-            rows.append({"__key": meta.key, "__score": float(scores[j]),
-                         "__gid": gid, "__meta": meta})
-    return AggregateResult(total=total, rows=_run_steps(index, req, rows))
+def _run_steps(index, req: AggregateRequest, rows: list[dict],
+               timings: Optional[list] = None) -> list[dict]:
+    """The steps of a request over host rows, each stage of
+    `_step_stages` drained before the next.  With `timings`, each step
+    appends its name, time and output rows."""
+    for name, stage in _step_stages(index, req):
+        t_step = time.perf_counter()
+        rows = [r for chunk in stage(iter([rows])) for r in chunk]
+        if timings is not None:
+            timings.append({
+                "name": name,
+                "time_ms": round((time.perf_counter() - t_step) * 1e3, 3),
+                "rows": len(rows)})
+    _scrub(rows, req)
+    return rows
 
 
-def _run_steps(index, req: AggregateRequest, rows: list[dict]) -> list:
-    """The steps of a request over host rows (the JAX package's
-    `_run_steps`, without its profile timings): fields a step reads load
-    from the stored docs unless an earlier APPLY/GROUPBY produced them.
-    Only KNN sources reach it here; the host pipeline for every other
-    source is ROADMAP A9."""
+def _step_stages(index, req: AggregateRequest) -> list:
+    """Each step of a request as (name, chunk-generator transform).
+    Fields a step reads load from the stored docs unless an earlier
+    APPLY/GROUPBY produced them (the reference resolves via RLookup:
+    sorting vector, loaded doc, or computed key)."""
+    stages = []
     produced: set[str] = set()
     for step in req.steps:
         needed = _step_props(step) - produced
-        if needed:
-            _materialize(index, rows, needed)
         if isinstance(step, LoadStep):
-            _materialize(index, rows, step.fields)
+            stage = functools.partial(_gen_materialize, index,
+                                      fields=step.fields)
             if step.fields:
                 produced |= set(step.fields)
         elif isinstance(step, ApplyStep):
-            for row in rows:
-                row[step.alias] = E.evaluate(step.parsed, row)
+            stage = functools.partial(_gen_apply, step=step)
             produced.add(step.alias)
         elif isinstance(step, FilterStep):
-            rows = [r for r in rows if E._truthy(E.evaluate(step.parsed, r))]
+            stage = functools.partial(_gen_filter, step=step)
         elif isinstance(step, GroupStep):
-            rows = _group(rows, step)
+            stage = functools.partial(_gen_group, step=step)
             produced = set(step.by)
             for name, args, alias in step.reducers:
                 produced.add(alias or make_reducer(name, args)
                              .default_alias())
         elif isinstance(step, SortStep):
-            rows = _sort(rows, step)
+            stage = functools.partial(_gen_sort, step=step)
         elif isinstance(step, LimitStep):
-            rows = rows[step.offset:step.offset + step.num]
-    for row in rows:                      # scrub internals
+            stage = functools.partial(_gen_limit, step=step)
+        else:
+            stage = iter
+        if needed:
+            stage = (lambda chunks, st=stage, f=needed:
+                     st(_gen_materialize(index, chunks, f)))
+        stages.append((type(step).__name__.replace("Step", "").upper(),
+                       stage))
+    return stages
+
+
+def _scrub(rows: list[dict], req: AggregateRequest) -> None:
+    """Drop the internal keys of output rows."""
+    for row in rows:
         row.pop("__meta", None)
         row.pop("__gid", None)
         if not req.add_scores:
             row.pop("__score", None)
-    return rows
 
 
 def _step_props(step) -> set[str]:
@@ -381,7 +424,8 @@ def _step_props(step) -> set[str]:
     return set()
 
 
-def _materialize(index, rows: list[dict], fields) -> None:
+def _materialize(index, rows: list[dict],
+                 fields: Optional[Sequence[str]]) -> None:
     """Pull stored field values into rows (reference: RP_LOADER)."""
     for row in rows:
         meta = row.get("__meta")
@@ -409,27 +453,6 @@ def _coerce(index, field: str, value):
         except (TypeError, ValueError):
             return E.NULL
     return value
-
-
-def _group(rows: list[dict], step: GroupStep) -> list[dict]:
-    """Reference: Grouper (src/aggregate/group_by.c:63-158)."""
-    groups: dict[tuple, tuple] = {}
-    for row in rows:
-        key = tuple(tuple(v) if isinstance(v, list) else v
-                    for v in (row.get(b, E.NULL) for b in step.by))
-        ent = groups.get(key)
-        if ent is None:
-            ent = ({b: row.get(b, E.NULL) for b in step.by},
-                   [make_reducer(n, a) for n, a, _ in step.reducers])
-            groups[key] = ent
-        for red in ent[1]:
-            red.add(row)
-    out = []
-    for grow, reds in groups.values():
-        for (_name, _args, alias), red in zip(step.reducers, reds):
-            grow[alias or red.default_alias()] = red.finalize()
-        out.append(grow)
-    return out
 
 
 def _sort(rows: list[dict], step: SortStep) -> list[dict]:
@@ -1128,7 +1151,8 @@ def _device_group_submit_batch(index, items):
     staged windows fit `_MAX_BATCH_STAGE`, else the single-query kernels
     per query), and the device tail when the plan has one.  Returns (one
     handle per query, per-segment output dicts of [B, ...] device
-    tensors)."""
+    tensors), or None when a segment cannot encode the group keys or
+    has more than `_MAX_DEVICE_GROUPS` groups."""
     _req0, cq0, plan0 = items[0]
     (group0, tail0, operands, want_minmax, compiled_pre, in_fields,
      pre_sig, key_aliases) = plan0
@@ -1146,10 +1170,7 @@ def _device_group_submit_batch(index, items):
         ga = _seg_group_args(index, seg, cq0, group0, in_fields,
                              compiled_pre, pre_sig, key_aliases)
         if ga is None:
-            raise _not_ported(
-                "group keys the device path cannot encode, or more than "
-                f"{_MAX_DEVICE_GROUPS} groups, need the host pipeline",
-                "A9")
+            return None
         key_infos, sizes, G, seg_args = ga
         rows = np.stack([cq.bind_row(seg)[0] for _r, cq, _p in items])
         ent = cq0.bind_row(seg)[1]
@@ -1423,3 +1444,130 @@ def _device_group_finish(index, h) -> "AggregateResult":
             row[alias] = E.NULL if nu[i] else float(va[i])
         rows.append(row)
     return AggregateResult(total=total, rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# Streaming execution (WITHCURSOR): the input side yields row-dict chunks
+# lazily and APPLY/FILTER/GROUP consume them incrementally — the analog of
+# the reference coordinator's RPNet pulling shard cursor chunks into the
+# local pipeline (src/coord/rpnet.c:268-420).  SORT (and group
+# finalization) are the only barriers.
+# ---------------------------------------------------------------------------
+
+
+def run_aggregate_streaming(index, req: AggregateRequest):
+    """Returns (chunk_iterator, total) for cursor-driven plans.
+
+    Device-eligible GROUPBYs and KNN plans produce small outputs and run
+    materialized; everything else streams: the window program runs per
+    segment up front (the total comes from its counts, and its outputs
+    are host arrays), but row-dict construction and the host steps pull
+    chunk by chunk — a LIMIT that fills early never touches the remaining
+    rows."""
+    index.commit()
+    cq = index.prepare(req.query, req.params, _options(req), req.dialect)
+
+    fast = _try_device_group(index, req, cq)
+    if fast is not None:
+        return iter([fast.rows]), fast.total
+    if cq.knn is not None:
+        res = run_aggregate(index, req)
+        return iter([res.rows]), res.total
+
+    seg_results = _source_results(index, cq)
+    total = sum(int(res.count) for _seg, res, _keep in seg_results)
+    return _steps_streaming(index, req, _row_chunks(index, seg_results)), \
+        total
+
+
+def _steps_streaming(index, req: AggregateRequest, chunks):
+    """Compose the step chain as chunk generators (`_step_stages`)."""
+    for _name, stage in _step_stages(index, req):
+        chunks = stage(chunks)
+    return _gen_scrub(chunks, req)
+
+
+def _gen_materialize(index, chunks, fields):
+    for rows in chunks:
+        _materialize(index, rows, fields)
+        yield rows
+
+
+def _gen_apply(chunks, step):
+    for rows in chunks:
+        for row in rows:
+            row[step.alias] = E.evaluate(step.parsed, row)
+        yield rows
+
+
+def _gen_filter(chunks, step):
+    for rows in chunks:
+        out = [r for r in rows
+               if E._truthy(E.evaluate(step.parsed, r))]
+        if out:
+            yield out
+
+
+def _gen_group(chunks, step):
+    """Incremental grouping in first-seen order: accumulators update per
+    chunk; finalized group rows stream out once the input drains (the
+    reference Grouper, group_by.c:63-158, also yields groups only at
+    upstream EOF)."""
+    groups: dict[tuple, tuple] = {}
+    for rows in chunks:
+        for row in rows:
+            key = tuple(tuple(v) if isinstance(v, list) else v
+                        for v in (row.get(b, E.NULL) for b in step.by))
+            ent = groups.get(key)
+            if ent is None:
+                ent = ({b: row.get(b, E.NULL) for b in step.by},
+                       [make_reducer(n, a) for n, a, _ in step.reducers])
+                groups[key] = ent
+            for red in ent[1]:
+                red.add(row)
+    out = []
+    for grow, reds in groups.values():
+        for (_name, _args, alias), red in zip(step.reducers, reds):
+            grow[alias or red.default_alias()] = red.finalize()
+        out.append(grow)
+        if len(out) >= _STREAM_CHUNK:
+            yield out
+            out = []
+    if out:
+        yield out
+
+
+def _gen_sort(chunks, step):
+    rows: list[dict] = []
+    for c in chunks:
+        rows.extend(c)
+    rows = _sort(rows, step)
+    for start in range(0, len(rows), _STREAM_CHUNK):
+        yield rows[start:start + _STREAM_CHUNK]
+
+
+def _gen_limit(chunks, step):
+    """Early-terminating LIMIT: once offset+num rows have streamed out,
+    the upstream generators are never pulled again."""
+    skip = step.offset
+    want = step.num
+    for rows in chunks:
+        if want <= 0:
+            return
+        if skip >= len(rows):
+            skip -= len(rows)
+            continue
+        rows = rows[skip:]
+        skip = 0
+        if len(rows) > want:
+            rows = rows[:want]
+        want -= len(rows)
+        yield rows
+        if want <= 0:
+            return
+
+
+def _gen_scrub(chunks, req):
+    for rows in chunks:
+        _scrub(rows, req)
+        yield rows

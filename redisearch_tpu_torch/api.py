@@ -5,9 +5,10 @@ Counterpart of `redisearch_tpu/api.py` for the port's paths: FT.CREATE
 every index whose rule matches), FT.SEARCH (`ft_search`, and batched
 `ft_search_many`; KNN and VECTOR_RANGE queries take their vectors as
 PARAMS blobs: `params={"b": vec}`, one dict a query in the batched
-call) and FT.AGGREGATE (`ft_aggregate`, and batched `ft_aggregate_many`).
-FT.HYBRID (`ft_hybrid`) raises "not ported yet (ROADMAP A10)"; the other
-FT.* commands are not ported yet.
+call), FT.AGGREGATE (`ft_aggregate`, with WITHCURSOR streaming its rows
+through `ft_cursor_read` / `ft_cursor_del`, and batched
+`ft_aggregate_many`) and FT.HYBRID (`ft_hybrid`).  The other FT.*
+commands are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +18,10 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from .agg.cursor import CursorList
+from .agg.pipeline import (AggregateRequest, AggregateResult,
+                           run_aggregate_streaming)
+from .aux.hybrid import HybridQuery, run_hybrid
 from .schema import Field, Schema
 from .utils import log as _log
 from .utils.errors import IndexExists, IndexNotFound, RSError
@@ -34,6 +39,7 @@ class Client:
         self._indexes: dict[str, SearchIndex] = {}
         self._aliases: dict[str, str] = {}
         self._keyspace: dict[str, dict] = {}
+        self.cursors = CursorList()
 
     # -- index lifecycle -----------------------------------------------------
     def ft_create(self, name: str, fields: Sequence[Field],
@@ -169,19 +175,36 @@ class Client:
                     del hit.fields[f]
         return res
 
-    def ft_hybrid(self, name: str, hq, tail=None):
-        """FT.HYBRID (text and vector branches fused by RRF or LINEAR):
-        not ported yet."""
-        raise NotImplementedError(
-            "FT.HYBRID is not ported yet (ROADMAP A10)")
+    def ft_hybrid(self, name: str, hq: HybridQuery,
+                  tail: Optional[AggregateRequest] = None) -> list[dict]:
+        """FT.HYBRID: the text and vector branches fused by RRF or LINEAR,
+        then the optional tail pipeline (aux.hybrid.run_hybrid)."""
+        return run_hybrid(self._index(name), hq, tail)
 
-    def ft_aggregate(self, name: str, req):
-        """FT.AGGREGATE of one request (agg.pipeline.run_aggregate).
-        Cursors (WITHCURSOR) are not ported yet."""
+    def ft_aggregate(self, name: str, req: AggregateRequest
+                     ) -> AggregateResult:
+        """FT.AGGREGATE of one request (agg.pipeline.run_aggregate).  With
+        WITHCURSOR the rows stream (reference: RPNet shard-cursor pulls):
+        they materialize lazily as FT.CURSOR READ drains them, and the
+        result holds the first read and the cursor id (0 when done)."""
+        ix = self._index(name)
         if req.with_cursor:
-            raise NotImplementedError(
-                "FT.AGGREGATE WITHCURSOR is not ported yet (ROADMAP A9)")
-        return self._index(name).aggregate(req)
+            chunks, total = run_aggregate_streaming(ix, req)
+            c = self.cursors.create(name, [],
+                                    count=req._cursor_count or 1000,
+                                    source=chunks)
+            chunk, cid = self.cursors.read(c.cid)
+            return AggregateResult(total=total, rows=chunk, cursor_id=cid)
+        return ix.aggregate(req)
+
+    def ft_cursor_read(self, name: str, cursor_id: int,
+                       count: Optional[int] = None):
+        """FT.CURSOR READ — returns (rows, cursor_id or 0)."""
+        return self.cursors.read(cursor_id, count)
+
+    def ft_cursor_del(self, name: str, cursor_id: int) -> bool:
+        """FT.CURSOR DEL — whether the cursor existed."""
+        return self.cursors.delete(cursor_id)
 
     # -- internals -------------------------------------------------------------
     def _resolve(self, name: str) -> str:

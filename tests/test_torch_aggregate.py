@@ -26,8 +26,17 @@ that the f32 rounding scales with.
 The compiled APPLY/FILTER closures (`agg/device_expr.py`) are compared
 operator by operator with the JAX closures on columns with NULLs, zeros
 and negatives (values within rtol 1e-6, presence equal; results below
-the smallest normal f32 may flush to zero on one side).  Requests that
-need the host pipeline raise "not ported yet".
+the smallest normal f32 may flush to zero on one side).
+
+Requests the device GROUPBY does not serve (LOAD, APPLY/FILTER chains
+over stored fields, every host reducer, an unsortable TAG key, more than
+65,536 composite groups) run the host pipeline over the window program's
+rows, single and batched (in their own place in a mixed batch), on one
+segment and two: against the JAX package's `run_aggregate` the totals,
+the row order and every stored-field value and host reducer output are
+equal (TOLIST, FIRST_VALUE and RANDOM_SAMPLE see rows in window order in
+both), and `__score` agrees within the window tolerance of
+tests/test_torch_execute.py (rtol 1e-5, atol 1e-7).
 """
 
 import numpy as np
@@ -412,7 +421,7 @@ def test_async_handle_and_kernel_counts(bench_idx):
     TIK.LAUNCHES = TGB.LAUNCHES = 0
     h = TP.run_aggregate_many(tix, [req_bench(TP, q) for q in qs],
                               async_=True)
-    assert isinstance(h, TP._AggBatchHandle)
+    assert isinstance(h, TP.Deferred)
     _assert_same(h.result(), sync, 0.0, qs)
     assert TIK.LAUNCHES == 0 and TGB.LAUNCHES == 0
 
@@ -442,38 +451,183 @@ def test_client_front_door(bench_idx):
 
 
 @pytest.mark.parametrize("mk,item", [
-    (lambda q: TP.AggregateRequest(q).group_by(
-        "@grp", ("MIN", ["@price"], "lo")), "served"),
-    (lambda q: TP.AggregateRequest(q).group_by(
-        "@grp", ("MAX", ["@price"], "hi"), ("COUNT", [], "n")), "served"),
-    (lambda q: TP.AggregateRequest("*").group_by(
-        "@grp", ("COUNT", [], "n")), "served"),
-    (lambda q: TP.AggregateRequest(q).load("@price").group_by(
-        "@grp", ("COUNT", [], "n")), "A9"),
-    (lambda q: TP.AggregateRequest(q).group_by(
-        "@grp", ("TOLIST", ["@price"], "l")), "A9"),
-    (lambda q: TP.AggregateRequest(q).group_by(
-        "@cat", ("COUNT", [], "n")), "A9"),
+    (lambda P, q: P.AggregateRequest(q).group_by(
+        "@grp", ("MIN", ["@price"], "lo")), "device"),
+    (lambda P, q: P.AggregateRequest(q).group_by(
+        "@grp", ("MAX", ["@price"], "hi"), ("COUNT", [], "n")), "device"),
+    (lambda P, q: P.AggregateRequest("*").group_by(
+        "@grp", ("COUNT", [], "n")), "device"),
+    (lambda P, q: P.AggregateRequest(q).load("@price").group_by(
+        "@grp", ("COUNT", [], "n")), "host"),
+    (lambda P, q: P.AggregateRequest(q).group_by(
+        "@grp", ("TOLIST", ["@price"], "l")), "host"),
+    (lambda P, q: P.AggregateRequest(q).group_by(
+        "@cat", ("COUNT", [], "n")), "host"),
 ], ids=["min", "max", "match-all", "load", "tolist", "unsortable-key"])
 def test_off_branch_requests_raise(bench_idx, mk, item):
-    """Requests off the kernel-raw branch: MIN/MAX and match-all run on
-    the window branch and equal the JAX package's device path (groups in
-    id order); what needs the host pipeline raises, naming the ROADMAP
-    item, and launches nothing for the rest of the batch."""
+    """Requests off the kernel-raw branch, batched behind a kernel-raw
+    request: MIN/MAX and match-all run on the window branch and equal the
+    JAX package's device path (groups in id order); LOAD, TOLIST and an
+    unsortable key run the host pipeline when the batch is collected and
+    equal the JAX host pipeline, in their own place in the output."""
     jix, tix, qt = bench_idx
     q = _bench_queries(qt, 1)[0]
-    if item != "served":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tix.aggregate_many([req_bench(TP, q), mk(q)])
-        return
-    treq = mk(q)
-    jreq = JP.AggregateRequest(treq.query)
-    jreq.steps = [JP.GroupStep(s.by, s.reducers) for s in treq.steps]
-    tres, stats = _port(tix, [req_bench(TP, q), treq])
-    assert stats == {"device-tail": 1, "device": 1}
-    _assert_same(tres[1:], JP.run_aggregate_many(jix, [jreq]), RTOL_HOST,
-                 [q])
+    tres, stats = _port(tix, [req_bench(TP, q), mk(TP, q)])
+    assert stats == {"device-tail": 1, item: 1}
     assert tres[1].total > 0
+    if item == "device":
+        _assert_same(tres[1:], JP.run_aggregate_many(jix, [mk(JP, q)]),
+                     RTOL_HOST, [q])
+    else:
+        _assert_host_same(tres[1:], [JP.run_aggregate(jix, mk(JP, q))])
+
+
+# ---------------------------------------------------------------------------
+# the host pipeline (a window source, steps on host rows)
+# ---------------------------------------------------------------------------
+
+SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-7
+
+
+def _assert_host_same(tres, jres):
+    """Totals, row order, keys and every value equal; `__score` within
+    the window program's tolerance."""
+    assert len(tres) == len(jres)
+    for t, j in zip(tres, jres):
+        assert t.total == j.total
+        assert len(t.rows) == len(j.rows)
+        for rt_, rj in zip(t.rows, j.rows):
+            assert list(rt_) == list(rj)
+            for key, vj in rj.items():
+                if key == "__score":
+                    assert abs(rt_[key] - vj) <= (SCORE_ATOL
+                                                  + SCORE_RTOL * abs(vj))
+                else:
+                    assert rt_[key] == vj, (key, rt_[key], vj)
+
+
+def req_load(P, q):
+    return (P.AggregateRequest(q).load("@price", "@cat", "@title")
+            .sort_by(("@price", P.DESC), ("@cat", P.ASC)).limit(3, 40))
+
+
+def req_apply_chain(P, q):
+    """APPLY/FILTER over stored TAG and NUMERIC fields, string functions
+    and a second APPLY over the first, then a host sort."""
+    return (P.AggregateRequest(q, add_scores=True)
+            .apply("upper(@cat)", "ucat")
+            .apply("@price / 100 + strlen(@ucat)", "pp")
+            .filter("@pp > 20 && !startswith(@ucat, 'CAT01')")
+            .apply("floor(@pp) % 5", "b")
+            .sort_by(("@b", P.ASC), ("@price", P.DESC)).limit(0, 50))
+
+
+def req_all_reducers(P, q):
+    """Every host reducer of agg/reducers.py but the coordinator ones."""
+    return (P.AggregateRequest(q)
+            .group_by("@grp", ("COUNT", [], "n"), ("SUM", ["@price"], "s"),
+                      ("SUMSQ", ["@price"], "sq"), ("MIN", ["@price"], "lo"),
+                      ("MAX", ["@price"], "hi"), ("AVG", ["@price"], "a"),
+                      ("STDDEV", ["@price"], "sd"),
+                      ("COUNT_DISTINCT", ["@cat"], "dc"),
+                      ("COUNT_DISTINCTISH", ["@cat"], "dci"),
+                      ("TOLIST", ["@cat"], "cats"),
+                      ("COLLECT", ["@price"], "ps"),
+                      ("FIRST_VALUE", ["@price"], "f0"),
+                      ("FIRST_VALUE", ["@cat", "BY", "@price", "DESC"],
+                       "fb"),
+                      ("RANDOM_SAMPLE", ["@price", "2"], "rs"),
+                      ("QUANTILE", ["@price", "0.5"], "med"))
+            .sort_by(("@n", P.DESC), ("@grp", P.ASC)))
+
+
+def req_hll(P, q):
+    """HLL per category, then HLL_SUM over every category (one group:
+    the second key is missing in every row)."""
+    return (P.AggregateRequest(q)
+            .group_by("@cat", ("HLL", ["@grp"], "h"))
+            .group_by("@none", ("HLL_SUM", ["@h"], "hs")))
+
+
+def req_wide_key(P, q):
+    """(@grp, @price): 1,001 x (distinct prices + 1) composite groups,
+    more than the device's 65,536."""
+    return (P.AggregateRequest(q)
+            .group_by(["@grp", "@price"], ("COUNT", [], "n"),
+                      ("TOLIST", ["@title"], "t"))
+            .sort_by(("@grp", P.ASC), ("@price", P.DESC)).limit(0, 30))
+
+
+def req_unsortable(P, q):
+    return (P.AggregateRequest(q)
+            .group_by("@cat", ("COUNT", [], "n"), ("SUM", ["@price"], "s"),
+                      ("RANDOM_SAMPLE", ["@grp", "3"], "g3"))
+            .sort_by(("@s", P.DESC)))
+
+
+HOST_REQS = [req_load, req_apply_chain, req_all_reducers, req_hll,
+             req_wide_key, req_unsortable]
+HOST_IDS = ["load", "apply-chain", "all-reducers", "hll", "wide-key",
+            "unsortable-key"]
+
+
+@pytest.mark.parametrize("mk", HOST_REQS, ids=HOST_IDS)
+def test_host_pipeline_matches_jax(bench_idx, mk):
+    """run_aggregate on the host pipeline against the JAX package's."""
+    jix, tix, qt = bench_idx
+    qs = _bench_queries(qt, 3)
+    TP.AGG_PATH_STATS.clear()
+    tres = [TP.run_aggregate(tix, mk(TP, q)) for q in qs]
+    assert TP.AGG_PATH_STATS == {"host": len(qs)}
+    _assert_host_same(tres, [JP.run_aggregate(jix, mk(JP, q)) for q in qs])
+    assert all(r.rows for r in tres)
+
+
+@pytest.mark.parametrize("mk", [req_all_reducers, req_wide_key],
+                         ids=["all-reducers", "wide-key"])
+def test_host_pipeline_two_segments_match_jax(bench_idx2, mk):
+    """Rows are built segment by segment, window slot by window slot, in
+    both packages: order-sensitive reducers agree across segments."""
+    jix, tix, qt = bench_idx2
+    qs = _bench_queries(qt, 2) + ["*"]
+    tres = tix.aggregate_many([mk(TP, q) for q in qs])
+    _assert_host_same(tres, [JP.run_aggregate(jix, mk(JP, q)) for q in qs])
+
+
+def test_mixed_batch_keeps_request_order(bench_idx):
+    """A batch mixing kernel-raw, window-branch and host requests returns
+    each result in its request's place, equal to the JAX package's."""
+    jix, tix, qt = bench_idx
+    qs = _bench_queries(qt, 4)
+    mks = [req_bench, req_load, req_minmax, req_all_reducers, req_bench,
+           req_unsortable, req_star, req_apply_chain]
+    tres, stats = _port(tix, [mk(TP, q) for mk, q in
+                              zip(mks, qs + qs)])
+    assert stats == {"device-tail": 4, "host": 4}
+    jres = JP.run_aggregate_many(jix, [mk(JP, q) for mk, q in
+                                       zip(mks, qs + qs)])
+    for i, mk in enumerate(mks):
+        if mk in (req_bench, req_minmax, req_star):
+            _assert_same(tres[i:i + 1], jres[i:i + 1], RTOL_KERNEL,
+                         [qs[i % 4]])
+        else:
+            _assert_host_same(tres[i:i + 1], jres[i:i + 1])
+
+
+def test_profile_timings(bench_idx):
+    """run_aggregate(profile=...) records RP_INDEX and one entry per
+    step on the host pipeline, one fused entry on the device path."""
+    _jix, tix, qt = bench_idx
+    q = _bench_queries(qt, 1)[0]
+    prof = {}
+    res = TP.run_aggregate(tix, req_all_reducers(TP, q), profile=prof)
+    names = [e["name"] for e in prof["result_processors"]]
+    assert names == ["RP_INDEX", "GROUP", "SORT"]
+    assert prof["result_processors"][-1]["rows"] == len(res.rows)
+    prof = {}
+    TP.run_aggregate(tix, req_minmax(TP, q), profile=prof)
+    assert [e["name"] for e in prof["result_processors"]] == [
+        "RP_INDEX+DeviceGroupBy(fused)"]
 
 
 # ---------------------------------------------------------------------------

@@ -303,10 +303,34 @@ def test_unported_vector_options_are_refused(vp, item):
 
 
 def test_hybrid_is_refused():
-    c = rt.Client(device="cpu")
-    c.ft_create("h", [rt.Field("t", rt.FieldType.TEXT)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        c.ft_hybrid("h", None)
+    """Client.ft_hybrid is served now: tests/test_client.py's
+    test_hybrid_rrf on both packages, RRF and LINEAR, equal rows."""
+    rng = np.random.default_rng(3)
+    vecs = rng.normal(size=(10, 4)).astype(np.float32)
+    out = []
+    for pkg, c in ((rs, rs.Client()), (rt, rt.Client(device="cpu"))):
+        c.ft_create("h", [pkg.Field("txt", pkg.FieldType.TEXT),
+                          pkg.Field("v", pkg.FieldType.VECTOR,
+                                    vector=pkg.VectorParams(
+                                        dim=4, metric=pkg.VectorMetric.L2))])
+        for i in range(10):
+            c.hset(f"d{i}", {"txt": f"common word{'s' if i % 2 else ''} "
+                                    f"{i}", "v": vecs[i]})
+        rows = c.ft_hybrid("h", pkg.HybridQuery(
+            search="common", vsim_field="v", vsim_vector=vecs[4],
+            combine="RRF", limit=5))
+        rows2 = c.ft_hybrid("h", pkg.HybridQuery(
+            search="common", vsim_field="v", vsim_vector=vecs[4],
+            combine="LINEAR", alpha=0.1, beta=0.9, limit=5))
+        assert rows[0]["__key"] == "d4" and rows2[0]["__key"] == "d4"
+        out.append((rows, rows2))
+    for j, t in zip(out[0], out[1]):
+        assert [r["__key"] for r in t] == [r["__key"] for r in j]
+        for rt_, rj in zip(t, j):
+            assert list(rt_) == list(rj)
+            for key, vj in rj.items():
+                if isinstance(vj, float):
+                    assert abs(rt_[key] - vj) <= ATOL + RTOL * abs(vj)
 
 
 def test_client_params_blobs(idx):

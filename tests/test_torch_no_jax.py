@@ -8,8 +8,10 @@ of exact and in-order slop phrases (the phrase op), an
 group-by op), a single-query `ft_search` and a single `ft_aggregate`
 with MIN/MAX (the general window program and the single-query
 group-by), a batch of KNN queries with PARAMS blobs (pure and
-TAG-filtered) and a single KNN `ft_search` with a bytes blob, then
-reports which modules it loaded.  The host modules the port needs are its own
+TAG-filtered), a single KNN `ft_search` with a bytes blob, an
+`ft_hybrid` (text and KNN branches fused by RRF) and an FT.AGGREGATE
+WITHCURSOR drained by `ft_cursor_read` (the host pipeline, streaming),
+then reports which modules it loaded.  The host modules the port needs are its own
 copies: no loaded module's file may lie under `redisearch_tpu/`.  Two
 environments: jax, jaxlib and ml_dtypes blocked on `sys.meta_path` (the
 card's machine may have none of them), and jax importable (the port must
@@ -80,6 +82,14 @@ knn = client.ft_search_many("idx", ["*=>[KNN 3 @v $b]",
 knn_paths = dict(engine.QUERY_PATH_STATS)
 knn1 = client.ft_search("idx", "(@p:[0 3])=>[KNN 2 @v $b]",
                         params={"b": vecs[13].tobytes()})
+hyb = client.ft_hybrid("idx", rt.HybridQuery(
+    search="beta", vsim_field="v", vsim_vector=vecs[7], window=5, limit=3))
+cur = client.ft_aggregate("idx", rt.AggregateRequest("@p:[12 12]")
+                          .load("@p").cursor(20))
+pages, cid = [cur.rows], cur.cursor_id
+while cid:
+    rows, cid = client.ft_cursor_read("idx", cid)
+    pages.append(rows)
 import os
 jax_pkg = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(rt.__file__))), "redisearch_tpu") + os.sep
@@ -94,6 +104,9 @@ print(json.dumps({
     "knn": [[h.key for h in r.hits] for r in knn] + [
         [h.key for h in knn1.hits]],
     "knn_paths": knn_paths,
+    "hybrid": [r["__key"] for r in hyb],
+    "cursor": [cur.total, [len(p) for p in pages],
+               sorted({r["p"] for p in pages for r in p})],
     "files": sorted(m for m, v in list(sys.modules.items())
                     if (getattr(v, "__file__", None) or "").startswith(
                         jax_pkg)),
@@ -134,6 +147,10 @@ def test_port_serves_without_jax(block):
     assert [len(r) for r in out["knn"]] == [3, 3, 2]
     # a mixed batch is not pure: both queries ride the dense executor
     assert out["knn_paths"] == {"knn-dense": 2}
+    # d7 is first in both branches (an odd doc matches "beta")
+    assert out["hybrid"][0] == "d7" and len(out["hybrid"]) == 3
+    n12 = len([i for i in range(600) if i % 13 == 12])
+    assert out["cursor"] == [n12, [20, 20, n12 - 40], [12.0]]
     total, rows = out["single"]
     assert total == 600
     assert rows == [{"g": f"g{j}",
