@@ -57,7 +57,7 @@ script exits non-zero:
    result for it (as the JAX package serves it); a few and2 counts are checked against numpy set
    intersections of the host-copied postings; single `ix.search()` (the
    general window program) must equal the batch for 64 queries of each
-   family.  Then 1024 exact and 1024
+   family.  Then 256 exact and 256
    slop-1 in-order phrases of 2-4 terms cut from the corpus's own token
    runs: each must ride the phrase kernel, match its source doc and
    agree with its plain recomputation, and 16 must equal the in-order
@@ -136,9 +136,10 @@ script exits non-zero:
    within 1e-5 of its float64 value, recall@25 must reach 0.99 against
    an exact float64 top-25 over the filter's docs computed on the card;
    64 single `ft_search` calls must equal the batch; a batch with TF32
-   switched on by the caller must give the same results and leave the
-   caller's setting as it was.  QPS (one `ft_search_many` batch, and
-   `execute_batch` pipelined at depth 2 over 3 batches), peak memory,
+   switched on by the caller (an eighth of one for the two families
+   that run the window program per query) must give the same results
+   and leave the caller's setting as it was.  QPS (one `ft_search_many`
+   batch, and `execute_batch` pipelined at depth 2 over 2 batches), peak memory,
    ingest seconds, one batch's device busy and idle share
    (torch.profiler; an eighth of a batch for the two families that run
    the window program per query) and the parts' times at the pure
@@ -158,9 +159,51 @@ script exits non-zero:
    one batch's prepare, bind, d2h, fusion and row times, a traced eighth
    of a batch's device busy and idle share, hybrid QPS (bench.py's loop
    at depth 2, 4 rounds, one pass) and the rounds QPS.
-8. the module check (no jax, no module file under `redisearch_tpu/`),
+8. ANN (no Pallas kernel lies on it: `ops/ivf.py` and `ops/lvq.py` are
+   torch ops), bench.py's bench_ann shape, not cut: 1M x 100 clustered
+   COSINE vectors, 256 queries x 4 reps (seed 7), k 10, nlist 1024.  At
+   the op level the exact FLAT scan and `ivf_probe_batch` at nprobe
+   8/32/128, each with recall@10 against an exact float64 top-10 on the
+   card (FLAT at least 0.999, IVF at nprobe 128 at least 0.95), QPS and
+   peak transient memory; the host tier built on the IVF's centroids
+   must return the IVF's ids at every nprobe.  Then one index with the
+   corpus in three fields (IVF on the card, the host tier in f32, LVQ8)
+   through `Client.ft_create` and `add_documents`: `ft_search_many` at
+   each nprobe (EF_RUNTIME) on each field, routed "window" (IVF) or
+   "knn-host" (the host tier), with recall@10 (IVF and the host tier at
+   least 0.95 at nprobe 128; LVQ8 at least 0.95 against its
+   reconstructions' own float64 top-10, its scans being exact against
+   them, and tests/test_lvq.py's recall-parity case, 0.97 of the f32
+   tier's ids, on the card), 8 single `ft_search` calls equal to the
+   batch, QPS, a traced
+   batch's idle share, and each part's device time beside its bound
+   (probe product, tile gather, scan product, distance + top-k; the host
+   tier's slab gather on the host clock and its copy to the card).
+9. GEO: 1M docs with one point each (uniform over a 50 km box), a TEXT
+   and a TAG field (seed 11), through `add_documents`; radius queries
+   of 1-20 km alone, AND a term and AND a TAG, batched at 1024 (each
+   routed "window") and 64 single calls each equal to the batch; every
+   query is held against a float64 haversine on the card over the f32
+   radians the index holds (totals equal but for docs within 1e-6
+   relative of the radius, hits inside the radius and passing the
+   filter, the lowest matching docs where every match scores alike).
+10. cold: the main path's 1M-doc corpus as a `storage="host"` index
+   (its CSR arrays on the host); bench.py's eight families, 256 queries
+   each, through `ft_search_many` (routed "cold"), each equal to the
+   hot index's result for the same query (`same_hits`); the device
+   memory the cold index adds must not exceed its dense columns.  QPS,
+   the host's bind + slab paging time a query, and a traced batch's
+   idle share are printed.
+11. the module check (no jax, no module file under `redisearch_tpu/`),
    then the last three lines: nvidia-smi's name and power limit, the
    kernels' JSON record, then {"ok": true, "device": {...}}.
+
+Phase 6 also runs `APPLY "1+2" AS k GROUPBY @k REDUCE COUNT 0` (a key
+column from constants only) through `ft_aggregate_many` and
+`ft_aggregate`: device path, key column on the card, one group of every
+document.  To run phases 8-10 alone: import `chip_smoke`, then
+`phase_ann(dev)`, `phase_geo(dev)`, and `main = phase_main_path(dev,
+N_DOCS, BATCH)` before `phase_cold(dev, main)`.
 """
 
 from __future__ import annotations
@@ -179,6 +222,7 @@ from redisearch_tpu_torch.agg import pipeline as AP
 from redisearch_tpu_torch.ops import _build
 from redisearch_tpu_torch.ops import groupby as GB
 from redisearch_tpu_torch.ops import intersect as IK
+from redisearch_tpu_torch.ops import lvq as TL
 from redisearch_tpu_torch.ops import text as T
 from redisearch_tpu_torch.ops import vector as V
 from redisearch_tpu_torch.query import engine as E
@@ -1182,7 +1226,6 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
     ix.add_documents(docs)
     torch.cuda.synchronize(dev)
     ingest_s = time.perf_counter() - t0
-    del docs
     seg = ix.segments[0]
     log(f"phase main-path: ingest {n_docs} docs in {ingest_s:.1f}s "
         f"({n_docs / ingest_s:.0f} docs/s), segment nnz={seg.text.nnz} "
@@ -1276,9 +1319,10 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
         f"{torch.cuda.max_memory_allocated(dev)}")
     times = phase_kernel_times(ix, seg, batches, dev)
     phase_profile(client, ix, seg, batches, dev)
+    # the corpus stays for phase 10 (the same documents, cold)
     return dict(launches=launches - w_launches, w_launches=w_launches,
                 p_launches=p_launches, err=err, times=times, client=client,
-                ix=ix)
+                ix=ix, docs=docs, qt=qt)
 
 
 def check_wide_against_window(ix, seg, batches, routes, results):
@@ -1389,7 +1433,7 @@ def model_phrase_docs(toks, words, slop) -> set:
         [pos_of[toks[r] == t].tolist() for t in ids], slop)}
 
 
-def phase_phrase_runs(ix, seg, toks, n_each: int = 1024) -> float:
+def phase_phrase_runs(ix, seg, toks, n_each: int = 256) -> float:
     """Check-only phrases that do match: 2-4-term exact phrases and
     slop-1 in-order phrases cut from the corpus's own body token runs
     (the slop-1 ones skip one token), drawn until n_each of each kind
@@ -2002,10 +2046,40 @@ def phase_aggregate(client, ix, dev) -> dict:
                 f"(device ms, plain/kernel/plain/kernel), bytes bound "
                 f"{b:.4f} ms, library call "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    check_constant_apply(client, ix, dev)
     phase_agg_profile(ix, batches[0], dev)
     return dict(raw_launches=raw_launches, gb_launches=gb_launches,
                 err_raw=err_raw, err_gb=err_gb, raw_ms=t["intersect_raw"],
                 gb_ms=t["groupby"])
+
+
+def check_constant_apply(client, ix, dev):
+    """A GROUPBY keyed on an APPLY of constants only (`APPLY "1+2" AS k
+    GROUPBY @k REDUCE COUNT 0`, whose compiled expression reads no
+    column) through `ft_aggregate_many` and `ft_aggregate`: it must take
+    the device GROUPBY, its key column must lie on the card, and the one
+    group k = 3 must count every document."""
+    seg = ix.segments[0]
+    req = rt.AggregateRequest("*").apply("1+2", "k").group_by(
+        "@k", ("COUNT", [], "n"))
+    AP.AGG_PATH_STATS.clear()
+    many = client.ft_aggregate_many("bm25", [req, req])
+    one = client.ft_aggregate("bm25", req)
+    stats = dict(AP.AGG_PATH_STATS)
+    if set(stats) - {"device", "device-tail"} or sum(stats.values()) != 3:
+        raise AssertionError(f"constant APPLY key: paths {stats}")
+    keys = [ent[3] for ent in seg._gbcols_cache.values()]
+    if not keys or any(k.device.type != "cuda" for k in keys):
+        raise AssertionError("constant APPLY key: a key column off the "
+                             f"card: {[k.device for k in keys]}")
+    for r in many + [one]:
+        if (len(r.rows) != 1 or float(r.rows[0]["k"]) != 3.0
+                or int(float(r.rows[0]["n"])) != seg.n_docs):
+            raise AssertionError(f"constant APPLY key: rows {r.rows}")
+    log(f"phase aggregate: APPLY \"1+2\" AS k GROUPBY @k REDUCE COUNT 0: "
+        f"paths {stats}, key columns on {sorted({str(k.device) for k in keys})}, "
+        f"one group k=3 of {seg.n_docs} docs in the batch and the single "
+        "call")
 
 
 def batch_library_call(gslots, vals, n_groups, want_sumsq=True):
@@ -2574,7 +2648,7 @@ KNN_CHUNKS = 4
 FKNN_N, FKNN_D, FKNN_B, FKNN_K = 500_000, 384, 2048, 25
 #: batches of the pipelined QPS loop (the hoisted and knn-row families
 #: take about 5 s a batch on the host)
-FKNN_PIPE = 3
+FKNN_PIPE = 2
 FKNN_WORDS = ["algebra", "graph", "neural", "quantum", "protein", "market",
               "vision", "speech", "logic", "random"]
 #: H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside them
@@ -2856,9 +2930,12 @@ def phase_fknn(dev) -> dict:
                                    num=FKNN_K)
             same_knn_hits(res[i], one, f"fknn {fam} single {i}")
         single_s = time.perf_counter() - ts
+        # the per-query executors check an eighth of the batch
+        nt = FKNN_B // 8 if route in ("knn-batches", "knn-row") else FKNN_B
         prev = torch.get_float32_matmul_precision()
         torch.backends.cuda.matmul.allow_tf32 = True    # the caller's
-        tf = client.ft_search_many("arxivb", qs, params=params, k=FKNN_K)
+        tf = client.ft_search_many("arxivb", qs[:nt], params=params[:nt],
+                                   k=FKNN_K)
         kept = torch.get_float32_matmul_precision()
         torch.set_float32_matmul_precision(prev)
         if kept != "high":
@@ -2887,7 +2964,6 @@ def phase_fknn(dev) -> dict:
         piped = time.perf_counter() - ts
         # the per-query executors launch some 10^5 ops a batch, whose
         # trace takes minutes to read back: they trace an eighth of one
-        nt = FKNN_B // 8 if route in ("knn-batches", "knn-row") else FKNN_B
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             ts = time.perf_counter()
@@ -3111,6 +3187,666 @@ def phase_hybrid(dev, ctx) -> dict:
     return out
 
 
+
+# --------------------------------------------------------------- phase 8
+#: bench.py's ann section (bench_ann): 1M x 100 clustered COSINE, nlist
+#: 1024, 256 queries x 4 reps, k 10, nprobe 8 / 32 / 128
+ANN_N, ANN_D, ANN_NLIST, ANN_K = 1_000_000, 100, 1024, 10
+ANN_Q, ANN_REPS = 256, 4
+ANN_NPROBES = (8, 32, 128)
+#: PCIe Gen5 x16 (the H100 SXM's host link), bytes a second each way
+PCIE_BYTES_PER_S = 64e9
+
+
+def ann_corpus():
+    """bench.py's bench_ann corpus and queries (seed 7): 256 centers,
+    each vector a center plus 0.3 noise."""
+    rng = np.random.default_rng(7)
+    n, d, nq = ANN_N, ANN_D, ANN_Q * ANN_REPS
+    centers = rng.normal(size=(256, d)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 256, size=n)]
+            + 0.3 * rng.normal(size=(n, d))).astype(np.float32)
+    queries = (centers[rng.integers(0, 256, size=nq)]
+               + 0.3 * rng.normal(size=(nq, d))).astype(np.float32)
+    return vecs, queries.reshape(ANN_REPS, ANN_Q, d)
+
+
+def ann_truth(vecs_dev, q0):
+    """Exact float64 cosine top-k of the first rep's queries, on the
+    card."""
+    v64 = vecs_dev.double()
+    v64 = v64 / v64.norm(dim=1, keepdim=True).clamp(min=1e-30)
+    q = torch.from_numpy(q0).to(vecs_dev.device).double()
+    q = q / q.norm(dim=1, keepdim=True)
+    truth = torch.topk(q @ v64.t(), ANN_K, dim=1).indices.cpu().numpy()
+    del v64
+    return [set(t.tolist()) for t in truth]
+
+
+def recall_of(ids, truth) -> float:
+    ids = np.asarray(ids)
+    return float(np.mean([len(set(ids[i].tolist()) & truth[i]) / ANN_K
+                          for i in range(len(truth))]))
+
+
+def timed_qps(fn, reps) -> float:
+    """Queries a second of fn(rep) over reps (host clock ending in a
+    synchronize, after a warm call of rep 0)."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reps:
+        fn(r)
+    torch.cuda.synchronize()
+    return len(reps) * ANN_Q / (time.perf_counter() - t0)
+
+
+def ivf_parts(ivf, Q, nprobe, what) -> list:
+    """Device ms of each part of one `ivf_probe_batch` chunk at these
+    queries beside its bound: the probe product and top-nprobe, the tile
+    gather, the scan product and the distance + top-k tail."""
+    from redisearch_tpu_torch.ops import ivf as IVF
+    nprobe = min(nprobe, ivf.nlist)
+    C = IVF._chunk(Q.shape[0], nprobe, ivf.list_pad, ivf.dim)
+    Qc = Q[:C]
+    P, L, d = nprobe, ivf.list_pad, ivf.dim
+    lists = IVF._probe_lists(ivf.centroids, ivf.cent_sq, Qc, nprobe,
+                             ivf.metric)
+    qf = IVF._normalize(Qc.float(), ivf.metric)
+    tiles = ivf.bucket_vecs[lists]
+    dots = IVF._tile_dots(tiles, qf)
+    tsq, tids = ivf.bucket_sq[lists], ivf.bucket_ids[lists]
+    rows = C * P * L
+    parts = [
+        ("probe product + top-nprobe", lambda: IVF._probe_lists(
+            ivf.centroids, ivf.cent_sq, Qc, nprobe, ivf.metric),
+         bound2(nbytes(ivf.centroids, ivf.cent_sq, Qc) + 8 * C * P,
+                2.0 * C * ivf.nlist * d, F32_FLOPS)),
+        ("tile gather", lambda: ivf.bucket_vecs[lists],
+         bound2(2 * rows * d * 4 + nbytes(lists), 0, F32_FLOPS)),
+        ("scan product", lambda: IVF._tile_dots(tiles, qf),
+         bound2(rows * d * 4 + 4 * rows, 2.0 * rows * d, F32_FLOPS)),
+        ("distance + top-k", lambda: IVF._scan_tiles_batch(
+            dots, tsq, tids, qf, ANN_K, ivf.metric),
+         bound2(3 * 4 * rows + 8 * C * ANN_K, 4.0 * rows, F32_FLOPS))]
+    out = []
+    for name, fn, (b, by) in parts:
+        out.append({"part": name, "ms": time_ms(fn, iters=5), "bound_ms": b,
+                    "bound_by": by, "calls": -(-Q.shape[0] // C),
+                    "chunk": C})
+    del tiles, dots
+    for p in out:
+        log(f"phase ann: {what} nprobe {nprobe} part {p['part']}: "
+            f"{p['ms']:.4f} ms against {p['bound_ms']:.4f} ms "
+            f"({p['bound_by']}), chunk {C}, {p['calls']} calls a batch")
+    return out
+
+
+def host_parts(hivf, Q, nprobe, what) -> list:
+    """One host-tier batch in its parts: the probe (device), the slab
+    gather into pinned memory (host clock), the copy to the card and the
+    scan (device), each beside its bound (the copy's: bytes over the
+    PCIe link)."""
+    from redisearch_tpu_torch.ops import ivf as IVF
+    from redisearch_tpu_torch.ops import lvq as LVQ
+    B = Q.shape[0]
+    nprobe = min(nprobe, hivf.nlist)
+    lists = IVF._probe_lists(hivf.centroids, hivf.cent_sq, Q, nprobe,
+                             hivf.metric).cpu().numpy()
+    uniq, inv = np.unique(lists, return_inverse=True)
+    hivf.gather(uniq)
+    t0 = time.perf_counter()
+    slabs = hivf.gather(uniq)
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    slab_bytes = sum(t.numel() * t.element_size() for t in slabs.values())
+    dev_slab = hivf.upload(slabs)
+    rowmap = torch.as_tensor(inv.reshape(B, nprobe), device=Q.device)
+    if hivf.compression:
+        def scan():
+            return LVQ.scan_slab_lvq(
+                dev_slab["v"], dev_slab["off"], dev_slab["scl"],
+                dev_slab["sq"], dev_slab["ids"], rowmap, Q, ANN_K,
+                hivf.metric, None, None, None, False, False)
+    else:
+        def scan():
+            return IVF._scan_slab(dev_slab["v"], dev_slab["sq"],
+                                  dev_slab["ids"], rowmap, Q, ANN_K,
+                                  hivf.metric, None, None, None, False,
+                                  False)
+    esz = dev_slab["v"].element_size()
+    rows = B * nprobe * hivf.list_pad
+    out = [
+        {"part": "probe product + top-nprobe", "ms": time_ms(
+            lambda: IVF._probe_lists(hivf.centroids, hivf.cent_sq, Q,
+                                     nprobe, hivf.metric), iters=5),
+         "bound": bound2(nbytes(hivf.centroids, Q) + 8 * B * nprobe,
+                         2.0 * B * hivf.nlist * hivf.dim, F32_FLOPS)},
+        {"part": "host slab gather (host clock)", "ms": gather_ms,
+         "bound": (None, "host memory (rate not known)")},
+        {"part": "copy to the card", "ms": time_ms(
+            lambda: hivf.upload(slabs), iters=3),
+         "bound": (slab_bytes / PCIE_BYTES_PER_S * 1e3, "bytes (PCIe)")},
+        {"part": "slab scan + top-k", "ms": time_ms(scan, iters=3),
+         "bound": bound2(rows * (hivf.dim * esz + 12) + 8 * B * ANN_K,
+                         2.0 * rows * hivf.dim, F32_FLOPS)}]
+    for p in out:
+        b, by = p.pop("bound")
+        p.update(bound_ms=b, bound_by=by, lists=len(uniq),
+                 slab_mib=slab_bytes / 2**20)
+        log(f"phase ann: {what} nprobe {nprobe} part {p['part']}: "
+            f"{p['ms']:.4f} ms against "
+            f"{'no bound' if b is None else f'{b:.4f} ms'} ({by}); "
+            f"{len(uniq)} lists, slab {slab_bytes / 2**20:.1f} MiB")
+    del dev_slab
+    return out
+
+
+def lvq_parity(dev):
+    """tests/test_lvq.py's recall-parity case on the card: an f32 and an
+    LVQ8 host tier over 4,000 x 32 normal vectors on the same centroids
+    (nlist 32), 16 queries at nprobe 8: the LVQ8 ids hold at least 0.97
+    of the f32 tier's, for each metric."""
+    from redisearch_tpu_torch.ops import ivf as IVF
+    rng = np.random.default_rng(2)
+    v = rng.normal(size=(4000, 32)).astype(np.float32)
+    Q = np.random.default_rng(3).normal(size=(16, 32)).astype(np.float32)
+    pres = np.ones(4000, bool)
+    out = {}
+    for metric in ("L2", "COSINE", "IP"):
+        base = IVF.HostIVF.build(v, pres, metric, nlist=32, device=dev)
+        comp = IVF.HostIVF.build_lvq(
+            *TL.lvq_encode(v), pres, metric,
+            centroids=base.centroids.cpu().numpy(), device=dev)
+        _, ib = IVF.host_ivf_knn(base, Q, 10, nprobe=8)
+        _, ic = IVF.host_ivf_knn(comp, Q, 10, nprobe=8)
+        out[metric] = float(np.mean([len(set(ib[i]) & set(ic[i])) / 10
+                                     for i in range(16)]))
+    log(f"phase ann: tests/test_lvq.py's recall parity on the card (LVQ8 "
+        f"ids against the f32 tier's, nprobe 8): {out}")
+    if min(out.values()) < 0.97:
+        raise AssertionError(f"ann: LVQ8 recall parity {out}")
+
+
+def ann_ops(dev, vecs, Qs, truth, ivf) -> dict:
+    """bench.py's ann sweep at the op level: the FLAT scan, then IVF at
+    each nprobe through `ivf_probe_batch` on `ivf` (the index's IVF
+    field), each with its recall@10 against float64 and its QPS; the host
+    tier on the IVF's own centroids must return the IVF's ids."""
+    from redisearch_tpu_torch.ops import ivf as IVF
+    vd = torch.from_numpy(vecs).to(dev)
+    sq = (vd.double() ** 2).sum(1).float()
+    present = torch.ones(ANN_N, dtype=torch.bool, device=dev)
+    Qd = torch.from_numpy(Qs).to(dev)
+
+    def flat(r):
+        return V.knn_scan_batches(vd, sq, present, Qd[r:r + 1], ANN_K,
+                                  "COSINE")
+
+    _, idx0 = flat(0)
+    points = [{"op": "flat", "recall": recall_of(idx0[0].cpu(), truth),
+               "qps": timed_qps(flat, range(1, ANN_REPS))}]
+    log(f"phase ann: the IVF field's IVFIndex: nlist {ivf.nlist}, list_pad "
+        f"{ivf.list_pad}, device {ivf.memory_bytes() / 2**30:.2f} GiB")
+    parts = {}
+    for nprobe in ANN_NPROBES:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _, ids = IVF.ivf_probe_batch(ivf, Qd[0], ANN_K, nprobe)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        qps = timed_qps(lambda r: IVF.ivf_probe_batch(ivf, Qd[r], ANN_K,
+                                                      nprobe),
+                        range(1, ANN_REPS))
+        points.append({"op": f"ivf{nprobe}",
+                       "recall": recall_of(ids.cpu(), truth), "qps": qps,
+                       "peak_gib": peak / 2**30})
+        parts[nprobe] = ivf_parts(ivf, Qd[0], nprobe, "ivf_probe_batch")
+    # the host tier on the IVF's centroids: the same lists, so the same
+    # ids (test_host_tier_pure_knn_matches_hbm_ivf's claim)
+    hivf = IVF.HostIVF.build(vecs, np.ones(ANN_N, bool), "COSINE",
+                             centroids=ivf.centroids.cpu().numpy(),
+                             device=dev)
+    for nprobe in ANN_NPROBES:
+        hd, hi = IVF.host_ivf_knn(hivf, Qs[0], ANN_K, nprobe)
+        dd, di = IVF.ivf_probe_batch(ivf, Qd[0], ANN_K, nprobe)
+        dd, di = dd.cpu().numpy(), di.cpu().numpy()
+        if not np.abs(hd - dd).max() <= 1e-5:
+            raise AssertionError(f"ann: host tier vs IVF distances at "
+                                 f"nprobe {nprobe}")
+        near = np.zeros(hd.shape, bool)
+        near[:, 1:] |= np.diff(dd, axis=1) <= 1e-5
+        near[:, :-1] |= np.diff(dd, axis=1) <= 1e-5
+        if ((hi != di) & ~near).any():
+            raise AssertionError(f"ann: host tier vs IVF ids at nprobe "
+                                 f"{nprobe}")
+    log("phase ann: host tier on the IVF's centroids == ivf_probe_batch "
+        "(ids lane for lane but for ties within 1e-5, distances within "
+        "1e-5) at nprobe " + "/".join(map(str, ANN_NPROBES)))
+    for p in points:
+        log(f"phase ann: op {p['op']}: recall@10 {p['recall']:.4f}, qps "
+            f"{p['qps']:.1f}" + (f", peak transient {p['peak_gib']:.2f} GiB"
+                                 if "peak_gib" in p else ""))
+    if points[0]["recall"] < 0.999:
+        raise AssertionError(f"ann: FLAT recall {points[0]['recall']}")
+    if points[-1]["recall"] < 0.95:
+        raise AssertionError(f"ann: IVF recall at nprobe 128 "
+                             f"{points[-1]['recall']}")
+    del vd, sq, hivf
+    torch.cuda.empty_cache()
+    return {"points": points, "parts": parts}
+
+
+def phase_ann(dev) -> dict:
+    """Phase 8 (see the docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    vecs, Qs = ann_corpus()
+    truth = ann_truth(torch.from_numpy(vecs).to(dev), Qs[0])
+    log(f"phase ann: corpus {ANN_N:,} x {ANN_D} and float64 truth in "
+        f"{time.perf_counter() - t0:.1f}s")
+    client = rt.Client(device=dev)
+    vp = dict(dim=ANN_D, metric="COSINE", nlist=ANN_NLIST)
+    t1 = time.perf_counter()
+    ix = client.ft_create("ann", [
+        rt.Field("iv", rt.FieldType.VECTOR, vector=rt.VectorParams(
+            algo="IVF", **vp)),
+        rt.Field("hv", rt.FieldType.VECTOR, vector=rt.VectorParams(
+            algo="IVF", storage="host", **vp)),
+        rt.Field("lv", rt.FieldType.VECTOR, vector=rt.VectorParams(
+            algo="IVF", storage="host", compression="LVQ8", **vp))])
+    before = torch.cuda.memory_allocated(dev)
+    ix.add_documents((f"v{i}", {"iv": vecs[i], "hv": vecs[i],
+                                "lv": vecs[i]}) for i in range(ANN_N))
+    torch.cuda.synchronize(dev)
+    seg = ix.segments[0]
+    cols = seg.vectors
+    log(f"phase ann: ft_create + add_documents (three fields, three IVF "
+        f"builds) {time.perf_counter() - t1:.1f}s; device "
+        f"{(torch.cuda.memory_allocated(dev) - before) / 2**30:.2f} GiB "
+        f"(IVF field {cols['iv'].ivf.memory_bytes() / 2**30:.2f} GiB), "
+        f"host {seg.host_bytes() / 2**30:.2f} GiB (host tier f32 "
+        f"{cols['hv'].host_ivf.host_bytes() / 2**30:.2f} GiB, LVQ8 "
+        f"{cols['lv'].host_ivf.host_bytes() / 2**30:.2f} GiB)")
+    ops = ann_ops(dev, vecs, Qs, truth, cols["iv"].ivf)
+    route = {"iv": "window", "hv": "knn-host", "lv": "knn-host"}
+    # LVQ8 scans are exact against the reconstructions: their own truth
+    lv = cols["lv"]
+    recon = TL.lvq_decode(lv.vecs[:ANN_N], lv.vq_off[:ANN_N],
+                          lv.vq_scl[:ANN_N])
+    truth_lv = ann_truth(torch.from_numpy(recon).to(dev), Qs[0])
+    del recon
+    entry, recalls = [], {}
+    for f in ("iv", "hv", "lv"):
+        for nprobe in ANN_NPROBES:
+            q = f"*=>[KNN {ANN_K} @{f} $b EF_RUNTIME {nprobe}]"
+            params = [[{"b": Qs[r, i]} for i in range(ANN_Q)]
+                      for r in range(ANN_REPS)]
+            E.QUERY_PATH_STATS.clear()
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            res = client.ft_search_many("ann", [q] * ANN_Q,
+                                        params=params[0], k=ANN_K)
+            torch.cuda.synchronize(dev)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            if E.QUERY_PATH_STATS != {route[f]: ANN_Q}:
+                raise AssertionError(f"ann {f}: routes "
+                                     f"{E.QUERY_PATH_STATS}")
+            ids = [[int(h.key[1:]) for h in r.hits] for r in res]
+            rec = recall_of(ids, truth)
+            recalls[(f, nprobe)] = rec
+            if f == "lv":
+                recalls[("lv-recon", nprobe)] = recall_of(ids, truth_lv)
+            for i in range(0, ANN_Q, 32):
+                one = client.ft_search("ann", q, params=params[0][i],
+                                       num=ANN_K)
+                if [h.key for h in one.hits] != [h.key for h in
+                                                 res[i].hits]:
+                    raise AssertionError(f"ann {f} nprobe {nprobe}: single "
+                                         f"query {i} differs from batch")
+            qps = timed_qps(lambda r: client.ft_search_many(
+                "ann", [q] * ANN_Q, params=params[r], k=ANN_K),
+                range(1, ANN_REPS))
+            entry.append({"field": f, "route": route[f], "nprobe": nprobe,
+                          "recall": rec, "qps": qps,
+                          "peak_gib": peak / 2**30})
+            log(f"phase ann: ft_search_many @{f} ({route[f]}) nprobe "
+                f"{nprobe}: recall@10 {rec:.4f}"
+                + (f" (against the reconstructions' own float64 top-10: "
+                   f"{recalls[('lv-recon', nprobe)]:.4f})" if f == "lv"
+                   else "")
+                + f", 8 single ft_search equal to the batch, qps {qps:.1f}, "
+                f"peak transient {peak / 2**30:.2f} GiB")
+    for key in (("iv", 128), ("hv", 128), ("lv-recon", 128)):
+        if recalls[key] < 0.95:
+            raise AssertionError(f"ann: recall {key}: {recalls[key]}")
+    lvq_parity(dev)
+    traces = {}
+    for f in ("iv", "hv", "lv"):
+        q = f"*=>[KNN {ANN_K} @{f} $b EF_RUNTIME 32]"
+        # the window route runs a program per query: trace an eighth
+        nt = ANN_Q // 8 if f == "iv" else ANN_Q
+        params = [{"b": Qs[0, i]} for i in range(nt)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ts = time.perf_counter()
+            client.ft_search_many("ann", [q] * nt, params=params,
+                                  k=ANN_K)
+            torch.cuda.synchronize(dev)
+            traced = (time.perf_counter() - ts) * 1e3
+        busy, _ = device_busy_us(prof, ())
+        traces[f] = {"ms": traced, "busy_us": busy,
+                     "idle": 1.0 - busy / (traced * 1e3)}
+        log(f"phase ann: traced batch @{f} nprobe 32 ({nt} queries): "
+            f"{traced:.3f} ms, device busy {busy:.1f} us, idle share "
+            f"{traces[f]['idle']:.4f}")
+    Qd = torch.from_numpy(Qs[0]).to(dev)
+    hparts = {f: host_parts(cols[f].host_ivf, Qd, nprobe,
+                            f"host tier @{f}")
+              for f in ("hv", "lv") for nprobe in (32,)}
+    log("phase ann: json " + json.dumps({
+        "ops": ops["points"], "entry": entry, "traces": traces,
+        "parts": {str(k): v for k, v in ops["parts"].items()},
+        "host_parts": hparts}))
+    del ix, client, seg, cols
+    torch.cuda.empty_cache()
+    return {"ops": ops, "entry": entry}
+
+
+# --------------------------------------------------------------- phase 9
+GEO_N, GEO_B = 1_000_000, 1024
+GEO_LON0, GEO_LAT0 = 2.35, 48.85
+#: half the 50 km box, in degrees of latitude and of longitude there
+GEO_DLAT = 25.0 / 111.195
+GEO_DLON = GEO_DLAT / np.cos(np.radians(GEO_LAT0))
+GEO_WORDS = [f"g{i:02d}" for i in range(40)]
+EARTH_M = 6372797.560856
+
+
+def geo_corpus():
+    """1M docs, one GEO point each, uniform over a 50 km box (6
+    decimals, as a client sends them), two of 40 words, a TAG of 16
+    values; seed 11."""
+    rng = np.random.default_rng(11)
+    lon = np.round(GEO_LON0 + rng.uniform(-GEO_DLON, GEO_DLON, GEO_N), 6)
+    lat = np.round(GEO_LAT0 + rng.uniform(-GEO_DLAT, GEO_DLAT, GEO_N), 6)
+    pts = [f"{a:.6f},{b:.6f}" for a, b in zip(lon, lat)]
+    w = rng.integers(0, len(GEO_WORDS), size=(GEO_N, 2))
+    words = np.array(GEO_WORDS)
+    docs = [(f"g{i}", {"t": f"{words[w[i, 0]]} {words[w[i, 1]]}",
+                       "c": f"c{i % 16}", "loc": pts[i]})
+            for i in range(GEO_N)]
+    return docs, w
+
+
+def geo_families():
+    """(query of i, host filter of i) per family: radius 1-20 km around a
+    point of the box, alone, AND a term, AND a TAG."""
+    rng = np.random.default_rng(12)
+    qlon = GEO_LON0 + rng.uniform(-GEO_DLON, GEO_DLON, GEO_B) * 0.8
+    qlat = GEO_LAT0 + rng.uniform(-GEO_DLAT, GEO_DLAT, GEO_B) * 0.8
+    rad = 1 + np.arange(GEO_B) % 20
+
+    def geo(i):
+        return f"@loc:[{qlon[i]:.5f} {qlat[i]:.5f} {rad[i]} km]"
+    word_masks, tag_masks = {}, {}
+
+    def word_mask(i, w):
+        if i % 40 not in word_masks:
+            word_masks[i % 40] = (w == i % 40).any(1)
+        return word_masks[i % 40]
+
+    def tag_mask(i, w):
+        if i % 16 not in tag_masks:
+            tag_masks[i % 16] = np.arange(GEO_N) % 16 == i % 16
+        return tag_masks[i % 16]
+    fams = {
+        "geo": (geo, lambda i, w: None),
+        "geo_term": (lambda i: f"{GEO_WORDS[i % 40]} {geo(i)}", word_mask),
+        "geo_tag": (lambda i: f"@c:{{c{i % 16}}} {geo(i)}", tag_mask)}
+    # each query's point as the parser stores it: f32 radians
+    qpts = [(float(np.float32(np.radians(float(f"{qlon[i]:.5f}")))),
+             float(np.float32(np.radians(float(f"{qlat[i]:.5f}")))),
+             rad[i] * 1000.0) for i in range(GEO_B)]
+    return fams, qpts
+
+
+def check_geo(res, qpts, fmask_fn, lon_d, lat_d, w, what) -> int:
+    """Every query against a float64 haversine on the card, over the f32
+    radians the index holds: totals equal but for docs within 1e-6
+    relative of the radius (the f32 edge), and each hit inside the radius
+    (same edge rule) and passing the filter; where every match scores
+    the same (no term), the hits are the lowest doc ids that match.
+    Distances go 32 queries at a time.  Returns the count of edge docs
+    met."""
+    n_edge = 0
+    dev = lon_d.device
+    for c0 in range(0, len(res), 32):
+        rows = range(c0, min(len(res), c0 + 32))
+        ql = torch.tensor([qpts[i][0] for i in rows], dtype=torch.float64,
+                          device=dev)[:, None]
+        qa = torch.tensor([qpts[i][1] for i in rows], dtype=torch.float64,
+                          device=dev)[:, None]
+        rad = torch.tensor([qpts[i][2] for i in rows], dtype=torch.float64,
+                           device=dev)[:, None]
+        a = (torch.sin((lat_d[None] - qa) / 2) ** 2
+             + torch.cos(lat_d)[None] * torch.cos(qa)
+             * torch.sin((lon_d[None] - ql) / 2) ** 2)
+        d = 2 * EARTH_M * torch.arcsin(torch.sqrt(a.clamp(0, 1)))
+        inside = d <= rad
+        edge = (d - rad).abs() <= 1e-6 * rad
+        del a, d
+        masks = [fmask_fn(i, w) for i in rows]
+        if masks[0] is not None:
+            mt = torch.from_numpy(np.stack(masks)).to(dev)
+            inside, edge = inside & mt, edge & mt
+        n_in = inside.sum(1).tolist()
+        n_e = edge.sum(1).tolist()
+        n_edge += sum(n_e)
+        for j, i in enumerate(rows):
+            r = res[i]
+            if abs(r.total - n_in[j]) > n_e[j]:
+                raise AssertionError(f"{what} {i}: total {r.total}, "
+                                     f"float64 {n_in[j]} ({n_e[j]} at the "
+                                     "edge)")
+            keys = torch.tensor([int(h.key[1:]) for h in r.hits],
+                                dtype=torch.long, device=dev)
+            ok = inside[j] | edge[j]
+            if len(keys) and not bool(ok[keys].all()):
+                raise AssertionError(f"{what} {i}: a hit outside the "
+                                     "radius or its filter")
+            if "term" not in what and n_e[j] == 0:
+                want = torch.nonzero(inside[j]).flatten()[:len(keys)]
+                if not bool((want == keys).all()):
+                    raise AssertionError(f"{what} {i}: hits are not the "
+                                         "lowest matching docs")
+    return n_edge
+
+
+def phase_geo(dev) -> dict:
+    """Phase 9 (see the docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    docs, w = geo_corpus()
+    t1 = time.perf_counter()
+    client = rt.Client(device=dev)
+    ix = client.ft_create("geo", [rt.Field("t", rt.FieldType.TEXT),
+                                  rt.Field("c", rt.FieldType.TAG),
+                                  rt.Field("loc", rt.FieldType.GEO)])
+    ix.add_documents(docs)
+    torch.cuda.synchronize(dev)
+    del docs
+    seg = ix.segments[0]
+    log(f"phase geo: corpus {GEO_N:,} docs in {t1 - t0:.1f}s, ingest "
+        f"{time.perf_counter() - t1:.1f}s, segment "
+        f"{seg.memory_bytes() / 2**30:.3f} GiB (GEO columns "
+        f"{nbytes(seg.geos['loc'].lon, seg.geos['loc'].lat, seg.geos['loc'].present) / 2**20:.1f} MiB)")
+    lon_d = seg.geos["loc"].lon[:GEO_N].double()
+    lat_d = seg.geos["loc"].lat[:GEO_N].double()
+    fams, qpts = geo_families()
+    out = {}
+    for fam, (qfn, ffn) in fams.items():
+        qs = [qfn(i) for i in range(GEO_B)]
+        E.QUERY_PATH_STATS.clear()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ts = time.perf_counter()
+        res = client.ft_search_many("geo", qs, k=K)
+        torch.cuda.synchronize(dev)
+        qps = GEO_B / (time.perf_counter() - ts)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if E.QUERY_PATH_STATS != {"window": GEO_B}:
+            raise AssertionError(f"geo {fam}: routes {E.QUERY_PATH_STATS}")
+        n_edge = check_geo(res, qpts, ffn, lon_d, lat_d, w, f"geo {fam}")
+        for i in range(0, GEO_B, GEO_B // 16):
+            one = client.ft_search("geo", qs[i], num=K)
+            same_hits(one, res[i], f"geo {fam} single {i}")
+        nt = GEO_B // 16
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ts = time.perf_counter()
+            client.ft_search_many("geo", qs[:nt], k=K)
+            torch.cuda.synchronize(dev)
+            traced = (time.perf_counter() - ts) * 1e3
+        busy, _ = device_busy_us(prof, ())
+        out[fam] = {"qps": qps, "edge_docs": n_edge, "peak": peak,
+                    "idle": 1.0 - busy / (traced * 1e3)}
+        log(f"phase geo: {fam} (window, batch {GEO_B}): every query == "
+            f"float64 haversine on the card ({n_edge} edge docs), 16 single "
+            f"ft_search equal; qps {qps:.1f}, peak transient "
+            f"{peak / 2**30:.2f} GiB; traced {nt} queries {traced:.3f} ms, "
+            f"device busy {busy:.1f} us, idle share "
+            f"{out[fam]['idle']:.4f}")
+    g = seg.geos["loc"]
+    qlon = torch.tensor(qpts[0][0], dtype=torch.float32, device=dev)
+    qlat = torch.tensor(qpts[0][1], dtype=torch.float32, device=dev)
+    rad = torch.tensor(qpts[0][2], dtype=torch.float32, device=dev)
+    ms = time_ms(lambda: T.geo_radius_mask(g.lon, g.lat, g.present, qlon,
+                                           qlat, rad), iters=20)
+    b, by = bound2(nbytes(g.lon, g.lat, g.present) + g.present.numel(),
+                   20.0 * GEO_N, F32_FLOPS)
+    log(f"phase geo: geo_radius_mask over {GEO_N:,} docs: {ms:.4f} ms "
+        f"against {b:.4f} ms ({by})")
+    log("phase geo: json " + json.dumps(
+        {"families": out, "mask": {"ms": ms, "bound_ms": b,
+                                   "bound_by": by}}))
+    del ix, client, seg, lon_d, lat_d
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- phase 10
+COLD_B = 256
+
+
+def device_tensors(obj, seen=None) -> dict:
+    """Every torch tensor reachable from a segment's fields, by id."""
+    import dataclasses as dc
+    seen = {} if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        seen[id(obj)] = obj
+    elif dc.is_dataclass(obj):
+        for f in dc.fields(obj):
+            device_tensors(getattr(obj, f.name), seen)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            device_tensors(v, seen)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            device_tensors(v, seen)
+    return seen
+
+
+def phase_cold(dev, main) -> dict:
+    """Phase 10 (see the docstring): the main path's corpus (`main`,
+    phase 4's result) as a cold index, against phase 4's hot index."""
+    from torch.profiler import ProfilerActivity, profile
+    import gc
+    docs, qt, hot_client = main.pop("docs"), main["qt"], main["client"]
+    client = rt.Client(device=dev)
+    # earlier phases' indexes may sit in reference cycles: free them now
+    # so that the count below sees only what this index adds
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t1 = time.perf_counter()
+    ix = client.ft_create("cold", bm25_fields(), storage="host")
+    ix.add_documents(docs)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    added = torch.cuda.memory_allocated(dev) - before
+    del docs
+    seg = ix.segments[0]
+    hot = hot_client._indexes["bm25"].segments[0]
+    dense = seg.memory_bytes()
+    log(f"phase cold: the main path's corpus, ingest "
+        f"{time.perf_counter() - t1:.1f}s; device memory added "
+        f"{added / 2**20:.1f} MiB, its dense columns "
+        f"{dense / 2**20:.1f} MiB in {len(device_tensors(seg))} tensors, "
+        f"host CSR {seg.host_bytes() / 2**20:.1f} MiB; the hot segment "
+        f"{hot.memory_bytes() / 2**20:.1f} MiB")
+    # the caching allocator may keep a large block's remainder (under
+    # 1 MiB) whole, so each device tensor may count up to 1 MiB more
+    n_dev = len(device_tensors(seg))
+    if not seg.cold or added > dense + n_dev * 2**20:
+        raise AssertionError(f"cold: {added} device bytes added against "
+                             f"{dense} of dense columns ({n_dev} tensors)")
+    out = {}
+    for fam, fn in FAMILIES.items():
+        qs = [fn(qt, i) for i in range(COLD_B)]
+        hres = hot_client.ft_search_many("bm25", qs, k=K)
+        E.QUERY_PATH_STATS.clear()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ts = time.perf_counter()
+        res = client.ft_search_many("cold", qs, k=K)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - ts
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if E.QUERY_PATH_STATS != {"cold": COLD_B}:
+            raise AssertionError(f"cold {fam}: routes {E.QUERY_PATH_STATS}")
+        for i, (c, h) in enumerate(zip(res, hres)):
+            same_hits(c, h, f"cold {fam} {i} vs hot")
+        # the host's part of a query: binding and paging its slabs
+        cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2) for q in qs]
+        ts = time.perf_counter()
+        for cq in cqs:
+            binding, _P = cq.bind(seg)
+            dyn = dict(binding.dyn)
+            dyn.pop("_tagL", None)
+            buckets = dyn.pop("_buckets")
+            E._cold_slab_args(cq, seg, dyn, buckets)
+        torch.cuda.synchronize(dev)
+        slab_ms = (time.perf_counter() - ts) * 1e3 / COLD_B
+        nt = COLD_B // 8
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ts = time.perf_counter()
+            client.ft_search_many("cold", qs[:nt], k=K)
+            torch.cuda.synchronize(dev)
+            traced = (time.perf_counter() - ts) * 1e3
+        busy, _ = device_busy_us(prof, ())
+        out[fam] = {"qps": COLD_B / dt, "ms_per_query": dt * 1e3 / COLD_B,
+                    "slab_ms": slab_ms, "peak": peak,
+                    "idle": 1.0 - busy / (traced * 1e3)}
+        log(f"phase cold: {fam} (cold, {COLD_B} queries): every query == "
+            f"the hot index's; qps {COLD_B / dt:.1f} "
+            f"({dt * 1e3 / COLD_B:.3f} ms a query, of it bind + slab "
+            f"paging {slab_ms:.3f} ms), peak transient "
+            f"{peak / 2**20:.1f} MiB; traced {nt} queries {traced:.3f} ms, "
+            f"device busy {busy:.1f} us, idle share "
+            f"{out[fam]['idle']:.4f}")
+    log("phase cold: json " + json.dumps(
+        {"families": out, "device_added": added, "dense": dense,
+         "host_csr": seg.host_bytes(), "hot": hot.memory_bytes()}))
+    del ix, client, seg
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -3130,6 +3866,9 @@ def main():
     phase_hybrid(dev, vec.pop("index"))
     del vec
     torch.cuda.empty_cache()
+    phase_ann(dev)
+    phase_geo(dev)
+    phase_cold(dev, main)
     k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
     wk_ms, wp_ms, wk_err, wk_b = main["times"]["intersect_wide"]
     pk_ms, pp_ms, pk_err, pk_b = main["times"]["phrase"]

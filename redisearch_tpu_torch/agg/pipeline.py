@@ -55,8 +55,9 @@ from ..schema import FieldType
 from ..utils.errors import QuerySyntaxError
 from ..ops import groupby as GB
 from ..ops import intersect as IK
-from ..query.engine import (Deferred, LAll, QueryOptions, _device_unpack,
-                            _device_unpack_rows, _kernel_batched_inputs,
+from ..query.engine import (Deferred, LAll, QueryOptions, _cold_slab_args,
+                            _device_unpack, _device_unpack_rows,
+                            _kernel_batched_inputs,
                             _kernel_plan, _layout_of, _pack_into, _pack_out,
                             _program, _segment_args, _unpack_out,
                             _window_width, execute, next_pow2)
@@ -1152,7 +1153,10 @@ def _device_group_submit_batch(index, items):
     per query), and the device tail when the plan has one.  Returns (one
     handle per query, per-segment output dicts of [B, ...] device
     tensors), or None when a segment cannot encode the group keys or
-    has more than `_MAX_DEVICE_GROUPS` groups."""
+    has more than `_MAX_DEVICE_GROUPS` groups, or when a segment is cold
+    (its windows are paged a request at a time, `_device_group_submit`)."""
+    if any(seg.cold for seg in index.segments):
+        return None
     _req0, cq0, plan0 = items[0]
     (group0, tail0, operands, want_minmax, compiled_pre, in_fields,
      pre_sig, key_aliases) = plan0
@@ -1254,6 +1258,9 @@ def _device_group_submit(index, req: AggregateRequest, cq):
         dyn = binding.dyn
         dyn.pop("_tagL", None)
         buckets = dyn.pop("_buckets")
+        if seg.cold:
+            slabs, dyn, _sig = _cold_slab_args(cq, seg, dyn, buckets)
+            seg_args.update(slabs)
         raw = _program(cq, seg, buckets, P, 1, False, "window")
         fused = _make_fused(cq, raw, G, sizes, in_fields, compiled_pre,
                             operands, want_minmax)

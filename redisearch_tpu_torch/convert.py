@@ -5,7 +5,11 @@
 jax import) and returns the port's `Segment` holding the same values as
 torch tensors on `device`.  The parity tests use it to run both packages
 on one index.  bf16 vector matrices cross as their 16-bit patterns
-(`_t`), so the port needs no bf16 numpy type.
+(`_t`), so the port needs no bf16 numpy type.  What the JAX segment keeps
+on the host stays on the host: a cold segment's CSR arrays, the host
+tier's vectors and bucket slabs (with the LVQ8 pair); IVF arrays and the
+host tier's centroids go to `device`, so both packages probe the same
+centroids and lists.
 """
 
 from __future__ import annotations
@@ -13,8 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .index.segment import (NumericColumn, Segment, StrColumn, TagPostings,
-                            TermDict, TextPostings, VectorColumn)
+from .index.segment import (GeoColumn, NumericColumn, Segment, StrColumn,
+                            TagPostings, TermDict, TextPostings,
+                            VectorColumn)
+from .ops.ivf import HostIVF, IVFIndex
 
 
 def _t(a, device):
@@ -31,37 +37,65 @@ def _t(a, device):
     return torch.as_tensor(h, device=device)
 
 
+def _h(a):
+    """A writable host numpy copy (None stays None)."""
+    return None if a is None else np.array(a)
+
+
+def _ivf(v, device):
+    return IVFIndex(
+        centroids=_t(v.centroids, device), cent_sq=_t(v.cent_sq, device),
+        bucket_vecs=_t(v.bucket_vecs, device),
+        bucket_sq=_t(v.bucket_sq, device),
+        bucket_ids=_t(v.bucket_ids, device), nlist=int(v.nlist),
+        list_pad=int(v.list_pad), dim=int(v.dim), metric=v.metric)
+
+
+def _host_ivf(h, device):
+    return HostIVF(
+        centroids=_t(h.centroids, device), cent_sq=_t(h.cent_sq, device),
+        bucket_vecs=_h(h.bucket_vecs), bucket_sq=_h(h.bucket_sq),
+        bucket_ids=_h(h.bucket_ids), nlist=int(h.nlist),
+        list_pad=int(h.list_pad), dim=int(h.dim), metric=h.metric,
+        compression=h.compression, bucket_off=_h(h.bucket_off),
+        bucket_scl=_h(h.bucket_scl))
+
+
 def _vector_column(c, device) -> VectorColumn:
-    """The port's VectorColumn of a JAX FLAT `storage="hbm"` column."""
-    if c.host or c.ivf is not None or c.compression:
-        raise NotImplementedError(
-            "IVF, host-tier and LVQ vector columns are not ported yet "
-            "(ROADMAP A8)")
+    """The port's VectorColumn of a JAX column: device arrays to
+    `device`, a host-tier column's arrays kept on the host."""
+    if c.host:
+        return VectorColumn(
+            vecs=_h(c.vecs), present=_t(c.present, device), dim=int(c.dim),
+            sq_norms=_h(c.sq_norms), host=True,
+            host_ivf=(None if c.host_ivf is None
+                      else _host_ivf(c.host_ivf, device)),
+            compression=c.compression, vq_off=_h(c.vq_off),
+            vq_scl=_h(c.vq_scl))
     return VectorColumn(
         vecs=_t(c.vecs, device), present=_t(c.present, device),
         dim=int(c.dim), sq_norms=_t(c.sq_norms, device),
         scan_vecs=_t(c.scan_vecs, device), doc_rows=_t(c.doc_rows, device),
-        multi=bool(c.multi))
+        multi=bool(c.multi),
+        ivf=None if c.ivf is None else _ivf(c.ivf, device))
 
 
 def segment_from_jax(seg, device) -> Segment:
     device = torch.device(device)
-    if seg.cold:
-        raise NotImplementedError(
-            "cold (storage='host') segments are not ported yet "
-            "(ROADMAP A6-cold)")
-    if seg.geos:   # the port has no GEO columns yet
-        raise NotImplementedError(
-            "GEO columns are not ported yet (ROADMAP A6-geo)")
+    cold = bool(seg.cold)
+
+    def csr(a):
+        # a cold segment's CSR arrays stay host numpy
+        return _h(a) if cold else _t(a, device)
     tx = seg.text
     text = TextPostings(
-        term_offsets=_t(tx.term_offsets, device),
-        doc_ids=_t(tx.doc_ids, device),
-        freqs=_t(tx.freqs, device),
-        field_masks=_t(tx.field_masks, device),
-        doclens=_t(tx.doclens, device),
-        pos_offsets=_t(tx.pos_offsets, device),
-        poskeys=_t(tx.poskeys, device),
+        term_offsets=csr(tx.term_offsets),
+        doc_ids=csr(tx.doc_ids),
+        freqs=csr(tx.freqs),
+        field_masks=csr(tx.field_masks),
+        doclens=csr(tx.doclens),
+        pos_offsets=csr(tx.pos_offsets),
+        poskeys=csr(tx.poskeys),
         pos_stride=int(tx.pos_stride),
         nnz=int(tx.nnz),
         max_postings=int(tx.max_postings),
@@ -72,7 +106,7 @@ def segment_from_jax(seg, device) -> Segment:
     tags = {
         attr: TagPostings(
             ids=dict(tp.ids), values=list(tp.values),
-            offsets=_t(tp.offsets, device), doc_ids=_t(tp.doc_ids, device),
+            offsets=csr(tp.offsets), doc_ids=csr(tp.doc_ids),
             nnz=int(tp.nnz), max_postings=int(tp.max_postings),
             offsets_np=np.asarray(tp.offsets_np),
             codes=_t(tp.codes, device))
@@ -108,11 +142,14 @@ def segment_from_jax(seg, device) -> Segment:
         missing={a: _t(m, device) for a, m in seg.missing.items()},
         vectors={a: _vector_column(c, device)
                  for a, c in seg.vectors.items()},
+        geos={a: GeoColumn(lon=_t(g.lon, device), lat=_t(g.lat, device),
+                           present=_t(g.present, device))
+              for a, g in seg.geos.items()},
         gid_to_local=dict(seg.gid_to_local),
         gids_np=gids_np, alive_np=alive_np, doclen_np=doclen_np,
         geometries={a: list(v) for a, v in seg.geometries.items()},
         n_deleted=int(seg.n_deleted), has_ttl=bool(seg.has_ttl),
-        uniform_docscore=bool(seg.uniform_docscore),
+        uniform_docscore=bool(seg.uniform_docscore), cold=cold,
         text_fexp=_t(seg.text_fexp, device),
         field_fexp={a: _t(v, device) for a, v in seg.field_fexp.items()},
     )

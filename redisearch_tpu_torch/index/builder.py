@@ -20,43 +20,42 @@ from ..analysis.phonetics import dm_code
 from ..analysis.stemmer import Stemmer
 from ..analysis.stopwords import StopWordList
 from ..analysis.tokenizer import Tokenizer, normalize_token
-from ..schema import Field, FieldType, Schema, VectorAlgo
+from ..schema import Field, FieldType, Schema
 from ..utils import wkt
 from ..utils.errors import IndexError_, WrongFieldType
 from ..utils.jsonpath import get_field_value
 from .doctable import DocMeta
-from .segment import (LANE, POS_SLICE_PAD, Segment, StrColumn, TagPostings,
-                      TermDict, TextPostings, build_tag_codes,
+from .segment import (LANE, POS_SLICE_PAD, GeoColumn, Segment, StrColumn,
+                      TagPostings, TermDict, TextPostings, build_tag_codes,
                       make_numeric_column, make_vector_column, mask_words,
                       next_pow2, pack_mask_words, posting_pad, round_up,
                       tail_pad)
 
-def check_schema_ported(schema: Schema) -> None:
-    """Refuse what the port cannot seal yet, naming the ROADMAP item.
-    VECTOR fields are served as FLAT scans of device (`storage="hbm"`)
-    matrices; the IVF family (IVF, its HNSW/SVS aliases, TIERED), the
-    host tier and LVQ8 compression are refused here, so that no query
-    returns FLAT's exact answer where the JAX package returns IVF's."""
-    if schema.storage == "host":
-        raise NotImplementedError(
-            "cold (storage='host') segments are not ported yet "
-            "(ROADMAP A6-cold)")
-    for f in schema.fields:
-        if f.type == FieldType.VECTOR:
-            vp = f.vector
-            if vp.algo != VectorAlgo.FLAT:
-                raise NotImplementedError(
-                    f"VECTOR field {f.name!r}: algorithm {vp.algo.value} "
-                    "(IVF, HNSW, SVS, TIERED) is not ported yet "
-                    "(ROADMAP A8)")
-            if vp.storage != "hbm" or vp.compression:
-                raise NotImplementedError(
-                    f"VECTOR field {f.name!r}: storage={vp.storage!r}"
-                    f"{' with ' + vp.compression if vp.compression else ''}"
-                    " is not ported yet (ROADMAP A8)")
-        if f.type == FieldType.GEO:
-            raise NotImplementedError(
-                f"GEO field {f.name!r} is not ported yet (ROADMAP A6-geo)")
+def make_geo_column(points: list, n: int, n_pad: int, device) -> GeoColumn:
+    """The GEO half of the JAX seal: (lon, lat) radian pairs, NaN for a
+    doc without a point, as dense f32 columns (0 where missing)."""
+    lon = np.full(n_pad, np.nan, np.float32)
+    lat = np.full(n_pad, np.nan, np.float32)
+    if points:
+        arr = np.asarray(points, np.float32).reshape(n, 2)
+        lon[:n] = arr[:, 0]
+        lat[:n] = arr[:, 1]
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+    return GeoColumn(lon=dev(np.nan_to_num(lon, nan=0.0)),
+                     lat=dev(np.nan_to_num(lat, nan=0.0)),
+                     present=dev(~np.isnan(lon)))
+
+
+def seal_vector_column(schema: Schema, attr: str, rows: list, n_pad: int,
+                       device):
+    """The field's VectorColumn: on the device, or in host memory for
+    `storage="host"` (f32, or LVQ8 codes)."""
+    vp = schema.field(attr).vector
+    return make_vector_column(rows, n_pad, vp.dim, vp.dtype, device,
+                              host=vp.storage == "host",
+                              compression=vp.compression)
 
 
 STEM_PREFIX = "+"        # reference: STEM_PREFIX in forward index terms
@@ -106,7 +105,6 @@ class SegmentBuilder:
 
     def __init__(self, schema: Schema,
                  stopwords: Optional[StopWordList], synonyms, device):
-        check_schema_ported(schema)
         self.device = torch.device(device)
         self.schema = schema
         self.synonyms = synonyms
@@ -391,11 +389,15 @@ class SegmentBuilder:
     def seal(self) -> Optional[Segment]:
         """Build the immutable device segment from staged docs (port of
         the JAX `SegmentBuilder.seal`: `jnp.asarray` becomes
-        `torch.as_tensor(..., device=...)`)."""
+        `torch.as_tensor(..., device=...)`).  A cold schema
+        (`storage="host"`) keeps the text and tag CSR arrays as host
+        numpy; everything dense goes to the device."""
         n = len(self._gids)
         if n == 0:
             return None
         dev = self._dev
+        cold = self.schema.storage == "host"
+        csr = np.ascontiguousarray if cold else dev
         n_pad = round_up(n, LANE)
 
         # EXPIRE can land on a doc while it is still staged: re-read doc
@@ -471,15 +473,15 @@ class SegmentBuilder:
         cap = next_pow2(n_pad)
         posting_dl = doclen[doc_ids]  # replicate doc length per posting
         text = TextPostings(
-            term_offsets=dev(term_offsets.astype(np.int32)),
-            doc_ids=dev(tail_pad(doc_ids, posting_pad(len(doc_ids), cap))),
-            freqs=dev(tail_pad(freqs, posting_pad(len(freqs), cap))),
-            field_masks=dev(tail_pad(field_masks,
+            term_offsets=csr(term_offsets.astype(np.int32)),
+            doc_ids=csr(tail_pad(doc_ids, posting_pad(len(doc_ids), cap))),
+            freqs=csr(tail_pad(freqs, posting_pad(len(freqs), cap))),
+            field_masks=csr(tail_pad(field_masks,
                                      posting_pad(len(field_masks), cap))),
-            doclens=dev(tail_pad(posting_dl,
+            doclens=csr(tail_pad(posting_dl,
                                  posting_pad(len(posting_dl), cap))),
-            pos_offsets=dev(pos_offsets.astype(np.int32)),
-            poskeys=dev(tail_pad(poskeys,
+            pos_offsets=csr(pos_offsets.astype(np.int32)),
+            poskeys=csr(tail_pad(poskeys,
                                  posting_pad(len(poskeys), POS_SLICE_PAD),
                                  2**31 - 1)),
             pos_stride=pos_stride,
@@ -511,8 +513,8 @@ class SegmentBuilder:
             tags[attr] = TagPostings(
                 ids={v: i for i, v in enumerate(values)},
                 values=values,
-                offsets=dev(t_off.astype(np.int32)),
-                doc_ids=dev(tail_pad(t_ids, posting_pad(len(t_ids), cap))),
+                offsets=csr(t_off.astype(np.int32)),
+                doc_ids=csr(tail_pad(t_ids, posting_pad(len(t_ids), cap))),
                 nnz=t_nnz,
                 max_postings=t_max,
                 offsets_np=t_off.astype(np.int32),
@@ -526,6 +528,8 @@ class SegmentBuilder:
             col[:n] = [v[0] if v else np.nan for v in vals]
             numerics[attr] = make_numeric_column(col, n, self.device,
                                                  value_lists=vals)
+        geos = {attr: make_geo_column(vals, n, n_pad, self.device)
+                for attr, vals in self._geos.items()}
         strcols = {}
         for attr, vals in self._strcols.items():
             uniq = sorted({v for v in vals if v is not None})
@@ -542,10 +546,9 @@ class SegmentBuilder:
             m = np.zeros(n_pad, bool)
             m[:n] = pres
             missing[attr] = dev(m)
-        vectors = {attr: make_vector_column(
-            rows, n_pad, self.schema.field(attr).vector.dim,
-            self.schema.field(attr).vector.dtype, self.device)
-            for attr, rows in self._vectors.items()}
+        vectors = {attr: seal_vector_column(self.schema, attr, rows, n_pad,
+                                            self.device)
+                   for attr, rows in self._vectors.items()}
 
         return Segment(
             n_docs=n, n_pad=n_pad, device=self.device,
@@ -553,12 +556,13 @@ class SegmentBuilder:
             max_freq=dev(max_freq), docscore=dev(docscore),
             expire_at=dev(expire),
             terms=terms, text=text, tags=tags, numerics=numerics,
-            strcols=strcols, missing=missing, vectors=vectors,
+            strcols=strcols, missing=missing, vectors=vectors, geos=geos,
             gid_to_local={g: i for i, g in enumerate(self._gids)},
             gids_np=gids, alive_np=alive, doclen_np=doclen,
             geometries={a: list(v) for a, v in self._geoms.items()},
             has_ttl=any(e != 0 for e in self._expire),
             uniform_docscore=all(s_ == 1.0 for s_ in self._docscore),
+            cold=cold,
             **self._seal_field_ttls(n, n_pad),
         )
 

@@ -9,6 +9,13 @@ are copies of the JAX module's.  The arrays, pads and layouts are the JAX path's
 only the last step differs: they land as torch tensors on the index's
 device.  Schemas the native path does not cover fall back to the
 incremental builder, as in the JAX package.
+
+Two differences from the JAX module.  A cold schema (`storage="host"`)
+seals here too, its text and tag CSR arrays kept as host numpy as the
+incremental builder keeps them (the JAX module falls back to its slower
+incremental builder; results are the same).  A `storage="host"` vector
+field goes to the host tier here, as both packages' incremental
+builders put it (the JAX module's bulk seal leaves it on the device).
 """
 
 from __future__ import annotations
@@ -21,20 +28,16 @@ import torch
 from .. import native
 from ..schema import FieldType
 from ..utils.jsonpath import get_field_value
-from .builder import MAX_POS_STRIDE, SegmentBuilder
+from .builder import (MAX_POS_STRIDE, SegmentBuilder, make_geo_column,
+                      seal_vector_column)
 from .segment import (LANE, POS_SLICE_PAD, Segment, StrColumn, TagPostings,
                       TermDict, TextPostings, build_tag_codes,
-                      make_numeric_column, make_vector_column, next_pow2,
-                      posting_pad, round_up, tail_pad)
+                      make_numeric_column, next_pow2, posting_pad, round_up,
+                      tail_pad)
 
 
 def can_use_native(index) -> bool:
     if not native.available():
-        return False
-    if index.schema.storage == "host":
-        # cold segments seal through the incremental builder (it keeps
-        # the CSR arrays host-resident); the native path builds device
-        # arrays directly
         return False
     if len(index.synonyms) > 0:
         return False
@@ -72,6 +75,9 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
+    # a cold schema keeps the text and tag CSR arrays on the host
+    csr = np.ascontiguousarray if schema.storage == "host" else dev
+
     # the native tokenizer does NOT stem: stems are synthesized from the
     # raw-term CSR afterwards (_merge_stems) with the index language's
     # Snowball stemmer
@@ -92,6 +98,8 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
     present_stage = {f.attribute: [] for f in schema.fields}
     geom_stage = {f.attribute: [] for f in schema.fields
                   if f.type == FieldType.GEOMETRY}
+    geo_stage = {f.attribute: [] for f in schema.fields
+                 if f.type == FieldType.GEO}
 
     helper = SegmentBuilder(schema, index.stopwords, None,
                             device)  # field parsers
@@ -122,6 +130,8 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
                 joined = _stage_tag(f, raw, local, tag_stage[f.attribute])
                 if f.sortable:
                     str_stage[f.attribute].append(joined)
+            elif f.type == FieldType.GEO:
+                geo_stage[f.attribute].append(helper._parse_geo(f, raw))
             elif f.type == FieldType.VECTOR:
                 vec_stage[f.attribute].append(helper._parse_vector(f, raw))
             elif f.type == FieldType.GEOMETRY:
@@ -182,13 +192,13 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
     dl[:n] = doc_lens
     posting_dl = dl[di]  # per-posting doc length
     text = TextPostings(
-        term_offsets=dev(term_offsets),
-        doc_ids=dev(tail_pad(di, posting_pad(len(di), cap))),
-        freqs=dev(tail_pad(fr, posting_pad(len(fr), cap))),
-        field_masks=dev(tail_pad(ms, posting_pad(len(ms), cap))),
-        doclens=dev(tail_pad(posting_dl, posting_pad(len(posting_dl), cap))),
-        pos_offsets=dev(po.astype(np.int32)),
-        poskeys=dev(tail_pad(pk, posting_pad(len(pk), POS_SLICE_PAD),
+        term_offsets=csr(term_offsets),
+        doc_ids=csr(tail_pad(di, posting_pad(len(di), cap))),
+        freqs=csr(tail_pad(fr, posting_pad(len(fr), cap))),
+        field_masks=csr(tail_pad(ms, posting_pad(len(ms), cap))),
+        doclens=csr(tail_pad(posting_dl, posting_pad(len(posting_dl), cap))),
+        pos_offsets=csr(po.astype(np.int32)),
+        poskeys=csr(tail_pad(pk, posting_pad(len(pk), POS_SLICE_PAD),
                              2**31 - 1)),
         pos_stride=pos_stride,
         pos_clamped=bool(npos and positions.max() > pos_stride - 1),
@@ -226,8 +236,8 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
             at += len(lst)
         tags[attr] = TagPostings(
             ids={v: i for i, v in enumerate(values)}, values=values,
-            offsets=dev(t_off.astype(np.int32)),
-            doc_ids=dev(tail_pad(t_ids, posting_pad(len(t_ids), cap))),
+            offsets=csr(t_off.astype(np.int32)),
+            doc_ids=csr(tail_pad(t_ids, posting_pad(len(t_ids), cap))),
             nnz=int(t_nnz),
             max_postings=int(t_max), offsets_np=t_off.astype(np.int32),
             codes=build_tag_codes(stage, values, n_pad, device))
@@ -251,22 +261,23 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
         m = np.zeros(n_pad, bool)
         m[:n] = pres
         missing[attr] = dev(m)
-    vectors = {attr: make_vector_column(
-        rows, n_pad, schema.field(attr).vector.dim,
-        schema.field(attr).vector.dtype, device)
-        for attr, rows in vec_stage.items()}
+    vectors = {attr: seal_vector_column(schema, attr, rows, n_pad, device)
+               for attr, rows in vec_stage.items()}
+    geos = {attr: make_geo_column(vals, n, n_pad, device)
+            for attr, vals in geo_stage.items()}
 
     seg = Segment(
         n_docs=n, n_pad=n_pad, device=device, gids=dev(gids),
         alive=dev(alive), doclen=dev(dl), max_freq=dev(mf),
         docscore=dev(ds), expire_at=dev(exp), terms=td, text=text,
         tags=tags, numerics=numerics, strcols=strcols, missing=missing,
-        vectors=vectors,
+        vectors=vectors, geos=geos,
         gid_to_local={m.gid: i for i, m in enumerate(metas)},
         gids_np=gids, alive_np=alive, doclen_np=dl,
         geometries={a: list(v) for a, v in geom_stage.items()},
         has_ttl=bool((exp != 0).any()),
-        uniform_docscore=bool((ds[:n] == 1.0).all()))
+        uniform_docscore=bool((ds[:n] == 1.0).all()),
+        cold=schema.storage == "host")
     index.segments.append(seg)
     return n
 

@@ -24,7 +24,8 @@ from ..analysis.synonyms import SynonymMap
 from ..index.doctable import DocTable
 from ..query import ast
 from ..query.parser import QueryParser
-from ..schema import FieldType, Schema
+from ..ops.ivf import HostIVF, IVFIndex
+from ..schema import FieldType, Schema, VectorAlgo
 from ..utils import log as _log
 from ..utils.errors import IndexError_, TimeoutError_
 from ..query.engine import (CompiledQuery, QueryOptions, execute,
@@ -167,7 +168,10 @@ class SearchIndex:
         back to the incremental path when native features don't cover
         the schema.  docs: iterable of (key, fields)."""
         from .bulk import bulk_add
-        return bulk_add(self, docs, commit=commit)
+        n = bulk_add(self, docs, commit=commit)
+        if self.segments:
+            self._build_ann(self.segments[-1])
+        return n
 
     def _mark_deleted(self, gid: int) -> None:
         for seg in self.segments:
@@ -178,16 +182,55 @@ class SearchIndex:
             self._rebuild_builder(drop_gid=gid)
 
     def commit(self) -> None:
-        """Seal pending docs into a new immutable segment.  Compaction of
-        deleted docs is not ported yet (ROADMAP A11): a segment with
-        deletions stays unclean and off the kernel path."""
+        """Seal pending docs into a new immutable segment and build its
+        IVF structures.  Compaction of deleted docs is not ported yet
+        (ROADMAP A11): a segment with deletions stays unclean and off the
+        kernel path."""
         with self._commit_lock:
             if len(self._builder) == 0:
                 return
             seg = self._builder.seal()
             if seg is not None:
                 self.segments.append(seg)
+                self._build_ann(seg)
             self._builder = self._new_builder()
+
+    def _build_ann(self, seg: Segment) -> None:
+        """IVF structures of the segment's vector fields (the JAX
+        package's `_build_ann`).  A host-tier field always gets its
+        `HostIVF` (its bucket slabs are its only query structure); an
+        IVF-family field (IVF, HNSW, SVS, TIERED) gets an `IVFIndex` once
+        the segment holds at least `flat_buffer_limit` (and 64) vectors,
+        smaller segments staying on the exact FLAT scan (the reference's
+        tiered front buffer, src/vector_index.c:89); multi-value columns
+        stay on the exact scan."""
+        for f in self.schema.fields_of(FieldType.VECTOR):
+            vp = f.vector
+            col = seg.vectors.get(f.attribute)
+            if col is None:
+                continue
+            if col.host:
+                present = col.present.cpu().numpy()
+                if col.host_ivf is None:
+                    if col.compression:
+                        col.host_ivf = HostIVF.build_lvq(
+                            col.vecs, col.vq_off, col.vq_scl, present,
+                            vp.metric.value, nlist=vp.nlist,
+                            device=self.device)
+                    else:
+                        col.host_ivf = HostIVF.build(
+                            col.vecs, present, vp.metric.value,
+                            nlist=vp.nlist, device=self.device)
+                continue
+            if (vp.algo == VectorAlgo.FLAT or col.ivf is not None
+                    or col.multi):
+                continue
+            present = col.present.cpu().numpy()
+            if int(present.sum()) < max(vp.flat_buffer_limit, 64):
+                continue
+            col.ivf = IVFIndex.build(
+                col.vecs.float().cpu().numpy(), present, vp.metric.value,
+                nlist=vp.nlist, device=self.device)
 
     # -- read path ----------------------------------------------------------
     def parse_query(self, query: str, params=None,

@@ -271,11 +271,19 @@ VEC_TORCH_DTYPES = {
 
 
 @dataclasses.dataclass
+class GeoColumn:
+    """A GEO field's points as dense radian columns on the segment's
+    device."""
+
+    lon: Any       # float32[n_pad] radians
+    lat: Any       # float32[n_pad] radians
+    present: Any   # bool[n_pad]
+
+
+@dataclasses.dataclass
 class VectorColumn:
     """Per-field vector data (reference: VecSim FLAT storage), on the
-    segment's device.  The JAX column's IVF, host-tier and LVQ members
-    are not ported (ROADMAP A8): the port serves `storage="hbm"` FLAT
-    fields only."""
+    segment's device, or on the host for the host tier."""
 
     vecs: Any      # dtype[n_pad, dim]  (multi: dtype[R_pad, dim] rows)
     present: Any   # bool[n_pad]  (always per-doc)
@@ -290,6 +298,22 @@ class VectorColumn:
     # each doc to its rows (-1 pad); a doc's distance is its best row's
     doc_rows: Any = None
     multi: bool = False
+    # IVF structure (ops/ivf.py IVFIndex) of an IVF/HNSW/SVS/TIERED
+    # field, built at commit once the segment holds at least
+    # `flat_buffer_limit` vectors; None = the exact FLAT scan
+    ivf: Any = None
+    # host tier (VectorParams.storage == "host"): `vecs` and `sq_norms`
+    # are host numpy, `host_ivf` (ops/ivf.py HostIVF) holds the bucket
+    # slabs in host memory and the centroids on the device; KNN pages
+    # the probed lists up per batch
+    host: bool = False
+    host_ivf: Any = None
+    # LVQ8 (host tier only; ops/lvq.py): `vecs` holds uint8 codes,
+    # vq_off/vq_scl the per-vector dequantization pair, sq_norms the
+    # squared norms of the reconstructions
+    compression: str = ""
+    vq_off: Any = None     # host f32[n_pad]
+    vq_scl: Any = None     # host f32[n_pad]
 
 
 def bf16_scan_copy(mat):
@@ -326,11 +350,15 @@ def _store(mat: np.ndarray, dtype_name: str, device) -> torch.Tensor:
 
 
 def make_vector_column(rows_per_doc: list, n_pad: int, dim: int,
-                       dtype_name: str, device) -> VectorColumn:
+                       dtype_name: str, device, host: bool = False,
+                       compression: str = "") -> VectorColumn:
     """Build a VectorColumn from per-doc vector lists (the JAX
-    `make_vector_column` for `storage="hbm"`).  rows_per_doc[i]: None |
-    ndarray[dim] | list[ndarray[dim]].  A doc with more than one vector
-    switches the column to the row layout (VecSim multi-value)."""
+    `make_vector_column`).  rows_per_doc[i]: None | ndarray[dim] |
+    list[ndarray[dim]].  A doc with more than one vector switches the
+    column to the row layout (VecSim multi-value).  host=True keeps the
+    matrix in host memory (only `present` goes to `device`), as f32 or,
+    with compression="LVQ8", as uint8 codes (ops/lvq.py); the host tier
+    refuses multi-value documents, as in the JAX package."""
     norm = []
     for r in rows_per_doc:
         if r is None:
@@ -343,11 +371,25 @@ def make_vector_column(rows_per_doc: list, n_pad: int, dim: int,
     multi = any(len(v) > 1 for v in norm)
     present = torch.as_tensor(np.array([len(v) > 0 for v in norm], bool),
                               device=device)
+    if host and multi:
+        raise ValueError(
+            "host-tier (storage='host') vector fields do not support "
+            "multi-value documents")
     if not multi:
         mat = np.zeros((n_pad, dim), np.float32)
         for i, v in enumerate(norm):
             if v:
                 mat[i] = v[0]
+        if host:
+            if compression:
+                from ..ops.lvq import lvq_encode, lvq_sq_norms
+                codes, off, scl = lvq_encode(mat)
+                return VectorColumn(
+                    vecs=codes, present=present, dim=dim,
+                    sq_norms=lvq_sq_norms(codes, off, scl), host=True,
+                    compression=compression, vq_off=off, vq_scl=scl)
+            return VectorColumn(vecs=mat, present=present, dim=dim,
+                                sq_norms=_sq_norms(mat), host=True)
         vecs = _store(mat, dtype_name, device)
         return VectorColumn(
             vecs=vecs, present=present, dim=dim,
@@ -413,11 +455,16 @@ class Segment:
     doclen_np: np.ndarray = None
     geometries: dict = dataclasses.field(default_factory=dict)
     vectors: dict = dataclasses.field(default_factory=dict)  # VectorColumn
+    geos: dict = dataclasses.field(default_factory=dict)     # GeoColumn
     # clean-segment flags: the intersection kernel serves only segments
     # with no deletions, no TTLs and uniform doc scores
     n_deleted: int = 0
     has_ttl: bool = False
     uniform_docscore: bool = True
+    # cold segment (Schema.storage == "host"): the text and tag CSR
+    # arrays are host numpy; a query pages up only its term windows
+    # (query/engine.py `_execute_cold`); the dense columns stay on the
+    # device
     cold: bool = False
     text_fexp: Any = None
     field_fexp: dict = dataclasses.field(default_factory=dict)
@@ -473,7 +520,9 @@ class Segment:
         return int(self.alive_np.sum())
 
     def memory_bytes(self) -> int:
-        """Bytes of every device tensor the segment holds."""
+        """Bytes of every device tensor the segment holds (a cold
+        segment's CSR arrays and the host tier's slabs are host numpy,
+        counted by `host_bytes`)."""
         seen: dict[int, int] = {}
 
         def acc(x):
@@ -492,6 +541,8 @@ class Segment:
             for a in (c.values, c.present, c.sorted_vals, c.sorted_docs,
                       c.multi_values, c.multi_present):
                 acc(a)
+        for g in self.geos.values():
+            acc(g.lon), acc(g.lat), acc(g.present)
         for s in self.strcols.values():
             acc(s.value_ids), acc(s.order)
         for m in self.missing.values():
@@ -500,7 +551,35 @@ class Segment:
             for a in (v.vecs, v.present, v.sq_norms, v.scan_vecs,
                       v.doc_rows):
                 acc(a)
+            if v.ivf is not None:
+                for a in (v.ivf.centroids, v.ivf.cent_sq,
+                          v.ivf.bucket_vecs, v.ivf.bucket_sq,
+                          v.ivf.bucket_ids):
+                    acc(a)
+            if v.host_ivf is not None:
+                acc(v.host_ivf.centroids), acc(v.host_ivf.cent_sq)
         for p in self._pcode_cache.values():
             for t in (p if isinstance(p, tuple) else (p,)):
                 acc(t)
         return sum(seen.values())
+
+    def host_bytes(self) -> int:
+        """Bytes of the host-resident index arrays: a cold segment's CSR
+        arrays and the host tier's vectors and bucket slabs."""
+        total = 0
+        if self.cold:
+            tx = self.text
+            for a in (tx.term_offsets, tx.doc_ids, tx.freqs,
+                      tx.field_masks, tx.doclens, tx.pos_offsets,
+                      tx.poskeys):
+                total += a.nbytes
+            for t in self.tags.values():
+                total += t.offsets.nbytes + t.doc_ids.nbytes
+        for v in self.vectors.values():
+            if v.host:
+                total += v.vecs.nbytes + v.sq_norms.nbytes
+                if v.compression:
+                    total += v.vq_off.nbytes + v.vq_scl.nbytes
+                if v.host_ivf is not None:
+                    total += v.host_ivf.host_bytes()
+        return total

@@ -1,8 +1,7 @@
 """Scorer constants, position-key windows, numeric filters and top-k.
 
 Counterpart of `redisearch_tpu/ops/text.py`, the companion of
-`ops/window.py` in the general window path.  Left out: `geo_radius_mask`
-(GEO columns are not in the port's segment yet) and `tags_match_dense`,
+`ops/window.py` in the general window path.  Left out: `tags_match_dense`,
 which no engine path calls; `tfidf_transform` serves both TFIDF and
 TFIDF.DOCNORM (the JAX module's two functions differ only in the norm
 they are given).
@@ -142,13 +141,31 @@ def numeric_range_mask(values, present, lo, hi, lo_excl: bool,
 EXACT_TOPK_LIMIT = 65536
 
 
+EARTH_RADIUS_M = 6372797.560856  # matches redis geo.c constant
+
+
+def geo_radius_mask(lon, lat, present, qlon, qlat, radius_m):
+    """GEO radius filter: exact f32 haversine over the columns (radians),
+    in the JAX function's asin(sqrt(a)) form, accurate for small
+    distances (reference: src/geo_index.c:28 approximates with geohash
+    cells, then filters exactly)."""
+    dlat = lat - qlat
+    dlon = lon - qlon
+    a = (torch.sin(dlat * 0.5) ** 2
+         + torch.cos(lat) * torch.cos(qlat) * torch.sin(dlon * 0.5) ** 2)
+    dist = 2.0 * EARTH_RADIUS_M * torch.arcsin(
+        torch.sqrt(torch.clamp(a, 0.0, 1.0)))
+    return present & (dist <= radius_m)
+
+
 def fast_top_k(x, k: int):
     """Top-k along the last axis of a 1-D or 2-D tensor: (values [..., k],
     lanes [..., k]), descending, ties by lowest lane (`lax.top_k`'s
     order; see the module docstring for rows past 65,536 lanes)."""
     if x.dim() == 1:
         vals, idx = torch.sort(x, descending=True, stable=True)
-        return vals[:k], idx[:k]
+        # copies: a view would keep the whole sorted row alive
+        return vals[:k].clone(), idx[:k].clone()
     n = x.shape[-1]
     vals, idx = torch.topk(x, k, dim=-1, largest=True, sorted=True)
     if n <= EXACT_TOPK_LIMIT:

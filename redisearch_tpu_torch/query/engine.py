@@ -34,13 +34,18 @@ Executors:
 * single, `execute` -> the general window program (`_build_fn`, a plain
   function over device tensors, cached per signature in
   `_PROGRAM_CACHE`), in mode "topk" (FT.SEARCH) or "window" (the
-  aggregation source).
+  aggregation source); its KNN branches include the IVF probe
+  (`ops.ivf.ivf_probe_arrays`), and GEO leaves are predicates
+  (`ops.text.geo_radius_mask`);
+* the paged paths, single and batched: KNN over a host-tier field
+  (`_execute_host_knn`, `_execute_batch_host_knn`: path "knn-host") and
+  any query on a cold segment (`_execute_cold`, the window program over
+  the query's posting slabs, `_cold_slab_args`: path "cold").
 
 The JAX executors' `lax.scan` over a batch is a Python loop over its
-queries here; GEO leaves and cold segments are refused before they reach
-an executor (the builder).  Vector fields are FLAT `storage="hbm"` ones
-(the builder refuses IVF, the host tier and LVQ: ROADMAP A8), so the
-JAX window program's IVF branch is left out.
+queries here.  IVF fields stay off the batched KNN executors, as in the
+JAX planner, so a batch of IVF queries rides "window"; unlike the JAX
+package, pure KNN batches on an IVF field do too (`_pure_knn_eligible`).
 """
 
 from __future__ import annotations
@@ -55,12 +60,13 @@ import torch
 
 from ..analysis.stemmer import Stemmer
 from ..query import ast, expand
-from ..schema import FieldType, Schema
+from ..schema import FieldType, Schema, VectorAlgo
 from ..utils import wkt
 from ..utils.errors import FieldNotFound, QuerySyntaxError, WrongFieldType
 from ..index.builder import decode_vector_bytes
 from ..index.segment import Segment, next_pow2
 from ..ops import intersect as IK
+from ..ops import ivf as IVF
 from ..ops import text as T
 from ..ops import vector as V
 from ..ops import window as WIN
@@ -1143,8 +1149,8 @@ def _kernel_plan_phrase(cq0: CompiledQuery, seg: Segment, bk: dict,
 
 def _knn_ivf_sig(cq: CompiledQuery, seg: Segment) -> str:
     """KNN part of a program's signature: metric, storage dtype, hybrid
-    policy, and "multi" (row-layout scan) or "flat".  The JAX function
-    also keys IVF probe shapes; the port has no IVF (ROADMAP A8)."""
+    policy, and "multi" (row-layout scan), "flat", or the IVF probe
+    shape "ivf:nprobe:nlist:list_pad"."""
     if cq.knn is None:
         return "none"
     field = cq.schema.field(cq.knn.field)
@@ -1153,7 +1159,18 @@ def _knn_ivf_sig(cq: CompiledQuery, seg: Segment) -> str:
             f"{cq.knn.hybrid_policy}:")
     if col is not None and col.multi:
         return base + "multi"
-    return base + "flat"
+    if (col is None or col.ivf is None
+            or field.vector.algo == VectorAlgo.FLAT):
+        return base + "flat"
+    nprobe = cq.knn.ef_runtime or field.vector.nprobe
+    return base + f"ivf:{nprobe}:{col.ivf.nlist}:{col.ivf.list_pad}"
+
+
+def _knn_exact_scan(cq: CompiledQuery, seg: Segment) -> bool:
+    """Whether the query's KNN field is scanned exactly (FLAT, not
+    multi-value, not IVF): the batched KNN executors' precondition."""
+    sig = _knn_ivf_sig(cq, seg)
+    return not (sig.endswith("multi") or ":ivf:" in sig)
 
 
 def _knn_has_scan(cq: CompiledQuery, seg: Segment) -> bool:
@@ -1173,7 +1190,10 @@ def _pure_knn_eligible(cqs: list, seg: Segment) -> bool:
         return False
     field = cq0.schema.field(cq0.knn.field)
     col = seg.vectors.get(field.attribute)
-    if col is None or col.multi:
+    if col is None or not _knn_exact_scan(cq0, seg):
+        # the JAX function lets IVF columns through to its exact scan, so
+        # its `search_many` and `search` disagree below nprobe = nlist;
+        # here IVF batches ride the window program's probe, as `search`
         return False
     for cq in cqs:
         if (cq.knn is None or cq.host_nodes
@@ -1198,7 +1218,7 @@ def _knn_dense_plan(cq0: CompiledQuery, seg: Segment, bk: dict):
     without its RS_TPU_NO_DENSE_KNN switch."""
     if cq0.knn is None or cq0.opts.sort_field is not None:
         return None
-    if _knn_ivf_sig(cq0, seg).endswith("multi"):
+    if not _knn_exact_scan(cq0, seg):
         return None
     if cq0.host_nodes:
         return None
@@ -1268,7 +1288,7 @@ def _knn_hoist_info(cq: CompiledQuery, seg: Segment, buckets: dict,
     top-M out of the per-query loop, else None."""
     if cq.knn is None:
         return None
-    if _knn_ivf_sig(cq, seg).endswith("multi"):
+    if not _knn_exact_scan(cq, seg):
         return None
     policy = cq.knn.hybrid_policy
     if policy == "ADHOC_BF":
@@ -1432,7 +1452,8 @@ def decode_blob(raw, field) -> np.ndarray:
 #: how many batched queries rode which executor family (callers reset it)
 QUERY_PATH_STATS: dict[str, int] = {
     "kernel": 0, "kernel-wide": 0, "phrase-kernel": 0, "window": 0,
-    "knn-pure": 0, "knn-dense": 0, "knn-batches": 0, "knn-row": 0}
+    "knn-pure": 0, "knn-dense": 0, "knn-batches": 0, "knn-row": 0,
+    "knn-host": 0, "cold": 0}
 
 
 @dataclasses.dataclass
@@ -1499,6 +1520,20 @@ def execute_batch(cqs: list, seg: Segment, k: int, async_: bool = False):
     before any is collected.  Returns one SegmentResult per query; with
     async_=True, the `_BatchHandle` at once (the card may still be
     working), whose result() collects."""
+    if _knn_host_col(cqs[0], seg) is not None or seg.cold:
+        # paged paths: the host's gather is their pipeline, so they run
+        # before the call returns ("knn-host": one shared probe, gather
+        # and scan for pure KNN; "cold": the window program per query
+        # over its slabs)
+        if seg.cold and _knn_host_col(cqs[0], seg) is None:
+            path, results = "cold", [_execute_cold(cq, seg, k)
+                                     for cq in cqs]
+        else:
+            path, results = "knn-host", _execute_batch_host_knn(cqs, seg,
+                                                                k)
+        QUERY_PATH_STATS[path] = QUERY_PATH_STATS.get(path, 0) + len(cqs)
+        handle = Deferred(lambda: results)
+        return handle if async_ else handle.result()
     if _pure_knn_eligible(cqs, seg):
         QUERY_PATH_STATS["knn-pure"] = (
             QUERY_PATH_STATS.get("knn-pure", 0) + len(cqs))
@@ -1707,8 +1742,7 @@ def _rows_executor(cq0: CompiledQuery, ent: tuple, seg: Segment, k: int):
     dplan = _knn_dense_plan(cq0, seg, bk)
     if dplan is not None:
         return _DenseKnnExecutor(cq0, seg, dplan, layout, ke)
-    knn_row = (cq0.knn is not None
-               and not _knn_ivf_sig(cq0, seg).endswith("multi"))
+    knn_row = cq0.knn is not None and _knn_exact_scan(cq0, seg)
     hoist = _knn_hoist_info(cq0, seg, bk, k_pad) if knn_row else None
     if hoist is not None:
         return _HoistKnnExecutor(cq0, seg, bk, P2, layout, k_pad, ke, hoist)
@@ -2096,11 +2130,12 @@ def _tag_codes_ords(cq: CompiledQuery, seg: Segment) -> tuple:
 
 def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
     """The device arrays the kernels and the window program read (the JAX
-    function's, without GEO and IVF columns): postings, position keys,
-    per-doc columns, per TAG leaf its doc postings and codes, per NUMERIC
+    function's): postings, position keys, per-doc columns, per TAG leaf
+    its doc postings and codes, per NUMERIC leaf its columns, per GEO
     leaf its columns, per VECTOR_RANGE leaf its vector column, field TTL
-    columns, the missing-field columns, the KNN field's column and the
-    SORTBY column."""
+    columns, the missing-field columns, the KNN field's column (and its
+    IVF arrays) and the SORTBY column.  A cold segment's posting entries
+    are host numpy here; `_cold_slab_args` replaces them."""
     args = {
         "gids": seg.gids,
         "doc_ids": seg.text.doc_ids,
@@ -2129,10 +2164,11 @@ def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
             if pc is not None:
                 args[f"tag{j}_pcodes"] = pc
     for leaf, _idx in cq.leaves():
-        if (isinstance(leaf, (LTag, LNumeric, LVecRange))
+        if (isinstance(leaf, (LTag, LNumeric, LGeo, LVecRange))
                 and leaf.field in seg.field_fexp):
             kind = ("tag" if isinstance(leaf, LTag)
-                    else "num" if isinstance(leaf, LNumeric) else "vec")
+                    else "num" if isinstance(leaf, LNumeric)
+                    else "geo" if isinstance(leaf, LGeo) else "vec")
             args[f"{kind}{leaf.ord}_fexp"] = seg.field_fexp[leaf.field]
         if isinstance(leaf, LMissing):
             if leaf.field in seg.field_fexp:
@@ -2153,8 +2189,18 @@ def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
             if col.multi:
                 args[f"num{leaf.ord}_mv"] = col.multi_values
                 args[f"num{leaf.ord}_mp"] = col.multi_present
+        if isinstance(leaf, LGeo):
+            col = seg.geos[leaf.field]
+            args[f"geo{leaf.ord}_lon"] = col.lon
+            args[f"geo{leaf.ord}_lat"] = col.lat
+            args[f"geo{leaf.ord}_p"] = col.present
         if isinstance(leaf, LVecRange):
             col = seg.vectors[leaf.field]
+            if col.host:
+                raise WrongFieldType(
+                    "VECTOR_RANGE is not supported on host-tier "
+                    "(storage='host') vector fields — range queries "
+                    "need the full vector matrix on device")
             args[f"vec{leaf.ord}"] = col.vecs
             args[f"vec{leaf.ord}_p"] = col.present
             args[f"vec{leaf.ord}_sq"] = col.sq_norms
@@ -2163,6 +2209,12 @@ def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
     if cq.knn is not None:
         field = cq.schema.field(cq.knn.field)
         col = seg.vectors[field.attribute]
+        if col.host:
+            # `execute` and `execute_batch` route host-tier KNN to
+            # `_execute_host_knn`; a window program cannot page slabs
+            raise WrongFieldType(
+                "host-tier (storage='host') vector fields cannot feed "
+                "window-mode execution; KNN over them yields top-k only")
         args["knn_vecs"] = col.vecs
         args["knn_present"] = col.present
         args["knn_sq"] = col.sq_norms
@@ -2172,6 +2224,12 @@ def _segment_args(cq: CompiledQuery, seg: Segment) -> dict:
             args["knn_fexp"] = seg.field_fexp[field.attribute]
         if col.multi:
             args["knn_doc_rows"] = col.doc_rows
+        if col.ivf is not None:
+            args["ivf_cent"] = col.ivf.centroids
+            args["ivf_csq"] = col.ivf.cent_sq
+            args["ivf_bv"] = col.ivf.bucket_vecs
+            args["ivf_bsq"] = col.ivf.bucket_sq
+            args["ivf_bi"] = col.ivf.bucket_ids
     if cq.opts.sort_field:
         f = cq.schema.field(cq.opts.sort_field)
         if f.type == FieldType.NUMERIC:
@@ -2272,19 +2330,38 @@ def execute(cq: CompiledQuery, seg: Segment, k: int,
     mode "topk": the top k by score or sort key (FT.SEARCH).  mode
     "window": the candidate window (docs, valid, scores) with no top-k,
     the aggregation source.  The dynamic state crosses to the device as
-    one int32 row and the outputs come back as one tensor."""
+    one int32 row and the outputs come back as one tensor.  KNN over a
+    host-tier field runs `_execute_host_knn`, a cold segment
+    `_execute_cold`."""
+    if _knn_host_col(cq, seg) is not None:
+        if mode == "window":
+            # aggregations take KNN sources in mode "topk"
+            raise WrongFieldType(
+                "host-tier (storage='host') vector fields cannot feed "
+                "window-mode execution; KNN over them yields top-k only")
+        return _execute_host_knn(cq, seg, k, extra_mask)
+    if seg.cold:
+        return _execute_cold(cq, seg, k, extra_mask, mode)
     binding, P = cq.bind(seg)
     dyn = binding.dyn
     dyn.pop("_tagL", None)
     buckets = dyn.pop("_buckets")
     if extra_mask is not None:
         dyn["extra_mask"] = extra_mask
+    return _run_program(cq, seg, binding, buckets, P, k, extra_mask, mode,
+                        _segment_args(cq, seg), dyn)
+
+
+def _run_program(cq, seg, binding, buckets, P, k, extra_mask, mode,
+                 seg_args, dyn) -> SegmentResult:
+    """The window program of one query over `seg_args`, its dynamic
+    state in one int32 row, its outputs back in one tensor."""
     k_pad = int(min(next_pow2(max(k, 1)), seg.n_pad))
     fn = _program(cq, seg, buckets, P, k_pad, extra_mask is not None, mode)
     layout, total = _layout_of(dyn)
     buf = _pack_into(layout, dyn, np.zeros(total, np.int32))
     dev_dyn = _device_unpack(layout, torch.from_numpy(buf).to(seg.device))
-    flat, out_layout = _pack_out(fn(_segment_args(cq, seg), dev_dyn))
+    flat, out_layout = _pack_out(fn(seg_args, dev_dyn))
     out = _unpack_out(flat.cpu().numpy(), out_layout)
     if mode == "window":
         return SegmentResult(local_idx=out["docs"], scores=out["score"],
@@ -2296,6 +2373,311 @@ def execute(cq: CompiledQuery, seg: Segment, k: int,
                          sortkeys=out.get("sortkeys"),
                          knn_dists=out.get("knn"),
                          warnings=binding.warnings)
+
+
+# ---------------------------------------------------------------------------
+# Cold segments: the window program over paged posting slabs
+# ---------------------------------------------------------------------------
+
+def _cold_slab_args(cq: CompiledQuery, seg: Segment, dyn: dict,
+                    buckets: dict):
+    """Per-query window slabs from a COLD segment's host CSR arrays, and
+    the dyn starts rewritten to slab offsets (the JAX function's).
+
+    A query's windows are contiguous CSR runs, so paging is numpy
+    slices: the upload is bounded by the query's own window buckets, not
+    the corpus.  The program is the hot path's (`_build_fn`); only the
+    posting arrays it slices are the little slabs.  Slab lengths are
+    next_pow2(max(total, 1024)) lanes, as in the JAX package.
+
+    Returns (seg_args on the segment's device, dyn, slab_sig)."""
+    text = seg.text
+    hd = np.asarray(text.doc_ids)
+    hf = np.asarray(text.freqs)
+    hm = np.asarray(text.field_masks)
+    hdl = np.asarray(text.doclens)
+    pk = np.asarray(text.poskeys)
+    po = text.pos_offsets_np                    # int64 host mirror
+    n_slots = len(cq.term_strings)
+    tstarts = np.asarray(dyn["tstarts"]).copy()
+    tlens = np.asarray(dyn["tlens"])
+
+    # per-slot posting-window width + position-window width
+    slotW = np.zeros(n_slots, np.int64)
+    posW = np.zeros(n_slots, np.int64)
+    for leaf, idx in cq.leaves():
+        if isinstance(leaf, LTerms):
+            _nu, W = buckets[idx]
+            slotW[leaf.lo:leaf.hi] = np.maximum(slotW[leaf.lo:leaf.hi], W)
+        elif isinstance(leaf, LPhrase):
+            Wn, Pc, Pm, pivot_j, _bigs, _br, _nch = buckets[idx]
+            for i, s_ in enumerate(leaf.slots):
+                slotW[s_] = max(slotW[s_], Wn)
+                posW[s_] = max(posW[s_], Pc if i == pivot_j else
+                               max(Pc, Pm))
+    sb = buckets.get(-1)
+    if sb is not None:                           # slop-divisor scorers
+        slop_info = _slop_root_children(cq.tree)
+        if slop_info is not None:
+            for ch, per in zip(slop_info[1], sb):
+                if ch[0] == "slots":
+                    for s_, Pj in zip(ch[1], per):
+                        posW[s_] = max(posW[s_], Pj)
+
+    live = [s_ for s_ in range(n_slots) if slotW[s_] > 0]
+    total = int(sum(int(slotW[s_]) for s_ in live))
+    total_pad = int(next_pow2(max(total, 1024)))
+    sd = np.zeros(total_pad, hd.dtype)
+    sf = np.zeros(total_pad, hf.dtype)
+    sm_ = np.zeros((total_pad,) + hm.shape[1:], hm.dtype)
+    sdl = np.zeros(total_pad, hdl.dtype)
+    spo = np.zeros(total_pad + 1, np.int64)
+
+    # position slab: full runs (chunked/overflow paths scan them) + a
+    # tail pad covering the widest position window slice
+    pos_slots = [s_ for s_ in live if posW[s_] > 0 and tlens[s_] > 0]
+    run_lens = {s_: int(po[tstarts[s_] + tlens[s_]] - po[tstarts[s_]])
+                for s_ in pos_slots}
+    pk_tail = int(max([int(posW[s_]) for s_ in pos_slots], default=1))
+    pk_total = sum(run_lens.values()) + pk_tail
+    # a slot with no postings reads a position window too: the slab
+    # holds the widest one (the JAX function sizes it by the slots with
+    # postings only, and its slice then fails)
+    pk_pad = int(next_pow2(max(pk_total, 1024, int(posW.max(initial=0)))))
+    spk = np.full(pk_pad, 2**31 - 1, np.int32)
+
+    cur = 0
+    pk_cur = 0
+    for s_ in live:
+        W = int(slotW[s_])
+        st = int(tstarts[s_])
+        o = cur
+        cur += W
+        end = min(st + W, len(hd))
+        sd[o:o + end - st] = hd[st:end]
+        sf[o:o + end - st] = hf[st:end]
+        sm_[o:o + end - st] = hm[st:end]
+        sdl[o:o + end - st] = hdl[st:end]
+        if s_ in run_lens:
+            kb = int(po[st])
+            rl = run_lens[s_]
+            spk[pk_cur:pk_cur + rl] = pk[kb:kb + rl]
+            # pos_offsets rows for the whole window (slop reads them at
+            # arbitrary posting positions); rebased into the pk slab
+            ke = min(st + W + 1, len(po) - 1)
+            spo[o:o + ke - st] = po[st:ke] - kb + pk_cur
+            pk_cur += rl
+        tstarts[s_] = o
+
+    dyn = dict(dyn)
+    dyn["tstarts"] = tstarts.astype(tlens.dtype)
+
+    args = _segment_args(cq, seg)
+    args["doc_ids"] = sd
+    args["freqs"] = sf
+    args["field_masks"] = sm_
+    args["posting_dl"] = sdl
+    args["pos_offsets"] = spo.astype(np.int32)
+    args["poskeys"] = spk
+
+    # tag window slabs
+    for j, node in enumerate(cq.tag_nodes):
+        tp = seg.tags.get(cq.schema.field(node.field).attribute)
+        if tp is None or not isinstance(tp.doc_ids, np.ndarray):
+            continue
+        e = None
+        for lf, idx in cq.leaves():
+            if isinstance(lf, LTag) and lf.ord == j:
+                e = buckets.get(idx)
+        if not e:
+            continue
+        nu, Wt = e
+        ts = np.asarray(dyn[f"tag{j}_starts"]).copy()
+        td = np.asarray(tp.doc_ids)
+        slab = np.zeros(int(next_pow2(max(nu * Wt, 256))), td.dtype)
+        c2 = 0
+        for v in range(min(nu, len(ts))):
+            st = int(ts[v])
+            end = min(st + Wt, len(td))
+            slab[c2:c2 + end - st] = td[st:end]
+            ts[v] = c2
+            c2 += Wt
+        dyn[f"tag{j}_starts"] = ts
+        args[f"tag{j}_docs"] = slab
+
+    # every host array goes up: the slabs, and (as in the JAX package)
+    # whole any CSR array no leaf window covers
+    for kk in list(args):
+        if isinstance(args[kk], np.ndarray):
+            args[kk] = torch.as_tensor(args[kk], device=seg.device)
+
+    slab_sig = (f"T={total_pad}|PK={pk_pad}|"
+                + ",".join(f"{s_}:{int(slotW[s_])}:{int(posW[s_])}"
+                           for s_ in live))
+    return args, dyn, slab_sig
+
+
+def _execute_cold(cq: CompiledQuery, seg: Segment, k: int,
+                  extra_mask: Optional[np.ndarray] = None,
+                  mode: str = "topk") -> SegmentResult:
+    """A query against a cold segment: its windows paged up as slabs,
+    then the hot path's program over them."""
+    binding, P = cq.bind(seg)
+    dyn = dict(binding.dyn)
+    dyn.pop("_tagL", None)
+    buckets = dyn.pop("_buckets")
+    if extra_mask is not None:
+        dyn["extra_mask"] = extra_mask
+    seg_args, dyn, _sig = _cold_slab_args(cq, seg, dyn, buckets)
+    return _run_program(cq, seg, binding, buckets, P, k, extra_mask, mode,
+                        seg_args, dyn)
+
+
+# ---------------------------------------------------------------------------
+# The host tier: KNN over ops/ivf.py HostIVF
+# ---------------------------------------------------------------------------
+
+def _knn_host_col(cq: CompiledQuery, seg: Segment):
+    """The KNN field's VectorColumn when it lives on the host tier."""
+    if cq.knn is None:
+        return None
+    col = seg.vectors.get(cq.schema.field(cq.knn.field).attribute)
+    return col if col is not None and col.host else None
+
+
+def _host_doc_ok(cq: CompiledQuery, seg: Segment, attr: str):
+    """Device liveness mask for host-tier probes: deletes, doc TTL and
+    field TTL on the KNN field (the window program's `knn_ok` checks the
+    same three), or None."""
+    now = int(cq.opts.now)
+    ok = None
+    if seg.n_deleted > 0:
+        ok = seg.alive
+    if seg.has_ttl:
+        e = seg.expire_at
+        m = (e == 0) | (e > now)
+        ok = m if ok is None else ok & m
+    fe = seg.field_fexp.get(attr)
+    if fe is not None:
+        m = ~((fe > 0) & (fe <= now))
+        ok = m if ok is None else ok & m
+    return ok
+
+
+def _host_knn_nprobe(cq: CompiledQuery) -> int:
+    field = cq.schema.field(cq.knn.field)
+    return int(cq.knn.ef_runtime or field.vector.nprobe)
+
+
+def _filter_only(cq: CompiledQuery) -> CompiledQuery:
+    """Shallow copy evaluating just the filter child of a KNN query
+    (fresh bind caches; the lowered tree and slot tables are shared,
+    read-only)."""
+    import copy
+    fcq = copy.copy(cq)
+    fcq.knn = None
+    fcq._bind_cache = {}
+    fcq._row_cache = {}
+    return fcq
+
+
+def _execute_host_knn(cq: CompiledQuery, seg: Segment, k: int,
+                      extra_mask: Optional[np.ndarray] = None
+                      ) -> SegmentResult:
+    """KNN over a host-tier vector field: probe the centroids on the
+    device, page the probed lists' slabs up, scan them exactly
+    (`ops.ivf.host_ivf_knn`).  A filtered query evaluates its filter as
+    a window (mode "window"), compacts it on the host into sorted unique
+    candidates and masks probed ids against them."""
+    field = cq.schema.field(cq.knn.field)
+    col = seg.vectors[field.attribute]
+    hivf = col.host_ivf
+    if hivf is None:
+        raise WrongFieldType(
+            f"host-tier vector field @{field.attribute} has no IVF "
+            "structure (segment not sealed through commit()?)")
+    q = decode_blob(cq.knn.blob, field).astype(np.float32)[None, :]
+    k_eff = min(max(k, 1), seg.n_pad)
+    doc_ok = _host_doc_ok(cq, seg, field.attribute)
+
+    leaves = cq.leaves()
+    pure = (len(leaves) == 1 and isinstance(leaves[0][0], LAll)
+            and not cq.host_nodes and extra_mask is None)
+    warnings: tuple = ()
+    if pure:
+        dists, ids = IVF.host_ivf_knn(hivf, q, k_eff, _host_knn_nprobe(cq),
+                                      doc_ok=doc_ok)
+        dists, ids = dists[0], ids[0]
+        scores = np.zeros(k_eff, np.float32)
+    else:
+        wres = execute(_filter_only(cq), seg, k_eff,
+                       extra_mask=extra_mask, mode="window")
+        warnings = wres.warnings
+        raw = np.asarray(wres.local_idx)
+        val = (np.asarray(wres.valid) if wres.valid is not None
+               else np.ones(raw.shape, bool))
+        raw_sc = np.asarray(wres.scores)
+        # union windows carry duplicate doc entries with one valid owner;
+        # the scan's searchsorted membership needs sorted unique docs
+        keep = val & (raw != np.int32(2**31 - 1))
+        docs = raw[keep]
+        sc = raw_sc[keep]
+        order = np.argsort(docs, kind="stable")
+        docs, sc = docs[order], sc[order]
+        if len(docs):
+            first = np.ones(len(docs), bool)
+            first[1:] = docs[1:] != docs[:-1]
+            docs, sc = docs[first], sc[first]
+        Wc = int(next_pow2(max(len(docs), 1)))
+        cand = np.full(Wc, 2**31 - 1, np.int32)
+        cand[:len(docs)] = docs
+        cval = np.zeros(Wc, bool)
+        cval[:len(docs)] = True
+        dists, ids = IVF.host_ivf_knn(hivf, q, k_eff, _host_knn_nprobe(cq),
+                                      doc_ok=doc_ok,
+                                      cand_docs=cand[None, :],
+                                      cand_valid=cval[None, :])
+        dists, ids = dists[0], ids[0]
+        # text scores ride the window rows
+        pos = np.clip(np.searchsorted(cand, ids), 0, Wc - 1)
+        hit = cand[pos] == ids
+        sc_pad = np.concatenate([sc, np.zeros(Wc - len(docs), np.float32)])
+        scores = np.where(hit, sc_pad[pos], 0.0).astype(np.float32)
+    count = int((dists < 3.3e38).sum())
+    return SegmentResult(local_idx=ids.astype(np.int32), scores=scores,
+                         count=count, knn_dists=dists, warnings=warnings)
+
+
+def _execute_batch_host_knn(cqs: list, seg: Segment, k: int) -> list:
+    """A batch whose first query is KNN over a host-tier field: pure
+    same-field KNN queries share one probe, one slab gather and one scan
+    (the probed lists' pages amortize over the batch); anything else
+    runs query by query through `execute`."""
+    cq0 = cqs[0]
+    field = cq0.schema.field(cq0.knn.field)
+
+    def batchable(cq):
+        if (cq.knn is None or cq.host_nodes
+                or cq.knn.field != cq0.knn.field
+                or cq.opts.sort_field
+                or _host_knn_nprobe(cq) != _host_knn_nprobe(cq0)):
+            return False
+        lv = cq.leaves()
+        return len(lv) == 1 and isinstance(lv[0][0], LAll)
+
+    if not all(batchable(cq) for cq in cqs):
+        return [execute(cq, seg, k) for cq in cqs]
+    hivf = seg.vectors[field.attribute].host_ivf
+    Q = np.stack([decode_blob(cq.knn.blob, field)
+                  for cq in cqs]).astype(np.float32)
+    k_eff = min(max(k, 1), seg.n_pad)
+    dists, ids = IVF.host_ivf_knn(hivf, Q, k_eff, _host_knn_nprobe(cq0),
+                                  doc_ok=_host_doc_ok(cq0, seg,
+                                                      field.attribute))
+    return [SegmentResult(local_idx=ids[i].astype(np.int32),
+                          scores=np.zeros(k_eff, np.float32),
+                          count=int((dists[i] < 3.3e38).sum()),
+                          knn_dists=dists[i]) for i in range(len(cqs))]
 
 
 def _can_gen(t) -> bool:
@@ -2412,6 +2794,9 @@ def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
     knn_field = cq.schema.field(knn.field) if knn is not None else None
     knn_metric = knn_field.vector.metric.value if knn is not None else None
     knn_multi = _knn_ivf_sig(cq, seg_proto).endswith("multi")
+    knn_ivf = ":ivf:" in _knn_ivf_sig(cq, seg_proto)
+    knn_nprobe = (knn.ef_runtime or knn_field.vector.nprobe
+                  if knn is not None else 0)
     knn_policy = knn.hybrid_policy if knn is not None else None
     knn_has_fexp = (knn is not None
                     and knn_field.attribute in seg_proto.field_fexp)
@@ -2634,6 +3019,20 @@ def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
                         m = field_alive("num", leaf.ord, docs, m)
                     return m, torch.where(m, const, 0.0)
                 return f
+            if isinstance(leaf, LGeo):
+                def f(docs, dl):
+                    cd = clampdoc(docs)
+                    p = seg[f"geo{leaf.ord}_p"][cd]
+                    if leaf.field in fexp_attrs:
+                        p = field_alive("geo", leaf.ord, docs, p)
+                    m = T.geo_radius_mask(
+                        seg[f"geo{leaf.ord}_lon"][cd],
+                        seg[f"geo{leaf.ord}_lat"][cd], p,
+                        dyn["geo_lon"][leaf.ord], dyn["geo_lat"][leaf.ord],
+                        dyn["geo_rad"][leaf.ord])
+                    m = m & (docs != WIN.INVALID)
+                    return m, torch.where(m, const, 0.0)
+                return f
             if isinstance(leaf, LVecRange):
                 (vmulti,) = buckets[idx]
 
@@ -2850,10 +3249,13 @@ def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
             hybrid iterator yields)."""
             q = dyn["knn_blob"]
             window_root = not root_is_iota
-            use_batches = (window_root and not knn_multi
+            use_batches = (window_root and not knn_multi and not knn_ivf
                            and knn_policy != "ADHOC_BF"
                            and (knn_policy == "BATCHES" or Wc >= 32768))
-            if window_root and not use_batches:
+            use_exact_gather = window_root and not use_batches and (
+                knn_policy == "ADHOC_BF" or not knn_ivf
+                or (knn_policy is None and Wc <= 16384))
+            if use_exact_gather:
                 # exact gather over the filter window
                 dm = torch.where(valid & knn_ok(cd), knn_doc_dist(cd),
                                  V.BIG)
@@ -2911,6 +3313,30 @@ def _build_fn(cq: CompiledQuery, seg_proto: Segment, buckets: dict,
                     out["idx"] = docs[sel]
                     out["knn"] = -vals
                     out["scores"] = score[sel]
+            elif knn_ivf:
+                # over-fetch probe candidates, then the filter tree as a
+                # predicate on the probed doc ids (the reference's
+                # hybrid-iterator batch, bounded to one batch here)
+                kk = k_eff if root_is_iota else min(max(8 * k_eff, 64),
+                                                    n_pad)
+                dists, ids = IVF.ivf_probe_arrays(
+                    seg["ivf_cent"], seg["ivf_csq"], seg["ivf_bv"],
+                    seg["ivf_bsq"], seg["ivf_bi"], knn_metric,
+                    q.to(torch.float32), kk, knn_nprobe)
+                cid = clampdoc(ids.clamp(min=0))
+                ok = (ids >= 0) & seg["alive"][cid]
+                if root_is_iota:
+                    ok = ok & valid[cid]
+                    sc = score[cid]
+                else:
+                    m, sc = eval_pred(tree)(cid.to(torch.int32),
+                                            normcol[cid])
+                    ok = ok & m
+                dists = torch.where(ok, dists, V.BIG)
+                vals, sel = T.fast_top_k(-dists, k_eff)
+                out["idx"] = cid[sel].to(torch.int32)
+                out["knn"] = -vals
+                out["scores"] = sc[sel]
             else:
                 if knn_row:
                     d = dyn["knn_row"]

@@ -225,22 +225,41 @@ def test_mark_deleted_writes_in_place():
 @pytest.mark.parametrize("field,item", [
     ("vector", "A7"), ("geo", "A6"), ("host", "A6")])
 def test_unported_schemas_raise(field, item):
-    """A schema the port cannot seal yet is refused, naming its ROADMAP
-    item.  A7 ported FLAT vector fields; of a VECTOR field, what A7
-    leaves (the IVF family: IVF, its HNSW alias, TIERED) is refused
-    naming A8 (`test_torch_knn.py` covers the rest)."""
-    F, T = rt.Field, rt.FieldType
-    fields = [F("t", T.TEXT)]
-    kw = {}
-    if field == "vector":
-        from redisearch_tpu_torch.schema import VectorParams
-        fields.append(F("v", T.VECTOR,
-                        vector=VectorParams(dim=4, algo="HNSW")))
-        item = "A8"
-    elif field == "geo":
-        fields.append(F("g", T.GEO))
-    else:
-        kw["storage"] = "host"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        rt.SearchIndex(rt.Schema(name="x", fields=fields, **kw),
-                       device="cpu")
+    """The schemas the port once refused, naming their ROADMAP item, are
+    served since their items landed (A8: the IVF family, here HNSW;
+    A6-geo: GEO fields; A6-cold: `storage="host"`): the port seals them
+    as the JAX package does and answers a query on them as it does."""
+    del item
+    docs = [(f"d{i}", {"t": "alpha" if i % 2 else "alpha beta",
+                       "g": f"{2 + i * 0.001:.4f},48.0",
+                       "v": np.full(4, float(i % 7), np.float32)})
+            for i in range(300)]
+    out = []
+    for p in (rs, rt):
+        F, T = p.Field, p.FieldType
+        fields = [F("t", T.TEXT)]
+        kw = {}
+        if field == "vector":
+            fields.append(F("v", T.VECTOR, vector=p.VectorParams(
+                dim=4, algo="HNSW", nlist=4, nprobe=4, flat_buffer_limit=64)))
+            q, params = "*=>[KNN 5 @v $b]", {"b": np.full(4, 3.2,
+                                                        np.float32)}
+        elif field == "geo":
+            fields.append(F("g", T.GEO))
+            q, params = "beta @g:[2.1 48.0 5 km]", None
+        else:
+            kw["storage"] = "host"
+            q, params = "beta -alpha", None
+        schema = p.Schema(name="x", fields=fields, **kw)
+        ix = (p.SearchIndex(schema) if p is rs
+              else p.SearchIndex(schema, device="cpu"))
+        for k, f in docs:
+            ix.add_document(k, f)
+        ix.commit()
+        res = ix.search(q, params=params, num=10)
+        out.append((res.total, [h.key for h in res.hits]))
+    assert out[0] == out[1]
+    seg = ix.segments[0]
+    assert {"vector": seg.vectors.get("v") is not None
+            and seg.vectors["v"].ivf is not None,
+            "geo": "g" in seg.geos, "host": seg.cold}[field]

@@ -290,16 +290,31 @@ def test_aggregate_over_knn_matches_jax(idx):
     (dict(storage="host", compression="LVQ8"), "A8")],
     ids=["hnsw", "ivf", "tiered", "host", "lvq8"])
 def test_unported_vector_options_are_refused(vp, item):
-    """Refused at FT.CREATE, so that no query returns FLAT's exact answer
-    where the JAX package returns IVF's."""
-    c = rt.Client(device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        c.ft_create("x", [rt.Field("v", rt.FieldType.VECTOR,
-                                   vector=rt.VectorParams(dim=4, **vp))])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        rt.SearchIndex(rt.Schema(name="y", fields=[
-            rt.Field("v", rt.FieldType.VECTOR,
-                     vector=rt.VectorParams(dim=4, **vp))]), device="cpu")
+    """These options were refused at FT.CREATE until A8 landed; now
+    `Client.ft_create` builds them (an IVF structure on the device, or
+    the host tier's HostIVF), and at nprobe = nlist a KNN query returns
+    the JAX package's answer."""
+    del item
+    rng = np.random.default_rng(11)
+    vecs = rng.normal(size=(300, 4)).astype(np.float32)
+    kw = dict(dim=4, nlist=4, nprobe=4, flat_buffer_limit=64, **vp)
+    out = []
+    for p in (rs, rt):
+        c = p.Client() if p is rs else p.Client(device="cpu")
+        ix = c.ft_create("x", [p.Field("v", p.FieldType.VECTOR,
+                                       vector=p.VectorParams(**kw))])
+        for i in range(300):
+            c.hset(f"d{i}", {"v": vecs[i]})
+        res = c.ft_search("x", "*=>[KNN 5 @v $b]",
+                          params={"b": vecs[9] + 0.01})
+        out.append([h.key for h in res.hits])
+    col = ix.segments[0].vectors["v"]
+    if vp.get("storage") == "host":
+        assert col.host and col.host_ivf is not None
+        assert col.host_ivf.compression == vp.get("compression", "")
+    else:
+        assert col.ivf is not None and col.ivf.nlist == 4
+    assert out[0] == out[1] and out[1][0] == "d9"
 
 
 def test_hybrid_is_refused():

@@ -11,7 +11,10 @@ group-by), a batch of KNN queries with PARAMS blobs (pure and
 TAG-filtered), a single KNN `ft_search` with a bytes blob, an
 `ft_hybrid` (text and KNN branches fused by RRF) and an FT.AGGREGATE
 WITHCURSOR drained by `ft_cursor_read` (the host pipeline, streaming),
-then reports which modules it loaded.  The host modules the port needs are its own
+then a cold (`storage="host"`) index with a GEO field, an IVF field and
+an LVQ8 host-tier field (`ops/ivf.py`, `ops/lvq.py`): a GEO filter, a
+batch of IVF queries, a host-tier KNN batch and a cold text batch, then
+reports which modules it loaded.  The host modules the port needs are its own
 copies: no loaded module's file may lie under `redisearch_tpu/`.  Two
 environments: jax, jaxlib and ml_dtypes blocked on `sys.meta_path` (the
 card's machine may have none of them), and jax importable (the port must
@@ -84,6 +87,26 @@ knn1 = client.ft_search("idx", "(@p:[0 3])=>[KNN 2 @v $b]",
                         params={"b": vecs[13].tobytes()})
 hyb = client.ft_hybrid("idx", rt.HybridQuery(
     search="beta", vsim_field="v", vsim_vector=vecs[7], window=5, limit=3))
+cold = rt.Client(device="cpu")
+cold.ft_create("cold", [
+    rt.Field("t", rt.FieldType.TEXT), rt.Field("loc", rt.FieldType.GEO),
+    rt.Field("iv", rt.FieldType.VECTOR, vector=rt.VectorParams(
+        dim=8, algo="IVF", nlist=8, nprobe=8, flat_buffer_limit=64)),
+    rt.Field("hv", rt.FieldType.VECTOR, vector=rt.VectorParams(
+        dim=8, storage="host", compression="LVQ8", nlist=8, nprobe=8))],
+    storage="host")
+for i in range(600):
+    cold.hset(f"d{i}", {"t": "alpha beta" if i % 2 else "alpha gamma",
+                        "loc": f"{2 + (i % 50) * 0.01:.2f},48.0",
+                        "iv": vecs[i], "hv": vecs[i]})
+engine.QUERY_PATH_STATS.clear()
+geo = cold.ft_search("cold", "beta @loc:[2.0 48.0 3 km]", num=100)
+ivf = cold.ft_search_many("cold", ["*=>[KNN 3 @iv $b]"] * 2,
+                          params=[{"b": vecs[5]}, {"b": vecs[9]}], k=3)
+host = cold.ft_search_many("cold", ["*=>[KNN 3 @hv $b]"] * 2,
+                           params=[{"b": vecs[5]}, {"b": vecs[9]}], k=3)
+ctext = cold.ft_search_many("cold", ["beta", "gamma -beta"], k=5)
+cold_paths = dict(engine.QUERY_PATH_STATS)
 cur = client.ft_aggregate("idx", rt.AggregateRequest("@p:[12 12]")
                           .load("@p").cursor(20))
 pages, cid = [cur.rows], cur.cursor_id
@@ -107,6 +130,11 @@ print(json.dumps({
     "hybrid": [r["__key"] for r in hyb],
     "cursor": [cur.total, [len(p) for p in pages],
                sorted({r["p"] for p in pages for r in p})],
+    "cold": [geo.total, [[h.key for h in r.hits] for r in ivf + host],
+             [r.total for r in ctext], cold_paths,
+             sorted(m for m in sys.modules
+                    if m in ("redisearch_tpu_torch.ops.ivf",
+                             "redisearch_tpu_torch.ops.lvq"))],
     "files": sorted(m for m, v in list(sys.modules.items())
                     if (getattr(v, "__file__", None) or "").startswith(
                         jax_pkg)),
@@ -149,6 +177,16 @@ def test_port_serves_without_jax(block):
     assert out["knn_paths"] == {"knn-dense": 2}
     # d7 is first in both branches (an odd doc matches "beta")
     assert out["hybrid"][0] == "d7" and len(out["hybrid"]) == 3
+    # the cold index: GEO points 0.01 deg (0.74 km) apart from lon 2.0,
+    # so 3 km holds i % 50 <= 4; the odd ones match "beta"
+    geo_total, knn_keys, ctext, cold_paths, ops = out["cold"]
+    assert geo_total == len([i for i in range(1, 600, 2) if i % 50 <= 4])
+    assert [r[0] for r in knn_keys] == ["d5", "d9", "d5", "d9"]
+    assert ctext == [300, 300]
+    # on a cold segment every query but host-tier KNN is paged ("cold")
+    assert cold_paths == {"cold": 4, "knn-host": 2}
+    assert ops == ["redisearch_tpu_torch.ops.ivf",
+                   "redisearch_tpu_torch.ops.lvq"]
     n12 = len([i for i in range(600) if i % 13 == 12])
     assert out["cursor"] == [n12, [20, 20, n12 - 40], [12.0]]
     total, rows = out["single"]
