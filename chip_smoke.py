@@ -194,16 +194,49 @@ script exits non-zero:
    memory the cold index adds must not exceed its dense columns.  QPS,
    the host's bind + slab paging time a query, and a traced batch's
    idle share are printed.
-11. the module check (no jax, no module file under `redisearch_tpu/`),
+11. lifecycle, on the main path's 1M-doc index (run last: it deletes
+   from it).  (a) `save_index` of the clean index (its parts timed,
+   and its arrays written once more with compressed members, as the JAX
+   package writes them), `load_index` of it under a
+   second name: the eight families at batch 8192 take the original's
+   routes (kernel_hit_pct as before), B1 and B2 launch, and every result
+   equals the original's, scores bit for bit; `ft_dropindex` of it, with
+   the device memory before and after.  (b) `Client.hdel` of 200,000
+   keys (i % 5 == 1; deletes a second printed): `maybe_compact` keeps
+   the segment (20% < 25%), 256 queries a family ride the window program
+   and serve no deleted key, 16 and2 totals equal numpy set
+   intersections over the live docs, 64 of bench.py's FT.AGGREGATE
+   requests equal a numpy group-by over the live docs (COUNT exact,
+   SUM within 1e-5 of the group's sum).  (c) `ft_del` of 60,000 more
+   (26%): `maybe_compact` compacts through the slice path into one
+   segment of 740,000 docs and no deletes (seconds split into
+   `live_locals`, slice and upload; peak transient device memory).
+   (d) the compacted index: the eight families at batch 8192 with no
+   window query, each equal to its plain recomputation on the card;
+   256 phrases cut from live docs on B2, each matching its doc;
+   bench.py's aggregate at batch 1024 on the device tail, equal to
+   plain; `*` GROUPBY @grp COUNT summing to 740,000 (B4 launched); the
+   launch counters zeroed just before this run and read just after.
+   (e) a rebuild of the 740,000 live docs in corpus order through
+   `add_documents` (ingest seconds beside the compaction's): every
+   query of the eight families equal to the compacted index's
+   (`same_hits`).  (f) `hset` of 1,000 live keys with new text and of
+   1,000 new keys, one query seals the second segment: 256 queries a
+   family find each new doc by its own tokens, no overwritten version is
+   served (256 and2 totals equal numpy over the live docs, 256 title
+   phrases), `ft_get` and `ft_mget` return the new fields.  QPS on the
+   dirty and the compacted index are printed.
+12. the module check (no jax, no module file under `redisearch_tpu/`),
    then the last three lines: nvidia-smi's name and power limit, the
    kernels' JSON record, then {"ok": true, "device": {...}}.
 
 Phase 6 also runs `APPLY "1+2" AS k GROUPBY @k REDUCE COUNT 0` (a key
 column from constants only) through `ft_aggregate_many` and
 `ft_aggregate`: device path, key column on the card, one group of every
-document.  To run phases 8-10 alone: import `chip_smoke`, then
+document.  To run phases 8-11 alone: import `chip_smoke`, then
 `phase_ann(dev)`, `phase_geo(dev)`, and `main = phase_main_path(dev,
-N_DOCS, BATCH)` before `phase_cold(dev, main)`.
+N_DOCS, BATCH)` before `phase_cold(dev, main)` and
+`phase_lifecycle(dev, main)`.
 """
 
 from __future__ import annotations
@@ -1492,11 +1525,10 @@ def phase_phrase_runs(ix, seg, toks, n_each: int = 256) -> float:
     return err
 
 
-def phase_qps(client, ix, seg, batches, dev, iters: int = 4):
-    """Information only: QPS per family, host clock, ending in a sync:
-    sequential `ft_search_many` batches (best of 2), then bench.py's
-    pipelined loop over `execute_batch(async_=True)` at depth 2, which
-    prepares the next batch while the card runs this one (best of 2)."""
+def warm_qps(client, batches, dev) -> dict:
+    """QPS a family of "bm25": sequential `ft_search_many` batches, host
+    clock ending in a synchronize, best of 2."""
+    out = {}
     for fam, qs in batches.items():
         best = None
         for _ in range(2):
@@ -1505,8 +1537,18 @@ def phase_qps(client, ix, seg, batches, dev, iters: int = 4):
             torch.cuda.synchronize(dev)
             dt = time.perf_counter() - t0
             best = dt if best is None else min(best, dt)
-        log(f"phase main-path: qps {fam}: {len(qs) / best:.1f} "
-            f"(batch {len(qs)}, best of 2, host clock)")
+        out[fam] = len(qs) / best
+    return out
+
+
+def phase_qps(client, ix, seg, batches, dev, iters: int = 4):
+    """Information only: QPS per family, host clock, ending in a sync:
+    sequential `ft_search_many` batches (best of 2), then bench.py's
+    pipelined loop over `execute_batch(async_=True)` at depth 2, which
+    prepares the next batch while the card runs this one (best of 2)."""
+    for fam, qps in warm_qps(client, batches, dev).items():
+        log(f"phase main-path: qps {fam}: {qps:.1f} "
+            f"(batch {len(batches[fam])}, best of 2, host clock)")
     opts = E.QueryOptions(k=K)
     total_q = total_s = 0.0
     for fam, qs in batches.items():
@@ -3764,7 +3806,7 @@ def phase_cold(dev, main) -> dict:
     phase 4's result) as a cold index, against phase 4's hot index."""
     from torch.profiler import ProfilerActivity, profile
     import gc
-    docs, qt, hot_client = main.pop("docs"), main["qt"], main["client"]
+    docs, qt, hot_client = main["docs"], main["qt"], main["client"]
     client = rt.Client(device=dev)
     # earlier phases' indexes may sit in reference cycles: free them now
     # so that the count below sees only what this index adds
@@ -3847,6 +3889,469 @@ def phase_cold(dev, main) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 11
+LIFE_B = 256              # queries a family on the dirty and 2-seg index
+CKPT_DIR = "_ckpt"        # git-ignored, in the checkout; removed after
+
+
+def served_families(client, name, batches, dev) -> tuple:
+    """`ft_search_many` of every family on index `name` with the path and
+    launch counters zeroed just before and read just after: (results,
+    path stats, (B1 launches, B1 wide launches, B2 launches), seconds a
+    family)."""
+    E.QUERY_PATH_STATS.clear()
+    IK.LAUNCHES = IK.WIDE_LAUNCHES = IK.PHRASE_LAUNCHES = 0
+    res, secs = {}, {}
+    for fam, qs in batches.items():
+        t0 = time.perf_counter()
+        res[fam] = client.ft_search_many(name, qs, k=K)
+        torch.cuda.synchronize(dev)
+        secs[fam] = time.perf_counter() - t0
+    stats = {r: n for r, n in E.QUERY_PATH_STATS.items() if n}
+    return res, stats, (IK.LAUNCHES - IK.WIDE_LAUNCHES, IK.WIDE_LAUNCHES,
+                        IK.PHRASE_LAUNCHES), secs
+
+
+def hit_pct(stats) -> float:
+    """bench.py's kernel_hit_pct of a run's path stats."""
+    n = sum(stats.values())
+    return 100.0 * (n - stats.get("window", 0)) / n
+
+
+def phase_life_checkpoint(client, ix, batches, dev) -> dict:
+    """Phase 11(a): `save_index` the clean 1M-doc index (stored npz
+    members), `load_index` it as a second index, serve the eight
+    families on it (same routes, B1 and B2 launched, results equal to the
+    original's with bit-identical scores), then `ft_dropindex` it.  The
+    save's parts are timed apart, and the arrays are written once more
+    with compressed members, as the JAX package writes them (its
+    host.pkl is the same)."""
+    import gc
+    import shutil
+    from redisearch_tpu_torch.aux import checkpoint as CK
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        CKPT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    orig, ostats, _l, _s = served_families(client, "bm25", batches, dev)
+    path = os.path.join(root, "stored")
+    t0 = time.perf_counter()
+    client.save_index("bm25", path)
+    save_s = time.perf_counter() - t0
+    size = {f: os.path.getsize(os.path.join(path, f))
+            for f in os.listdir(path)}
+    arrays: dict = {}
+    t0 = time.perf_counter()
+    CK._collect_arrays(ix.segments[0], "seg0", arrays, {})
+    collect_s = time.perf_counter() - t0
+    npz = {}
+    for compress in (False, True):
+        t0 = time.perf_counter()
+        (np.savez_compressed if compress else np.savez)(
+            os.path.join(root, f"arrays{int(compress)}.npz"), **arrays)
+        npz[compress] = time.perf_counter() - t0
+    z_bytes = os.path.getsize(os.path.join(root, "arrays1.npz"))
+    del arrays
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    lix = client.load_index("bm25_ck", path)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    loaded = torch.cuda.memory_allocated(dev) - before
+    res, stats, launches, _s = served_families(client, "bm25_ck", batches,
+                                               dev)
+    log(f"phase lifecycle: (a) save_index {save_s:.2f}s ({size}); of a "
+        f"save, the arrays' copy to the host {collect_s:.2f}s and "
+        f"arrays.npz {npz[False]:.2f}s stored, {npz[True]:.2f}s compressed"
+        f" ({z_bytes} bytes); load_index {load_s:.2f}s; the loaded index "
+        f"holds {loaded / 2**20:.1f} MiB on the card; path stats {stats} "
+        f"(the original's {ostats}), kernel_hit_pct {hit_pct(stats):.2f}; "
+        f"B1 launches {launches[0]} (wide {launches[1]}), B2 {launches[2]}")
+    if stats != ostats or launches[0] <= 0 or launches[2] <= 0:
+        raise AssertionError(f"loaded index: routes {stats} vs {ostats}, "
+                             f"launches {launches}")
+    for fam in batches:
+        for i, (a, b) in enumerate(zip(res[fam], orig[fam])):
+            if (a.total != b.total or [h.key for h in a.hits]
+                    != [h.key for h in b.hits]
+                    or [h.score for h in a.hits]
+                    != [h.score for h in b.hits]):
+                raise AssertionError(f"loaded {fam} {i}: {a.total} "
+                                     f"{a.hits} vs {b.total} {b.hits}")
+    log(f"phase lifecycle: (a) the loaded checkpoint's {len(batches)} "
+        f"families == the original's (keys, totals, scores bit for bit)")
+    del res, lix
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    mem_loaded = torch.cuda.memory_allocated(dev)
+    client.ft_dropindex("bm25_ck")
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    mem_dropped = torch.cuda.memory_allocated(dev)
+    shutil.rmtree(root)
+    log(f"phase lifecycle: (a) ft_dropindex: device memory allocated "
+        f"{mem_loaded / 2**20:.1f} -> {mem_dropped / 2**20:.1f} MiB")
+    if client.ft_list() != ["bm25"]:
+        raise AssertionError(f"ft_dropindex: {client.ft_list()}")
+    return dict(save_s=save_s, bytes=size, collect_s=collect_s,
+                npz_s=npz[False], npz_z_s=npz[True], npz_z_bytes=z_bytes,
+                load_s=load_s, loaded=loaded,
+                mem=(mem_loaded, mem_dropped))
+
+
+def live_and2_docs(seg, ix, q) -> np.ndarray:
+    """numpy_and2_docs restricted to the docs alive in `seg`."""
+    d = numpy_and2_docs(seg, ix, q)
+    return d[seg.alive_np[d]]
+
+
+def phase_life_dirty(client, ix, small, dev) -> dict:
+    """Phase 11(b): `Client.hdel` 200,000 keys (i % 5 == 1); the segment
+    stays (20% < 25%) and serves on the window program, no hit a deleted
+    key, and2 totals and aggregate sums equal numpy over the live
+    docs."""
+    seg = ix.segments[0]
+    dead = [f"d{i}" for i in range(1, N_DOCS, 5)]
+    t0 = time.perf_counter()
+    for key in dead:
+        client.hdel(key)
+    torch.cuda.synchronize(dev)
+    del_s = time.perf_counter() - t0
+    ix.maybe_compact()
+    if ix.segments[0] is not seg or seg.n_deleted != len(dead):
+        raise AssertionError("maybe_compact did not keep the segment at "
+                             f"20%: {len(ix.segments)} segments, "
+                             f"n_deleted {ix.segments[0].n_deleted}")
+    log(f"phase lifecycle: (b) hdel {len(dead)} keys in {del_s:.2f}s "
+        f"({len(dead) / del_s:.0f} deletes/s); maybe_compact kept the "
+        f"segment at 20% deleted")
+    res, stats, _l, secs = served_families(client, "bm25", small, dev)
+    if stats != {"window": LIFE_B * len(small)}:
+        raise AssertionError(f"dirty segment: routes {stats}")
+    for fam, rs_ in res.items():
+        for r in rs_:
+            if any(int(h.key[1:]) % 5 == 1 for h in r.hits):
+                raise AssertionError(f"dirty {fam}: a deleted key served")
+    for q, r in list(zip(small["and2"], res["and2"]))[:16]:
+        want = len(live_and2_docs(seg, ix, q))
+        if r.total != want:
+            raise AssertionError(f"dirty and2 {q!r}: {r.total} != {want}")
+    mk = agg_request_fn()[0]
+    reqs = [mk(i) for i in range(64)]
+    AP.AGG_PATH_STATS.clear()
+    agg = client.ft_aggregate_many("bm25", reqs)
+    astats = dict(AP.AGG_PATH_STATS)
+    grp_ids = seg.strcols["grp"].value_ids.cpu().numpy()
+    price = seg.numerics["price"].values.cpu().numpy()
+    table = seg.strcols["grp"].table
+    for req, r in zip(reqs, agg):
+        total, top = numpy_agg_top(seg, ix, None, grp_ids, table, price,
+                                   docs=live_and2_docs(seg, ix, req.query))
+        got = [(x["grp"], x["n"]) for x in r.rows]
+        if r.total != total or got != [t_[:2] for t_ in top] or any(
+                abs(x["s"] - t_[2]) > 1e-5 * t_[2]
+                for x, t_ in zip(r.rows, top)):
+            raise AssertionError(f"dirty aggregate {req.query!r}: {r.total}"
+                                 f" {r.rows} != numpy {total} {top}")
+    qps = {fam: LIFE_B / s for fam, s in secs.items()}
+    log(f"phase lifecycle: (b) {LIFE_B} queries a family on the dirty "
+        f"segment all on the window program, no deleted key served; 16 "
+        f"and2 totals == numpy over the live docs; 64 aggregate requests "
+        f"({astats}) == numpy group-by over the live docs (COUNT exact, "
+        f"SUM within 1e-5); qps "
+        + ", ".join(f"{f} {v:.1f}" for f, v in qps.items()))
+    return dict(del_s=del_s, n_del=len(dead), qps=qps)
+
+
+def phase_life_compact(client, ix, dev) -> dict:
+    """Phase 11(c): `ft_del` 60,000 more keys (26% deleted), then
+    `maybe_compact` compacts through the slice path into one clean
+    segment of 740,000 docs."""
+    more = [f"d{i}" for i in range(3, N_DOCS, 5)][:N_DOCS * 6 // 100]
+    t0 = time.perf_counter()
+    for key in more:
+        client.ft_del("bm25", key)
+    torch.cuda.synchronize(dev)
+    del_s = time.perf_counter() - t0
+    old = ix.segments[0]
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ix.maybe_compact()
+    torch.cuda.synchronize(dev)
+    comp_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    seg = ix.segments[0]
+    tm = ix.stats.get("last_compaction", {})
+    log(f"phase lifecycle: (c) ft_del {len(more)} more keys in "
+        f"{del_s:.2f}s ({len(more) / del_s:.0f} deletes/s, 26% deleted); "
+        f"maybe_compact {comp_s:.2f}s: live_locals "
+        f"{tm.get('live_locals_s', 0):.2f}s, slice "
+        f"{tm.get('slice_s', 0):.2f}s, upload {tm.get('upload_s', 0):.2f}s,"
+        f" ANN {tm.get('build_ann_s', 0):.2f}s; peak transient device "
+        f"memory {peak / 2**20:.1f} MiB over the "
+        f"{base / 2**20:.1f} MiB before; segment nnz {old.text.nnz} -> "
+        f"{seg.text.nnz}, {old.memory_bytes() / 2**20:.1f} -> "
+        f"{seg.memory_bytes() / 2**20:.1f} MiB")
+    n_live = N_DOCS - old.n_deleted
+    if (len(ix.segments) != 1 or seg is old or seg.n_docs != n_live
+            or seg.n_deleted != 0 or tm.get("path") != "slice"):
+        raise AssertionError(f"compaction: {len(ix.segments)} segments, "
+                             f"n_docs {seg.n_docs}, n_deleted "
+                             f"{seg.n_deleted}, {tm}")
+    return dict(del_s=del_s, n_del=len(more), compact_s=comp_s, peak=peak,
+                **{k: v for k, v in tm.items() if k != "path"})
+
+
+def phase_life_served(client, ix, batches, dev) -> dict:
+    """Phase 11(d): the compacted index back on the kernels: the eight
+    families at batch 8192 (no window query, each against its plain
+    recomputation), 256 phrases cut from live docs on B2, bench.py's
+    aggregate at batch 1024 on the device tail against plain, and '*'
+    GROUPBY @grp COUNT over the 740,000 docs.  The kernels' launch
+    counters are zeroed just before this run and read just after."""
+    seg = ix.segments[0]
+    seg.tag_pcodes("cat")     # set-up: the dense code column, built once
+    client.ft_search_many("bm25", batches["and2"][:64], k=K)
+    GB.LAUNCHES = GB.SINGLE_LAUNCHES = 0
+    res, stats, launches, secs = served_families(client, "bm25", batches,
+                                                 dev)
+    log(f"phase lifecycle: (d) path stats {stats}, kernel_hit_pct "
+        f"{hit_pct(stats):.2f}; B1 launches {launches[0]} (wide "
+        f"{launches[1]}), B2 {launches[2]}")
+    if "window" in stats or launches[0] <= 0 or launches[2] <= 0:
+        raise AssertionError(f"compacted index off the kernels: {stats} "
+                             f"{launches}")
+    err = {"intersect": 0.0, "phrase": 0.0}
+    for fam, qs in batches.items():
+        kres = E.execute_batch(
+            [ix.prepare(q, None, E.QueryOptions(k=K), 2) for q in qs],
+            seg, K)
+        pres, _largest = plain_results(ix, seg, qs)
+        name = "phrase" if fam == "phrase" else "intersect"
+        err[name] = max(err[name], check_against_plain(kres, pres, fam))
+    log(f"phase lifecycle: (d) all {len(batches)} x {BATCH} queries "
+        f"kernel == plain")
+    # phrases cut from live docs' bodies
+    rng = np.random.default_rng(29)
+    qs, src = [], []
+    while len(qs) < LIFE_B:
+        local = int(rng.integers(0, seg.n_docs))
+        body = ix.doctable.get(int(seg.gids_np[local])).fields["body"]
+        words = body.split()
+        T = int(rng.integers(2, 5))
+        j = int(rng.integers(0, len(words) - T + 1))
+        q = '"' + " ".join(words[j:j + T]) + '"'
+        if kernel_eligible(ix, seg, q):
+            qs.append(q)
+            src.append(local)
+    E.QUERY_PATH_STATS.clear()
+    IK.PHRASE_LAUNCHES = 0
+    kres = E.execute_batch([ix.prepare(q, None, E.QueryOptions(k=K), 2)
+                            for q in qs], seg, K)
+    p_runs = IK.PHRASE_LAUNCHES
+    if dict(E.QUERY_PATH_STATS) != {"phrase-kernel": LIFE_B} or \
+            p_runs <= 0:
+        raise AssertionError(f"live phrases: {E.QUERY_PATH_STATS}")
+    for q, local, kr in zip(qs, src, kres):
+        live = kr.local_idx[kr.scores > -3.3e38]
+        if kr.count < 1 or (kr.count <= K and local not in live):
+            raise AssertionError(f"live phrase {q!r} misses its doc")
+    pres, _largest = plain_results(ix, seg, qs)
+    err["phrase"] = max(err["phrase"],
+                        check_against_plain(kres, pres, "live phrases"))
+    log(f"phase lifecycle: (d) {LIFE_B} phrases cut from live docs rode "
+        f"B2 ({p_runs} launches), each matches its doc, == plain")
+    # bench.py's aggregate at batch 1024 on the device tail
+    mk = agg_request_fn()[0]
+    reqs, drawn = [], 0
+    while len(reqs) < AGG_BATCH:
+        r = mk(drawn)
+        drawn += 1
+        if agg_eligible(ix, seg, r):
+            reqs.append(r)
+    AP.AGG_PATH_STATS.clear()
+    gb0, raw0 = GB.LAUNCHES, IK.LAUNCHES
+    agg = client.ft_aggregate_many("bm25", reqs)
+    torch.cuda.synchronize(dev)
+    gb_l, raw_l = GB.LAUNCHES - gb0, IK.LAUNCHES - raw0
+    if dict(AP.AGG_PATH_STATS) != {"device-tail": AGG_BATCH} or gb_l <= 0:
+        raise AssertionError(f"compacted aggregate: {AP.AGG_PATH_STATS}, "
+                             f"{gb_l} group-by launches")
+    with plain_versions():
+        pagg = client.ft_aggregate_many("bm25", reqs)
+    for req, k_, p_ in zip(reqs, agg, pagg):
+        if k_.total != p_.total or k_.rows != p_.rows:
+            raise AssertionError(f"compacted aggregate {req.query!r}: "
+                                 f"{k_.rows} vs plain {p_.rows}")
+    star = client.ft_aggregate("bm25", rt.AggregateRequest("*").group_by(
+        "@grp", ("COUNT", [], "n")))
+    n_star = sum(r["n"] for r in star.rows)
+    if (n_star != seg.n_docs or star.total != seg.n_docs
+            or GB.SINGLE_LAUNCHES <= 0):
+        raise AssertionError(f"'*' GROUPBY @grp COUNT sums to {n_star}, "
+                             f"{GB.SINGLE_LAUNCHES} B4 launches")
+    qps = {fam: BATCH / s for fam, s in secs.items()}
+    warm = warm_qps(client, batches, dev)
+    log(f"phase lifecycle: (d) {AGG_BATCH} aggregate requests on the "
+        f"device tail ({raw_l} raw B1 launches, {gb_l} B3 launches) == "
+        f"plain; '*' GROUPBY @grp COUNT sums to {n_star} "
+        f"({GB.SINGLE_LAUNCHES} B4 launches); qps of the counted run "
+        + ", ".join(f"{f} {v:.1f}" for f, v in qps.items())
+        + "; warm (best of 2) "
+        + ", ".join(f"{f} {v:.1f}" for f, v in warm.items()))
+    return dict(results=res, stats=stats, launches=launches,
+                agg_launches=(raw_l, gb_l), b4=GB.SINGLE_LAUNCHES,
+                err=err, qps=qps, warm_qps=warm)
+
+
+def phase_life_rebuild(dev, docs, live, batches, cres) -> float:
+    """Phase 11(e): a fresh index of the live docs, in corpus order,
+    through `add_documents`; each family's results equal the compacted
+    index's (`same_hits`).  Returns the ingest seconds."""
+    import gc
+    c2 = rt.Client(device=dev)
+    ix2 = c2.ft_create("rebuild", bm25_fields())
+    t0 = time.perf_counter()
+    ix2.add_documents([docs[i] for i in live])
+    torch.cuda.synchronize(dev)
+    ingest_s = time.perf_counter() - t0
+    n = 0
+    for fam, qs in batches.items():
+        for i, (a, b) in enumerate(zip(c2.ft_search_many("rebuild", qs,
+                                                         k=K), cres[fam])):
+            same_hits(b, a, f"compacted vs rebuild [{fam} {i}]")
+            n += 1
+    log(f"phase lifecycle: (e) rebuild of the {len(live)} live docs: "
+        f"ingest {ingest_s:.2f}s; all {n} queries of the compacted index "
+        f"== the rebuild's (same_hits)")
+    c2.ft_dropindex("rebuild")
+    del ix2, c2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ingest_s
+
+
+def new_doc(j: int) -> dict:
+    """Phase 11(f)'s text: tokens no corpus doc holds."""
+    return {"title": f"u{j}a u{j}b", "body": f"u{j}c u{j}d u{j}e",
+            "cat": f"cat{j % 16:02d}", "grp": f"g{j % 1000:04d}",
+            "price": float(j + 1)}
+
+
+# each family's query on the tokens of new_doc(j)
+NEW_FAMILIES = {
+    "and2": lambda j: f"u{j}a u{j}b",
+    "phrase": lambda j: f'"u{j}a u{j}b"',
+    "and2_tag": lambda j: f"u{j}a u{j}b @cat:{{cat{j % 16:02d}}}",
+    "and3": lambda j: f"u{j}a u{j}b u{j}c",
+    "or2": lambda j: f"u{j}a|u{j}c",
+    "not2": lambda j: f"u{j}a -u{j}z",
+    "opt2": lambda j: f"u{j}a ~u{j}c",
+    "fields2": lambda j: f"@title:u{j}a @body:u{j}c",
+}
+
+
+def phase_life_overwrite(client, ix, dev, docs, live) -> None:
+    """Phase 11(f): `hset` 1,000 live keys with new text and 1,000 new
+    keys, one query seals the second segment; new docs are found by their
+    own tokens, no overwritten version is served, `ft_get` / `ft_mget`
+    return the new fields."""
+    rng = np.random.default_rng(31)
+    over = rng.choice(live, 1000, replace=False)
+    keys = [f"d{i}" for i in over] + [f"new{j}" for j in range(1000)]
+    old_gids = {k: ix.doctable.get_by_key(k).gid for k in keys[:1000]}
+    probe = over[:LIFE_B]
+    old_q = {"and2": [" ".join(docs[i][1]["title"].split()[:2])
+                      for i in probe],
+             "phrase": ['"' + docs[i][1]["title"] + '"' for i in probe]}
+    before = client.ft_search_many("bm25", old_q["phrase"], k=K)
+    t0 = time.perf_counter()
+    for j, key in enumerate(keys):
+        client.hset(key, new_doc(j))
+    client.ft_search_many("bm25", [NEW_FAMILIES["and2"](0)], k=K)
+    torch.cuda.synchronize(dev)
+    write_s = time.perf_counter() - t0
+    s0, s1 = ix.segments if len(ix.segments) == 2 else (None, None)
+    if s0 is None or s1.n_docs != 2000 or s0.n_deleted != 1000:
+        raise AssertionError(f"overwrites: {len(ix.segments)} segments")
+    pick = list(range(0, 2000, 2000 // LIFE_B))[:LIFE_B]
+    batches = {f: [fn(j) for j in pick] for f, fn in NEW_FAMILIES.items()}
+    res, stats, launches, _s = served_families(client, "bm25", batches,
+                                               dev)
+    for fam, rs_ in res.items():
+        for j, r in zip(pick, rs_):
+            if r.total != 1 or [h.key for h in r.hits] != [keys[j]]:
+                raise AssertionError(f"new doc {keys[j]} [{fam}]: "
+                                     f"{r.total} {r.hits}")
+    after = {f: client.ft_search_many("bm25", qs, k=K)
+             for f, qs in old_q.items()}
+    overset = set(keys[:1000])
+    for n, (i, q, a) in enumerate(zip(probe, old_q["and2"],
+                                      after["and2"])):
+        key = f"d{i}"
+        loc = s0.gid_to_local[old_gids[key]]
+        if key in [h.key for h in a.hits] or s0.alive_np[loc] or (
+                n < 16 and a.total != len(live_and2_docs(s0, ix, q))):
+            raise AssertionError(f"overwritten {key} survives [{q!r}]")
+    for i, b, a in zip(probe, before, after["phrase"]):
+        key = f"d{i}"
+        gone = len(overset & {h.key for h in b.hits})
+        if key in [h.key for h in a.hits] or (
+                b.total <= K and a.total != b.total - gone):
+            raise AssertionError(f"overwritten {key} survives its phrase")
+    for j, key in enumerate(keys):
+        if client.ft_get("bm25", key) != new_doc(j):
+            raise AssertionError(f"ft_get {key}: {client.ft_get('bm25', key)}")
+    got = client.ft_mget("bm25", *[keys[j] for j in pick])
+    if got != [new_doc(j) for j in pick]:
+        raise AssertionError("ft_mget does not return the new fields")
+    log(f"phase lifecycle: (f) hset {len(keys)} docs (1,000 overwrites) and "
+        f"the sealing query in {write_s:.2f}s; second segment "
+        f"{s1.n_docs} docs; {LIFE_B} queries a family ({stats}, B1 "
+        f"launches {launches[0]}, B2 {launches[2]}) find each new doc by "
+        f"its own tokens; no overwritten version served (its old copy "
+        f"dead, in no hit of {LIFE_B} and2 and {LIFE_B} title-phrase "
+        f"queries of its old text; 16 and2 totals == numpy over the live "
+        f"docs, the phrases' totals down by the overwritten docs); "
+        f"ft_get of all {len(keys)} and ft_mget of {LIFE_B} return the "
+        f"new fields")
+
+
+def phase_lifecycle(dev, main) -> dict:
+    """Phase 11 (see the docstring) on the main path's 1M-doc index."""
+    client, ix, qt = main["client"], main["ix"], main["qt"]
+    docs = main.pop("docs")
+    batches = {fam: [fn(qt, i) for i in range(BATCH)]
+               for fam, fn in FAMILIES.items()}
+    small = {fam: qs[:LIFE_B] for fam, qs in batches.items()}
+    t0 = time.perf_counter()
+    ck = phase_life_checkpoint(client, ix, batches, dev)
+    dirty = phase_life_dirty(client, ix, small, dev)
+    comp = phase_life_compact(client, ix, dev)
+    served = phase_life_served(client, ix, batches, dev)
+    log("phase lifecycle: (b)/(d) qps a family, dirty (window program, "
+        f"{LIFE_B} queries) -> compacted (kernels, batch {BATCH}, warm): "
+        + ", ".join(f"{f} {dirty['qps'][f]:.1f} -> "
+                    f"{served['warm_qps'][f]:.1f}" for f in batches))
+    dead = {i for i in range(1, N_DOCS, 5)} | set(
+        list(range(3, N_DOCS, 5))[:N_DOCS * 6 // 100])
+    live = np.array([i for i in range(N_DOCS) if i not in dead])
+    rebuild_s = phase_life_rebuild(dev, docs, live, batches,
+                                   served.pop("results"))
+    log(f"phase lifecycle: (c)/(e) compaction {comp['compact_s']:.2f}s "
+        f"against the rebuild's ingest {rebuild_s:.2f}s "
+        f"({rebuild_s / comp['compact_s']:.1f}x)")
+    phase_life_overwrite(client, ix, dev, docs, live)
+    out = {"checkpoint": ck, "dirty": dirty, "compact": comp,
+           "served": served, "rebuild_s": rebuild_s,
+           "seconds": time.perf_counter() - t0}
+    log("phase lifecycle: json " + json.dumps(out))
+    return out
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -3869,6 +4374,7 @@ def main():
     phase_ann(dev)
     phase_geo(dev)
     phase_cold(dev, main)
+    life_err = phase_lifecycle(dev, main)["served"]["err"]
     k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
     wk_ms, wp_ms, wk_err, wk_b = main["times"]["intersect_wide"]
     pk_ms, pp_ms, pk_err, pk_b = main["times"]["phrase"]
@@ -3894,14 +4400,15 @@ def main():
     log(smi)
     log(json.dumps({"kernels": [
         rec("intersect", KERNEL_SRC, KERNEL_REPLACES, main["launches"],
-            max(err3, main["err"]["intersect"], k_err), k_ms, p_ms, k_b,
-            None),
+            max(err3, main["err"]["intersect"], life_err["intersect"],
+                k_err), k_ms, p_ms, k_b, None),
         rec("intersect_wide", KERNEL_SRC, KERNEL_REPLACES,
-            main["w_launches"], max(err3, main["err"]["intersect"], wk_err),
+            main["w_launches"], max(err3, main["err"]["intersect"],
+                                    life_err["intersect"], wk_err),
             wk_ms, wp_ms, wk_b, None),
         rec("phrase", PHRASE_SRC, PHRASE_REPLACES, main["p_launches"],
-            max(err3_phrase, main["err"]["phrase"], pk_err), pk_ms, pp_ms,
-            pk_b, None),
+            max(err3_phrase, main["err"]["phrase"], life_err["phrase"],
+                pk_err), pk_ms, pp_ms, pk_b, None),
         rec("intersect_raw", KERNEL_SRC, KERNEL_REPLACES,
             agg["raw_launches"], max(err3_raw, agg["err_raw"]),
             agg["raw_ms"][0], agg["raw_ms"][1], agg["raw_ms"][2], None),

@@ -17,7 +17,10 @@ VECTOR_RANGE queries with PARAMS blobs) runs through `ops.vector` and the
 engine's KNN executors; FT.HYBRID (`HybridQuery`, `Client.ft_hybrid`,
 `run_hybrid_many`) fuses a text and a KNN branch; FT.AGGREGATE serves
 every plan (the host pipeline where the device GROUPBY does not) and
-WITHCURSOR.  See ROADMAP.md for what is still to port.
+WITHCURSOR.  Indexes take deletes, compact (`SearchIndex.compact`,
+a CSR slice) and save to and load from checkpoints both packages read
+(`Client.save_index`, `load_index`).  See ROADMAP.md for what is still
+to port.
 """
 
 from .schema import (Field, FieldType, Schema, VectorAlgo,

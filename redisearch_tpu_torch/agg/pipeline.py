@@ -1001,7 +1001,9 @@ _TARR_CACHE: dict = {}
 
 def _tail_decode_arrays(key_infos):
     """Cached per-key object decode arrays + composite-id geometry for
-    the compact tail finish."""
+    the compact tail finish.  The cache is keyed by the tables' ids, so
+    each entry holds its tables: a table of a dropped or compacted index
+    stays alive while cached and no new table can take its id."""
     ck = tuple(id(t) for _ids, t in key_infos)
     ent = _TARR_CACHE.get(ck)
     if ent is None:
@@ -1016,9 +1018,9 @@ def _tail_decode_arrays(key_infos):
             divs.append(div)
         if len(_TARR_CACHE) > 64:
             _TARR_CACHE.clear()
-        ent = (gsizes, tarrs, divs)
+        ent = (gsizes, tarrs, divs, [t for _ids, t in key_infos])
         _TARR_CACHE[ck] = ent
-    return ent
+    return ent[:3]
 
 
 def _device_tail_finish(index, h) -> "AggregateResult":

@@ -1,21 +1,35 @@
 """Client: the command surface of the torch port.
 
-Counterpart of `redisearch_tpu/api.py` for the port's paths: FT.CREATE
-(`ft_create`), HSET (`hset`: writes the document store and routes to
-every index whose rule matches), FT.SEARCH (`ft_search`, and batched
-`ft_search_many`; KNN and VECTOR_RANGE queries take their vectors as
-PARAMS blobs: `params={"b": vec}`, one dict a query in the batched
-call), FT.AGGREGATE (`ft_aggregate`, with WITHCURSOR streaming its rows
-through `ft_cursor_read` / `ft_cursor_del`, and batched
-`ft_aggregate_many`) and FT.HYBRID (`ft_hybrid`).  The other FT.*
-commands are not ported yet.
+Counterpart of `redisearch_tpu/api.py`.  Its indexes follow the
+client's own document store: `hset` / `hdel` write it and route to
+every index whose rule (prefixes + FILTER) matches.  Commands:
+
+  CREATE/ALTER/DROPINDEX/_LIST  -> ft_create / ft_alter / ft_dropindex /
+                                   ft_list
+  SEARCH                        -> ft_search, batched ft_search_many (KNN
+                                   and VECTOR_RANGE take their vectors
+                                   as PARAMS blobs: params={"b": vec},
+                                   one dict a query in the batched call)
+  AGGREGATE                     -> ft_aggregate, batched
+                                   ft_aggregate_many
+  CURSOR READ / DEL             -> ft_cursor_read / ft_cursor_del
+  HYBRID                        -> ft_hybrid
+  ADD / DEL / GET / MGET        -> ft_add / ft_del / ft_get / ft_mget
+  SYN{UPDATE,DUMP}              -> ft_synupdate / ft_syndump
+  HSET/HGET/HDEL/EXPIRE/HEXPIRE -> hset / hget / hdel / expire / hexpire
+  checkpoints (both packages')  -> save_index / load_index
+
+FT.INFO, FT.DEBUG, config, aliases, explain, profile, spellcheck,
+suggestions, highlighting and the wire server are not ported yet.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Optional, Sequence
+import time
+from typing import Any, Iterable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .agg.cursor import CursorList
@@ -105,6 +119,52 @@ class Client:
                          name=f"rs-scan-{name}").start()
         return ix
 
+    def ft_alter(self, name: str, field: Field,
+                 reindex: bool = True) -> None:
+        """FT.ALTER SCHEMA ADD — adds a field and reindexes (the immutable
+        segment model rebuilds; the reference only indexes new docs)."""
+        ix = self._index(name)
+        new_schema = Schema(
+            name=ix.schema.name, fields=list(ix.schema.fields) + [field],
+            prefixes=ix.schema.prefixes, filter_expr=ix.schema.filter_expr,
+            language=ix.schema.language, stopwords=ix.schema.stopwords,
+            score_field=ix.schema.score_field, on_json=ix.schema.on_json)
+        old = ix
+        ix2 = SearchIndex(new_schema, device=self.device)
+        ix2.synonyms = old.synonyms
+        # the builder indexes with the synonyms it was made with (the
+        # JAX package keeps ix2's empty map there: ROADMAP §C)
+        ix2._builder = ix2._new_builder()
+        if reindex:
+            old.commit()
+            for seg in old.segments:
+                gids = seg.gids_np
+                for j in np.flatnonzero(seg.alive_np[:seg.n_docs]):
+                    meta = old.doctable.get(int(gids[j]))
+                    if meta and not meta.deleted:
+                        ix2.add_document(meta.key, meta.fields,
+                                         score=meta.score,
+                                         payload=meta.payload)
+        self._indexes[name] = ix2
+
+    def ft_dropindex(self, name: str, delete_docs: bool = False) -> None:
+        """FT.DROPINDEX [DD]: the index goes, with its segments' device
+        memory once nothing else holds them."""
+        ix = self._index(name)
+        if delete_docs:
+            for key in list(self._keyspace):
+                if self._rule_matches(ix.schema, key, self._keyspace[key]):
+                    del self._keyspace[key]
+        del self._indexes[self._resolve(name)]
+        _log.logger.info("dropped index %s", _log.fmt_index(name))
+        for a, target in list(self._aliases.items()):
+            if target == name:
+                del self._aliases[a]
+
+    def ft_list(self) -> list[str]:
+        """FT._LIST"""
+        return sorted(self._indexes)
+
     # -- keyspace ------------------------------------------------------------
     def hset(self, key: str, fields: dict[str, Any],
              ttl: Optional[float] = None) -> None:
@@ -114,8 +174,52 @@ class Client:
             if self._rule_matches(ix.schema, key, fields):
                 ix.add_document(key, dict(fields), ttl=ttl)
             elif key in ix.doctable:
-                meta = ix.doctable.delete(key)  # no longer matches the rule
-                ix._mark_deleted(meta.gid)
+                ix.delete_document(key)  # no longer matches the rule
+
+    def hget(self, key: str) -> Optional[dict]:
+        return self._keyspace.get(key)
+
+    def hdel(self, key: str) -> bool:
+        existed = self._keyspace.pop(key, None) is not None
+        for ix in self._indexes.values():
+            ix.delete_document(key)
+        return existed
+
+    def expire(self, key: str, seconds: float) -> None:
+        """EXPIRE: the doc's deadline, written into its sealed segment's
+        `expire_at` column in place; the segment then carries TTLs (off
+        the kernel paths, as in the JAX package)."""
+        for ix in self._indexes.values():
+            meta = ix.doctable.get_by_key(key)
+            if meta is not None:
+                meta.expires_at = time.time() + seconds
+                for seg in ix.segments:
+                    loc = seg.gid_to_local.get(meta.gid)
+                    if loc is not None:
+                        # ceil: do not expire earlier than the deadline
+                        seg.expire_at[loc] = int(-(-meta.expires_at // 1))
+                        seg.has_ttl = True
+                        break
+
+    def hexpire(self, key: str, seconds: float,
+                fields: Sequence[str]) -> list[int]:
+        """HEXPIRE analog: field-level TTLs (reference: ttl_table).
+        Re-stages the document so sealed segments carry the TTL columns."""
+        now = time.time()
+        out = []
+        doc = self._keyspace.get(key)
+        for f in fields:
+            out.append(1 if doc is not None and f in doc else -2)
+        for ix in self._indexes.values():
+            meta = ix.doctable.get_by_key(key)
+            if meta is None:
+                continue
+            fe = dict(meta.field_expiration or {})
+            for f in fields:
+                fe[f] = now + seconds
+            ix.add_document(key, dict(meta.fields), score=meta.score,
+                            payload=meta.payload, field_expiration=fe)
+        return out
 
     def _rule_matches(self, schema: Schema, key: str, fields: dict) -> bool:
         if not schema.matches_key(key):
@@ -205,6 +309,106 @@ class Client:
     def ft_cursor_del(self, name: str, cursor_id: int) -> bool:
         """FT.CURSOR DEL — whether the cursor existed."""
         return self.cursors.delete(cursor_id)
+
+    # -- legacy document commands (FT.ADD/DEL/GET/MGET) -----------------------
+    def ft_add(self, name: str, key: str, score: float, fields: dict,
+               payload: Optional[bytes] = None, ttl: Optional[float] = None,
+               replace: bool = False, partial: bool = False,
+               nocreate: bool = False, nosave: bool = False,
+               if_expr: Optional[str] = None,
+               language: Optional[str] = None) -> str:
+        """Legacy FT.ADD with the reference's option set
+        (src/document_add.c:32-226):
+
+        * doc exists without REPLACE        -> DocumentExists error
+        * NOCREATE on a missing doc         -> DocumentNotFound error
+        * IF <expr> on an existing doc: evaluated against the CURRENT
+          fields; falsy OR a dereference of a missing property -> "NOADD"
+          (exists(@f) may probe missing properties)
+        * REPLACE without PARTIAL wipes the old fields; PARTIAL merges
+        * NOSAVE indexes without writing the keyspace hash
+        * LANGUAGE overrides the per-doc analysis language
+
+        Returns "OK" or "NOADD"."""
+        from .utils.errors import DocumentExists, DocumentNotFound
+        old = self._keyspace.get(key)
+        exists = old is not None
+        if not exists and nocreate:
+            raise DocumentNotFound("Document does not exist")
+        if exists and not replace:
+            raise DocumentExists("Document already exists")
+        if exists and if_expr is not None:
+            from .agg import expr as E
+            parsed = E.parse(if_expr)
+
+            def deref_missing(e) -> bool:
+                if e.kind == "prop":
+                    return e.val not in old
+                if e.kind == "call" and e.val == "exists":
+                    return False
+                return any(deref_missing(a) for a in e.args)
+
+            if deref_missing(parsed) or not E._truthy(
+                    E.evaluate(parsed, dict(old))):
+                return "NOADD"
+        new_fields = dict(fields)
+        if partial and exists:
+            new_fields = {**old, **new_fields}
+        if not nosave:
+            self._keyspace[key] = dict(new_fields)
+        self._index(name).add_document(key, dict(new_fields), score=score,
+                                       payload=payload, ttl=ttl,
+                                       language=language)
+        return "OK"
+
+    def ft_del(self, name: str, key: str,
+               delete_document: bool = False) -> bool:
+        ok = self._index(name).delete_document(key)
+        if delete_document:
+            self._keyspace.pop(key, None)
+        return ok
+
+    def ft_get(self, name: str, key: str) -> Optional[dict]:
+        """FT.GET: the doc's keyspace hash, nil when unknown to the index
+        OR not saved (NOSAVE docs are indexed but have no hash)."""
+        meta = self._index(name).doctable.get_by_key(key)
+        if meta is None or meta.deleted:
+            return None
+        doc = self._keyspace.get(key)
+        return dict(doc) if doc is not None else None
+
+    def ft_mget(self, name: str, *keys: str) -> list[Optional[dict]]:
+        return [self.ft_get(name, k) for k in keys]
+
+    # -- synonyms --------------------------------------------------------------
+    def ft_synupdate(self, name: str, group_id: str,
+                     terms: Iterable[str],
+                     skip_initial_scan: bool = False) -> None:
+        """FT.SYNUPDATE; unless skip_initial_scan, existing docs pick up
+        the group terms through a reanalyzing compaction (a CSR slice
+        would keep the old analysis)."""
+        ix = self._index(name)
+        ix.synonyms.update(group_id, terms)
+        if not skip_initial_scan:
+            ix.compact(reanalyze=True)
+
+    def ft_syndump(self, name: str) -> dict[str, list[str]]:
+        return self._index(name).synonyms.dump()
+
+    # -- checkpoint --------------------------------------------------------------
+    def save_index(self, name: str, path: str) -> None:
+        """Checkpoint an index to the directory `path`, in the format both
+        packages load (aux.checkpoint)."""
+        from .aux.checkpoint import save
+        save(self._index(name), path)
+
+    def load_index(self, name: str, path: str) -> SearchIndex:
+        """Load a checkpoint written by either package onto this client's
+        device, as index `name`."""
+        from .aux.checkpoint import load
+        ix = load(path, device=self.device)
+        self._indexes[name] = ix
+        return ix
 
     # -- internals -------------------------------------------------------------
     def _resolve(self, name: str) -> str:

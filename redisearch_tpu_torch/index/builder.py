@@ -25,11 +25,11 @@ from ..utils import wkt
 from ..utils.errors import IndexError_, WrongFieldType
 from ..utils.jsonpath import get_field_value
 from .doctable import DocMeta
-from .segment import (LANE, POS_SLICE_PAD, GeoColumn, Segment, StrColumn,
-                      TagPostings, TermDict, TextPostings, build_tag_codes,
-                      make_numeric_column, make_vector_column, mask_words,
-                      next_pow2, pack_mask_words, posting_pad, round_up,
-                      tail_pad)
+from .segment import (LANE, GeoColumn, Segment, StrColumn, TagPostings,
+                      TermDict, build_tag_codes, make_numeric_column,
+                      make_segment, make_vector_column, mask_words,
+                      next_pow2, pack_mask_words, round_up, tag_postings,
+                      text_postings)
 
 def make_geo_column(points: list, n: int, n_pad: int, device) -> GeoColumn:
     """The GEO half of the JAX seal: (lon, lat) radian pairs, NaN for a
@@ -471,26 +471,12 @@ class SegmentBuilder:
             doc_freq=doc_freq,
         )
         cap = next_pow2(n_pad)
-        posting_dl = doclen[doc_ids]  # replicate doc length per posting
-        text = TextPostings(
-            term_offsets=csr(term_offsets.astype(np.int32)),
-            doc_ids=csr(tail_pad(doc_ids, posting_pad(len(doc_ids), cap))),
-            freqs=csr(tail_pad(freqs, posting_pad(len(freqs), cap))),
-            field_masks=csr(tail_pad(field_masks,
-                                     posting_pad(len(field_masks), cap))),
-            doclens=csr(tail_pad(posting_dl,
-                                 posting_pad(len(posting_dl), cap))),
-            pos_offsets=csr(pos_offsets.astype(np.int32)),
-            poskeys=csr(tail_pad(poskeys,
-                                 posting_pad(len(poskeys), POS_SLICE_PAD),
-                                 2**31 - 1)),
+        text = text_postings(
+            term_offsets.astype(np.int32), doc_ids, freqs, field_masks,
+            doclen[doc_ids], pos_offsets, poskeys, csr, cap=cap,
             pos_stride=pos_stride,
             pos_clamped=self.max_positions + 1 > pos_stride - 1,
-            nnz=nnz,
-            max_postings=max_postings,
-            term_offsets_np=term_offsets.astype(np.int32),
-            pos_offsets_np=pos_offsets.astype(np.int64),
-        )
+            nnz=nnz, max_postings=max_postings)
 
         # ---- tag postings
         tags: dict[str, TagPostings] = {}
@@ -510,16 +496,11 @@ class SegmentBuilder:
                 lst = stage[v]
                 t_ids[at:at + len(lst)] = lst
                 at += len(lst)
-            tags[attr] = TagPostings(
-                ids={v: i for i, v in enumerate(values)},
-                values=values,
-                offsets=csr(t_off.astype(np.int32)),
-                doc_ids=csr(tail_pad(t_ids, posting_pad(len(t_ids), cap))),
-                nnz=t_nnz,
+            tags[attr] = tag_postings(
+                {v: i for i, v in enumerate(values)}, values,
+                t_off.astype(np.int32), t_ids, csr, cap=cap, nnz=t_nnz,
                 max_postings=t_max,
-                offsets_np=t_off.astype(np.int32),
-                codes=build_tag_codes(stage, values, n_pad, self.device),
-            )
+                codes=build_tag_codes(stage, values, n_pad, self.device))
 
         # ---- dense columns
         numerics = {}
@@ -550,21 +531,12 @@ class SegmentBuilder:
                                             self.device)
                    for attr, rows in self._vectors.items()}
 
-        return Segment(
-            n_docs=n, n_pad=n_pad, device=self.device,
-            gids=dev(gids), alive=dev(alive), doclen=dev(doclen),
-            max_freq=dev(max_freq), docscore=dev(docscore),
-            expire_at=dev(expire),
+        return make_segment(
+            self.device, n, gids, alive, doclen, max_freq, docscore, expire,
             terms=terms, text=text, tags=tags, numerics=numerics,
             strcols=strcols, missing=missing, vectors=vectors, geos=geos,
-            gid_to_local={g: i for i, g in enumerate(self._gids)},
-            gids_np=gids, alive_np=alive, doclen_np=doclen,
             geometries={a: list(v) for a, v in self._geoms.items()},
-            has_ttl=any(e != 0 for e in self._expire),
-            uniform_docscore=all(s_ == 1.0 for s_ in self._docscore),
-            cold=cold,
-            **self._seal_field_ttls(n, n_pad),
-        )
+            cold=cold, **self._seal_field_ttls(n, n_pad))
 
     def _seal_field_ttls(self, n: int, n_pad: int) -> dict:
         """Device columns for field-level TTLs: TEXT fields pack into

@@ -30,10 +30,9 @@ from ..schema import FieldType
 from ..utils.jsonpath import get_field_value
 from .builder import (MAX_POS_STRIDE, SegmentBuilder, make_geo_column,
                       seal_vector_column)
-from .segment import (LANE, POS_SLICE_PAD, Segment, StrColumn, TagPostings,
-                      TermDict, TextPostings, build_tag_codes,
-                      make_numeric_column, next_pow2, posting_pad, round_up,
-                      tail_pad)
+from .segment import (LANE, StrColumn, TermDict, build_tag_codes,
+                      make_numeric_column, make_segment, next_pow2,
+                      round_up, tag_postings, text_postings)
 
 
 def can_use_native(index) -> bool:
@@ -191,20 +190,11 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
     dl = np.zeros(n_pad, np.float32)
     dl[:n] = doc_lens
     posting_dl = dl[di]  # per-posting doc length
-    text = TextPostings(
-        term_offsets=csr(term_offsets),
-        doc_ids=csr(tail_pad(di, posting_pad(len(di), cap))),
-        freqs=csr(tail_pad(fr, posting_pad(len(fr), cap))),
-        field_masks=csr(tail_pad(ms, posting_pad(len(ms), cap))),
-        doclens=csr(tail_pad(posting_dl, posting_pad(len(posting_dl), cap))),
-        pos_offsets=csr(po.astype(np.int32)),
-        poskeys=csr(tail_pad(pk, posting_pad(len(pk), POS_SLICE_PAD),
-                             2**31 - 1)),
-        pos_stride=pos_stride,
+    text = text_postings(
+        term_offsets, di, fr, ms, posting_dl, po, pk, csr, cap=cap,
+        pos_offsets_np=pos_offsets, pos_stride=pos_stride,
         pos_clamped=bool(npos and positions.max() > pos_stride - 1),
-        nnz=int(nnz),
-        max_postings=int(max_postings), term_offsets_np=term_offsets,
-        pos_offsets_np=pos_offsets.astype(np.int64))
+        nnz=int(nnz), max_postings=int(max_postings))
 
     gids = np.zeros(n_pad, np.int32)
     gids[:n] = [m.gid for m in metas]
@@ -234,12 +224,10 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
             lst = stage[v]
             t_ids[at:at + len(lst)] = lst
             at += len(lst)
-        tags[attr] = TagPostings(
-            ids={v: i for i, v in enumerate(values)}, values=values,
-            offsets=csr(t_off.astype(np.int32)),
-            doc_ids=csr(tail_pad(t_ids, posting_pad(len(t_ids), cap))),
-            nnz=int(t_nnz),
-            max_postings=int(t_max), offsets_np=t_off.astype(np.int32),
+        tags[attr] = tag_postings(
+            {v: i for i, v in enumerate(values)}, values,
+            t_off.astype(np.int32), t_ids, csr, cap=cap, nnz=int(t_nnz),
+            max_postings=int(t_max),
             codes=build_tag_codes(stage, values, n_pad, device))
 
     numerics = {}
@@ -266,17 +254,11 @@ def bulk_add(index, docs: Iterable[tuple[str, dict]],
     geos = {attr: make_geo_column(vals, n, n_pad, device)
             for attr, vals in geo_stage.items()}
 
-    seg = Segment(
-        n_docs=n, n_pad=n_pad, device=device, gids=dev(gids),
-        alive=dev(alive), doclen=dev(dl), max_freq=dev(mf),
-        docscore=dev(ds), expire_at=dev(exp), terms=td, text=text,
+    seg = make_segment(
+        device, n, gids, alive, dl, mf, ds, exp, terms=td, text=text,
         tags=tags, numerics=numerics, strcols=strcols, missing=missing,
         vectors=vectors, geos=geos,
-        gid_to_local={m.gid: i for i, m in enumerate(metas)},
-        gids_np=gids, alive_np=alive, doclen_np=dl,
         geometries={a: list(v) for a, v in geom_stage.items()},
-        has_ttl=bool((exp != 0).any()),
-        uniform_docscore=bool((ds[:n] == 1.0).all()),
         cold=schema.storage == "host")
     index.segments.append(seg)
     return n

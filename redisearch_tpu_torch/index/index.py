@@ -3,11 +3,14 @@ query path, for the torch port.
 
 Counterpart of `redisearch_tpu/index/index.py`, for the port:
 documents stage on the host and seal on `commit()` into an immutable
-segment on the index's device; `search_many` serves a batch of queries
-through the intersection and phrase kernels, the KNN executors, or the
-general window program for groups none of those takes, `aggregate_many`
-a batch of FT.AGGREGATE GROUPBYs; single-query `search()` and
-`aggregate()` ride the general window program.
+segment on the index's device; deletes clear a doc's `alive` bit, and
+`compact()` (called by `commit` once a quarter of the docs are dead)
+rebuilds the segments without them, by a CSR slice (`index/slice.py`)
+where one sealed segment holds them all; `search_many` serves a batch
+of queries through the intersection and phrase kernels, the KNN
+executors, or the general window program for groups none of those
+takes, `aggregate_many` a batch of FT.AGGREGATE GROUPBYs; single-query
+`search()` and `aggregate()` ride the general window program.
 """
 
 from __future__ import annotations
@@ -173,6 +176,16 @@ class SearchIndex:
             self._build_ann(self.segments[-1])
         return n
 
+    def delete_document(self, key: str) -> bool:
+        """Drop a document: its doc-table entry goes, and its segment's
+        `alive` bit is cleared in place (one small write on the device
+        per delete), so every later query skips it."""
+        meta = self.doctable.delete(key)
+        if meta is None:
+            return False
+        self._mark_deleted(meta.gid)
+        return True
+
     def _mark_deleted(self, gid: int) -> None:
         for seg in self.segments:
             if seg.mark_deleted(gid):
@@ -182,10 +195,10 @@ class SearchIndex:
             self._rebuild_builder(drop_gid=gid)
 
     def commit(self) -> None:
-        """Seal pending docs into a new immutable segment and build its
-        IVF structures.  Compaction of deleted docs is not ported yet
-        (ROADMAP A11): a segment with deletions stays unclean and off the
-        kernel path."""
+        """Seal pending docs into a new immutable segment, build its IVF
+        structures, then compact if the deleted share has reached the
+        threshold (`maybe_compact`).  With nothing staged it returns at
+        once, as the JAX package's does, without the compaction check."""
         with self._commit_lock:
             if len(self._builder) == 0:
                 return
@@ -194,6 +207,64 @@ class SearchIndex:
                 self.segments.append(seg)
                 self._build_ann(seg)
             self._builder = self._new_builder()
+            self.maybe_compact()
+
+    def maybe_compact(self, dead_ratio: float = 0.25) -> None:
+        """GC-policy analog (reference: fork-GC cycles): rebuild once the
+        deleted fraction crosses `dead_ratio`, which restores the
+        clean-segment kernel paths (a segment with deletions serves on
+        the window program) and frees the dead docs' memory."""
+        if not self.segments:
+            return
+        dead = sum(s.n_deleted for s in self.segments)
+        live = max(self.doctable.num_docs, 1)
+        if dead / (dead + live) >= dead_ratio:
+            self.compact()
+
+    def compact(self, reanalyze: bool = False) -> None:
+        """Rebuild all segments dropping deleted docs (replaces fork-GC).
+
+        reanalyze=True forces the full tokenize path (needed when the
+        analysis chain changed, e.g. after FT.SYNUPDATE); otherwise a
+        single sealed segment compacts by slicing its CSR arrays
+        (index/slice.py) with no re-tokenizing.  The seconds of each
+        step land in `stats["last_compaction"]`."""
+        self.commit()
+        t0 = time.perf_counter()
+        if not reanalyze and len(self.segments) == 1:
+            from .slice import live_locals, slice_segment
+            src = self.segments[0]
+            live = live_locals(src, self.doctable)
+            t1 = time.perf_counter()
+            if live.size == 0:
+                self.segments = []
+                return
+            if live.size == src.num_alive == src.n_docs:
+                return   # nothing to drop
+            times = {"path": "slice", "live_locals_s": t1 - t0}
+            self.segments = [slice_segment(src, live, timings=times)]
+            # the slice carries the host tier's structures itself; a
+            # device IVF is rebuilt (it indexes pre-slice local ids)
+            t2 = time.perf_counter()
+            self._build_ann(self.segments[0])
+            times["build_ann_s"] = time.perf_counter() - t2
+            times["total_s"] = time.perf_counter() - t0
+            self.stats["last_compaction"] = times
+            return
+        builder = self._new_builder()
+        for seg in self.segments:
+            gids = seg.gids_np
+            for i in np.flatnonzero(seg.alive_np[:seg.n_docs]):
+                meta = self.doctable.get(int(gids[i]))
+                if meta is not None and not meta.deleted:
+                    builder.add(meta)
+        self.segments = []
+        seg = builder.seal()
+        if seg is not None:
+            self.segments.append(seg)
+            self._build_ann(seg)
+        self.stats["last_compaction"] = {
+            "path": "builder", "total_s": time.perf_counter() - t0}
 
     def _build_ann(self, seg: Segment) -> None:
         """IVF structures of the segment's vector fields (the JAX

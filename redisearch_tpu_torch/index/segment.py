@@ -369,8 +369,7 @@ def make_vector_column(rows_per_doc: list, n_pad: int, dim: int,
             norm.append([r])
     norm += [[]] * (n_pad - len(norm))
     multi = any(len(v) > 1 for v in norm)
-    present = torch.as_tensor(np.array([len(v) > 0 for v in norm], bool),
-                              device=device)
+    present = np.array([len(v) > 0 for v in norm], bool)
     if host and multi:
         raise ValueError(
             "host-tier (storage='host') vector fields do not support "
@@ -381,20 +380,17 @@ def make_vector_column(rows_per_doc: list, n_pad: int, dim: int,
             if v:
                 mat[i] = v[0]
         if host:
+            pres = torch.as_tensor(present, device=device)
             if compression:
                 from ..ops.lvq import lvq_encode, lvq_sq_norms
                 codes, off, scl = lvq_encode(mat)
                 return VectorColumn(
-                    vecs=codes, present=present, dim=dim,
+                    vecs=codes, present=pres, dim=dim,
                     sq_norms=lvq_sq_norms(codes, off, scl), host=True,
                     compression=compression, vq_off=off, vq_scl=scl)
-            return VectorColumn(vecs=mat, present=present, dim=dim,
+            return VectorColumn(vecs=mat, present=pres, dim=dim,
                                 sq_norms=_sq_norms(mat), host=True)
-        vecs = _store(mat, dtype_name, device)
-        return VectorColumn(
-            vecs=vecs, present=present, dim=dim,
-            sq_norms=torch.as_tensor(_sq_norms(mat), device=device),
-            scan_vecs=bf16_scan_copy(vecs))
+        return vector_column(mat, present, dtype_name, device)
     M = next_pow2(max(len(v) for v in norm))
     R = sum(len(v) for v in norm)
     R_pad = max(round_up(R, 8), 8)
@@ -406,10 +402,71 @@ def make_vector_column(rows_per_doc: list, n_pad: int, dim: int,
             rows[r] = vec
             doc_rows[i, j] = r
             r += 1
-    return VectorColumn(
-        vecs=_store(rows, dtype_name, device), present=present, dim=dim,
-        sq_norms=torch.as_tensor(_sq_norms(rows), device=device),
-        doc_rows=torch.as_tensor(doc_rows, device=device), multi=True)
+    return vector_column(rows, present, dtype_name, device,
+                         doc_rows=doc_rows)
+
+
+def vector_column(mat: np.ndarray, present: np.ndarray, dtype_name: str,
+                  device, sq_norms: Optional[np.ndarray] = None,
+                  doc_rows: Optional[np.ndarray] = None) -> VectorColumn:
+    """A device VectorColumn from its f32 host matrix (one row a doc, or
+    with `doc_rows` the multi-value rows), stored in the field's type:
+    seal and checkpoint load build theirs here (compaction keeps the
+    stored rows as they are).  The squared norms are taken from `mat`
+    unless given; a single-valued column gets its bf16 scan copy."""
+    vecs = _store(mat, dtype_name, device)
+    sq = _sq_norms(mat) if sq_norms is None else sq_norms
+    col = VectorColumn(
+        vecs=vecs, present=torch.as_tensor(present, device=device),
+        dim=int(mat.shape[1]), sq_norms=torch.as_tensor(sq, device=device))
+    if doc_rows is None:
+        col.scan_vecs = bf16_scan_copy(vecs)
+    else:
+        col.doc_rows = torch.as_tensor(doc_rows, device=device)
+        col.multi = True
+    return col
+
+
+def text_postings(term_offsets: np.ndarray, doc_ids: np.ndarray,
+                  freqs: np.ndarray, field_masks: np.ndarray,
+                  doclens: np.ndarray, pos_offsets: np.ndarray,
+                  poskeys: np.ndarray, put, cap: Optional[int] = None,
+                  pos_offsets_np: Optional[np.ndarray] = None,
+                  **meta) -> TextPostings:
+    """A TextPostings from its host CSR arrays (`doclens` per posting),
+    placed by `put` (the device, or host numpy for a cold segment).  With
+    `cap` the posting arrays first get the seal's tail pads
+    (`posting_pad`; the position keys to POS_SLICE_PAD, filled with
+    2**31-1); a checkpoint's arrays carry them already.  The planner's
+    host mirrors come from the same arrays: the term offsets as given,
+    the position offsets as int64 (`pos_offsets_np` overrides: the bulk
+    path's mirror stops at nnz + 1, as the JAX package's does)."""
+    if cap is not None:
+        doc_ids, freqs, field_masks, doclens = (
+            tail_pad(a, posting_pad(len(a), cap))
+            for a in (doc_ids, freqs, field_masks, doclens))
+        poskeys = tail_pad(poskeys, posting_pad(len(poskeys), POS_SLICE_PAD),
+                           2**31 - 1)
+    return TextPostings(
+        term_offsets=put(term_offsets), doc_ids=put(doc_ids),
+        freqs=put(freqs), field_masks=put(field_masks), doclens=put(doclens),
+        pos_offsets=put(pos_offsets.astype(np.int32)), poskeys=put(poskeys),
+        term_offsets_np=term_offsets,
+        pos_offsets_np=(pos_offsets if pos_offsets_np is None
+                        else pos_offsets_np).astype(np.int64),
+        **meta)
+
+
+def tag_postings(ids: dict, values: list, offsets: np.ndarray,
+                 doc_ids: np.ndarray, put, cap: Optional[int] = None,
+                 **meta) -> TagPostings:
+    """A TagPostings from its host CSR arrays, placed by `put`; `cap`
+    adds the seal's tail pad to the doc ids.  The planner's offsets
+    mirror is the host offsets array."""
+    if cap is not None:
+        doc_ids = tail_pad(doc_ids, posting_pad(len(doc_ids), cap))
+    return TagPostings(ids=ids, values=values, offsets=put(offsets),
+                       doc_ids=put(doc_ids), offsets_np=offsets, **meta)
 
 
 def build_tag_codes(stage: dict, values: list, n_pad: int, device):
@@ -583,3 +640,32 @@ class Segment:
                 if v.host_ivf is not None:
                     total += v.host_ivf.host_bytes()
         return total
+
+
+def make_segment(device, n_docs: int, gids: np.ndarray, alive: np.ndarray,
+                 doclen: np.ndarray, max_freq: np.ndarray,
+                 docscore: np.ndarray, expire_at: np.ndarray,
+                 **fields) -> Segment:
+    """A Segment from its host doc columns (each [n_pad]) and its built
+    fields: the columns go to `device`, and `gids`, `alive` and `doclen`
+    stay as the host mirrors the planner reads.  Seal, the bulk path,
+    compaction and checkpoint load all build their segments here, each
+    with a fresh `uid`, so no query's bind or row template of an older
+    segment applies.  `gid_to_local`, `has_ttl` and `uniform_docscore`
+    are derived from the columns unless given."""
+    device = torch.device(device)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    fields.setdefault("gid_to_local",
+                      dict(zip(gids[:n_docs].tolist(), range(n_docs))))
+    fields.setdefault("has_ttl", bool((expire_at != 0).any()))
+    fields.setdefault("uniform_docscore",
+                      bool((docscore[:n_docs] == 1.0).all()))
+    return Segment(
+        n_docs=n_docs, n_pad=int(gids.shape[0]), device=device,
+        gids=dev(gids), alive=dev(alive), doclen=dev(doclen),
+        max_freq=dev(max_freq), docscore=dev(docscore),
+        expire_at=dev(expire_at), gids_np=gids, alive_np=alive,
+        doclen_np=doclen, **fields)

@@ -5,7 +5,8 @@ A cold segment keeps its posting, position and tag CSR arrays in host
 memory; each query pages only its term windows to the device
 (`_cold_slab_args`) and runs the hot path's window program over them
 (`_execute_cold`; path "cold" in a batch).  The cases of tests/test_cold.py
-that do not need deletes or compaction (ROADMAP A11): cold against hot,
+that do not need deletes or compaction (those are in
+tests/test_torch_lifecycle.py): cold against hot,
 SORTBY and the TFIDF/BM25/DISMAX scorers, slop and INORDER, batched
 search and FT.AGGREGATE, and memory that stays on the host; each cold
 result is also held against the JAX package's cold index.

@@ -16,8 +16,8 @@ tests/test_torch_knn.py (rtol 1e-5, atol 1e-6: both sides sum the L2
 distance in f32, in different orders).  A rare word with fewer matches
 than the window checks that exhausted text lanes drop out; a
 two-segment index checks the merge across segments.
-test_hybrid_fusion.py's test_fusion_after_delete waits for deletes
-(ROADMAP A11).
+test_hybrid_fusion.py's test_fusion_after_delete is in
+tests/test_torch_lifecycle.py.
 """
 
 import numpy as np

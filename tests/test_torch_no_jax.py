@@ -14,7 +14,11 @@ WITHCURSOR drained by `ft_cursor_read` (the host pipeline, streaming),
 then a cold (`storage="host"`) index with a GEO field, an IVF field and
 an LVQ8 host-tier field (`ops/ivf.py`, `ops/lvq.py`): a GEO filter, a
 batch of IVF queries, a host-tier KNN batch and a cold text batch, then
-reports which modules it loaded.  The host modules the port needs are its own
+the index lifecycle: it deletes a third of the first index's documents,
+compacts it (`index/slice.py`) and serves a batch, loads a checkpoint
+the JAX package wrote in the pytest process (`aux/checkpoint.py`) and
+serves a batch from it on the kernels, and reports which modules it
+loaded.  The host modules the port needs are its own
 copies: no loaded module's file may lie under `redisearch_tpu/`.  Two
 environments: jax, jaxlib and ml_dtypes blocked on `sys.meta_path` (the
 card's machine may have none of them), and jax importable (the port must
@@ -113,6 +117,17 @@ pages, cid = [cur.rows], cur.cursor_id
 while cid:
     rows, cid = client.ft_cursor_read("idx", cid)
     pages.append(rows)
+engine.QUERY_PATH_STATS.clear()
+for i in range(0, 600, 3):
+    client.hdel(f"d{i}")
+ix.maybe_compact()
+life = client.ft_search_many("idx", ["alpha beta", '"alpha beta"'], k=5)
+life_paths = dict(engine.QUERY_PATH_STATS)
+client.load_index("ck", CKPT)
+engine.QUERY_PATH_STATS.clear()
+ck = client.ft_search_many("ck", ["alpha beta", "alpha @c:{y}",
+                                  '"alpha beta"'], k=5)
+ck_paths = dict(engine.QUERY_PATH_STATS)
 import os
 jax_pkg = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(rt.__file__))), "redisearch_tpu") + os.sep
@@ -135,6 +150,14 @@ print(json.dumps({
              sorted(m for m in sys.modules
                     if m in ("redisearch_tpu_torch.ops.ivf",
                              "redisearch_tpu_torch.ops.lvq"))],
+    "lifecycle": [ix.segments[0].n_docs, ix.segments[0].n_deleted,
+                  [[r.total, [h.key for h in r.hits]] for r in life],
+                  life_paths],
+    "checkpoint": [[[r.total, [h.key for h in r.hits]] for r in ck],
+                   ck_paths],
+    "modules": sorted(m for m in sys.modules
+                      if m in ("redisearch_tpu_torch.aux.checkpoint",
+                               "redisearch_tpu_torch.index.slice")),
     "files": sorted(m for m, v in list(sys.modules.items())
                     if (getattr(v, "__file__", None) or "").startswith(
                         jax_pkg)),
@@ -145,13 +168,32 @@ print(json.dumps({
 """
 
 
+def _jax_checkpoint(path: str) -> None:
+    """A 600-doc index written by the JAX package (in this process)."""
+    import numpy as np
+    import redisearch_tpu as rs
+    from redisearch_tpu.aux import checkpoint
+    vecs = np.random.default_rng(1).normal(size=(600, 8)).astype(np.float32)
+    ix = rs.SearchIndex(rs.Schema(name="ck", fields=[
+        rs.Field("t", rs.FieldType.TEXT), rs.Field("c", rs.FieldType.TAG),
+        rs.Field("v", rs.FieldType.VECTOR,
+                 vector=rs.VectorParams(dim=8, metric="L2"))]))
+    ix.add_documents([(f"d{i}", {"t": "alpha beta" if i % 2 else "alpha",
+                                 "c": "x" if i % 3 else "y", "v": vecs[i]})
+                      for i in range(600)])
+    checkpoint.save(ix, path)
+
+
 @pytest.mark.parametrize("block", [True, False],
                          ids=["jax-blocked", "jax-installed"])
-def test_port_serves_without_jax(block):
+def test_port_serves_without_jax(block, tmp_path):
+    ckpt = str(tmp_path / "jax_ck")
+    _jax_checkpoint(ckpt)
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
-        [sys.executable, "-c", f"BLOCK = {block}\n" + SCRIPT],
+        [sys.executable, "-c",
+         f"BLOCK = {block}\nCKPT = {ckpt!r}\n" + SCRIPT],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -187,6 +229,21 @@ def test_port_serves_without_jax(block):
     assert cold_paths == {"cold": 4, "knn-host": 2}
     assert ops == ["redisearch_tpu_torch.ops.ivf",
                    "redisearch_tpu_torch.ops.lvq"]
+    # deletes of a third of the docs, then the slice compaction: the
+    # docs left are the two of every three not deleted
+    n_docs, n_deleted, life, life_paths = out["lifecycle"]
+    assert (n_docs, n_deleted) == (400, 0)
+    assert life == [[200, ["d1", "d5", "d7", "d11", "d13"]],
+                    [200, ["d1", "d5", "d7", "d11", "d13"]]]
+    assert life_paths == {"window": 2}      # 400 docs: below the kernels
+    # the JAX package's checkpoint, loaded and served by the kernels
+    ck, ck_paths = out["checkpoint"]
+    assert ck == [[300, ["d1", "d3", "d5", "d7", "d9"]],
+                  [200, ["d0", "d6", "d12", "d18", "d24"]],
+                  [300, ["d1", "d3", "d5", "d7", "d9"]]]
+    assert ck_paths == {"kernel": 2, "phrase-kernel": 1}
+    assert out["modules"] == ["redisearch_tpu_torch.aux.checkpoint",
+                              "redisearch_tpu_torch.index.slice"]
     n12 = len([i for i in range(600) if i % 13 == 12])
     assert out["cursor"] == [n12, [20, 20, n12 - 40], [12.0]]
     total, rows = out["single"]
