@@ -116,8 +116,45 @@ script exits non-zero:
    Then a second `*` LOAD @price CURSOR 1000 is drained, all 1,000
    pages, each price equal to the column.  The drain's pages per second
    and the batch's host-pipeline requests per second are printed.
+13. the wire (run after 6b, before phase 7), on the same 1M-doc index:
+   the port's RESP server (`server.Server` on phase 4's client, its
+   event loop on a thread of this process); 64 asyncio connections send
+   8,192 `FT.SEARCH ... NOCONTENT WITHSCORES` (the first 1,024 queries
+   of each of the eight families, interleaved), three timed passes:
+   every reply's total, ids, order and scores must equal phase 4's
+   `ft_search_many` result for the query (`same_hits`; the bit-for-bit
+   count is printed); the native RESP parser must have served.  Then
+   64 FT.SEARCH with content (fields equal to the doc table's) and 64
+   FT.AGGREGATE (32 of phase 6's request, 32 `*` GROUPBY @grp COUNT,
+   which must sum to 1,000,000), each equal to `Client.ft_aggregate` of
+   the same parsed request.  B1, B2 and the group-by kernels (B3/B4)
+   must have launched during the phase.  Printed: wire QPS (median of
+   the passes, host clock), the micro-batch sizes formed, a traced
+   pass's device busy and idle share, and the RESP layer's own time
+   (native parse of a pass's bytes, reply format and encode).
+14. the command surface on the card, on the same index: FT.INFO
+   (num_docs, num_records the segments' nnz, inverted_sz_mb their
+   `memory_bytes`); FT.PROFILE SEARCH of one query a family (results
+   equal to `ft_search`, the root counter the total, and2's counters
+   equal to numpy counts over the host-copied postings; clocks read
+   after a synchronize); FT.EXPLAINSCORE of the top hit of 64 queries
+   (within 1e-5 relative of the served score); HIGHLIGHT and SUMMARIZE
+   on 64 hits (equal to `highlight_field` / `summarize_field` of the same
+   docs); FT.SPELLCHECK of 64 misspelt vocabulary words (equal to the
+   vocabulary's distance-1 terms ranked by doc frequency); FT.SUGADD of
+   100,000 suggestions and 1,000 FT.SUGGET prefix queries, timed (16
+   equal to a brute force); FT.TAGVALS cat (16 values); FT.CONFIG SET
+   TIMEOUT / ON_TIMEOUT with FT.DEBUG's TIMEOUT_AFTER_N (the first 5
+   hits and the warning, or TimeoutError_); ON_OOM return and fail on
+   the card through a patched `torch.cuda.mem_get_info`; HAMMING over
+   8-byte payloads and a registered custom scorer on a 10,000-doc index,
+   ids and scores equal to the same build on the CPU.
 7. vector path (FLAT search; no Pallas kernel lies on it, so its ops
    are torch ops: a GEMM, elementwise masks and `torch.topk`).  First
+   tests/test_units.py::test_two_phase_knn_clustered's input (4,096 x 64
+   f32, 16 queries near one center, k 10): every distance of
+   `knn_batch` and `knn` within 3e-5 of float64 on the card (the max
+   error printed beside the card's name).  Then
    bench.py's knn shape at the op level: `ops.vector.knn_scan_batches`
    over 4 chunks of 2048 queries (bench.py scans 48) against 1M x 128
    f32 rows, L2, the bf16 scan copy, k = 10: recall@10 of 256 queries
@@ -1355,7 +1392,7 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
     # the corpus stays for phase 10 (the same documents, cold)
     return dict(launches=launches - w_launches, w_launches=w_launches,
                 p_launches=p_launches, err=err, times=times, client=client,
-                ix=ix, docs=docs, qt=qt)
+                ix=ix, docs=docs, qt=qt, results=results)
 
 
 def check_wide_against_window(ix, seg, batches, routes, results):
@@ -2681,6 +2718,605 @@ def same_agg_row(x: dict, y: dict, tail: bool) -> bool:
             and abs(x["a"] - y["a"]) <= tol / y["n"])
 
 
+# --------------------------------------------------------------- phase 13
+#: the wire: connections, queries of each family, timed passes
+WIRE_CONNS, WIRE_EACH, WIRE_PASSES = 64, 1024, 3
+
+
+class WireConn:
+    """A minimal RESP2 client over one asyncio connection."""
+
+    def __init__(self, reader, writer):
+        self.r, self.w = reader, writer
+
+    @classmethod
+    async def open(cls, port: int):
+        import asyncio
+        return cls(*await asyncio.open_connection("127.0.0.1", port))
+
+    async def cmd(self, *argv):
+        out = [f"*{len(argv)}\r\n".encode()]
+        for a in argv:
+            b = str(a).encode()
+            out.append(b"$%d\r\n%s\r\n" % (len(b), b))
+        self.w.write(b"".join(out))
+        await self.w.drain()
+        return await self.read()
+
+    async def read(self):
+        line = (await self.r.readline()).rstrip(b"\r\n")
+        t, rest = line[:1], line[1:]
+        if t == b"+":
+            return rest.decode()
+        if t == b"-":
+            raise AssertionError(f"wire error reply: {rest.decode()}")
+        if t == b":":
+            return int(rest)
+        if t == b"$":
+            n = int(rest)
+            return None if n < 0 else (await self.r.readexactly(n + 2)
+                                       )[:-2].decode()
+        if t == b"*":
+            return [await self.read() for _ in range(int(rest))]
+        raise AssertionError(f"bad RESP line {line!r}")
+
+
+def start_server(client):
+    """The port's RESP server on `client`, in this process, with its own
+    event loop on a thread.  Returns (server, port, stop)."""
+    import asyncio
+    import threading
+    from redisearch_tpu_torch.server import Server
+    srv = Server(client=client, port=0)
+    loop = asyncio.new_event_loop()
+    box, ready = {}, threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        box["tcp"] = loop.run_until_complete(srv.serve())
+        ready.set()
+        loop.run_forever()
+
+    th = threading.Thread(target=run, daemon=True, name="wire-server")
+    th.start()
+    if not ready.wait(60):
+        raise AssertionError("wire: the server did not start")
+
+    def stop():
+        async def close():
+            box["tcp"].close()
+            await box["tcp"].wait_closed()
+            await srv.aclose()
+        asyncio.run_coroutine_threadsafe(close(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(60)
+        loop.close()
+        srv._pool.shutdown(wait=True)
+
+    return srv, box["tcp"].sockets[0].getsockname()[1], stop
+
+
+def wire_run(port: int, cmds: list, n_conns: int) -> tuple:
+    """Send `cmds` over `n_conns` connections, each connection one
+    command at a time (command i on connection i % n_conns).  Returns
+    (replies in command order, seconds from the first send to the last
+    reply)."""
+    import asyncio
+
+    async def go():
+        conns = [await WireConn.open(port) for _ in range(n_conns)]
+        replies = [None] * len(cmds)
+
+        async def worker(j):
+            for i in range(j, len(cmds), n_conns):
+                replies[i] = await conns[j].cmd(*cmds[i])
+
+        t0 = time.perf_counter()
+        try:
+            await asyncio.gather(*[worker(j) for j in range(n_conns)])
+            dt = time.perf_counter() - t0
+        finally:
+            for c in conns:
+                c.w.close()
+                await c.w.wait_closed()
+        return replies, dt
+
+    return asyncio.run(go())
+
+
+class _Reply:
+    """An FT.SEARCH WITHSCORES reply as a result (`same_hits` reads it)."""
+
+    def __init__(self, reply, content: bool):
+        self.total = reply[0]
+        step = 3 if content else 2
+        self.hits = [rt.Hit(reply[i], float(reply[i + 1]),
+                            fields=(dict(zip(reply[i + 2][::2],
+                                             reply[i + 2][1::2]))
+                                    if content else None))
+                     for i in range(1, len(reply), step)]
+
+
+def wire_value(x):
+    """A row value as the RESP client reads it back."""
+    if isinstance(x, str):
+        return x
+    if isinstance(x, (bool, int, np.integer)):
+        return int(x)
+    if isinstance(x, (float, np.floating)):
+        return repr(float(x))
+    return str(x)
+
+
+def agg_argv(req) -> list:
+    """FT.AGGREGATE argv of a GROUPBY / SORTBY / LIMIT request."""
+    argv = ["FT.AGGREGATE", "bm25", req.query]
+    for st in req.steps:
+        if isinstance(st, AP.GroupStep):
+            argv += ["GROUPBY", len(st.by)] + ["@" + b.lstrip("@")
+                                               for b in st.by]
+            for fn, args, alias in st.reducers:
+                argv += ["REDUCE", fn, len(args), *args, "AS", alias]
+        elif isinstance(st, AP.SortStep):
+            flat = []
+            for prop, asc in st.keys:
+                flat += ["@" + prop.lstrip("@"), "ASC" if asc else "DESC"]
+            argv += ["SORTBY", len(flat), *flat]
+        elif isinstance(st, AP.LimitStep):
+            argv += ["LIMIT", st.offset, st.num]
+        else:
+            raise AssertionError(f"agg_argv: no argv for {st}")
+    return argv
+
+
+def phase_wire(main, dev) -> dict:
+    """Phase 13 (see the docstring): the RESP wire on the 1M-doc index."""
+    from torch.profiler import ProfilerActivity, profile
+    from redisearch_tpu_torch import server as S
+    t_phase = time.perf_counter()
+    client, ix, qt = main["client"], main["ix"], main["qt"]
+    fams = list(FAMILIES)
+    # the first WIRE_EACH queries of each family, interleaved
+    order = [(fam, i) for i in range(WIRE_EACH) for fam in fams]
+    cmds = [("FT.SEARCH", "bm25", FAMILIES[fam](qt, i), "NOCONTENT",
+             "WITHSCORES") for fam, i in order]
+    srv, port, stop = start_server(client)
+    # the engine's share of a pass: seconds inside the client's search
+    # calls (the micro-batches' ft_search_many, groups of one ft_search)
+    engine = {"ft_search_many": [0.0, 0], "ft_search": [0.0, 0]}
+
+    def timed(name):
+        real = getattr(client, name)
+
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                engine[name][0] += time.perf_counter() - t0
+                engine[name][1] += 1
+        return call
+
+    try:
+        zero_counts()
+        passes, hists = [], []
+        client.ft_search_many = timed("ft_search_many")
+        client.ft_search = timed("ft_search")
+        try:
+            for _ in range(WIRE_PASSES):
+                srv.batch_sizes.clear()
+                replies, dt = wire_run(port, cmds, WIRE_CONNS)
+                passes.append(dt)
+                hists.append(dict(sorted(srv.batch_sizes.items())))
+        finally:
+            del client.ft_search_many, client.ft_search
+        torch.cuda.synchronize(dev)
+        b1, b2 = IK.LAUNCHES, IK.PHRASE_LAUNCHES
+        n_exact = 0
+        for (fam, i), rep in zip(order, replies):
+            want = main["results"][fam][i]
+            got = _Reply(rep, content=False)
+            same_hits(got, want, f"wire {fam} {i}")
+            n_exact += ([(h.key, h.score) for h in got.hits]
+                        == [(h.key, h.score) for h in want.hits])
+        qps = [len(cmds) / dt for dt in passes]
+        log(f"phase wire: {len(cmds)} FT.SEARCH NOCONTENT WITHSCORES over "
+            f"{WIRE_CONNS} connections ({WIRE_EACH} of each of the "
+            f"{len(fams)} families, interleaved), RESP parser "
+            f"{srv.parser}: every reply == ft_search_many's result "
+            f"(phase 4; {n_exact} bit for bit, the rest within 1e-5 at "
+            f"ties); wire qps {sorted(qps)[1]:.1f} (median of "
+            f"{WIRE_PASSES} passes: {', '.join(f'{q:.1f}' for q in qps)}; "
+            f"host clock); phase 4's ft_search_many at batch {BATCH} is "
+            f"the batched reference")
+        log(f"phase wire: micro-batch sizes (size: groups) of the last "
+            f"pass {hists[-1]}")
+        busy_s = sum(v[0] for v in engine.values())
+        log(f"phase wire: engine calls over the {WIRE_PASSES} passes: "
+            f"ft_search_many {engine['ft_search_many'][1]} calls "
+            f"{engine['ft_search_many'][0]:.3f} s, ft_search (groups of "
+            f"one) {engine['ft_search'][1]} calls "
+            f"{engine['ft_search'][0]:.3f} s: {100.0 * busy_s / sum(passes):.1f}"
+            f"% of the passes' {sum(passes):.3f} s")
+        if srv.parser != "native":
+            raise AssertionError("wire: the native RESP codec did not "
+                                 "build; the Python parser served")
+        # 64 with content: fields as the doc table holds them
+        with_content = [("FT.SEARCH", "bm25", FAMILIES[fams[i % 8]](qt, i),
+                         "WITHSCORES") for i in range(64)]
+        creps, _dt = wire_run(port, with_content, WIRE_CONNS)
+        for i, rep in enumerate(creps):
+            want = main["results"][fams[i % 8]][i]
+            got = _Reply(rep, content=True)
+            same_hits(got, want, f"wire content {i}")
+            for hg, hw in zip(got.hits, want.hits):
+                if hg.key == hw.key and hg.fields != {
+                        f: S._tostr(v) for f, v in hw.fields.items()}:
+                    raise AssertionError(f"wire content {i} {hg.key}: "
+                                         f"{hg.fields} != {hw.fields}")
+        # 64 FT.AGGREGATE: phase 6's request and the '*' COUNT
+        mk, _mk_sd, _mk_mm = agg_request_fn()
+        reqs = [mk(i) for i in range(32)] + [
+            rt.AggregateRequest("*").group_by("@grp", ("COUNT", [], "n"))
+            .sort_by(("@n", rt.DESC), "@grp") for _ in range(32)]
+        aggs = [agg_argv(r) for r in reqs]
+        areps, adt = wire_run(port, aggs, WIRE_CONNS)
+        for argv, rep in zip(aggs, areps):
+            req = srv._parse_agg_request(S.Argv([str(a) for a in argv[2:]]))
+            res = client.ft_aggregate("bm25", req)
+            want = [len(res.rows)] + [[wire_value(x)
+                                       for x in S._row_flatten(r)]
+                                      for r in res.rows]
+            if rep != want:
+                raise AssertionError(f"wire {argv[:4]}: {rep[:3]} != "
+                                     f"{want[:3]}")
+        star_total = sum(int(float(row[3])) for row in areps[32][1:])
+        if star_total != len(main["docs"]):
+            raise AssertionError(f"wire '*' COUNT sums to {star_total}")
+        torch.cuda.synchronize(dev)
+        b34 = GB.LAUNCHES + GB.SINGLE_LAUNCHES
+        log(f"phase wire: 64 FT.SEARCH with content == ft_search_many's "
+            f"hits and fields; 64 FT.AGGREGATE (32 of phase 6's request, "
+            f"32 '*' GROUPBY @grp COUNT summing to {star_total}) == "
+            f"Client.ft_aggregate, in {adt:.3f}s")
+        log(f"phase wire: launches during the phase: B1 {b1}, B2 {b2} "
+            f"(the {WIRE_PASSES} search passes), B3/B4 {b34} (batched "
+            f"{GB.LAUNCHES}, fused single-query {GB.SINGLE_LAUNCHES})")
+        if b1 <= 0 or b2 <= 0 or b34 <= 0:
+            raise AssertionError("wire: a kernel was not reached over "
+                                 "the wire")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _r, traced = wire_run(port, cmds, WIRE_CONNS)
+            torch.cuda.synchronize(dev)
+        busy, kerns = device_busy_us(prof)
+        log(f"phase wire: traced pass {traced * 1e3:.3f} ms, device busy "
+            f"{busy:.1f} us (B1 {kerns['intersect_kernel']:.1f} us, B2 "
+            f"{kerns['phrase_kernel']:.1f} us), idle share "
+            f"{1.0 - busy / (traced * 1e6):.4f}")
+        # where a wire pass's host time goes: RESP parse and format
+        parse_s, fmt_s = wire_codec_seconds(
+            srv, cmds, [main["results"][fam][i] for fam, i in order])
+        log(f"phase wire: RESP parse of the {len(cmds)} commands "
+            f"{parse_s * 1e3:.3f} ms, reply format + encode "
+            f"{fmt_s * 1e3:.3f} ms, of a {sorted(passes)[1] * 1e3:.3f} ms "
+            f"median pass ({100.0 * (parse_s + fmt_s) / sorted(passes)[1]:.2f}"
+            f"%)")
+    finally:
+        stop()
+    log(f"phase wire: done in {time.perf_counter() - t_phase:.1f}s")
+    return {"qps": sorted(qps)[1], "b1": b1, "b2": b2, "b34": b34}
+
+
+def wire_codec_seconds(srv, cmds, results) -> tuple:
+    """Host seconds of the RESP layer alone for one pass: the native
+    parser over the pass's command bytes, and `_parse_search`,
+    `_format_search` and `encode` over the pass's results."""
+    from redisearch_tpu_torch import native_resp, server as S
+    blob = b"".join(
+        b"*%d\r\n" % len(c) + b"".join(
+            b"$%d\r\n%s\r\n" % (len(str(a).encode()), str(a).encode())
+            for a in c) for c in cmds)
+    p = native_resp.RespParser()
+    t0 = time.perf_counter()
+    p.feed(blob)
+    n = 0
+    while p.next() is not None:
+        n += 1
+    parse_s = time.perf_counter() - t0
+    if n != len(cmds):
+        raise AssertionError(f"native parser: {n} of {len(cmds)} commands")
+    t0 = time.perf_counter()
+    for c, res in zip(cmds, results):
+        spec = srv._parse_search(S.Argv(list(c[1:])))
+        S.encode(srv._format_search(res, spec), 2)
+    return parse_s, time.perf_counter() - t0
+
+
+# --------------------------------------------------------------- phase 14
+def numpy_leaf_sets(seg, ix, q: str) -> list:
+    """Matching local doc ids of each leaf of `q` from the host-copied
+    postings: each token group (the token and its expansions, field mask
+    tested) as a sorted set."""
+    cq = ix.prepare(q, None, E.QueryOptions(k=K), 2)
+    binding, _P = cq.bind(seg)
+    dyn = binding.dyn
+    sets = []
+    for leaf, _idx in cq.leaves():
+        docs = []
+        for s in range(leaf.lo, leaf.hi):
+            a, n = int(dyn["tstarts"][s]), int(dyn["tlens"][s])
+            d = seg.text.doc_ids[a:a + n].cpu().numpy()
+            m = seg.text.field_masks[a:a + n].cpu().numpy()
+            docs.append(d[(m & int(dyn["tmasks"][s])) != 0])
+        sets.append(np.unique(np.concatenate(docs)) if docs
+                    else np.zeros(0, np.int32))
+    return sets
+
+
+def edits1(word: str, alphabet: str) -> set:
+    """Every string within one edit of `word` over `alphabet`."""
+    out = set()
+    for i in range(len(word) + 1):
+        left, right = word[:i], word[i:]
+        if right:
+            out.add(left + right[1:])
+            out.update(left + c + right[1:] for c in alphabet)
+        if len(right) > 1:
+            out.add(left + right[1] + right[0] + right[2:])
+        out.update(left + c + right for c in alphabet)
+    return out
+
+
+def phase_surface(main, dev) -> None:
+    """Phase 14 (see the docstring): the command surface on the card."""
+    from redisearch_tpu_torch import ext, server as S
+    from redisearch_tpu_torch.aux.highlight import (
+        HighlightOptions, SummarizeOptions, highlight_field,
+        summarize_field)
+    from redisearch_tpu_torch.utils import errors as ERR
+    t_phase = time.perf_counter()
+    client, ix, qt = main["client"], main["ix"], main["qt"]
+    seg = ix.segments[0]
+    n_docs = len(main["docs"])
+    info = client.ft_info("bm25")
+    mem = sum(s.memory_bytes() for s in ix.segments)
+    nnz = sum(s.text.nnz for s in ix.segments)
+    if (info["num_docs"] != n_docs or info["num_records"] != nnz
+            or info["inverted_sz_mb"] != mem / 1e6):
+        raise AssertionError(f"FT.INFO: {info['num_docs']} docs, "
+                             f"{info['num_records']} records, "
+                             f"{info['inverted_sz_mb']} MB")
+    log(f"phase surface: FT.INFO num_docs {info['num_docs']}, num_records "
+        f"{info['num_records']} (the segments' nnz), inverted_sz_mb "
+        f"{info['inverted_sz_mb']:.3f} (memory_bytes), num_terms "
+        f"{info['num_terms']}")
+
+    # FT.PROFILE SEARCH, one query a family
+    for fam, fn in FAMILIES.items():
+        q = fn(qt, 0)
+        res, prof = client.ft_profile("bm25", "SEARCH", q)
+        same_hits(res, client.ft_search("bm25", q), f"profile {fam}")
+        it = prof["iterators"]
+        if it["counter"] != res.total:
+            raise AssertionError(f"profile {fam}: root counter "
+                                 f"{it['counter']} != total {res.total}")
+        if fam == "and2":
+            sets = numpy_leaf_sets(seg, ix, q)
+            kids = [c["counter"] for c in it.get("children", [])]
+            if (it["counter"] != numpy_and2_count(seg, ix, q)
+                    or kids != [len(s) for s in sets]):
+                raise AssertionError(f"profile and2: counters {it} vs "
+                                     f"numpy {[len(s) for s in sets]}")
+        if not (prof["execution_time_ms"] > 0
+                and prof["warm_execution_time_ms"] > 0):
+            raise AssertionError(f"profile {fam}: clocks {prof}")
+        log(f"phase surface: FT.PROFILE {fam} {q!r}: total {res.total}, "
+            f"root counter {it['counter']}, children "
+            f"{[c['counter'] for c in it.get('children', [])]}; execution "
+            f"{prof['execution_time_ms']:.3f} ms, warm "
+            f"{prof['warm_execution_time_ms']:.3f} ms, root node "
+            f"{it['time_ms']:.3f} ms (after a synchronize)")
+
+    # EXPLAINSCORE of the top hit of 64 queries
+    n_ex, worst = 0, 0.0
+    for i in range(512):
+        q = FAMILIES["and2"](qt, i // 2) if i % 2 else qt[i // 2]
+        r = client.ft_search("bm25", q, num=1)
+        if not r.hits:
+            continue
+        ex = client.ft_explainscore("bm25", q, r.hits[0].key)
+        rel = abs(ex["value"] - r.hits[0].score) / abs(r.hits[0].score)
+        worst = max(worst, rel)
+        if rel > 1e-5:
+            raise AssertionError(f"EXPLAINSCORE {q!r}: {ex['value']} vs "
+                                 f"{r.hits[0].score}")
+        n_ex += 1
+        if n_ex == 64:
+            break
+    if n_ex < 64:
+        raise AssertionError(f"EXPLAINSCORE: {n_ex} queries with hits")
+    log(f"phase surface: FT.EXPLAINSCORE of 64 top hits (and2 and "
+        f"single-term queries) == "
+        f"the served score, max relative difference {worst:.3e}")
+
+    # HIGHLIGHT and SUMMARIZE on 64 hits
+    n_hl = 0
+    so = SummarizeOptions(frag_len=8, num_frags=2, separator="... ")
+    for i in range(256):
+        if n_hl == 64:
+            break
+        q = FAMILIES["or2"](qt, i)
+        hl = client.ft_search("bm25", q, num=min(8, 64 - n_hl),
+                              highlight={"fields": ["title", "body"]})
+        sm = client.ft_search("bm25", q, num=min(8, 64 - n_hl),
+                              summarize={"fields": ["body"], "frag_len": 8,
+                                         "num_frags": 2})
+        for hh, hs in zip(hl.hits, sm.hits):
+            meta = ix.doctable.get_by_key(hh.key)
+            for f in ("title", "body"):
+                if hh.fields[f] != highlight_field(
+                        ix, meta.fields[f], hl.query_ast, HighlightOptions()):
+                    raise AssertionError(f"HIGHLIGHT {q!r} {hh.key} {f}")
+            if "<b>" not in hh.fields["title"] + hh.fields["body"]:
+                raise AssertionError(f"HIGHLIGHT {q!r} {hh.key}: no tag")
+            if hs.fields["body"] != summarize_field(
+                    ix, meta.fields["body"], sm.query_ast, so):
+                raise AssertionError(f"SUMMARIZE {q!r} {hs.key}")
+            n_hl += 1
+    if n_hl != 64:
+        raise AssertionError(f"HIGHLIGHT/SUMMARIZE: {n_hl} hits")
+    log("phase surface: HIGHLIGHT (title, body) and SUMMARIZE (body, LEN 8, "
+        "FRAGS 2) on 64 hits of or2 queries == highlight_field / "
+        "summarize_field of the same docs")
+
+    # FT.SPELLCHECK: 64 vocabulary words with the last digit made a letter
+    terms = seg.terms
+    alphabet = "0123456789wx"
+    t0 = time.perf_counter()
+    words = [w[:-1] + "x" for w in qt[:64]]
+    out = client.ft_spellcheck("bm25", " ".join(words))
+    sc_s = time.perf_counter() - t0
+    if [o["term"] for o in out] != words:
+        raise AssertionError(f"SPELLCHECK terms {[o['term'] for o in out]}")
+    n_sug = 0
+    for o in out:
+        cands = [t for t in edits1(o["term"], alphabet) if t in terms.ids]
+        want = sorted(((int(terms.doc_freq[terms.ids[t]]) / n_docs, t)
+                       for t in cands), key=lambda st: (-st[0], st[1]))[:10]
+        if o["suggestions"] != want:
+            raise AssertionError(f"SPELLCHECK {o['term']}: "
+                                 f"{o['suggestions']} != {want}")
+        n_sug += len(want)
+    log(f"phase surface: FT.SPELLCHECK of 64 misspelt words == the "
+        f"vocabulary's distance-1 terms ranked by doc frequency ({n_sug} "
+        f"suggestions) in {sc_s * 1e3:.1f} ms")
+
+    # FT.SUGADD of 100,000 suggestions, FT.SUGGET prefixes
+    rng = np.random.default_rng(17)
+    sug_scores = rng.integers(1, 1000, 100_000)
+    t0 = time.perf_counter()
+    for j in range(100_000):
+        client.ft_sugadd("sug", "w%06d" % j, float(sug_scores[j]))
+    add_s = time.perf_counter() - t0
+    prefixes = ["w%05d" % j for j in rng.integers(0, 10_000, 1000)]
+    t0 = time.perf_counter()
+    got = [client.ft_sugget("sug", p_, with_scores=True) for p_ in prefixes]
+    get_s = time.perf_counter() - t0
+    for p_, g in zip(prefixes[:16], got[:16]):
+        base = int(p_[1:]) * 10
+        cand = [("w%06d" % j, float(sug_scores[j]) / np.sqrt(2.0))
+                for j in range(base, base + 10)]
+        want = sorted(cand, key=lambda c: (-c[1], c[0]))[:5]
+        if [(t, s_) for t, s_ in g] != want:
+            raise AssertionError(f"SUGGET {p_}: {g} != {want}")
+    if client.ft_suglen("sug") != 100_000:
+        raise AssertionError("SUGLEN")
+    log(f"phase surface: FT.SUGADD of 100,000 suggestions in {add_s:.3f} s "
+        f"({100_000 / add_s:.0f} a second); 1,000 FT.SUGGET prefix queries "
+        f"in {get_s:.3f} s ({1000 / get_s:.0f} a second), 16 == a brute "
+        f"force over the entries")
+
+    # FT.TAGVALS
+    tv = client.ft_tagvals("bm25", "cat")
+    if tv != ["cat%02d" % i for i in range(16)]:
+        raise AssertionError(f"TAGVALS {tv}")
+    log(f"phase surface: FT.TAGVALS cat: {len(tv)} values")
+
+    # FT.CONFIG SET TIMEOUT / ON_TIMEOUT with FT.DEBUG's TIMEOUT_AFTER_N
+    srv = S.Server(client=client)
+    q = FAMILIES["or2"](qt, 0)
+    srv.dispatch(["FT.CONFIG", "SET", "TIMEOUT", "10000"])
+    srv.dispatch(["FT.CONFIG", "SET", "ON_TIMEOUT", "return"])
+    rep = srv.dispatch(["FT.DEBUG", "FT.SEARCH", "bm25", q, "NOCONTENT",
+                        "LIMIT", "0", "100", "DEBUG_PARAMS_COUNT", "2",
+                        "TIMEOUT_AFTER_N", "5"])
+    full = client.ft_search("bm25", q, num=100, no_content=True)
+    if (len(rep.r2) != 6 or rep.r3["warning"] != [
+            "Timeout limit was reached"]
+            or rep.r2[1:] != [h.key for h in full.hits[:5]]):
+        raise AssertionError(f"FT.DEBUG TIMEOUT_AFTER_N: {rep.r2}")
+    srv.dispatch(["FT.CONFIG", "SET", "ON_TIMEOUT", "fail"])
+    rep = srv.dispatch(["FT.DEBUG", "FT.SEARCH", "bm25", q, "LIMIT", "0",
+                        "100", "DEBUG_PARAMS_COUNT", "2",
+                        "TIMEOUT_AFTER_N", "5"])
+    if not isinstance(rep, ERR.TimeoutError_):
+        raise AssertionError(f"ON_TIMEOUT fail: {rep!r}")
+    cfg = srv.dispatch(["FT.CONFIG", "GET", "TIMEOUT"]).r2
+    srv.dispatch(["FT.CONFIG", "SET", "TIMEOUT", "500"])
+    srv.dispatch(["FT.CONFIG", "SET", "ON_TIMEOUT", "return"])
+    if cfg != [["TIMEOUT", "10000"]] or full.warnings:
+        raise AssertionError(f"FT.CONFIG GET TIMEOUT {cfg}")
+    log("phase surface: FT.CONFIG SET TIMEOUT 10000 / ON_TIMEOUT return: "
+        "FT.DEBUG FT.SEARCH ... TIMEOUT_AFTER_N 5 -> the first 5 of 100 "
+        "hits and the timeout warning; ON_TIMEOUT fail -> TimeoutError_")
+
+    # ON_OOM on the card: the device memory read through a patched
+    # torch.cuda.mem_get_info (95% in use)
+    real = torch.cuda.mem_get_info
+    free, total = real(dev)
+    torch.cuda.mem_get_info = lambda *a: (total // 20, total)
+    try:
+        client.ft_config_set("ON_OOM", "return")
+        r = client.ft_search("bm25", q)
+        rb = client.ft_search_many("bm25", [q], k=K)[0]
+        client.ft_config_set("ON_OOM", "fail")
+        try:
+            client.ft_search("bm25", q)
+            raise AssertionError("ON_OOM fail did not raise")
+        except ERR.IndexError_:
+            pass
+    finally:
+        torch.cuda.mem_get_info = real
+        client.ft_config_set("ON_OOM", "ignore")
+    if (r.total or r.hits or not any("OOM" in w for w in r.warnings)
+            or rb.total or not any("OOM" in w for w in rb.warnings)):
+        raise AssertionError(f"ON_OOM return: {r.total} {r.warnings}")
+    if client.ft_search("bm25", q).total != full.total:
+        raise AssertionError("ON_OOM ignore after the patch")
+    log(f"phase surface: ON_OOM on {dev} (card memory {free}/{total} free, "
+        f"read as 5% free): return -> an empty result with the OOM warning "
+        f"(ft_search and ft_search_many), fail -> IndexError_")
+
+    # HAMMING and a registered custom scorer, card against CPU
+    rng = np.random.default_rng(13)
+    pay = rng.integers(0, 256, size=(10_000, 8), dtype=np.uint8)
+    vocab = ["alpha", "beta", "gamma", "delta", "omega", "sigma", "kappa",
+             "theta"]
+    texts = [" ".join(rng.choice(vocab, size=5)) for _ in range(10_000)]
+    qp = rng.integers(0, 256, size=(16, 8), dtype=np.uint8)
+    ext.register_scorer("CARD_SMOKE", lambda key, fields, base: base * (
+        1.0 + int(key[1:]) % 5))
+    outs = {}
+    try:
+        for d in (dev, "cpu"):
+            c = rt.Client(device=d)
+            c.ft_create("ham", [rt.Field("t", rt.FieldType.TEXT)])
+            for j in range(10_000):
+                c.ft_add("ham", f"h{j}", 1.0, {"t": texts[j]},
+                         payload=pay[j].tobytes())
+            outs[str(d)] = (
+                [c.ft_search("ham", vocab[j % 8], scorer="HAMMING",
+                             payload=qp[j].tobytes(), num=10,
+                             no_content=True) for j in range(16)],
+                [c.ft_search("ham", f"{vocab[j % 8]} {vocab[(j + 3) % 8]}",
+                             scorer="CARD_SMOKE", num=10, no_content=True)
+                 for j in range(16)])
+    finally:
+        ext._SCORERS.pop("CARD_SMOKE", None)
+    (hc, cc), (hh, ch) = outs[str(dev)], outs["cpu"]
+    for j, (a, b) in enumerate(zip(hc, hh)):
+        if (a.total != b.total or [(h.key, h.score) for h in a.hits]
+                != [(h.key, h.score) for h in b.hits] or not a.hits):
+            raise AssertionError(f"HAMMING {j}: card != cpu")
+    for j, (a, b) in enumerate(zip(cc, ch)):
+        same_hits(a, b, f"custom scorer {j}")
+    log("phase surface: HAMMING (8-byte payloads) and a registered custom "
+        "scorer on a 10,000-doc index, 16 queries each: the card's ids and "
+        "scores == the same build on the CPU")
+    log(f"phase surface: done in {time.perf_counter() - t_phase:.1f}s")
+
+
 # ---------------------------------------------------------------- phase 7
 #: bench.py's knn section: 1M x 128 f32 rows, L2, k = 10, batches of 2048
 KNN_N, KNN_D, KNN_K, KNN_B = 1_000_000, 128, 10, 2048
@@ -3047,8 +3683,44 @@ def phase_fknn(dev) -> dict:
             "index": (client, ix, v64, qvecs)}
 
 
+def phase_rescore_clustered(dev) -> float:
+    """tests/test_units.py::test_two_phase_knn_clustered's input on the
+    card: 4,096 x 64 f32 rows and 16 queries at center + 1e-3 * normal
+    (numpy seed 11), k 10, where L2's sq - 2 dot + qsq cancels.  Every
+    distance `knn_batch` and `knn` return must be within 3e-5 of the
+    float64 distance of its row, computed on the card (the f32
+    rescore's dot products are taken in float64)."""
+    rng = np.random.default_rng(11)
+    n, d, k, bq = 4096, 64, 10, 16
+    center = rng.normal(size=(d,)).astype(np.float32)
+    vecs = (center[None, :]
+            + 1e-3 * rng.normal(size=(n, d))).astype(np.float32)
+    Q = (center[None, :]
+         + 1e-3 * rng.normal(size=(bq, d))).astype(np.float32)
+    sq = np.sum(vecs.astype(np.float64) ** 2, 1).astype(np.float32)
+    tv, tsq, tq = (torch.from_numpy(a).to(dev) for a in (vecs, sq, Q))
+    present = torch.ones(n, dtype=torch.bool, device=dev)
+    bd, bi = V.knn_batch(tv, tsq, present, tq, k, "L2")
+    singles = [V.knn(tv, tsq, present, tq[b], k, "L2") for b in range(bq)]
+    sd = torch.stack([s_[0] for s_ in singles])
+    si = torch.stack([s_[1] for s_ in singles])
+    errs = []
+    for dists, idx in ((bd, bi), (sd, si)):
+        g64 = ((tv[idx.long()].double() - tq[:, None, :].double()) ** 2
+               ).sum(-1)
+        errs.append(float((dists.double() - g64).abs().max()))
+    log(f"phase vector: clustered rescore (4,096 x 64, 16 queries, k 10) "
+        f"on {torch.cuda.get_device_name(dev)}: max |dist - float64| "
+        f"batched {errs[0]:.3e}, single {errs[1]:.3e} (limit 3e-5)")
+    if max(errs) > 3e-5:
+        raise AssertionError(f"clustered rescore: max error {max(errs)} "
+                             f"> 3e-5")
+    return max(errs)
+
+
 def phase_vector(dev) -> dict:
     t0 = time.perf_counter()
+    phase_rescore_clustered(dev)
     ops = phase_knn_ops(dev)
     fk = phase_fknn(dev)
     log(f"phase vector: done in {time.perf_counter() - t0:.1f}s")
@@ -4367,6 +5039,8 @@ def main():
     mm = phase_agg_minmax(main["client"], main["ix"], dev)
     single = phase_single_groupby_times(main["ix"], dev, mm["windows"])
     phase_cursor(main["client"], main["ix"], dev)
+    phase_wire(main, dev)
+    phase_surface(main, dev)
     vec = phase_vector(dev)
     phase_hybrid(dev, vec.pop("index"))
     del vec

@@ -19,20 +19,25 @@ engine's KNN executors; FT.HYBRID (`HybridQuery`, `Client.ft_hybrid`,
 every plan (the host pipeline where the device GROUPBY does not) and
 WITHCURSOR.  Indexes take deletes, compact (`SearchIndex.compact`,
 a CSR slice) and save to and load from checkpoints both packages read
-(`Client.save_index`, `load_index`).  See ROADMAP.md for what is still
-to port.
+(`Client.save_index`, `load_index`).  The `Client` has every command of
+the JAX package's (FT.INFO, EXPLAIN, PROFILE, EXPLAINSCORE, aliases,
+dictionaries, SPELLCHECK, suggestions, TAGVALS, DEBUG, CONFIG), and
+`server.Server` serves them over RESP2/RESP3.  See ROADMAP.md for what
+is still to port.
 """
 
-from .schema import (Field, FieldType, Schema, VectorAlgo,
-                     VectorMetric, VectorParams)
+from .schema import (Field, FieldType, GeometryParams, IndexFlags, Schema,
+                     VectorAlgo, VectorMetric, VectorParams)
 from .agg.pipeline import ASC, DESC, AggregateRequest, AggregateResult
 from .aux.hybrid import HybridQuery, run_hybrid_many
 from .api import Client
+from .index.doctable import DocMeta, DocTable
 from .index.index import Hit, SearchIndex, SearchResult
 from .query.engine import QueryOptions
+from .utils import errors
 
-__all__ = ["Schema", "Field", "FieldType", "VectorParams", "VectorAlgo",
-           "VectorMetric", "QueryOptions", "SearchIndex",
-           "SearchResult", "Hit", "Client", "AggregateRequest",
-           "AggregateResult", "ASC", "DESC", "HybridQuery",
-           "run_hybrid_many"]
+__all__ = ["Schema", "Field", "FieldType", "IndexFlags", "VectorParams",
+           "VectorAlgo", "VectorMetric", "GeometryParams", "QueryOptions",
+           "SearchIndex", "SearchResult", "Hit", "DocTable", "DocMeta",
+           "Client", "AggregateRequest", "AggregateResult", "ASC", "DESC",
+           "HybridQuery", "run_hybrid_many", "errors"]

@@ -10,7 +10,10 @@ where one sealed segment holds them all; `search_many` serves a batch
 of queries through the intersection and phrase kernels, the KNN
 executors, or the general window program for groups none of those
 takes, `aggregate_many` a batch of FT.AGGREGATE GROUPBYs; single-query
-`search()` and `aggregate()` ride the general window program.
+`search()` and `aggregate()` ride the general window program; the
+HAMMING scorer and registered custom scorers score the window program's
+candidates on the host.  `info`, `explain` and the one-shot debug hooks
+serve FT.INFO, FT.EXPLAIN and FT.DEBUG.
 """
 
 from __future__ import annotations
@@ -94,7 +97,11 @@ class SearchIndex:
         self.synonyms = SynonymMap()
         self.segments: list[Segment] = []
         self._builder = self._new_builder()
+        self.created_at = time.time()
         self.stats = {"indexing_errors": 0, "queries": 0}
+        # dialect usage bitset (reference: global_stats.h:30-34 and the
+        # per-index dialect_stats of FT.INFO)
+        self.dialect_stats = {1: 0, 2: 0, 3: 0, 4: 0}
         # query timeout (ms, 0 = none) and its policy: return | fail |
         # return_strict (reference: TIMEOUT / ON_TIMEOUT)
         self.timeout_ms = 0
@@ -103,9 +110,22 @@ class SearchIndex:
                              "last_error_key": None, "by_field": {}}
         self.on_oom = "ignore"       # ignore | return | fail
         self._prepared: dict = {}    # prepared-query cache (see prepare())
+        # one-shot fault injection for the next query (reference:
+        # _FT.DEBUG TIMEOUT_AFTER_N / CRASH / PAUSE, aggregate_debug.c)
+        self._debug_hooks: Optional[dict] = None
         self._commit_lock = threading.RLock()
         # background initial scan progress (Client.ft_create)
         self.scan_state: Optional[dict] = None
+
+    def wait_scan(self, timeout: float = 30.0) -> bool:
+        """Block until a background initial scan finishes (True) or the
+        timeout lapses (False).  No-op when the scan was synchronous."""
+        deadline = time.perf_counter() + timeout
+        while self.scan_state and self.scan_state.get("running"):
+            if time.perf_counter() > deadline:
+                return False
+            time.sleep(0.005)
+        return True
 
     def _new_builder(self) -> SegmentBuilder:
         return SegmentBuilder(self.schema, self.stopwords, self.synonyms,
@@ -145,6 +165,8 @@ class SearchIndex:
             self.index_errors["count"] += 1
             self.index_errors["last_error"] = str(e)
             self.index_errors["last_error_key"] = key
+            self.index_errors["last_error_key_obfuscated"] = (
+                _log.obfuscate_document(meta.gid))
             _log.logger.warning(
                 "indexing failed for %s in %s: %s",
                 _log.fmt_doc(key, meta.gid),
@@ -156,6 +178,27 @@ class SearchIndex:
             self._rebuild_builder()
             return
         self.doctable.set_doclen(meta.gid, meta.doclen, meta.max_freq)
+
+    def set_debug_hooks(self, timeout_after_n: Optional[int] = None,
+                        crash: bool = False, pause_ms: float = 0) -> None:
+        """Arm one-shot fault injection for the next query (reference:
+        _FT.DEBUG FT.SEARCH ... DEBUG_PARAMS_COUNT n TIMEOUT_AFTER_N k /
+        CRASH / PAUSE, aggregate_debug.c)."""
+        self._debug_hooks = {"timeout_after_n": timeout_after_n,
+                             "crash": crash, "pause_ms": pause_ms}
+
+    def take_debug_hooks(self) -> Optional[dict]:
+        """Disarm and return the armed hooks (None when none are): a
+        CRASH raises here, a PAUSE sleeps here."""
+        dbg = self._debug_hooks
+        self._debug_hooks = None
+        if dbg is None:
+            return None
+        if dbg.get("crash"):
+            raise RuntimeError("Debug crash injected (RP_CRASH analog)")
+        if dbg.get("pause_ms"):
+            time.sleep(float(dbg["pause_ms"]) / 1e3)
+        return dbg
 
     def _rebuild_builder(self, drop_gid: Optional[int] = None):
         keep = [g for g in self._builder._gids
@@ -433,18 +476,26 @@ class SearchIndex:
         (`query.engine.execute`) on every segment, then the merge by
         score, sort key or (KNN) vector distance, then doc id; a KNN
         query returns at most its k results and a total of at most k.
-        in_keys/in_fields mirror INKEYS/INFIELDS.  The HAMMING scorer and
-        registered custom scorers are not ported yet."""
+        in_keys/in_fields mirror INKEYS/INFIELDS.  The HAMMING scorer
+        (with the query's `payload`) and registered custom scorers
+        (`ext.py`) score the window program's candidates on the host.
+        Armed debug hooks (`set_debug_hooks`) cut the merge after
+        `timeout_after_n` hits under the ON_TIMEOUT policy."""
         self.commit()
         self.stats["queries"] += 1
         oom = self._check_oom()
         if oom is not None:
             return oom
+        if scorer == "HAMMING":
+            root = self.parse_query(query, params, dialect)
+            return self._search_hamming(root, payload, offset, num,
+                                        no_content, return_fields)
         from .. import ext as _ext
-        if scorer == "HAMMING" or _ext.is_custom_scorer(scorer):
-            raise NotImplementedError(
-                f"the {scorer} scorer is not ported yet (ROADMAP A13)")
-        del payload          # read only by the HAMMING scorer
+        if _ext.is_custom_scorer(scorer):
+            root = self.parse_query(query, params, dialect)
+            return self._search_custom_scorer(
+                root, _ext.get_scorer(scorer), offset, num, no_content,
+                return_fields)
         opts = QueryOptions(
             scorer=scorer, k=offset + num, sort_field=sort_by,
             sort_asc=sort_asc, slop=slop, inorder=inorder,
@@ -459,6 +510,8 @@ class SearchIndex:
         k = max(offset + num, 1)
         deadline = (time.perf_counter() + self.timeout_ms / 1e3
                     if self.timeout_ms else None)
+        dbg = self.take_debug_hooks()
+        dbg_n = dbg.get("timeout_after_n") if dbg else None
         warnings: list[str] = []
         merged: list[tuple] = []   # (rank, gid, score, dist, sortkey, seg)
         total = 0
@@ -520,6 +573,13 @@ class SearchIndex:
                                if res.knn_dists is not None else None,
                                float(res.sortkeys[j])
                                if res.sortkeys is not None else None, seg))
+            if dbg_n is not None and len(merged) >= dbg_n:
+                # injected timeout (TIMEOUT_AFTER_N): apply ON_TIMEOUT
+                merged = merged[:dbg_n]
+                if self.on_timeout == "fail":
+                    raise TimeoutError_("Timeout limit was reached")
+                warnings.append("Timeout limit was reached")
+                break
         merged.sort(key=lambda x: (x[0], x[1]))
         if cq.knn is not None:
             merged = merged[:cq.knn.k]  # KNN returns at most k results
@@ -585,6 +645,75 @@ class SearchIndex:
         res.warnings = ["OOM: query returned empty result"]
         return res
 
+    def _hits_of(self, scored: list, offset: int, num: int, no_content,
+                  return_fields) -> list:
+        """Hits of host-scored (score, meta) pairs, ranked by score, then
+        key."""
+        scored.sort(key=lambda x: (-x[0], x[1].key))
+        hits = []
+        for score, meta in scored[offset:offset + num]:
+            fields = None
+            if not no_content:
+                fields = ({f: meta.fields.get(f) for f in return_fields
+                           if f in meta.fields} if return_fields
+                          else dict(meta.fields))
+            hits.append(Hit(meta.key, float(score), fields=fields,
+                            gid=meta.gid, payload=meta.payload))
+        return hits
+
+    def _search_custom_scorer(self, root, fn, offset, num, no_content,
+                              return_fields) -> SearchResult:
+        """EXTLOAD-analog custom scorer: over-fetch by BM25STD on the
+        window program, re-rank on the host by the registered callable
+        (ext.py)."""
+        from .. import ext as _ext
+        cq = self.compile(root, QueryOptions(
+            scorer="BM25STD", k=max((offset + num) * _ext.RESCORE_FACTOR,
+                                    64)))
+        scored = []
+        total = 0
+        for seg in self.segments:
+            res = execute(cq, seg, cq.opts.k)
+            total += res.count
+            gids = seg.gids_host
+            for j in range(res.local_idx.shape[0]):
+                base = float(res.scores[j])
+                if base <= -3.3e38:
+                    continue
+                meta = self.doctable.get(int(gids[int(res.local_idx[j])]))
+                if meta is None or meta.deleted:
+                    continue
+                scored.append((fn(meta.key, meta.fields, base), meta))
+        return SearchResult(total=total, hits=self._hits_of(
+            scored, offset, num, no_content, return_fields), query_ast=root)
+
+    def _search_hamming(self, root, payload: Optional[bytes], offset, num,
+                        no_content, return_fields) -> SearchResult:
+        """HAMMING scorer (reference: ext/default.c:457): score =
+        1/(1+hamming_distance(query payload, doc payload)); docs without an
+        equal-length payload score 0.  The window program gives the
+        matching docs; payloads are opaque bytes on the host doc table."""
+        cq = self.compile(root, QueryOptions())
+        scored = []
+        total = 0
+        for seg in self.segments:
+            res = execute(cq, seg, 1, mode="window")
+            total += res.count
+            gids = seg.gids_host
+            for li in res.local_idx[res.valid]:
+                meta = self.doctable.get(int(gids[int(li)]))
+                if meta is None or meta.deleted:
+                    continue
+                score = 0.0
+                if (payload is not None and meta.payload is not None
+                        and len(meta.payload) == len(payload)):
+                    dist = sum(bin(a ^ b).count("1")
+                               for a, b in zip(payload, meta.payload))
+                    score = 1.0 / (1.0 + dist)
+                scored.append((score, meta))
+        return SearchResult(total=total, hits=self._hits_of(
+            scored, offset, num, no_content, return_fields), query_ast=root)
+
     def search_many(self, queries: list, params: Optional[list] = None,
                     k: int = 10, scorer: str = "BM25STD",
                     dialect: int = 2,
@@ -641,4 +770,73 @@ class SearchIndex:
                    else (lambda h: (-h.score, h.gid)))
             out.append(SearchResult(total=totals[i],
                                     hits=sorted(all_hits[i], key=key)[:k]))
+        return out
+
+    def explain(self, query: str, params=None, dialect: int = 2) -> str:
+        """FT.EXPLAIN: the parsed query tree as text."""
+        return ast.dump(self.parse_query(query, params, dialect))
+
+    # -- introspection -------------------------------------------------------
+    def info(self) -> dict:
+        """FT.INFO.  Its byte counts are the port's own: the device
+        tensors of each segment (`Segment.memory_bytes`) and its vector
+        structures."""
+        self_mem = sum(seg.memory_bytes() for seg in self.segments)
+        n_terms = sum(len(seg.terms) for seg in self.segments)
+        n_records = sum(seg.text.nnz for seg in self.segments)
+        vec_mem = sum(
+            (v.vecs.nbytes if hasattr(v.vecs, "nbytes") else 0)
+            + (v.ivf.memory_bytes() if v.ivf is not None else 0)
+            + (v.host_ivf.device_bytes() + v.host_ivf.host_bytes()
+               if v.host_ivf is not None else 0)
+            for seg in self.segments for v in seg.vectors.values())
+        return {
+            "index_name": self.schema.name,
+            "index_options": {"prefixes": list(self.schema.prefixes),
+                              "filter": self.schema.filter_expr,
+                              "language": self.schema.language},
+            "num_docs": self.doctable.num_docs,
+            "max_doc_id": self.doctable.max_gid,
+            "indexing": int(bool(self.scan_state
+                                 and self.scan_state.get("running"))),
+            "percent_indexed": (
+                1.0 if not self.scan_state
+                else (self.scan_state["scanned"]
+                      / max(self.scan_state["total"], 1))),
+            "background_indexing_status": (
+                "OK" if not self.scan_state
+                else ("PAUSED_ON_OOM" if self.scan_state.get("oom_abort")
+                      else ("RUNNING" if self.scan_state.get("running")
+                            else "OK"))),
+            "num_terms": n_terms,
+            "num_records": n_records,
+            "num_segments": len(self.segments),
+            "pending_docs": len(self._builder),
+            "avg_doc_length": self.doctable.avg_doclen,
+            "inverted_sz_mb": self_mem / 1e6,
+            "vector_index_sz_mb": vec_mem / 1e6,
+            "attributes": [
+                {"identifier": f.name, "attribute": f.attribute,
+                 "type": f.type.value, "sortable": f.sortable,
+                 "weight": f.weight,
+                 **({"algorithm": f.vector.algo.value,
+                     "dim": f.vector.dim,
+                     "metric": f.vector.metric.value}
+                    if f.vector else {})}
+                for f in self.schema.fields
+            ],
+            "index_errors": self._render_index_errors(),
+            "queries": self.stats["queries"],
+            "dialect_stats": {f"dialect_{d}": int(self.dialect_stats[d])
+                              for d in (1, 2, 3, 4)},
+        }
+
+    def _render_index_errors(self) -> dict:
+        """Index Errors section; the failing document key is obfuscated
+        when hide-user-data-from-log is on (reference: index_error.c +
+        obfuscation_api.h)."""
+        out = dict(self.index_errors)
+        obf = out.pop("last_error_key_obfuscated", None)
+        if _log.hide_user_data and out.get("last_error_key") is not None:
+            out["last_error_key"] = obf or "Document@?"
         return out

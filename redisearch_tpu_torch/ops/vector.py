@@ -105,14 +105,18 @@ def distances_to(vecs: torch.Tensor, sq_norms: torch.Tensor,
 
 def _rescore(vecs, sq_norms, q, idx, metric):
     """Exact f32 distances at gathered candidate rows idx ([C] for q [d],
-    [B, C] for q [B, d]): the JAX function's Precision.HIGHEST einsum."""
-    g = vecs[idx.long()].float()                     # [..., C, d]
+    [B, C] for q [B, d]).  The dot products are taken in float64 and
+    rounded once to f32 before the f32 combine: the L2 form `sq - 2 dot
+    + qsq` cancels when rows share a large common part, and an f32 dot
+    summed in cuBLAS's or MKL's order carries several times the error of
+    the JAX function's Precision.HIGHEST einsum there (C is at most
+    max(4k, k + 16) rows a query, so the f64 product stays small)."""
+    g = vecs[idx.long()].double()                    # [..., C, d]
     qf = q.float()
-    with _ieee_f32():
-        if q.dim() == 1:
-            dots = torch.mv(g, qf)
-        else:
-            dots = torch.bmm(g, qf[:, :, None])[..., 0]
+    if q.dim() == 1:
+        dots = torch.mv(g, qf.double()).float()
+    else:
+        dots = torch.bmm(g, qf.double()[:, :, None])[..., 0].float()
     sq = sq_norms[idx.long()]
     if metric == "L2":
         qsq = torch.sum(qf ** 2, dim=-1)

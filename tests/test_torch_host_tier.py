@@ -3,7 +3,8 @@ against the JAX package, on the CPU.
 
 The cases of tests/test_host_tier.py that need neither deletes and
 compaction (tests/test_torch_lifecycle.py and test_torch_checkpoint.py
-hold those) nor the wire server (A13): the column stays in
+hold those) nor the wire server (tests/test_torch_server.py holds its
+FT.CREATE case): the column stays in
 host memory with its HostIVF, pure KNN at nprobe = nlist equals the
 exact neighbours, a partial probe, TEXT- and NUMERIC-filtered KNN, a
 stemmed-union filter window, batched KNN equal to single calls, FT.

@@ -11,7 +11,9 @@ group-by), a batch of KNN queries with PARAMS blobs (pure and
 TAG-filtered), a single KNN `ft_search` with a bytes blob, an
 `ft_hybrid` (text and KNN branches fused by RRF) and an FT.AGGREGATE
 WITHCURSOR drained by `ft_cursor_read` (the host pipeline, streaming),
-then a cold (`storage="host"`) index with a GEO field, an IVF field and
+then starts the port's RESP server (`server.Server`) on that client and
+sends FT.SEARCH, FT.AGGREGATE, FT.INFO, FT.PROFILE, FT.SUGADD/SUGGET
+and FT.CONFIG GET over a socket, then a cold (`storage="host"`) index with a GEO field, an IVF field and
 an LVQ8 host-tier field (`ops/ivf.py`, `ops/lvq.py`): a GEO filter, a
 batch of IVF queries, a host-tier KNN batch and a cold text batch, then
 the index lifecycle: it deletes a third of the first index's documents,
@@ -48,6 +50,10 @@ if BLOCK:
 
 import numpy as np
 import redisearch_tpu_torch as rt
+
+SURFACE = tuple("redisearch_tpu_torch." + m for m in (
+    "utils.config", "aux.explain", "aux.highlight", "aux.spellcheck",
+    "aux.suggest", "server", "native_resp"))
 
 vecs = np.random.default_rng(0).normal(size=(600, 8)).astype(np.float32)
 client = rt.Client(device="cpu")
@@ -117,6 +123,60 @@ pages, cid = [cur.rows], cur.cursor_id
 while cid:
     rows, cid = client.ft_cursor_read("idx", cid)
     pages.append(rows)
+import asyncio
+from redisearch_tpu_torch.server import Server
+
+
+async def wire_session():
+    srv = Server(client=client, port=0)
+    server = await srv.serve()
+    port = server.sockets[0].getsockname()[1]
+    r, w = await asyncio.open_connection("127.0.0.1", port)
+
+    async def read():
+        line = (await r.readline()).rstrip()
+        t, rest = line[:1], line[1:]
+        if t == b"+":
+            return rest.decode()
+        if t == b"-":
+            return {"error": rest.decode()}
+        if t == b":":
+            return int(rest)
+        if t == b"$":
+            n = int(rest)
+            return None if n < 0 else (await r.readexactly(n + 2))[:-2].decode()
+        if t == b"*":
+            return [await read() for _ in range(int(rest))]
+        raise ValueError(line)
+
+    async def cmd(*argv):
+        w.write(f"*{len(argv)}\r\n".encode() + b"".join(
+            f"${len(str(a).encode())}\r\n{a}\r\n".encode() for a in argv))
+        await w.drain()
+        return await read()
+
+    out = {
+        "search": await cmd("FT.SEARCH", "idx", "alpha beta", "NOCONTENT",
+                            "LIMIT", 0, 5),
+        "aggregate": await cmd("FT.AGGREGATE", "idx", "alpha beta",
+                               "GROUPBY", 1, "@g", "REDUCE", "COUNT", 0,
+                               "AS", "n", "SORTBY", 2, "@g", "ASC"),
+        "info": await cmd("FT.INFO", "idx"),
+        "profile": await cmd("FT.PROFILE", "idx", "SEARCH", "QUERY",
+                             "alpha beta", "NOCONTENT", "LIMIT", 0, 3),
+        "sugadd": await cmd("FT.SUGADD", "sug", "alphabet", 2),
+        "sugget": await cmd("FT.SUGGET", "sug", "alp"),
+        "config": await cmd("FT.CONFIG", "GET", "TIMEOUT"),
+    }
+    out["parser"] = srv.parser
+    w.close()
+    server.close()
+    await server.wait_closed()
+    await srv.aclose()
+    return out
+
+
+wire = asyncio.run(wire_session())
 engine.QUERY_PATH_STATS.clear()
 for i in range(0, 600, 3):
     client.hdel(f"d{i}")
@@ -158,6 +218,9 @@ print(json.dumps({
     "modules": sorted(m for m in sys.modules
                       if m in ("redisearch_tpu_torch.aux.checkpoint",
                                "redisearch_tpu_torch.index.slice")),
+    "surface": sorted(m for m in sys.modules
+                      if m in SURFACE),
+    "wire": wire,
     "files": sorted(m for m, v in list(sys.modules.items())
                     if (getattr(v, "__file__", None) or "").startswith(
                         jax_pkg)),
@@ -244,6 +307,26 @@ def test_port_serves_without_jax(block, tmp_path):
     assert ck_paths == {"kernel": 2, "phrase-kernel": 1}
     assert out["modules"] == ["redisearch_tpu_torch.aux.checkpoint",
                               "redisearch_tpu_torch.index.slice"]
+    # the command surface and the wire: the seven modules loaded, each
+    # command's reply as the JAX package's server gives it
+    assert out["surface"] == sorted(
+        "redisearch_tpu_torch." + m for m in (
+            "utils.config", "aux.explain", "aux.highlight",
+            "aux.spellcheck", "aux.suggest", "server", "native_resp"))
+    wire = out["wire"]
+    assert wire["parser"] == "native"
+    assert wire["search"] == [300, "d1", "d3", "d5", "d7", "d9"]
+    assert wire["aggregate"] == [5] + [["g", f"g{j}", "n", "60.0"]
+                                       for j in range(5)]
+    info = dict(zip(wire["info"][::2], wire["info"][1::2]))
+    assert info["index_name"] == "idx" and info["num_docs"] == 600
+    res, prof = wire["profile"]
+    assert res == [300, "d1", "d3", "d5"]
+    prof = dict(zip(prof[::2], prof[1::2]))
+    assert prof["results_count"] == 300
+    assert {"parsing_time_ms", "iterators"} <= set(prof)
+    assert wire["sugadd"] == 1 and wire["sugget"] == ["alphabet"]
+    assert wire["config"] == [["TIMEOUT", "500"]]
     n12 = len([i for i in range(600) if i % 13 == 12])
     assert out["cursor"] == [n12, [20, 20, n12 - 40], [12.0]]
     total, rows = out["single"]

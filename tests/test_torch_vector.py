@@ -338,3 +338,76 @@ def test_decode_blob_matches_jax(dtype):
         np.testing.assert_array_equal(t, j.astype(t.dtype))
         assert t.dtype == (np.float32 if j.dtype.name in (
             "bfloat16", "float32") else j.dtype)
+
+
+def _clustered(rng, n, d, Bq):
+    center = rng.normal(size=(d,)).astype(np.float32)
+    vecs = (center[None, :]
+            + 1e-3 * rng.normal(size=(n, d))).astype(np.float32)
+    Q = (center[None, :]
+         + 1e-3 * rng.normal(size=(Bq, d))).astype(np.float32)
+    return center, vecs, Q
+
+
+def _port_knn(batched, vecs, sq, present, Q, k):
+    tv, tsq, tp = map(torch.from_numpy, (vecs, sq, present))
+    if batched:
+        td, ti = TV.knn_batch(tv, tsq, tp, torch.from_numpy(Q), k, "L2")
+    else:
+        outs = [TV.knn(tv, tsq, tp, torch.from_numpy(q), k, "L2")
+                for q in Q]
+        td = torch.stack([o[0] for o in outs])
+        ti = torch.stack([o[1] for o in outs])
+    return td.numpy(), ti.numpy().astype(np.int64)
+
+
+@pytest.mark.parametrize("batched", [True, False], ids=["batch", "single"])
+def test_two_phase_rescore_clustered(batched):
+    """tests/test_units.py::test_two_phase_knn_clustered's input: 4,096 x
+    64 f32 rows and 16 queries at center + 1e-3 * normal, k 10, where
+    the L2 form sq - 2 dot + qsq cancels.  With the rescore's dot
+    products in float64 the returned distances are within 3e-5 (that
+    test's own contract) of the float64 truth at the returned rows,
+    batched (`knn_batch`) and single (`knn`), and every returned row's
+    true distance is within 3e-5 of the oracle's k-th.  Near-tie
+    membership is not compared with the JAX function: its candidate scan
+    sums the f32 product in another order, which moves scan distances of
+    about 6e-5 by up to 5e-5, so the two candidate sets differ (the JAX
+    test makes no membership claim there either).  At the same candidate
+    rows the two rescores agree within 3e-5; on separated clusters (the
+    JAX test's second input) each query returns the JAX function's rows."""
+    rng = np.random.default_rng(11)
+    n, d, k, Bq = 4096, 64, 10, 16
+    center, vecs, Q = _clustered(rng, n, d, Bq)
+    sq = np.sum(vecs.astype(np.float64) ** 2, 1).astype(np.float32)
+    present = np.ones(n, bool)
+    d64 = ((vecs.astype(np.float64)[None, :, :]
+            - Q.astype(np.float64)[:, None, :]) ** 2).sum(2)
+    td, ti = _port_knn(batched, vecs, sq, present, Q, k)
+    truth = np.take_along_axis(d64, ti, axis=1)
+    assert np.abs(td - truth).max() <= 3e-5, np.abs(td - truth).max()
+    kth = np.sort(d64, axis=1)[:, k - 1]
+    assert np.all(truth <= kth[:, None] + 3e-5)
+    # the same candidate rows through both rescores
+    _jd, ji = map(np.asarray, JV.knn_batch(
+        jnp.asarray(vecs), jnp.asarray(sq), jnp.asarray(present),
+        jnp.asarray(Q), k, "L2"))
+    jr = np.asarray(JV._rescore(jnp.asarray(vecs), jnp.asarray(sq),
+                                jnp.asarray(Q), jnp.asarray(ji), "L2"))
+    tr = TV._rescore(torch.from_numpy(vecs), torch.from_numpy(sq),
+                     torch.from_numpy(Q), torch.from_numpy(ji),
+                     "L2").numpy()
+    np.testing.assert_allclose(tr, jr, rtol=0, atol=3e-5)
+    assert np.abs(tr - np.take_along_axis(d64, ji, 1)).max() <= 3e-5
+    # separated clusters: membership is exact, the same rows as the JAX
+    # function's a query (their order may swap within 3e-5)
+    far = vecs + rng.normal(size=(n, d)).astype(np.float32) * 2.0
+    far[:64] = center[None, :] + 1e-2 * rng.normal(
+        size=(64, d)).astype(np.float32)
+    sqf = np.sum(far.astype(np.float64) ** 2, 1).astype(np.float32)
+    jd2, ji2 = map(np.asarray, JV.knn_batch(
+        jnp.asarray(far), jnp.asarray(sqf), jnp.asarray(present),
+        jnp.asarray(Q), k, "L2"))
+    td2, ti2 = _port_knn(batched, far, sqf, present, Q, k)
+    assert [sorted(r) for r in ti2] == [sorted(r) for r in ji2]
+    np.testing.assert_allclose(td2, jd2, rtol=0, atol=3e-5)
