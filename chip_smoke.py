@@ -196,6 +196,34 @@ script exits non-zero:
    one batch's prepare, bind, d2h, fusion and row times, a traced eighth
    of a batch's device busy and idle share, hybrid QPS (bench.py's loop
    at depth 2, 4 rounds, one pass) and the rounds QPS.
+15. distribution (run after 7b, before phase 8), on the one card:
+   `parallel.dist.ShardedIndex.build` of phase 4's 1M-doc index over
+   `make_mesh(4)` (4 slots, round-robin over the cards) and over
+   `make_mesh(4, n_dcn=2)` (build seconds, docs and device MiB a
+   shard, `torch.cuda.device_count()` printed).  32 queries of each of
+   the eight families: `search(q, num=10)` must equal the host merge by
+   (-score, gid) of the four shards' own `SearchIndex` views (totals,
+   ids and order exact, scores within 1e-6 relative: BM25 is
+   shard-local, as on the reference coordinator), the 2D mesh's result
+   exactly, and `search_many` of the family the same; 64 DISMAX and 64
+   SORTBY @price queries must equal the single index's.  Phase 7's
+   500k x 384 index over 4 slots: 64 KNN 10 queries equal to the single
+   index (ids, distances within 1e-5), their `search_many` equal, 32
+   RRF hybrids with a DISMAX text branch equal to the single index's.
+   `dist_aggregate` of COUNT/SUM/AVG and of MIN/MAX/COUNT by @grp over
+   `*` and @cat:{cat03} against `run_aggregate` on the single index
+   (counts, MIN and MAX exact, SUM and AVG within 1e-5 relative), with
+   the launch counters zeroed just before each kind and read just
+   after: the sums kind must launch B4, the min/max kind B5.
+   `kmeans_step_sharded` on 1M x 100 seeded rows over 4 slots with
+   1,024 centroids within 1e-4 relative of `kmeans_step` on the whole
+   (rows assigned differently printed).  `dryrun_multichip(4)` on the
+   card.  Printed beside nvidia-smi's name and power limit: QPS a
+   family of `search` and `search_many` (32 queries) against the single
+   index's window program (`ix.search`) and its `ft_search_many` of the
+   same queries, a query's shard-program and merge ms, a traced
+   `search_many`'s idle share, KNN and hybrid QPS, ms an aggregate
+   request, the k-means step's ms.
 8. ANN (no Pallas kernel lies on it: `ops/ivf.py` and `ops/lvq.py` are
    torch ops), bench.py's bench_ann shape, not cut: 1M x 100 clustered
    COSINE vectors, 256 queries x 4 reps (seed 7), k 10, nlist 1024.  At
@@ -295,6 +323,7 @@ from redisearch_tpu_torch.ops import intersect as IK
 from redisearch_tpu_torch.ops import lvq as TL
 from redisearch_tpu_torch.ops import text as T
 from redisearch_tpu_torch.ops import vector as V
+from redisearch_tpu_torch.parallel import dist as D
 from redisearch_tpu_torch.query import engine as E
 
 N_DOCS = 1_000_000
@@ -3902,6 +3931,328 @@ def phase_hybrid(dev, ctx) -> dict:
 
 
 
+# -------------------------------------------------------------- phase 15
+#: phase 15's queries a family, KNN queries and hybrid queries
+DIST_Q, DIST_KNN, DIST_HYB = 32, 64, 32
+DIST_SHARDS = 4
+#: the sharded k-means step: rows x dims, centroids
+KM_N, KM_D, KM_C = 1_000_000, 100, 1024
+
+
+def view_merge(sh, q: str, num: int = K):
+    """The reference for a sharded BM25 search: each shard's own
+    `SearchIndex` view searched alone, the hits merged on the host by
+    (-score, gid), the totals summed."""
+    hits, total = [], 0
+    for seg in sh.shards:
+        r = D._shard_index_view(sh, seg).search(q, num=num)
+        total += r.total
+        hits.extend(r.hits)
+    hits.sort(key=lambda h: (-h.score, h.gid))
+    return total, hits[:num]
+
+
+def same_exact(a_total, a_hits, b, what, rtol=SCORE_RTOL, field="score"):
+    """Totals, keys and their order equal; the `field` of each hit within
+    `rtol` (0: equal)."""
+    if a_total != b.total or [h.key for h in a_hits] != \
+            [h.key for h in b.hits]:
+        raise AssertionError(f"{what}: {a_total} "
+                             f"{[h.key for h in a_hits]} vs {b.total} "
+                             f"{[h.key for h in b.hits]}")
+    x = np.array([getattr(h, field) for h in a_hits], np.float64)
+    y = np.array([getattr(h, field) for h in b.hits], np.float64)
+    np.testing.assert_allclose(y, x, rtol=rtol, atol=0, err_msg=what)
+
+
+def timed(fn, dev) -> float:
+    """Seconds of `fn()` by the host clock, ended by a synchronize."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def program_merge_ms(sh, ix, qs, dev) -> tuple:
+    """Mean ms a query of the shards' window programs (all shards,
+    launched and synchronized) and of the coordinator's gather + merge."""
+    prog = merge = 0.0
+    for q in qs:
+        cq = ix.compile(ix.parse_query(q), E.QueryOptions(k=K))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        outs, kl = sh._shard_outputs(cq, K)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        sh._merged(cq, sh._gather(cq, outs), kl)
+        torch.cuda.synchronize(dev)
+        prog += t1 - t0
+        merge += time.perf_counter() - t1
+    return prog * 1e3 / len(qs), merge * 1e3 / len(qs)
+
+
+def dist_build(ix, mesh, dev, what) -> tuple:
+    """A ShardedIndex of `ix` over `mesh`, its seconds, and a line of
+    docs and device MiB per shard."""
+    t0 = time.perf_counter()
+    sh = D.ShardedIndex.build(ix, mesh)
+    torch.cuda.synchronize(dev)
+    sec = time.perf_counter() - t0
+    per = ", ".join(f"{s.n_docs} docs {s.memory_bytes() / 2**20:.1f} MiB "
+                    f"on {s.device}" for s in sh.shards)
+    log(f"phase dist: {what}: built over mesh {mesh.shape} in {sec:.2f}s: "
+        f"{per}")
+    return sh, sec
+
+
+def phase_dist_search(main, dev, smi) -> dict:
+    """Phase 15(a)/(b): the 1M-doc index over 4 and 2 x 2 slots of the
+    one card; DIST_Q queries of each family against the views' host
+    merge, the 2D mesh, search_many and (DISMAX, numeric SORTBY) the
+    single index; QPS, program and merge ms, a traced batch's idle
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+    client, ix, qt = main["client"], main["ix"], main["qt"]
+    sh1, b1 = dist_build(ix, D.make_mesh(DIST_SHARDS), dev, "1M docs")
+    sh2, b2 = dist_build(ix, D.make_mesh(DIST_SHARDS, n_dcn=2), dev,
+                         "1M docs, 2D")
+    if sum(s.n_docs for s in sh1.shards) != ix.segments[0].n_docs:
+        raise AssertionError("the shards do not hold every doc")
+    fams = {f: [fn(qt, i) for i in range(DIST_Q)]
+            for f, fn in FAMILIES.items()}
+    out = {"build_s": b1, "build_2d_s": b2, "families": {}}
+    for fam, qs in fams.items():
+        res = [sh1.search(q, num=K) for q in qs]
+        for q, r in zip(qs, res):
+            same_exact(*view_merge(sh1, q), r, f"dist {fam} {q!r}")
+            r2 = sh2.search(q, num=K)
+            same_exact(r.total, r.hits, r2, f"2D mesh {fam} {q!r}", rtol=0)
+        calls = [0]
+        orig = sh1.search
+
+        def counting(*a, **kw):
+            calls[0] += 1
+            return orig(*a, **kw)
+        sh1.search = counting
+        many = sh1.search_many(qs, k=K)
+        del sh1.search
+        for q, r, m in zip(qs, res, many):
+            same_exact(r.total, r.hits, m, f"search_many {fam} {q!r}")
+        s_search = timed(lambda: [sh1.search(q, num=K) for q in qs], dev)
+        s_many = timed(lambda: sh1.search_many(qs, k=K), dev)
+        s_win = timed(lambda: [ix.search(q, num=K) for q in qs], dev)
+        s_kern = timed(lambda: client.ft_search_many("bm25", qs, k=K), dev)
+        prog_ms, merge_ms = program_merge_ms(sh1, ix, qs[:8], dev)
+        f = {"search_qps": DIST_Q / s_search, "search_many_qps":
+             DIST_Q / s_many, "single_window_qps": DIST_Q / s_win,
+             "single_ft_search_many_qps": DIST_Q / s_kern,
+             "program_ms": prog_ms, "merge_ms": merge_ms,
+             "search_many_fallback": calls[0]}
+        idle = ""
+        if fam == "and2":
+            # one traced batch (reading a trace takes seconds)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                traced = timed(lambda: sh1.search_many(qs, k=K), dev)
+            busy, _k = device_busy_us(prof, ())
+            f["idle_share"] = 1.0 - busy / (traced * 1e6)
+            idle = f"; traced search_many idle share {f['idle_share']:.4f}"
+        out["families"][fam] = f
+        log(f"phase dist: {fam}: {DIST_Q} searches == the shards' views "
+            f"merged by (-score, gid) (totals, ids, order; scores rtol "
+            f"{SCORE_RTOL}), == the 2D mesh, search_many == search "
+            f"({'per query' if calls[0] else 'one execute_batch'}); qps "
+            f"search {f['search_qps']:.1f}, search_many "
+            f"{f['search_many_qps']:.1f}, single index window program "
+            f"{f['single_window_qps']:.1f}, single ft_search_many (batch "
+            f"{DIST_Q}) {f['single_ft_search_many_qps']:.1f}; a query's 4 "
+            f"shard programs {prog_ms:.3f} ms "
+            f"({prog_ms / DIST_SHARDS:.3f} ms a shard), merge "
+            f"{merge_ms:.3f} ms{idle} [{smi}]")
+    # shard-invariant scorers against the single index
+    for q in fams["and2"] + fams["or2"]:
+        a = ix.search(q, num=K, scorer="DISMAX")
+        same_exact(a.total, a.hits, sh1.search(q, num=K, scorer="DISMAX"),
+                   f"DISMAX {q!r}")
+    for i, q in enumerate(fams["or2"] + fams["and2_tag"]):
+        asc = bool(i % 2)
+        a = ix.search(q, num=K, sort_by="price", sort_asc=asc)
+        b = sh1.search(q, num=K, sort_by="price", sort_asc=asc)
+        same_exact(a.total, a.hits, b, f"SORTBY price {q!r}", rtol=0,
+                   field="sortkey")
+    log(f"phase dist: {2 * DIST_Q} DISMAX and {2 * DIST_Q} SORTBY @price "
+        "queries == the single index (totals, ids, order; DISMAX scores "
+        f"rtol {SCORE_RTOL}, sort keys equal)")
+    out["shards"] = sh1
+    return out
+
+
+def same_fused(a, b, what):
+    """Fused rows of the sharded and the single index: keys and order
+    equal, scores within 1e-6, vector distances within 1e-5 (the single
+    index's KNN branch rides the batch executors, the shards' the window
+    program)."""
+    if [r["__key"] for r in a] != [r["__key"] for r in b]:
+        raise AssertionError(f"{what}: keys {[r['__key'] for r in a]} vs "
+                             f"{[r['__key'] for r in b]}")
+    for ra, rb in zip(a, b):
+        if abs(ra["__score"] - rb["__score"]) > 1e-6 or abs(
+                ra.get("__vector_distance", 0.0)
+                - rb.get("__vector_distance", 0.0)) > 1e-5:
+            raise AssertionError(f"{what}: {ra} vs {rb}")
+
+
+def phase_dist_vector(vctx, dev, smi) -> dict:
+    """Phase 15(c): the 500k x 384 COSINE index over 4 slots; KNN 10
+    queries and RRF hybrids with DISMAX against the single index."""
+    from dataclasses import replace
+    from redisearch_tpu_torch.aux.hybrid import run_hybrid
+    _client, vix, _v64, qvecs = vctx
+    shv, bsec = dist_build(vix, D.make_mesh(DIST_SHARDS), dev,
+                           "500k x 384")
+    q = "*=>[KNN 10 @emb $b]"
+    prm = [{"b": qvecs[i]} for i in range(DIST_KNN)]
+    t0 = time.perf_counter()
+    dres = [shv.search(q, params=p) for p in prm]
+    torch.cuda.synchronize(dev)
+    knn_s = time.perf_counter() - t0
+    worst = 0.0
+    for i, (p, d) in enumerate(zip(prm, dres)):
+        s = vix.search(q, params=p)
+        if [h.key for h in d.hits] != [h.key for h in s.hits] or \
+                d.total != s.total or len(d.hits) != K:
+            raise AssertionError(f"KNN {i}: {[h.key for h in d.hits]} vs "
+                                 f"{[h.key for h in s.hits]}")
+        err = max(abs(a.vector_distance - b.vector_distance)
+                  for a, b in zip(d.hits, s.hits))
+        if err > 1e-5:
+            raise AssertionError(f"KNN {i}: distance error {err}")
+        worst = max(worst, err)
+    many = shv.search_many([q] * DIST_KNN, params=prm, k=K)
+    for i, (m, d) in enumerate(zip(many, dres)):
+        same_exact(d.total, d.hits, m, f"KNN search_many {i}",
+                   field="vector_distance")
+    hqs = [replace(h, search_scorer="DISMAX")
+           for h in hybrid_queries(0, "RRF")[:DIST_HYB]]
+    t0 = time.perf_counter()
+    hd = [run_hybrid(shv, h) for h in hqs]
+    hyb_s = time.perf_counter() - t0
+    for i, (h, a) in enumerate(zip(hqs, hd)):
+        same_fused(a, run_hybrid(vix, h), f"hybrid {i}")
+    log(f"phase dist: {DIST_KNN} KNN 10 queries == the single index (ids; "
+        f"distances within {worst:.2e} <= 1e-5), search_many == search; "
+        f"{DIST_HYB} RRF hybrids (DISMAX text branch) == the single "
+        f"index's; qps KNN search {DIST_KNN / knn_s:.1f}, hybrid "
+        f"{DIST_HYB / hyb_s:.1f} [{smi}]")
+    del shv
+    return {"build_s": bsec, "knn_qps": DIST_KNN / knn_s,
+            "hybrid_qps": DIST_HYB / hyb_s, "knn_max_err": worst}
+
+
+def phase_dist_agg(sh, ix, dev, smi) -> dict:
+    """Phase 15(d): `dist_aggregate` of COUNT/SUM/AVG and of MIN/MAX/COUNT
+    by @grp, over '*' and a tag filter, against `run_aggregate` on the
+    single index; each kind with the launch counters zeroed just before
+    and read just after: the sums kind must launch B4, the min/max kind
+    B5 (both `gb_single_kernel`, counted in SINGLE_LAUNCHES)."""
+    kinds = {
+        "sums": [("COUNT", [], "n"), ("SUM", ["@price"], "s"),
+                 ("AVG", ["@price"], "a")],
+        "minmax": [("MIN", ["@price"], "lo"), ("MAX", ["@price"], "hi"),
+                   ("COUNT", [], "n")]}
+    out = {}
+    for kind, reds in kinds.items():
+        reqs = [rt.AggregateRequest(q).group_by("@grp", *reds)
+                for q in ("*", "@cat:{cat03}")]
+        zero_counts()
+        t0 = time.perf_counter()
+        dres = [sh.aggregate(r) for r in reqs]
+        torch.cuda.synchronize(dev)
+        sec = time.perf_counter() - t0
+        counts = {"B4" if kind == "sums" else "B5": GB.SINGLE_LAUNCHES,
+                  "B3": GB.LAUNCHES, "B1": IK.LAUNCHES,
+                  "B2": IK.PHRASE_LAUNCHES}
+        paths = dict(AP.AGG_PATH_STATS)
+        if GB.SINGLE_LAUNCHES <= 0:
+            raise AssertionError(f"dist aggregate {kind}: no B4/B5 launch "
+                                 f"({counts}, {paths})")
+        for req, d in zip(reqs, dres):
+            s = AP.run_aggregate(ix, req)
+            want = {r["grp"]: r for r in s.rows}
+            got = {r["grp"]: r for r in d.rows}
+            if d.total != s.total or want.keys() != got.keys() or \
+                    not got:
+                raise AssertionError(f"dist aggregate {kind} "
+                                     f"{req.query!r}: {d.total} groups "
+                                     f"{len(got)} vs {s.total} {len(want)}")
+            for g, w in want.items():
+                for key, v in w.items():
+                    x = got[g][key]
+                    ok = (x == v if key in ("grp", "n", "lo", "hi")
+                          else abs(x - v) <= 1e-5 * abs(v))
+                    if not ok:
+                        raise AssertionError(f"dist aggregate {kind} "
+                                             f"{req.query!r} {g} {key}: "
+                                             f"{x} vs {v}")
+        out[kind] = {"launches": counts, "paths": paths,
+                     "ms": sec * 1e3 / len(reqs)}
+        log(f"phase dist: dist_aggregate {kind} ({', '.join(r[0] for r in reds)}"
+            f" by @grp, '*' and @cat:{{cat03}}) == run_aggregate on the "
+            f"single index ({' and '.join(str(len(d.rows)) for d in dres)} "
+            f"groups; counts, MIN, MAX exact, SUM/AVG "
+            f"rtol 1e-5); launches {counts}; shard paths {paths}; "
+            f"{sec * 1e3 / len(reqs):.1f} ms a request [{smi}]")
+    return out
+
+
+def phase_dist_kmeans(dev, smi) -> dict:
+    """Phase 15(e): `kmeans_step_sharded` over 4 slots on KM_N x KM_D
+    seeded rows and KM_C centroids against `kmeans_step` on the whole."""
+    from redisearch_tpu_torch.ops import ivf as IVF
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(KM_N, KM_D, generator=g, device=dev)
+    cents = x[torch.randperm(KM_N, generator=g, device=dev)[:KM_C]] + 0.01
+    mesh = D.make_mesh(DIST_SHARDS)
+    xs = [part.contiguous() for part in x.chunk(DIST_SHARDS)]
+    new = IVF.kmeans_step_sharded(mesh, xs, cents)
+    sec = timed(lambda: IVF.kmeans_step_sharded(mesh, xs, cents), dev)
+    whole, assign, _shift = IVF.kmeans_step(x, cents)
+    whole_s = timed(lambda: IVF.kmeans_step(x, cents), dev)
+    moved = int((torch.cat([IVF._lloyd_sums(p, cents)[0] for p in xs])
+                 != assign).sum())
+    rel = float(((new - whole).norm(dim=1)
+                 / whole.norm(dim=1).clamp(min=1e-30)).max())
+    log(f"phase dist: kmeans_step_sharded {KM_N:,} x {KM_D} over "
+        f"{DIST_SHARDS} slots, {KM_C} centroids: max relative centroid "
+        f"difference to kmeans_step on the whole {rel:.2e} (<= 1e-4); "
+        f"{moved} rows assigned differently; {sec * 1e3:.2f} ms against "
+        f"{whole_s * 1e3:.2f} ms whole [{smi}]")
+    if rel > 1e-4 or not bool(torch.isfinite(new).all()):
+        raise AssertionError(f"sharded k-means: relative difference {rel}")
+    return {"rel": rel, "moved": moved, "ms": sec * 1e3,
+            "whole_ms": whole_s * 1e3}
+
+
+def phase_dist(main, vctx, dev, smi) -> dict:
+    """Phase 15 (see the docstring) on the 1M-doc index, the 500k x 384
+    index, seeded k-means rows and the dry run, all on the one card."""
+    from redisearch_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    log(f"phase dist: torch.cuda.device_count()={torch.cuda.device_count()}"
+        f", {DIST_SHARDS} slots on the card(s) round-robin")
+    srch = phase_dist_search(main, dev, smi)
+    agg = phase_dist_agg(srch.pop("shards"), main["ix"], dev, smi)
+    vec = phase_dist_vector(vctx, dev, smi)
+    km = phase_dist_kmeans(dev, smi)
+    dryrun_multichip(DIST_SHARDS)
+    torch.cuda.empty_cache()
+    out = {"search": srch, "aggregate": agg, "vector": vec, "kmeans": km,
+           "seconds": time.perf_counter() - t0}
+    log("phase dist: json " + json.dumps(out))
+    return out
+
+
 # --------------------------------------------------------------- phase 8
 #: bench.py's ann section (bench_ann): 1M x 100 clustered COSINE, nlist
 #: 1024, 256 queries x 4 reps, k 10, nprobe 8 / 32 / 128
@@ -5042,8 +5393,11 @@ def main():
     phase_wire(main, dev)
     phase_surface(main, dev)
     vec = phase_vector(dev)
-    phase_hybrid(dev, vec.pop("index"))
+    vctx = vec.pop("index")
+    phase_hybrid(dev, vctx)
     del vec
+    phase_dist(main, vctx, dev, smi)
+    del vctx
     torch.cuda.empty_cache()
     phase_ann(dev)
     phase_geo(dev)

@@ -162,13 +162,18 @@ def _branch_top(scores: np.ndarray, gids: np.ndarray, valid: np.ndarray,
     return (tk(gids, idx, 1), tk(scores, idx, 1), tk(valid, idx, 1))
 
 
-def _branch_queries(index, hqs: list) -> list:
-    """The compiled SEARCH and VSIM branches of each query, interleaved
-    (2i: text, 2i+1: KNN)."""
-    cqs = []
+def _require_vsim(hqs: list) -> None:
     for hq in hqs:
         if not hq.vsim_field:
             raise QuerySyntaxError("FT.HYBRID requires a VSIM field")
+
+
+def _branch_queries(index, hqs: list) -> list:
+    """The compiled SEARCH and VSIM branches of each query, interleaved
+    (2i: text, 2i+1: KNN)."""
+    _require_vsim(hqs)
+    cqs = []
+    for hq in hqs:
         vec = np.asarray(hq.vsim_vector, np.float32)
         cqs.append(index.prepare(
             hq.search, hq.search_params,
@@ -183,7 +188,15 @@ def run_hybrid_many(index, hqs: list, tails: Optional[list] = None,
     """Batched FT.HYBRID: every query's SEARCH and VSIM branches ride
     ONE execute_batch per segment, fusion runs vectorized over the
     [B, w] branch outputs, and only the surviving rows materialize as
-    dicts.  With async_=True returns a handle whose result() fuses."""
+    dicts.  With async_=True returns a handle whose result() fuses.
+    An index without segments (a `parallel.dist.ShardedIndex`) exposes
+    `search_many` instead: both branches come back as merged Hit lists
+    and fuse per query (`_run_hybrid_hits`; the distributed coordinator
+    path, reference coord/hybrid/dist_hybrid.c)."""
+    if not hasattr(index, "segments"):
+        _require_vsim(hqs)
+        res = _run_hybrid_hits(index, hqs, tails)
+        return Deferred(lambda: res) if async_ else res
     index.commit()
     w_max = max(hq.window for hq in hqs)
     cqs = _branch_queries(index, hqs)

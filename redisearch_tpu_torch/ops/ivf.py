@@ -27,8 +27,9 @@ Where the port differs, and why no result does:
   (ties by the lowest lane, as `lax.top_k`).  Padded lanes (`tids < 0`)
   read BIG = 3.4e38; consumers drop them by distance.
 
-`kmeans_step_sharded` (a data-parallel step over a mesh) is left to
-ROADMAP A12.
+`kmeans_step_sharded` is the data-parallel step over a mesh of device
+slots (`parallel.dist.make_mesh`): each shard's sums and counts on its
+own device, summed on the coordinator (the JAX function's `psum`).
 """
 
 from __future__ import annotations
@@ -54,11 +55,11 @@ _ASSIGN_CHUNK = 65536
 # k-means training
 # ---------------------------------------------------------------------------
 
-def kmeans_step(x: torch.Tensor, cents: torch.Tensor):
-    """One Lloyd iteration.  x [n, d] f32, cents [c, d] f32.
-
-    Returns (new_cents, assignment, shift).  Assignment by one product
-    (argmin ||x-c||^2 = argmax 2xc - ||c||^2; ties to the lowest list)."""
+def _lloyd_sums(x: torch.Tensor, cents: torch.Tensor) -> tuple:
+    """(assignment, per-list sums, per-list counts) of rows x [n, d]
+    under centroids cents [c, d] on x's device.  Assignment by one
+    product (argmin ||x-c||^2 = argmax 2xc - ||c||^2; ties to the lowest
+    list)."""
     with _ieee_f32():
         csq = torch.sum(cents * cents, dim=1)
         scores = 2.0 * (x @ cents.T) - csq[None, :]
@@ -68,10 +69,42 @@ def kmeans_step(x: torch.Tensor, cents: torch.Tensor):
     counts = torch.zeros(c, dtype=torch.float32, device=x.device).index_add_(
         0, assign, torch.ones(x.shape[0], dtype=torch.float32,
                               device=x.device))
-    new = torch.where(counts[:, None] > 0,
-                      sums / torch.clamp(counts, min=1.0)[:, None], cents)
+    return assign, sums, counts
+
+
+def _lloyd_update(sums, counts, cents):
+    return torch.where(counts[:, None] > 0,
+                       sums / torch.clamp(counts, min=1.0)[:, None], cents)
+
+
+def kmeans_step(x: torch.Tensor, cents: torch.Tensor):
+    """One Lloyd iteration.  x [n, d] f32, cents [c, d] f32.
+
+    Returns (new_cents, assignment, shift)."""
+    assign, sums, counts = _lloyd_sums(x, cents)
+    new = _lloyd_update(sums, counts, cents)
     shift = torch.sqrt(torch.sum((new - cents) ** 2, dim=1)).max()
     return new, assign, shift
+
+
+def kmeans_step_sharded(mesh, x_shards: list, cents: torch.Tensor):
+    """Data-parallel Lloyd step: x_shards [n_i, d] f32 one per mesh slot,
+    each on its slot's device; centroid sums and counts taken per shard
+    there and summed on the coordinator (slot 0's device; the JAX
+    function's `psum` over ICI).  Returns the new centroids there."""
+    slots = mesh.slots
+    if len(x_shards) != len(slots):
+        raise ValueError(f"{len(x_shards)} row shards for a mesh of "
+                         f"{len(slots)} slots")
+    coord = slots[0]
+    cents = cents.to(coord)
+    sums = torch.zeros_like(cents)
+    counts = torch.zeros(cents.shape[0], dtype=torch.float32, device=coord)
+    for xs in x_shards:
+        _a, s, c = _lloyd_sums(xs, cents.to(xs.device))
+        sums += s.to(coord)
+        counts += c.to(coord)
+    return _lloyd_update(sums, counts, cents)
 
 
 def train_kmeans(x: np.ndarray, nlist: int, iters: int = 10,

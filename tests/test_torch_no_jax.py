@@ -19,8 +19,11 @@ batch of IVF queries, a host-tier KNN batch and a cold text batch, then
 the index lifecycle: it deletes a third of the first index's documents,
 compacts it (`index/slice.py`) and serves a batch, loads a checkpoint
 the JAX package wrote in the pytest process (`aux/checkpoint.py`) and
-serves a batch from it on the kernels, and reports which modules it
-loaded.  The host modules the port needs are its own
+serves a batch from it on the kernels, then the port's distributed dry
+run over four CPU slots (`parallel/dryrun.py`: a ShardedIndex's search,
+batch, KNN, DISTRIBUTE-step aggregation and hybrid against the single
+index, the sharded k-means step, the 2D mesh), and reports which modules
+it loaded.  The host modules the port needs are its own
 copies: no loaded module's file may lie under `redisearch_tpu/`.  Two
 environments: jax, jaxlib and ml_dtypes blocked on `sys.meta_path` (the
 card's machine may have none of them), and jax importable (the port must
@@ -188,6 +191,8 @@ engine.QUERY_PATH_STATS.clear()
 ck = client.ft_search_many("ck", ["alpha beta", "alpha @c:{y}",
                                   '"alpha beta"'], k=5)
 ck_paths = dict(engine.QUERY_PATH_STATS)
+from redisearch_tpu_torch.parallel.dryrun import dryrun_multichip
+dryrun_multichip(4, device="cpu")
 import os
 jax_pkg = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(rt.__file__))), "redisearch_tpu") + os.sep
@@ -220,6 +225,8 @@ print(json.dumps({
                                "redisearch_tpu_torch.index.slice")),
     "surface": sorted(m for m in sys.modules
                       if m in SURFACE),
+    "parallel": sorted(m for m in sys.modules
+                       if m.startswith("redisearch_tpu_torch.parallel.")),
     "wire": wire,
     "files": sorted(m for m, v in list(sys.modules.items())
                     if (getattr(v, "__file__", None) or "").startswith(
@@ -307,6 +314,11 @@ def test_port_serves_without_jax(block, tmp_path):
     assert ck_paths == {"kernel": 2, "phrase-kernel": 1}
     assert out["modules"] == ["redisearch_tpu_torch.aux.checkpoint",
                               "redisearch_tpu_torch.index.slice"]
+    # the dry run ran to its end (each step asserts against the single
+    # index) on the three distribution modules
+    assert out["parallel"] == ["redisearch_tpu_torch.parallel." + m
+                               for m in ("dist", "dist_agg", "dryrun")]
+    assert "dryrun_multichip(4): ok" in proc.stdout
     # the command surface and the wire: the seven modules loaded, each
     # command's reply as the JAX package's server gives it
     assert out["surface"] == sorted(

@@ -3,8 +3,8 @@ they return.
 
 The parity files `tests/test_torch_{client,scorers,dialect1,resilience,
 reference_semantics,smoke,fuzz_aggregate,multivalue,prepared_aliasing,
-fuzz_differential,fields}.py` are the JAX package's test files with
-their imports pointed here:
+fuzz_differential,fields,server,dist,dist_agg,fuzz_dist}.py` are the
+JAX package's test files with their imports pointed here:
 
 * `rs` names the package of the side that runs: `rs.Client`,
   `rs.FieldType.TEXT`, `rs.query.engine.execute` resolve in
@@ -24,6 +24,9 @@ their imports pointed here:
   Profile times and INFO byte sizes are not compared.
 * `per_side(factory)` is a fixture's value: the factory runs once on
   each side, under that side's package.
+* `shard(index, mesh)` builds the running side's `ShardedIndex`, whose
+  calls are recorded as a `SearchIndex`'s are; on the port's side
+  `rs.parallel.dist.make_mesh` makes CPU slots (`device="cpu"`).
 
 Only the parity tests import both packages.
 """
@@ -126,7 +129,7 @@ def _side_object(path: str, obj):
         return _index_factory(obj)
     if path in ("server.Server",):
         return _server_factory(obj)
-    if path in ("aux.checkpoint.load",):
+    if path in ("aux.checkpoint.load", "parallel.dist.make_mesh"):
         return _recorded(_cpu_load(obj), path)
     if (callable(obj) and not isinstance(obj, type)
             and isinstance(obj, types.FunctionType)):
@@ -157,6 +160,15 @@ def _cpu_load(fn):
             kwargs.setdefault("device", "cpu")
         return _wrap_result(fn(*args, **kwargs))
     return load
+
+
+def shard(index, mesh=None):
+    """`ShardedIndex.build` of the running side over an index (a Proxy
+    or not), as a Proxy whose method calls are recorded."""
+    dist = importlib.import_module(f"{PACKAGES[_state['side']]}"
+                                   ".parallel.dist")
+    return Proxy(dist.ShardedIndex.build(unwrap(index), mesh),
+                 "ShardedIndex")
 
 
 def _server_factory(cls):
