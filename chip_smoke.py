@@ -9,7 +9,7 @@ script exits non-zero:
 1. card: no CUDA device is a failure; prints the device, nvidia-smi's
    name and power limit, and the english stemmer in effect.
 2. build: compiles `redisearch_tpu_torch/csrc/intersect.cu`,
-   `csrc/phrase.cu` and `csrc/groupby.cu` with nvcc for sm_90a (one nvcc
+   `csrc/phrase.cu`, `csrc/groupby.cu` and `csrc/probes.cu` with nvcc for sm_90a (one nvcc
    each, started together) and prints each one's seconds and ptxas'
    register/spill report.
 3. kernel vs plain: random posting windows at the serving buckets (pivot
@@ -44,6 +44,18 @@ script exits non-zero:
    histograms are in shared memory; groups of signed zeros read -0.0 /
    +0.0 in IEEE-754 minimum/maximum order.  The one-operand entry
    `groupby_aggregate` against its plain version too.
+3b. probes: the four kernels of `csrc/probes.cu` (the Hopper
+   counterparts of the TPU probe scripts in `benchmarks/`:
+   `probe_floor`, `probe_gwin`, `probe_gcols`, `probe_variant`), every
+   arm of the port's four scripts (`redisearch_tpu_torch/bench/`) at
+   their own B and shapes, on seeded random inputs (grid_floor's d and
+   f drawn from seed 1, not its zeros), each held lane for lane
+   against its plain version: exact, but gstep's truncated f32 sums
+   within 2; kernel_probe's `full` arm (B1) exact too.  The launch
+   counts are zeroed just before that run and read just after: every
+   probe kernel must have launched.  Printed: each arm's device and
+   wall us a query beside its bytes bound; each kernel's record in the
+   `kernels` line is its arm named in PROBE_RECORDS.
 4. main path: `Client.ft_create` with bench.py's BM25 schema, a 1M-doc
    FTSB-enwiki-shaped corpus (4+20 zipf(1.25) tokens over a 200k vocab,
    seed 0) through `add_documents`, then `ft_search_many` at batch 8192,
@@ -291,7 +303,8 @@ script exits non-zero:
    served (256 and2 totals equal numpy over the live docs, 256 title
    phrases), `ft_get` and `ft_mget` return the new fields.  QPS on the
    dirty and the compacted index are printed.
-12. the module check (no jax, no module file under `redisearch_tpu/`),
+12. the module check (no jax, no module file under `redisearch_tpu/` or
+   `benchmarks/`),
    then the last three lines: nvidia-smi's name and power limit, the
    kernels' JSON record, then {"ok": true, "device": {...}}.
 
@@ -306,6 +319,7 @@ N_DOCS, BATCH)` before `phase_cold(dev, main)` and
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -317,6 +331,10 @@ import torch
 
 import redisearch_tpu_torch as rt
 from redisearch_tpu_torch.agg import pipeline as AP
+from redisearch_tpu_torch.bench import probes as PB
+# device time of one call of fn, in ms: CUDA events around 20 calls
+# enqueued while the card spins in `torch.cuda._sleep`
+from redisearch_tpu_torch.bench.ab import device_ms as time_ms
 from redisearch_tpu_torch.ops import _build
 from redisearch_tpu_torch.ops import groupby as GB
 from redisearch_tpu_torch.ops import intersect as IK
@@ -1117,6 +1135,94 @@ def phase_signed_zero_groups(dev):
             f"== plain")
 
 
+# --------------------------------------------------------------- phase 3b
+PROBES_SRC = "redisearch_tpu_torch/csrc/probes.cu"
+#: per probe kernel: the TPU functions it replaces, and the script and
+#: arm whose times stand in its `kernels` record
+PROBE_RECORDS = {
+    "probe_floor": ("benchmarks/grid_floor_probe.py:48,76,92,191",
+                    "grid_floor", "fused"),
+    "probe_gwin": ("benchmarks/gstep_probe.py:32, "
+                   "benchmarks/grid_floor_probe.py:111", "gstep",
+                   "G=1 staged"),
+    "probe_gcols": ("benchmarks/gstep_probe2.py:33", "gstep2", "G=1"),
+    "probe_variant": ("benchmarks/kernel_probe.py:68", "kernel",
+                      "Wp= 2048 Wm= 8192 phase"),
+}
+
+
+def probe_groups(dev) -> list:
+    """(script, meta, arms) of every arm of the four probe scripts;
+    grid_floor's windows random (seed 1)."""
+    out = []
+    for name, mod_name in PB.SCRIPTS.items():
+        mod = importlib.import_module(f"redisearch_tpu_torch.bench.{mod_name}")
+        groups = mod.arms(dev, seed=1) if name == "grid_floor" else \
+            mod.arms(dev)
+        out += [(name, meta, arms) for meta, arms in groups]
+    return out
+
+
+def phase_probes(dev, smi: str) -> list:
+    """Phase 3b: every probe arm against its plain version, the launch
+    counts, then each arm's times; returns the probe kernels' records."""
+    t0 = time.perf_counter()
+    groups = probe_groups(dev)
+    PB.reset_launches()
+    errs = {k: 0.0 for k in PROBE_RECORDS}
+    for name, meta, arms in groups:
+        for arm in arms:
+            bad, err = PB.compare(arm.run(meta), arm.plain(meta), arm.tol)
+            if bad:
+                raise AssertionError(f"phase probes: {name} {arm.name}: "
+                                     f"{bad} queries differ from the plain "
+                                     f"version (max |d| {err})")
+            if arm.kernel in errs:
+                errs[arm.kernel] = max(errs[arm.kernel], err)
+    torch.cuda.synchronize()
+    counts = PB.launches()
+    if min(counts.values()) == 0:
+        raise AssertionError(f"phase probes: a probe kernel never "
+                             f"launched: {counts}")
+    n_arms = sum(len(a) for _n, _m, a in groups)
+    log(f"phase probes: {n_arms} arms == their plain versions (gstep "
+        f"within 2, every other lane exact); launches {counts}; "
+        f"max |d| {errs}")
+    log(f"phase probes: {smi}")
+    times = {}
+    for name, meta, arms in groups:
+        metas = PB.rolled(meta)
+        for arm in arms:
+            dev_ms = time_ms(lambda: arm.run(meta))
+            wall = PB.wall_s(arm.run, metas)
+            times[(name, arm.name)] = (arm, meta, dev_ms)
+            log(f"phase probes: {name} {arm.name}: device "
+                f"{dev_ms * 1e3 / arm.B:.4f} us/q, wall "
+                f"{wall * 1e6 / arm.B:.4f} us/q, bound "
+                f"{PB.bound_us(arm.n_bytes) / arm.B:.6f} us/q "
+                f"({arm.n_bytes} B a call)")
+    recs = []
+    for kern, (replaces, script, arm_name) in PROBE_RECORDS.items():
+        arm, meta, k_ms = times[(script, arm_name)]
+        p_ms = time_ms(lambda: arm.plain(meta))
+        lib_ms = None
+        if kern == "probe_floor":
+            lib_ms = time_ms(
+                lambda: meta[:, :1].expand(-1, 3 * PB.BLK).contiguous())
+        b_ms = bound_ms(arm.n_bytes)
+        log(f"phase probes: {kern} ({script} {arm_name}, B={arm.B}): "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.6f} "
+            f"ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+        recs.append({"name": kern, "route": "cuda", "source": PROBES_SRC,
+                     "replaces": replaces, "launches": counts[kern],
+                     "max_abs_err": errs[kern], "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": "bytes", "library_ms": lib_ms})
+    log(f"phase probes: done in {time.perf_counter() - t0:.1f}s")
+    return recs
+
+
 # ---------------------------------------------------------------- phase 4
 def make_corpus(n_docs: int, seed: int = 0):
     """bench.py's corpus: 4+20 zipf(1.25) tokens over a 200k vocab.
@@ -1236,31 +1342,6 @@ def numpy_and2_docs(seg, ix, q: str) -> np.ndarray:
         sets.append(np.unique(np.concatenate(docs)) if docs
                     else np.zeros(0, np.int32))
     return np.intersect1d(sets[0], sets[1])
-
-
-def time_ms(fn, iters: int = 20) -> float:
-    """Device time of one call of fn, in ms: CUDA events around `iters`
-    calls.  The calls are enqueued while the card spins in a
-    `torch.cuda._sleep` long enough to cover the host's enqueue time, so
-    that the events time the device's work and not the host's launch
-    gaps between the calls."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_s = time.perf_counter() - h0
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(max(2.0 * host_s, 1e-3), 2.0) * 2e9))
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
 
 
 def nbytes(*ts) -> int:
@@ -5384,6 +5465,7 @@ def main():
     err3_phrase = phase_phrase_vs_plain(dev)
     err_gb3 = phase_groupby_vs_plain(dev)
     err_sums3, err_mm3 = phase_single_groupby_vs_plain(dev)
+    probe_recs = phase_probes(dev, smi)
     main = phase_main_path(dev, N_DOCS, BATCH)
     agg = phase_aggregate(main["client"], main["ix"], dev)
     star = phase_agg_star(main["client"], main["ix"], dev)
@@ -5406,16 +5488,18 @@ def main():
     k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
     wk_ms, wp_ms, wk_err, wk_b = main["times"]["intersect_wide"]
     pk_ms, pp_ms, pk_err, pk_b = main["times"]["phrase"]
-    jax_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "redisearch_tpu") + os.sep
+    here = os.path.dirname(os.path.abspath(__file__))
+    jax_dirs = tuple(os.path.join(here, d) + os.sep
+                     for d in ("redisearch_tpu", "benchmarks"))
     loaded = [m for m, mod in list(sys.modules.items())
               if m == "jax" or m.startswith("jax.")
               or m == "redisearch_tpu" or m.startswith("redisearch_tpu.")
-              or (getattr(mod, "__file__", None) or "").startswith(jax_dir)]
+              or m == "benchmarks" or m.startswith("benchmarks.")
+              or (getattr(mod, "__file__", None) or "").startswith(jax_dirs)]
     if loaded:
         raise AssertionError(f"JAX-side modules were imported: {loaded}")
     log("phase modules: no jax module and no module file under "
-        "redisearch_tpu/ was loaded")
+        "redisearch_tpu/ or benchmarks/ was loaded")
 
     def rec(name, source, replaces, launches, err, ms, plain_ms, b,
             library_ms):
@@ -5445,7 +5529,7 @@ def main():
         rec("groupby_sums", GB_SRC, SUMS_REPLACES, star["launches"],
             max(err_sums3, ss[4]), *ss[:4]),
         rec("groupby_minmax", GB_SRC, MINMAX_REPLACES, mm["launches"],
-            max(err_mm3, sm[4]), *sm[:4])]}))
+            max(err_mm3, sm[4]), *sm[:4])] + probe_recs}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,7 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRCS = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-        for name in ("intersect", "groupby", "phrase")}
+        for name in ("intersect", "groupby", "phrase", "probes")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 # --fmad=false and no fast-math: the kernels must round like their plain
 # torch versions (see the note at the top of csrc/intersect.cu)
@@ -59,6 +59,21 @@ _LAUNCH = {
         _vp,                                       # params (host)
         _vp, _vp, _vp, _vp,                        # outputs, scratch
         _i32, _vp])],                              # grid, stream
+    "probes": [("rs_probe_floor_launch", [
+        _vp, _i32, _vp,                            # meta, its columns, fmeta
+        _vp, _vp, _vp, _i32,                       # outputs, fused
+        _i32, _i32,                                # G, B
+        ctypes.POINTER(_vp), _i32, _vp]),          # anys (host), smem, stream
+        ("rs_probe_gwin_launch", [
+            _vp, _i32, _vp, _vp, _i64,             # meta, its columns, d, f
+            _vp, _i32, _i32,                       # out, B, G
+            _i32, _i32, _i32, _i32, _vp]),         # colmax, rows, staged
+        ("rs_probe_gcols_launch", [
+            _vp, _vp, _i64, _vp, _i32, _i32, _vp]),  # meta, d, out, B, G
+        ("rs_probe_variant_launch", [
+            _vp, _vp, _vp, _vp, _vp, _vp, _i64,    # meta, fmeta, windows
+            _i32, ctypes.POINTER(_i32), _i32, _i32,  # T, rows (host), k, mode
+            _vp, _vp, _vp, _i32, _vp])],           # outputs, B, stream
 }
 
 _lock = threading.Lock()

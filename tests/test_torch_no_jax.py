@@ -356,3 +356,58 @@ def test_port_serves_without_jax(block, tmp_path):
         top = sorted(want.items(), key=lambda kv: -kv[1][1])[:3]
         assert total == len(docs)
         assert rows == [{"g": g, "n": n, "s": s} for g, (n, s) in top]
+
+
+PROBES_SCRIPT = r"""
+import importlib.abc, json, os, sys
+
+if BLOCK:
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes"):
+                raise ImportError(f"{name} blocked")
+            return None
+    sys.meta_path.insert(0, Block())
+
+from redisearch_tpu_torch.bench import probes as P
+mods = [importlib.import_module("redisearch_tpu_torch.bench." + m)
+        for m in P.SCRIPTS.values()]
+res = P.main(["gstep2"], device="cpu")
+repo = os.path.dirname(os.path.dirname(os.path.abspath(P.__file__)))
+repo = os.path.dirname(repo)
+dirs = [os.path.join(repo, d) + os.sep for d in ("redisearch_tpu",
+                                                  "benchmarks")]
+print(json.dumps({
+    "scripts": sorted(m.__name__ for m in mods),
+    "bad": [r["bad"] for r in res],
+    "files": sorted(m for m, v in list(sys.modules.items())
+                    if (getattr(v, "__file__", None) or "").startswith(
+                        tuple(dirs))),
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
+                                            "redisearch_tpu", "benchmarks")),
+}))
+"""
+
+
+@pytest.mark.parametrize("block", [True, False],
+                         ids=["jax-blocked", "jax-installed"])
+def test_probes_load_without_jax(block):
+    """`bench/probes.py` and the four probe scripts load (and gstep2's
+    plain versions run) without jax, and load no module file under
+    `redisearch_tpu/` or `benchmarks/`: the port keeps its own copies
+    of the TPU scripts' constants."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", f"BLOCK = {block}\n" + PROBES_SCRIPT],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["scripts"] == sorted(
+        "redisearch_tpu_torch.bench." + m for m in (
+            "gstep_probe", "gstep_probe2", "kernel_probe",
+            "grid_floor_probe"))
+    assert out["bad"] == [0, 0]
+    assert out["files"] == [], out["files"]
+    assert out["loaded"] == [], out["loaded"]
