@@ -12,8 +12,10 @@ script exits non-zero:
    `csrc/phrase.cu`, `csrc/groupby.cu` and `csrc/probes.cu` with nvcc for sm_90a (one nvcc
    each, started together) and prints each one's seconds and ptxas'
    register/spill report.
-3. kernel vs plain: random posting windows at the serving buckets (pivot
-   2048/8192/32768, members up to 131072), the AND/NOT/OPT/OR families,
+3. kernel vs plain: random posting windows (drawn on the card from a
+   seeded torch generator, all queries of a case at once; the draw's
+   seconds are printed) at the serving buckets (pivot 2048/8192/32768,
+   members up to 131072), the AND/NOT/OPT/OR families,
    tag-aux and dense-tag plans, k = 1/16/64, multi-phase ORs, and
    batches larger than the kernel's grid; the wide route's pivots
    (65,536 and 131,072 lanes: or2, and2 with both slots wide, a NOT
@@ -23,11 +25,11 @@ script exits non-zero:
    131,072-lane member range and phases of at most k matches.  Lane for lane
    equal docs, bit-identical scores, equal counts, in top-k mode and,
    where the pivot is within 32,768 lanes, in raw mode (`raw=True`).
-   Then the phrase kernel against `phrase_plain`, top-k and
-   raw, on random posting and position-key windows (W0/PW 2048..131072,
-   T = 2..4, slop 0/1/3, k = 1/16/64, repeated terms, clamped keys, a
-   1024 stride, batches larger than its grid): lane for lane equal,
-   scores bit-identical.  Then the group-by kernel against
+   Then the phrase kernel against `phrase_plain`, top-k and raw, on
+   random posting and position-key windows (drawn on the card too;
+   W0/PW 2048..131072, T = 2..4, slop 0/1/3, k = 1/16/64, repeated
+   terms, clamped keys, a 1024 stride, batches larger than its grid):
+   lane for lane equal, scores bit-identical.  Then the group-by kernel against
    `groupby_plain` on random
    gid slots at G = 1..65,536 (both of its branches), 0-3 ops, with and
    without sums of squares, batches below and above its grid: counts
@@ -49,13 +51,20 @@ script exits non-zero:
    `probe_floor`, `probe_gwin`, `probe_gcols`, `probe_variant`), every
    arm of the port's four scripts (`redisearch_tpu_torch/bench/`) at
    their own B and shapes, on seeded random inputs (grid_floor's d and
-   f drawn from seed 1, not its zeros), each held lane for lane
-   against its plain version: exact, but gstep's truncated f32 sums
-   within 2; kernel_probe's `full` arm (B1) exact too.  The launch
-   counts are zeroed just before that run and read just after: every
-   probe kernel must have launched.  Printed: each arm's device and
-   wall us a query beside its bytes bound; each kernel's record in the
-   `kernels` line is its arm named in PROBE_RECORDS.
+   f drawn from seed 1, not its zeros), and grid_floor's arms again at
+   B1's batch of 8,192 (8,192 / G blocks, above the card's 132 SMs),
+   each held lane for lane against its plain version: exact, but
+   gstep's truncated f32 sums within 2; kernel_probe's `full` arm (B1)
+   exact too.  Then edge cases the scripts' inputs miss: kernel_probe's
+   windows with random, tying scores, unaligned starts, short pivots
+   and qmasks no mask meets at k = 1, 16 and 128, and gstep's live
+   offsets past, at and before its windows.  The launch counts are
+   zeroed just before that run and read just after: every probe kernel
+   must have launched.  Printed: the TMA ring each ring arm gets
+   (stages, tile rows, shared bytes, blocks an SM, registers), each
+   arm's device and wall us a query beside its bytes bound; each
+   kernel's record in the `kernels` line is its arm named in
+   PROBE_RECORDS.
 4. main path: `Client.ft_create` with bench.py's BM25 schema, a 1M-doc
    FTSB-enwiki-shaped corpus (4+20 zipf(1.25) tokens over a 200k vocab,
    seed 0) through `add_documents`, then `ft_search_many` at batch 8192,
@@ -432,46 +441,89 @@ def phase_build():
         log(f"phase build: {name}: {info['path']} built={info['built']} "
             f"seconds={info['seconds']:.2f}")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "entry function")):
                 log(f"phase build: {name}: ptxas: {line.strip()}")
 
 
 # ---------------------------------------------------------------- phase 3
-def make_windows(rng, B, Ws, n_docs=2_000_000, overlap=0.5, full=False):
+INT32_MAX = IK.INT32_MAX
+
+
+def rand_ints(gen, lo: int, hi: int, size, dtype=torch.int32):
+    """Integers in [lo, hi) from `gen`, on its device."""
+    return torch.randint(lo, hi, size, generator=gen, device=gen.device,
+                         dtype=dtype)
+
+
+def rand_unit(gen, size):
+    """Uniform floats in [0, 1) from `gen`, on its device."""
+    return torch.rand(size, generator=gen, device=gen.device)
+
+
+def sorted_unique_rows(vals, width: int):
+    """Per row of `vals` (int32, INT32_MAX pads), its distinct values
+    ascending in the first `width` columns (INT32_MAX after them), and
+    how many of them there are."""
+    v = vals.sort(dim=1).values
+    dup = torch.zeros_like(v, dtype=torch.bool)
+    dup[:, 1:] = v[:, 1:] == v[:, :-1]
+    v = v.masked_fill(dup, INT32_MAX).sort(dim=1).values[:, :width]
+    return v.contiguous(), (v < INT32_MAX).sum(1)
+
+
+def make_windows(gen, B, Ws, n_docs=2_000_000, overlap=0.5, full=False):
     """Random doc-sorted posting windows sharing a per-query doc pool (so
     slots genuinely intersect), at arbitrary offsets of flat arrays —
     the layout of tests/test_pallas_interpret.py's _make_windows.  Each
-    window's live length is drawn from [W/2, W], or is W with `full`."""
-    T = len(Ws)
+    window's live length is drawn from [W/2, W], or is W with `full`;
+    its docs are the smallest `live` distinct ones of the pool's docs
+    (2 max(Ws) draws) kept with probability `overlap` and `live` fresh
+    draws; a window starts 0-127 lanes past the end of the last one's
+    bucket.  Drawn from the torch generator `gen` on its device, a slot
+    at a time for all B queries at once; the arrays stay there."""
+    T, dev = len(Ws), gen.device
     total = B * sum(w + 128 for w in Ws) + 4096
-    doc_ids = np.full(total, 2**31 - 1, np.int32)
-    freqs = np.zeros(total, np.float32)
-    masks = np.zeros(total, np.int32)
-    dl = (np.abs(rng.normal(24.0, 6.0, total)) + 1.0).astype(np.float32)
-    meta = np.zeros((B, 3 * T), np.int32)
-    fmeta = np.zeros((B, T + 1), np.float32)
-    at = 0
-    for b in range(B):
-        pool = np.unique(rng.integers(0, n_docs, 2 * max(Ws)))
-        for t, W in enumerate(Ws):
-            live = W if full else int(rng.integers(max(1, W // 2), W + 1))
-            shared = pool[rng.random(len(pool)) < overlap][:live]
-            extra = rng.integers(0, n_docs, live)
-            docs = np.unique(np.concatenate([shared, extra]))[:live]
-            live = len(docs)
-            doc_ids[at:at + live] = docs
-            freqs[at:at + live] = rng.integers(1, 8, live)
-            masks[at:at + live] = np.where(rng.random(live) < 0.9, 3, 4)
-            meta[b, t], meta[b, T + t], meta[b, 2 * T + t] = at, live, 3
-            at += W + int(rng.integers(0, 128))
-        fmeta[b, :T] = rng.uniform(0.5, 4.0, T)
-        fmeta[b, T] = 24.0
+    doc_ids = torch.full((total,), INT32_MAX, dtype=torch.int32, device=dev)
+    freqs = torch.zeros(total, dtype=torch.float32, device=dev)
+    masks = torch.zeros(total, dtype=torch.int32, device=dev)
+    dl = (torch.randn(total, generator=gen, device=dev) * 6.0 + 24.0).abs() \
+        + 1.0
+    meta = torch.zeros((B, 3 * T), dtype=torch.int32, device=dev)
+    fmeta = torch.zeros((B, T + 1), dtype=torch.float32, device=dev)
+    pool = rand_ints(gen, 0, n_docs, (B, 2 * max(Ws))).sort(dim=1).values
+    distinct = torch.ones_like(pool, dtype=torch.bool)
+    distinct[:, 1:] = pool[:, 1:] != pool[:, :-1]
+    sizes = (torch.tensor(Ws, device=dev)[None, :]
+             + rand_ints(gen, 0, 128, (B, T), torch.int64)).reshape(-1)
+    starts = (sizes.cumsum(0) - sizes).reshape(B, T)
+    for t, W in enumerate(Ws):
+        live = (torch.full((B,), W, device=dev) if full else
+                rand_ints(gen, max(1, W // 2), W + 1, (B,), torch.int64))
+        col = torch.arange(W, device=dev)[None, :]
+        shared = pool.masked_fill(
+            ~distinct | (rand_unit(gen, pool.shape) >= overlap), INT32_MAX)
+        extra = rand_ints(gen, 0, n_docs, (B, W)).masked_fill(
+            col >= live[:, None], INT32_MAX)
+        docs, n = sorted_unique_rows(torch.cat([shared, extra], 1), W)
+        live = torch.minimum(live, n)
+        idle = col >= live[:, None]
+        # the lanes past `live` are the gap before the next window: they
+        # keep the arrays' fillers
+        at = starts[:, t, None] + col
+        doc_ids[at] = docs
+        freqs[at] = rand_ints(gen, 1, 8, (B, W)).float().masked_fill(idle, 0)
+        masks[at] = torch.where(rand_unit(gen, (B, W)) < 0.9, 3, 4).to(
+            torch.int32).masked_fill(idle, 0)
+        meta[:, t], meta[:, T + t], meta[:, 2 * T + t] = starts[:, t], live, 3
+    fmeta[:, :T] = 0.5 + 3.5 * rand_unit(gen, (B, T))
+    fmeta[:, T] = 24.0
     return meta, fmeta, doc_ids, freqs, masks, dl
 
 
-def kernel_cases(rng, B=48):
-    """(label, numpy args, plan kwargs) at the serving buckets, B queries
-    each."""
+def kernel_cases(gen, B=48):
+    """(label, args on `gen`'s device, plan kwargs) at the serving
+    buckets, B queries each."""
     R, N, O = IK.REQ, IK.NOT, IK.OPT
     plain = [
         ("and2", (2048, 8192), ((R, (0,)), (R, (1,))), 16),
@@ -489,7 +541,7 @@ def kernel_cases(rng, B=48):
     ]
     out = []
     for label, Ws, groups, k in plain:
-        args = make_windows(rng, B, Ws)
+        args = make_windows(gen, B, Ws)
         out.append((label, args, dict(T=len(Ws), Ws=Ws, groups=groups,
                                       k=k)))
     # more queries than the kernel's grid: blocks serve q, q + grid, ...
@@ -498,37 +550,39 @@ def kernel_cases(rng, B=48):
     for label, Ws, groups in (
             ("and2-gridstride", (2048, 2048), ((R, (0,)), (R, (1,)))),
             ("or2-gridstride", (2048, 2048), ((R, (0, 1)),))):
-        args = make_windows(rng, B_big, Ws)
+        args = make_windows(gen, B_big, Ws)
         out.append((label, args, dict(T=2, Ws=Ws, groups=groups, k=16)))
-    # TAG member slots streamed from an aux doc-window array
+    # TAG member slots streamed from an aux doc-window array: per query
+    # the distinct docs of 4,096-8,192 draws, 8,193 lanes apart
     Ws = (2048, 8192)
-    meta, fmeta, d, f, m, dl = make_windows(rng, B, Ws)
-    aux = np.full(B * 8193 + 4096, 2**31 - 1, np.int32)
-    at = 0
-    for b in range(B):
-        live = int(rng.integers(4096, 8193))
-        docs = np.unique(rng.integers(0, 2_000_000, live))
-        aux[at:at + len(docs)] = docs
-        meta[b, 1], meta[b, 3] = at, len(docs)
-        at += 8192 + 1
+    dev = gen.device
+    meta, fmeta, d, f, m, dl = make_windows(gen, B, Ws)
+    aux = torch.full((B * 8193 + 4096,), INT32_MAX, dtype=torch.int32,
+                     device=dev)
+    col = torch.arange(8192, device=dev)[None, :]
+    draws = rand_ints(gen, 0, 2_000_000, (B, 8192)).masked_fill(
+        col >= rand_ints(gen, 4096, 8193, (B, 1)), INT32_MAX)
+    docs, n = sorted_unique_rows(draws, 8192)
+    first = torch.arange(B, device=dev) * 8193
+    aux[first[:, None] + col] = docs
+    meta[:, 1], meta[:, 3] = first, n
     out.append(("tag-aux", (meta, fmeta, d, f, m, dl, aux),
                 dict(T=2, Ws=Ws, groups=((R, (0,), -1), (R, (1,), 0)),
                      k=16)))
     # dense posting-aligned code predicates (REQ with 2 values, NOT)
-    meta, fmeta, d, f, m, dl = make_windows(rng, B, Ws)
-    codes = rng.integers(0, 8, d.shape[0]).astype(np.int32)
-    q = rng.integers(-1, 10, (B, 3)).astype(np.int32)
-    q[rng.random(B) < 0.3, 1] = -2          # unbound value slots
-    meta = np.concatenate([meta, q], axis=1)
-    fmeta = np.concatenate(
-        [fmeta, rng.uniform(0.5, 4.0, (B, 2)).astype(np.float32)], 1)
+    meta, fmeta, d, f, m, dl = make_windows(gen, B, Ws)
+    codes = rand_ints(gen, 0, 8, (d.shape[0],))
+    q = rand_ints(gen, -1, 10, (B, 3))
+    q[rand_unit(gen, B) < 0.3, 1] = -2       # unbound value slots
+    meta = torch.cat([meta, q], dim=1)
+    fmeta = torch.cat([fmeta, 0.5 + 3.5 * rand_unit(gen, (B, 2))], dim=1)
     out.append(("dense-tag", (meta, fmeta, d, f, m, dl, codes),
                 dict(T=2, Ws=Ws, groups=((R, (0,), -1), (R, (1,), -1)),
                      k=16, dense=((R, 0, 2), (N, 0, 1)))))
-    return out + wide_kernel_cases(rng) + tile_kernel_cases(rng)
+    return out + wide_kernel_cases(gen) + tile_kernel_cases(gen)
 
 
-def wide_kernel_cases(rng):
+def wide_kernel_cases(gen):
     """The wide route's shapes: pivots past MAX_W_PIVOT (top-k mode
     only), up to MAX_W_MEMBER, at k = 16 and 64, and a batch past the
     grid (8 distinct queries repeated)."""
@@ -541,11 +595,11 @@ def wide_kernel_cases(rng):
             ("wide-and2-both", (131072, 65536), ((R, (0,)), (R, (1,))), 16,
              8),
             ("wide-not", (65536, 131072), ((R, (0,)), (N, (1,))), 64, 8)):
-        out.append((label, make_windows(rng, B, Ws),
+        out.append((label, make_windows(gen, B, Ws),
                     dict(T=2, Ws=Ws, groups=groups, k=k)))
     Ws = (65536, 2048)
-    args = make_windows(rng, 8, Ws)
-    pick = rng.integers(0, 8, IK._MAX_GRID + 517)
+    args = make_windows(gen, 8, Ws)
+    pick = rand_ints(gen, 0, 8, (IK._MAX_GRID + 517,), torch.int64)
     out.append(("wide-or2-gridstride", (args[0][pick], args[1][pick])
                 + args[2:], dict(T=2, Ws=Ws, groups=((R, (0, 1)),), k=16)))
     return out
@@ -555,20 +609,21 @@ def with_tie_band(args, lo, hi):
     """Every query's pivot (slot 0) lanes [lo, hi) get one score (tf 7,
     doc length 24, mask-valid; the other lanes tf 1), above every other
     lane: a tie that straddles a tile boundary inside [lo, hi)."""
-    meta, fmeta, d, f, m, dl = (a.copy() for a in args)
+    meta, fmeta, d, f, m, dl = (a.clone() for a in args)
     T = meta.shape[1] // 3
-    for b in range(meta.shape[0]):
-        s_, n = int(meta[b, 0]), int(meta[b, T])
-        if n < hi:
-            raise AssertionError("tie band past the live lanes")
-        f[s_:s_ + n] = 1.0
-        f[s_ + lo:s_ + hi] = 7.0
-        dl[s_ + lo:s_ + hi] = 24.0
-        m[s_ + lo:s_ + hi] = 3
+    s_, n = meta[:, 0].long(), meta[:, T].long()
+    if bool((n < hi).any()):
+        raise AssertionError("tie band past the live lanes")
+    col = torch.arange(int(n.max()), device=meta.device)[None, :]
+    f[(s_[:, None] + col)[col < n[:, None]]] = 1.0
+    band = s_[:, None] + torch.arange(lo, hi, device=meta.device)[None, :]
+    f[band] = 7.0
+    dl[band] = 24.0
+    m[band] = 3
     return meta, fmeta, d, f, m, dl
 
 
-def tile_kernel_cases(rng):
+def tile_kernel_cases(gen):
     """Cases aimed at the kernel's tiles and top-k paths, in the wide
     block shape (16 queries or fewer): a tie across its 2,048-lane tile
     boundary (the running top-k full before it at k = 16, not at k = 64),
@@ -584,23 +639,22 @@ def tile_kernel_cases(rng):
             ("tile-tie-or2-k16", (4096, 2048), ((R, (0, 1)),), 16, 16),
             ("wide-tile-tie-not-k16", (65536, 2048), ((R, (0,)), (N, (1,))),
              16, 8)):
-        args = with_tie_band(make_windows(rng, B, Ws, full=True), 2030,
+        args = with_tie_band(make_windows(gen, B, Ws, full=True), 2030,
                              2070)
         out.append((label, args, dict(T=2, Ws=Ws, groups=groups, k=k)))
     Ws = (65536, 131072)
-    out.append(("wide-member-131072", make_windows(rng, 8, Ws,
+    out.append(("wide-member-131072", make_windows(gen, 8, Ws,
                                                        full=True),
                 dict(T=2, Ws=Ws, groups=((R, (0,)), (R, (1,))), k=16)))
     Ws = (8192, 2048)
-    meta, *rest = make_windows(rng, 48, Ws)
-    meta = meta.copy()
-    meta[:, 2] = rng.integers(0, 40, 48)          # pivot lens, some 0
+    meta, *rest = make_windows(gen, 48, Ws)
+    meta[:, 2] = rand_ints(gen, 0, 40, (48,))     # pivot lens, some 0
     out.append(("count-le-k", (meta, *rest),
                 dict(T=2, Ws=Ws, groups=((R, (0,)), (O, (1,))), k=64)))
-    return out + shape_kernel_cases(rng)
+    return out + shape_kernel_cases(gen)
 
 
-def shape_kernel_cases(rng):
+def shape_kernel_cases(gen):
     """Batches for the narrow and mid block shapes (the kernel picks its
     shape from the pivot bucket and the batch; the cases above mostly take
     the mid and wide ones): narrow, 1,200 queries with 2,048-lane pivots
@@ -614,12 +668,11 @@ def shape_kernel_cases(rng):
     for label, groups, k in (
             ("narrow-tile-tie-not-k16", ((R, (0,)), (N, (1,))), 16),
             ("narrow-tile-tie-or2-k64", ((R, (0, 1)),), 64)):
-        args = with_tie_band(make_windows(rng, 1200, Ws, full=True), 240,
+        args = with_tie_band(make_windows(gen, 1200, Ws, full=True), 240,
                              270)
         out.append((label, args, dict(T=2, Ws=Ws, groups=groups, k=k)))
-    meta, *rest = make_windows(rng, 1200, Ws)
-    meta = meta.copy()
-    meta[:, 2] = rng.integers(0, 40, 1200)        # pivot lens, some 0
+    meta, *rest = make_windows(gen, 1200, Ws)
+    meta[:, 2] = rand_ints(gen, 0, 40, (1200,))   # pivot lens, some 0
     out.append(("narrow-count-le-k", (meta, *rest),
                 dict(T=2, Ws=Ws, groups=((R, (0,)), (O, (1,))), k=64)))
     for label, Ws, groups, k in (
@@ -627,10 +680,10 @@ def shape_kernel_cases(rng):
             ("mid-not-32768x2048", (32768, 2048), ((R, (0,)), (N, (1,))),
              64),
             ("mid-opt-8192x8192", (8192, 8192), ((R, (0,)), (O, (1,))), 16)):
-        out.append((label, make_windows(rng, 320, Ws),
+        out.append((label, make_windows(gen, 320, Ws),
                     dict(T=2, Ws=Ws, groups=groups, k=k)))
     Ws = (4096, 2048)
-    args = with_tie_band(make_windows(rng, 320, Ws, full=True), 2030, 2070)
+    args = with_tie_band(make_windows(gen, 320, Ws, full=True), 2030, 2070)
     out.append(("mid-tile-tie-not-k16", args,
                 dict(T=2, Ws=Ws, groups=((R, (0,)), (N, (1,))), k=16)))
     return out
@@ -661,9 +714,15 @@ def phase_kernel_vs_plain(dev, B: int = 48) -> tuple:
     """Top-k and raw mode of every case (raw where the pivot is within
     MAX_W_PIVOT), lane for lane with bit-identical scores; returns the
     two max errors (0)."""
-    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cases = kernel_cases(gen, B)
+    torch.cuda.synchronize()
+    log(f"phase kernel-vs-plain: {len(cases)} cases drawn on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
     err, err_raw = 0.0, 0.0
-    for label, args, kw in kernel_cases(rng, B):
+    for label, args, kw in cases:
         t = [torch.as_tensor(a, device=dev) for a in args]
         kout = IK.intersect_batch(*t, **kw)
         pout = IK.intersect_plain(*t, **kw)
@@ -696,72 +755,112 @@ def phase_kernel_vs_plain(dev, B: int = 48) -> tuple:
     return err, err_raw
 
 
-def make_phrase_windows(rng, B, Ws, PWs, stride=64, n_docs=2_000_000,
+def region_starts(gen, B: int, widths, skip=()):
+    """Where each of B queries' windows starts in a flat array: the
+    windows lie query by query, slot by slot, each 0-127 lanes past the
+    end of the last one's region of width + 128; a slot in `skip` takes
+    no region (its start is 0).  [B, len(widths)] int64."""
+    T = len(widths)
+    on = torch.tensor([t not in skip for t in range(T)], device=gen.device)
+    pre = rand_ints(gen, 0, 128, (B, T), torch.int64) * on
+    size = (torch.tensor(widths, device=gen.device) + 128) * on + pre
+    flat = size.reshape(-1)
+    return ((flat.cumsum(0) - flat).reshape(B, T) + pre) * on
+
+
+def make_phrase_windows(gen, B, Ws, PWs, stride=64, n_docs=2_000_000,
                         clamp=False, repeat=False):
     """Random phrase inputs (tests/test_torch_phrase.py's _make_phrase,
-    vectorised): per query and slot a doc-sorted posting window and a
-    sorted position-key window (doc * stride + pos, 1-2 random positions
-    a doc) at arbitrary offsets of flat arrays, INT32_MAX past the live
-    length.  Half the docs common to every slot get an in-order run with
-    gaps of 0-2 positions, so chains of every slop match.  clamp:
-    positions past stride - 1 are clamped there (keys repeat within a
-    term, as on a pos_clamped segment).  repeat: slot 1 reads slot 0's
-    windows (a repeated term).  Keys past PW are cut."""
-    T = len(Ws)
+    drawn for all B queries at once from the torch generator `gen`, on
+    its device): per query and slot a doc-sorted posting window (the
+    smallest of W/4..W distinct docs of a per-query pool of max(Ws)
+    draws, each kept with probability 0.6, and fresh draws) and a
+    sorted position-key window (doc * stride + pos, 1-2 random
+    positions a doc) at arbitrary offsets of flat arrays, INT32_MAX
+    past the live length.  Half the docs common to every slot get an
+    in-order run with gaps of 0-2 positions, so chains of every slop
+    match.  clamp: positions past stride - 1 are clamped there (keys
+    repeat within a term, as on a pos_clamped segment).  repeat: slot 1
+    reads slot 0's windows (a repeated term).  Keys past PW are cut."""
+    T, dev = len(Ws), gen.device
+    big = 2**62                     # pads the int64 keys
     # each window takes at most its bucket + 255 (offset and gap), and
     # the last one's bucket stays inside the array: no start is clamped
     n_post = B * sum(w + 256 for w in Ws) + max(Ws) + 4096
     n_keys = B * sum(p + 256 for p in PWs) + max(PWs) + 4096
-    doc_ids = np.full(n_post, 2**31 - 1, np.int32)
-    freqs = np.zeros(n_post, np.float32)
-    masks = np.zeros(n_post, np.int32)
-    dl = (np.abs(rng.normal(24.0, 6.0, n_post)) + 1.0).astype(np.float32)
-    keys = np.full(n_keys, 2**31 - 1, np.int32)
-    meta = np.zeros((B, 5 * T), np.int32)
-    fmeta = np.zeros((B, T + 1), np.float32)
-    at_p = at_k = 0
-    for b in range(B):
-        pool = np.unique(rng.integers(0, n_docs, max(Ws)))
-        slot_docs = []
-        for W in Ws:
-            live = int(rng.integers(max(1, W // 4), W + 1))
-            shared = pool[rng.random(len(pool)) < 0.6]
-            extra = rng.integers(0, n_docs, live)
-            slot_docs.append(np.unique(np.concatenate([shared, extra]))[:live])
-        common = slot_docs[0]
-        for d in slot_docs[1:]:
-            common = np.intersect1d(common, d)
-        seeded = common[rng.random(len(common)) < 0.5]
-        p0 = rng.integers(0, stride - 3 * T, len(seeded))
-        gaps = np.cumsum(rng.integers(0, 3, (len(seeded), T)), axis=1)
-        for t, W in enumerate(Ws):
-            if repeat and t == 1:
-                meta[b, 1::T] = meta[b, 0::T]
-                continue
-            docs = slot_docs[t]
-            at_p += int(rng.integers(0, 128))
-            live = len(docs)
-            doc_ids[at_p:at_p + live] = docs
-            freqs[at_p:at_p + live] = rng.integers(1, 8, live)
-            masks[at_p:at_p + live] = np.where(rng.random(live) < 0.9, 3, 4)
-            dd = np.repeat(docs, rng.integers(1, 3, live)).astype(np.int64)
-            hi = stride + 40 if clamp else stride
-            pos = rng.integers(0, hi, dd.size)
-            dd = np.concatenate([dd, seeded])
-            pos = np.concatenate([pos, p0 + t + gaps[:, t]])
-            ks = dd * stride + np.minimum(pos, stride - 1)
-            ks = np.sort(ks) if clamp else np.unique(ks)
-            n_live = min(len(ks), PWs[t])
-            at_k += int(rng.integers(0, 128))
-            keys[at_k:at_k + n_live] = ks[:n_live]
-            meta[b, t], meta[b, T + t], meta[b, 2 * T + t] = at_p, live, 3
-            meta[b, 3 * T + t], meta[b, 4 * T + t] = at_k, n_live
-            at_p += W + 128
-            at_k += PWs[t] + 128
-        fmeta[b, :T] = rng.uniform(0.5, 4.0, T)
-        if repeat:
-            fmeta[b, 1] = fmeta[b, 0]
-        fmeta[b, T] = 24.0
+    doc_ids = torch.full((n_post,), INT32_MAX, dtype=torch.int32, device=dev)
+    freqs = torch.zeros(n_post, dtype=torch.float32, device=dev)
+    masks = torch.zeros(n_post, dtype=torch.int32, device=dev)
+    dl = (torch.randn(n_post, generator=gen, device=dev) * 6.0 + 24.0).abs() \
+        + 1.0
+    keys = torch.full((n_keys,), INT32_MAX, dtype=torch.int32, device=dev)
+    meta = torch.zeros((B, 5 * T), dtype=torch.int32, device=dev)
+    fmeta = torch.zeros((B, T + 1), dtype=torch.float32, device=dev)
+    pool = rand_ints(gen, 0, n_docs, (B, max(Ws))).sort(dim=1).values
+    distinct = torch.ones_like(pool, dtype=torch.bool)
+    distinct[:, 1:] = pool[:, 1:] != pool[:, :-1]
+    slot_docs, lives = [], []
+    for W in Ws:
+        live = rand_ints(gen, max(1, W // 4), W + 1, (B,), torch.int64)
+        col = torch.arange(W, device=dev)[None, :]
+        shared = pool.masked_fill(~distinct | (rand_unit(gen, pool.shape)
+                                               >= 0.6), INT32_MAX)
+        extra = rand_ints(gen, 0, n_docs, (B, W)).masked_fill(
+            col >= live[:, None], INT32_MAX)
+        docs, n = sorted_unique_rows(torch.cat([shared, extra], 1), W)
+        live = torch.minimum(live, n)
+        slot_docs.append(docs.masked_fill(col >= live[:, None], INT32_MAX))
+        lives.append(live)
+    # the docs of slot 0 in every slot (INT32_MAX pads sort last)
+    d0 = slot_docs[0]
+    common = torch.arange(Ws[0], device=dev)[None, :] < lives[0][:, None]
+    for docs in slot_docs[1:]:
+        at = torch.searchsorted(docs, d0).clamp_max(docs.shape[1] - 1)
+        common &= docs.gather(1, at) == d0
+    seeded = common & (rand_unit(gen, d0.shape) < 0.5)
+    p0 = rand_ints(gen, 0, stride - 3 * T, d0.shape, torch.int64)
+    gaps = rand_ints(gen, 0, 3, d0.shape + (T,), torch.int64).cumsum(2)
+    skip = (1,) if repeat else ()
+    at_p = region_starts(gen, B, Ws, skip)
+    at_k = region_starts(gen, B, PWs, skip)
+    for t, (W, PW) in enumerate(zip(Ws, PWs)):
+        if t in skip:
+            continue
+        docs, live = slot_docs[t], lives[t]
+        col = torch.arange(W, device=dev)[None, :]
+        idle = col >= live[:, None]
+        at = at_p[:, t, None] + col
+        doc_ids[at] = docs
+        freqs[at] = rand_ints(gen, 1, 8, (B, W)).float().masked_fill(idle, 0)
+        masks[at] = torch.where(rand_unit(gen, (B, W)) < 0.9, 3, 4).to(
+            torch.int32).masked_fill(idle, 0)
+        # one or two random positions a live doc, and the seeded runs
+        hi = stride + 40 if clamp else stride
+        twice = rand_unit(gen, (B, W)) < 0.5
+        dd = torch.cat([docs.long().masked_fill(idle, -1),
+                        docs.long().masked_fill(idle | ~twice, -1),
+                        d0.long().masked_fill(~seeded, -1)], 1)
+        pos = torch.cat([rand_ints(gen, 0, hi, (B, 2 * W), torch.int64),
+                         p0 + t + gaps[..., t]], 1)
+        ks = torch.where(dd >= 0, dd * stride + pos.clamp_max(stride - 1),
+                         big).sort(dim=1).values
+        if not clamp:
+            dup = torch.zeros_like(ks, dtype=torch.bool)
+            dup[:, 1:] = ks[:, 1:] == ks[:, :-1]
+            ks = ks.masked_fill(dup, big).sort(dim=1).values
+        ks = torch.cat([ks, ks.new_full((B, max(0, PW - ks.shape[1])), big)],
+                       1)[:, :PW]
+        n_live = (ks < big).sum(1)
+        keys[at_k[:, t, None] + torch.arange(PW, device=dev)[None, :]] = \
+            ks.masked_fill(ks >= big, INT32_MAX).to(torch.int32)
+        meta[:, t], meta[:, T + t], meta[:, 2 * T + t] = at_p[:, t], live, 3
+        meta[:, 3 * T + t], meta[:, 4 * T + t] = at_k[:, t], n_live
+    if repeat:
+        meta[:, 1::T] = meta[:, 0::T]
+    fmeta[:, :T] = 0.5 + 3.5 * rand_unit(gen, (B, T))
+    if repeat:
+        fmeta[:, 1] = fmeta[:, 0]
+    fmeta[:, T] = 24.0
     return meta, fmeta, doc_ids, freqs, masks, dl, keys
 
 
@@ -795,14 +894,14 @@ PHRASE_CASES = [
 ]
 
 
-def phrase_case_args(rng, case):
+def phrase_case_args(gen, case):
     label, Ws, PWs, slop, k, layout, stride, n_q, B = case
     n_docs = min(2_000_000, (2**31 - 1) // stride - 1)
-    args = make_phrase_windows(rng, n_q, Ws, PWs, stride=stride,
+    args = make_phrase_windows(gen, n_q, Ws, PWs, stride=stride,
                                n_docs=n_docs, clamp=layout == "clamp",
                                repeat=layout == "repeat")
     if B > n_q:
-        pick = rng.integers(0, n_q, B)
+        pick = rand_ints(gen, 0, n_q, (B,), torch.int64)
         args = (args[0][pick], args[1][pick]) + args[2:]
     return args, dict(T=len(Ws), Ws=Ws, PWs=PWs, stride=stride, slop=slop,
                       k=k)
@@ -812,10 +911,10 @@ def phase_phrase_vs_plain(dev) -> float:
     """The phrase kernel against `phrase_plain` on every PHRASE_CASES
     case, top-k and raw: docs and counts equal, scores bit-identical,
     lane for lane.  Returns the max abs score difference (0)."""
-    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=dev).manual_seed(13)
     err = 0.0
     for case in PHRASE_CASES:
-        args, kw = phrase_case_args(rng, case)
+        args, kw = phrase_case_args(gen, case)
         t = [torch.as_tensor(a, device=dev) for a in args]
         for raw in (False, True):
             kout = IK.phrase_batch(*t, raw=raw, **kw)
@@ -1151,26 +1250,147 @@ PROBE_RECORDS = {
 }
 
 
+#: grid_floor's arms also run at B1's batch, where 8,192 / G blocks (G
+#: up to 16) outnumber the card's 132 SMs
+PROBE_B_WIDE = 8192
+
+
 def probe_groups(dev) -> list:
-    """(script, meta, arms) of every arm of the four probe scripts;
-    grid_floor's windows random (seed 1)."""
+    """(script, meta, arms) of every arm of the four probe scripts at
+    their own B, grid_floor's windows random (seed 1), and grid_floor's
+    arms again at B = PROBE_B_WIDE."""
     out = []
     for name, mod_name in PB.SCRIPTS.items():
         mod = importlib.import_module(f"redisearch_tpu_torch.bench.{mod_name}")
-        groups = mod.arms(dev, seed=1) if name == "grid_floor" else \
+        groups = mod.arms(dev, seed=1, B=512) if name == "grid_floor" else \
             mod.arms(dev)
         out += [(name, meta, arms) for meta, arms in groups]
+    gf = importlib.import_module("redisearch_tpu_torch.bench.grid_floor_probe")
+    out += [(f"grid_floor B={PROBE_B_WIDE}", meta, arms)
+            for meta, arms in gf.arms(dev, seed=1, B=PROBE_B_WIDE)]
     return out
 
 
+def probe_edge_groups(dev) -> list:
+    """(what, meta, arms), checked and not timed: the cases the scripts'
+    inputs miss.  kernel_probe's windows with random freqs (0-7, so
+    scores tie) and doc lengths, starts at start % 128 != 0, a third of
+    the pivots cut to 0-15 live lanes and a sixth with a qmask no mask
+    meets, at k = 1, 16 and 128 (a warp's candidate buffer of 96, 96
+    and 288 pairs); gstep's windows with live offsets past the window,
+    at its last lane and negative, at unaligned starts.  Odd shapes on
+    random arrays of 2,000 rows, starts from before the first row to
+    past the last (clamped): probe_variant with three slots of 15, 31
+    and 13 rows (no multiple of its 8-row tile) at k = 5, 40 and 128;
+    probe_gwin's staged arm with 37-row windows and with 5 + 131-row
+    pairs, a few blocks (its widest tiles, short last ones)."""
+    rng = np.random.default_rng(5)
+    kp = importlib.import_module("redisearch_tpu_torch.bench.kernel_probe")
+    gs = importlib.import_module("redisearch_tpu_torch.bench.gstep_probe")
+    out = []
+    win_rng = np.random.default_rng(0)
+    for Wp, Wm in kp.WS:
+        meta, fmeta, d2, f2, m2, dl2 = kp.make_windows(win_rng, Wp, Wm)
+        B = meta.shape[0]
+        q = np.arange(B)
+        f2 = rng.integers(0, 8, f2.shape).astype(np.float32)
+        dl2 = (np.abs(rng.normal(24.0, 6.0, dl2.shape)) + 1.0).astype(
+            np.float32)
+        meta = meta.copy()
+        meta[:, 0] += (q * 29 % 128).astype(np.int32)
+        meta[0::3, 2] = (q[0::3] % 16).astype(np.int32)
+        meta[1::6, 4] = 4
+        meta, fmeta, d2, f2, m2, dl2 = (torch.from_numpy(x).to(dev) for x in
+                                        (meta, fmeta, d2, f2, m2, dl2))
+        arrs = (fmeta, d2, f2, m2, dl2)
+        arms = [PB.Arm(f"Wp={Wp} Wm={Wm} {mode} k={k} random scores",
+                       "probe_variant",
+                       lambda m, k=k, mode=mode, Ws=(Wp, Wm), a=arrs:
+                       PB.probe_variant(m, *a, Ws=Ws, k=k, mode=mode),
+                       lambda m, k=k, mode=mode, Ws=(Wp, Wm), a=arrs:
+                       PB.variant_plain(m, *a, Ws=Ws, k=k, mode=mode), 0, B)
+                for mode, ks in (("phase", (1, 16, 128)), ("load", (16,)))
+                for k in ks]
+        out.append((f"kernel edges Wp={Wp} Wm={Wm}", meta, arms))
+    meta, d, f = gs.inputs(dev)
+    B = meta.shape[0]
+    meta = meta.clone()
+    meta[:, 0] += torch.arange(B, dtype=torch.int32, device=dev) * 37 % 128
+    meta[0::4, 1] = 64 * 128 + 5
+    meta[1::4, 1] = 64 * 128 - 1
+    meta[2::4, 1] = -3
+    arms = [PB.Arm(f"G={G} staged live offsets", "probe_gwin",
+                   lambda m, G=G: PB.probe_gwin(m, d, f, rows=(64,), G=G),
+                   lambda m, G=G: PB.gwin_plain(m, d, f, rows=(64,), G=G),
+                   0, B, tol=2) for G in gs.GS]
+    out.append(("gstep edges", meta, arms))
+    n_rows = 2000
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    starts = rng.integers(-300, n_rows * PB.BLK + 300, (64, 3), dtype=np.int32)
+    meta = t(np.concatenate([
+        starts, rng.integers(0, 1200, (64, 3), dtype=np.int32),
+        rng.choice(np.array([1, 2, 3, 4], np.int32), (64, 3))], 1))
+    fmeta = t(np.concatenate([rng.uniform(0.5, 4.0, (64, 3)),
+                              rng.uniform(10.0, 40.0, (64, 1))],
+                             1).astype(np.float32))
+    arrs = (fmeta,
+            t(rng.integers(0, 10**6, (n_rows, PB.BLK), dtype=np.int32)),
+            t(rng.integers(0, 8, (n_rows, PB.BLK)).astype(np.float32)),
+            t(rng.choice(np.array([1, 2, 4], np.int32), (n_rows, PB.BLK))),
+            t((np.abs(rng.normal(24.0, 6.0, (n_rows, PB.BLK))) + 1.0)
+              .astype(np.float32)))
+    Ws = (1000, 3000, 640)
+    out.append(("variant odd shapes", meta, [
+        PB.Arm(f"T=3 Ws={Ws} {mode} k={k}", "probe_variant",
+               lambda m, k=k, mode=mode: PB.probe_variant(
+                   m, *arrs, Ws=Ws, k=k, mode=mode),
+               lambda m, k=k, mode=mode: PB.variant_plain(
+                   m, *arrs, Ws=Ws, k=k, mode=mode), 0, 64)
+        for mode, ks in (("phase", (5, 40, 128)), ("load", (5,)))
+        for k in ks]))
+    d = t(rng.integers(-2**30, 2**30, (n_rows, PB.BLK), dtype=np.int32))
+    f = t(rng.normal(size=(n_rows, PB.BLK)).astype(np.float32))
+    meta = t(np.stack([rng.integers(-300, n_rows * PB.BLK + 300, 24),
+                       rng.integers(-5, 37 * PB.BLK + 5, 24)],
+                      1).astype(np.int32))
+    out.append(("gwin odd shapes, one window", meta, [
+        PB.Arm(f"rows=(37,) G={G} staged", "probe_gwin",
+               lambda m, G=G: PB.probe_gwin(m, d, f, rows=(37,), G=G),
+               lambda m, G=G: PB.gwin_plain(m, d, f, rows=(37,), G=G),
+               0, 24, tol=2) for G in (1, 3)]))
+    meta = t(rng.integers(-300, n_rows * PB.BLK + 300, (24, 2),
+                          dtype=np.int32))
+    out.append(("gwin odd shapes, two windows", meta, [
+        PB.Arm(f"rows=(5, 131) G={G} staged", "probe_gwin",
+               lambda m, G=G: PB.probe_gwin(m, d, f, rows=(5, 131), G=G),
+               lambda m, G=G: PB.gwin_plain(m, d, f, rows=(5, 131), G=G),
+               0, 24) for G in (1, 2, 4)]))
+    return out
+
+
+def log_rings(groups) -> None:
+    """The TMA ring each ring arm's launch gets (stages, tile rows,
+    shared bytes, resident blocks an SM, registers, spills)."""
+    for ring in dict.fromkeys(arm.ring for _n, _m, arms in groups
+                              for arm in arms if arm.ring):
+        log(f"phase probes: ring of {ring[0]} at {ring[1]} blocks"
+            f"{f', k={ring[2]}' if ring[2:] and ring[2] else ''}: "
+            f"{PB.ring_info(*ring)}")
+
+
 def phase_probes(dev, smi: str) -> list:
-    """Phase 3b: every probe arm against its plain version, the launch
-    counts, then each arm's times; returns the probe kernels' records."""
+    """Phase 3b: every probe arm (and the edge cases) against its plain
+    version, the launch counts, the rings, then each scripted arm's
+    times; returns the probe kernels' records."""
     t0 = time.perf_counter()
     groups = probe_groups(dev)
+    edges = probe_edge_groups(dev)
     PB.reset_launches()
     errs = {k: 0.0 for k in PROBE_RECORDS}
-    for name, meta, arms in groups:
+    for name, meta, arms in groups + edges:
         for arm in arms:
             bad, err = PB.compare(arm.run(meta), arm.plain(meta), arm.tol)
             if bad:
@@ -1185,9 +1405,11 @@ def phase_probes(dev, smi: str) -> list:
         raise AssertionError(f"phase probes: a probe kernel never "
                              f"launched: {counts}")
     n_arms = sum(len(a) for _n, _m, a in groups)
-    log(f"phase probes: {n_arms} arms == their plain versions (gstep "
-        f"within 2, every other lane exact); launches {counts}; "
-        f"max |d| {errs}")
+    n_edge = sum(len(a) for _n, _m, a in edges)
+    log(f"phase probes: {n_arms} arms and {n_edge} edge cases == their "
+        f"plain versions (gstep within 2, every other lane exact); "
+        f"launches {counts}; max |d| {errs}")
+    log_rings(groups)
     log(f"phase probes: {smi}")
     times = {}
     for name, meta, arms in groups:
@@ -5509,6 +5731,7 @@ def main():
                 "bound_ms": b, "bound_by": "bytes", "library_ms": library_ms}
 
     ss, sm = single["groupby_sums"], single["groupby_minmax"]
+    log(f"phase total: {time.perf_counter() - _T0:.1f}s")
     log(smi)
     log(json.dumps({"kernels": [
         rec("intersect", KERNEL_SRC, KERNEL_REPLACES, main["launches"],

@@ -2,6 +2,7 @@
 
     python3 redisearch_tpu_torch/bench/ab.py intersect GROUPS SPEC [SPEC ...]
     python3 redisearch_tpu_torch/bench/ab.py groupby DIR [DIR ...]
+    python3 redisearch_tpu_torch/bench/ab.py probes SPEC [SPEC ...]
 
 Each DIR is an unpacked checkout of the repo (for a parent against a
 change: parent, change, change, parent).  Every DIR is timed in its own
@@ -21,6 +22,13 @@ part of the kernel out and are wrong by design) and is timed.  A tree
 that refuses a group prints "refused".  Prints a line a group (family,
 route, batch, window buckets, bytes bound, each SPEC's ms) and the sum a
 family.
+
+`probes`: every arm of the port's four probe scripts
+(`bench/probes.py`), and grid_floor's again at B = 8,192 where the tree
+takes a B, through each SPEC's `csrc/probes.cu` (a DIR#NAME=VALUE SPEC
+defines one of the macros that source leaves open, as
+`PROBE_GW_TILE_MAX=32`); each arm is held against its plain version and
+timed.  Prints a line an arm: each SPEC's device us a query.
 
 `groupby`: the per-request program that `agg/pipeline.py` `_make_fused`
 builds in each DIR, its window program replaced by a fixed window, so
@@ -92,20 +100,20 @@ def host_us(fn, iters: int = 50) -> float:
     return best
 
 
-def use_define(define: str) -> None:
-    """Point this process's intersect build at a file that defines NAME
-    as VALUE, then includes the tree's `csrc/intersect.cu`; `_build`
-    builds it (under a name of its own) at the first launch."""
+def use_define(define: str, lib: str = "intersect") -> None:
+    """Point this process's build of `lib` at a file that defines NAME
+    as VALUE, then includes the tree's `csrc/<lib>.cu`; `_build` builds
+    it (under a name of its own) at the first launch."""
     from redisearch_tpu_torch.ops import _build
     name, _, value = define.partition("=")
-    src = _build.SRCS["intersect"]
+    src = _build.SRCS[lib]
     with open(src, "rb") as f:
         tag = hashlib.sha256(f.read() + define.encode()).hexdigest()[:16]
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    wrap = os.path.join(_build.BUILD_DIR, f"ab_intersect_{tag}.cu")
+    wrap = os.path.join(_build.BUILD_DIR, f"ab_{lib}_{tag}.cu")
     with open(wrap, "w") as f:   # the tag rebuilds it for an edited source
         f.write(f"// {tag}\n#define {name} {value}\n#include \"{src}\"\n")
-    _build.SRCS["intersect"] = wrap
+    _build.SRCS[lib] = wrap
 
 
 def intersect_child(groups_path: str, define: str) -> None:
@@ -133,6 +141,36 @@ def intersect_child(groups_path: str, define: str) -> None:
                                          f"the plain version")
         ms = device_ms(lambda: IK.intersect_batch(*a, **g["kw"]))
         print(json.dumps({"group": gi, "ms": ms}), flush=True)
+
+
+def probes_child(define: str) -> None:
+    """Every probe arm through this process's tree: one JSON line an
+    arm."""
+    import importlib
+    if define:
+        use_define(define, "probes")
+    from redisearch_tpu_torch.bench import probes as PB
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    for script, mod_name in PB.SCRIPTS.items():
+        mod = importlib.import_module(f"redisearch_tpu_torch.bench.{mod_name}")
+        groups = [("", g) for g in mod.arms(dev)]
+        if script == "grid_floor":
+            try:
+                groups += [(" B=8192", g) for g in mod.arms(dev, B=8192)]
+            except TypeError:     # a tree whose grid_floor takes no B
+                pass
+        for tag, (meta, arms) in groups:
+            for arm in arms:
+                bad, _err = PB.compare(arm.run(meta), arm.plain(meta),
+                                       arm.tol)
+                if bad:
+                    raise AssertionError(f"{script}{tag} {arm.name}: {bad} "
+                                         f"queries differ from the plain "
+                                         f"version")
+                us = device_ms(lambda: arm.run(meta)) * 1e3 / arm.B
+                print(json.dumps({"arm": f"{script}{tag} {arm.name}",
+                                  "us_q": us}), flush=True)
 
 
 def groupby_child() -> None:
@@ -190,10 +228,12 @@ def main(argv) -> None:
     if argv[:1] == ["--child"]:
         if argv[1] == "intersect":
             intersect_child(argv[2], argv[3])
+        elif argv[1] == "probes":
+            probes_child(argv[2])
         else:
             groupby_child()
         return
-    if len(argv) < 2 or argv[0] not in ("intersect", "groupby") or (
+    if len(argv) < 2 or argv[0] not in ("intersect", "groupby", "probes") or (
             argv[0] == "intersect" and len(argv) < 3):
         raise SystemExit(__doc__)
     print(torch.cuda.get_device_name(0) + "; " + subprocess.run(
@@ -206,6 +246,14 @@ def main(argv) -> None:
                 print(f"ab {d}: {r['shape']} (n={r['n']}): device "
                       f"{r['device_ms']:.4f} ms a request, host enqueue "
                       f"{r['host_us']:.1f} us a request", flush=True)
+        return
+    if argv[0] == "probes":
+        res = [{r["arm"]: r["us_q"] for r in run_child(s, "probes")}
+               for s in argv[1:]]
+        for arm in dict.fromkeys(a for r in res for a in r):
+            print(f"{arm}: " + ", ".join(
+                f"{s} " + (f"{r[arm]:.4f}" if arm in r else "absent")
+                for s, r in zip(argv[1:], res)) + " us/q", flush=True)
         return
     groups_path, specs = os.path.abspath(argv[1]), argv[2:]
     groups = torch.load(groups_path, weights_only=False)["groups"]

@@ -15,30 +15,40 @@ fixed cost of B1's step, in five arms of the TPU script.
            + 8 and of Wm / 128 + 8 rows; out: the column max of the
            first d window plus that of the second; `staged` and `direct`
 
-The TPU script's inputs from its seed (B = 512, meta [B, 8], fmeta
-ones, d and f [16406, 128] of zeros).  Against zeros a wrong column max
-passes, so the gdma arms are held against their plain version on random
-d and f too (seed 1).  Kernels `probe_floor` (cur, curany, fused, g)
-and `probe_gwin` (gdma); all exact.
+The TPU script's inputs from its seed (B from the environment's
+PROBE_B, 512 without it, as the TPU script reads it; meta [B, 8], fmeta
+ones, d and f [16406, 128] of zeros); `inputs`, `arms` and `main` also
+take B as an argument, which wins over PROBE_B.  Against zeros a wrong
+column max passes, so the gdma arms are held against their plain
+version on random d and f too (seed 1).  Kernels `probe_floor` (cur,
+curany, fused, g) and `probe_gwin` (gdma); all exact.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from . import probes as P
 
-B = 512
 N_ROWS = 2_100_000 // P.BLK
 GS = (4, 8, 16)
 GDMA_WS = ((2048, 8192), (8192, 32768))
 GDMA_GS = (4, 8)
 
 
-def inputs(dev, seed=None):
-    """(meta, fmeta, d2, f2) on `dev`: the TPU script's, or with d2 and
-    f2 drawn from `seed` (d2 in [-2^30, 2^30))."""
+def probe_b(B=None) -> int:
+    """B, or PROBE_B from the environment, or the TPU script's 512."""
+    return int(os.environ.get("PROBE_B", "512")) if B is None else B
+
+
+def inputs(dev, seed=None, B=None):
+    """(meta, fmeta, d2, f2) on `dev` for B queries (`probe_b`): the TPU
+    script's, or with d2 and f2 drawn from `seed` (d2 in [-2^30,
+    2^30))."""
+    B = probe_b(B)
     meta = (np.random.default_rng(0).integers(0, 64, size=(B, 8),
                                               dtype=np.int32) * 1024)
     if seed is None:
@@ -55,6 +65,7 @@ def inputs(dev, seed=None):
 
 
 def gdma_arms(meta, d2, f2) -> list:
+    B = meta.shape[0]
     out = []
     for Wp, Wm in GDMA_WS:
         rows = (Wp // P.BLK + 8, Wm // P.BLK + 8)
@@ -70,14 +81,16 @@ def gdma_arms(meta, d2, f2) -> list:
                         m, d2, f2, rows=r, G=G, staged=s),
                     lambda m, G=G, r=rows: P.gwin_plain(m, d2, f2, rows=r,
                                                         G=G),
-                    n_bytes, B))
+                    n_bytes, B,
+                    ring=("probe_gwin", B // G) if staged else ()))
     return out
 
 
-def arms(dev, seed=None) -> list:
-    """[(meta, arms)]: every arm on the script's inputs (or on random d
-    and f from `seed`)."""
-    meta, fmeta, d2, f2 = inputs(dev, seed)
+def arms(dev, seed=None, B=None) -> list:
+    """[(meta, arms)]: every arm on the script's inputs for B queries
+    (`probe_b`), or on random d and f from `seed`."""
+    meta, fmeta, d2, f2 = inputs(dev, seed, B)
+    B = meta.shape[0]
     out_b = 3 * P.BLK * 4
     cur_b = B * (8 * 4 + 3 * 4 + out_b)
     fused_b = B * (8 * 4 + out_b)
@@ -98,13 +111,13 @@ def arms(dev, seed=None) -> list:
     return [(meta, floor + gdma_arms(meta, d2, f2))]
 
 
-def main(device=None) -> list:
+def main(device=None, B=None) -> list:
     dev = P.resolve_device(device)
     res = []
-    for meta, arms_ in arms(dev):
+    for meta, arms_ in arms(dev, B=B):
         res += P.run_arms(arms_, meta, dev)
     print("random d and f (seed 1), checked only:", flush=True)
-    meta, _fmeta, d2, f2 = inputs(dev, seed=1)
+    meta, _fmeta, d2, f2 = inputs(dev, seed=1, B=B)
     res += P.run_arms(gdma_arms(meta, d2, f2), meta, dev, timed=False)
     return res
 

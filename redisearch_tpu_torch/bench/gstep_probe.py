@@ -7,7 +7,7 @@ copied from a row offset, with the next window's copies in flight.
 The TPU script's inputs from its seed (B = 512, d and f [4096, 128],
 meta [B, 2]: the window's first lane, a multiple of 1,024, and the
 first live lane, below 64), and its arms G = 1, 2, 4, 8, each in two:
-`staged` (cp.async through a two-stage shared-memory ring) and `direct`
+`staged` (a TMA ring of bulk copies on mbarriers) and `direct`
 (16-byte loads into registers).  Kernel `probe_gwin`; the truncated f32
 sums may differ from the plain version's by 2, the TPU script's own
 check.
@@ -53,7 +53,8 @@ def arms(dev) -> list:
                 lambda m, G=G, s=staged: P.probe_gwin(m, d, f, rows=rows,
                                                       G=G, staged=s),
                 lambda m, G=G: P.gwin_plain(m, d, f, rows=rows, G=G),
-                n_bytes, B, tol=2))
+                n_bytes, B, tol=2,
+                ring=("probe_gwin", B // G) if staged else ()))
     return [(meta, out)]
 
 

@@ -6,9 +6,11 @@ cut into modes, beside the port's B1 on the same inputs.
   empty   one block a query reads its meta and fmeta rows and writes
           zero outputs
   load    adds every byte of the slots' windows (doc, freq, mask, and
-          doc length for the pivot slot) through a shared-memory ring
+          doc length for the pivot slot) through a TMA ring of bulk
+          copies on mbarriers in shared memory
   phase   adds the pivot window's in-range & qmask test, BM25 and a
-          top-16 (ties to the lowest lane); no member pass
+          running top-16 as each pivot tile arrives (ties to the lowest
+          lane); no member pass
   full    the port's B1 (`ops/intersect.intersect_batch`, slot 0 the
           pivot, slot 1 a required member, k = 16)
 
@@ -111,7 +113,9 @@ def arms(dev) -> list:
                 P.probe_variant(m, *a, Ws=Ws, k=K, mode=mode),
                 lambda m, mode=mode, a=(fmeta, d2, f2, m2, dl2), Ws=Ws:
                 P.variant_plain(m, *a, Ws=Ws, k=K, mode=mode),
-                meta_b + (win_b if mode != "empty" else 0), B))
+                meta_b + (win_b if mode != "empty" else 0), B,
+                ring=() if mode == "empty" else
+                ("probe_variant", B, K if mode == "phase" else 0)))
         flat = [a.reshape(-1) for a in (d2, f2, m2, dl2)]
         kw = dict(T=T, Ws=Ws, groups=GROUPS, pivot_g=0, k=K)
         arms_.append(P.Arm(

@@ -50,9 +50,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 CURANY_SMEM = 196_608
 GCOLS_ROWS = 32             # gstep_probe2.py's ROWS
 VARIANT_MODES = {"empty": 0, "load": 1, "phase": 2}
-#: the largest pivot window (rows) whose scores and docs fit beside the
-#: ring in a block's shared memory
-VARIANT_MAX_PIVOT_ROWS = 160
+#: the ring kernels of `ring_info`
+RING_KERNELS = {"probe_gwin": 0, "probe_variant": 1}
 
 FLOOR_LAUNCHES = 0
 GWIN_LAUNCHES = 0
@@ -244,8 +243,14 @@ def gwin_plain(meta, d, f, *, rows: tuple, G: int = 1):
 def probe_gwin(meta, d, f, *, rows: tuple, G: int = 1, staged: bool = True):
     """G queries a block over one or two windows of d (int32 [n, 128])
     and f (f32 [n, 128]); see `gwin_plain`.  `staged`: the windows go
-    through shared memory with cp.async in a two-stage tile ring;
-    otherwise 16-byte loads straight into registers."""
+    through a TMA ring in shared memory, tiles of d and f rows, each
+    tile two bulk copies that complete on its stage's mbarrier; a
+    producer warp runs the ring's S stages ahead across window and
+    query boundaries while four consumer warps reduce.  The launch
+    shares an SM's shared memory among the B / G blocks it puts there
+    and takes the widest tile (64, 32 or 16 rows) of which three stages
+    fit, then as many stages as fit (`ring_info`).  Otherwise 16-byte
+    loads straight into registers."""
     global GWIN_LAUNCHES
     if len(rows) not in (1, 2) or min(rows) < 1:
         raise ValueError(f"rows {rows}: one or two window heights")
@@ -371,10 +376,15 @@ def variant_plain(meta, fmeta, doc_ids, freqs, masks, dl, *, Ws: tuple,
 def probe_variant(meta, fmeta, doc_ids, freqs, masks, dl, *, Ws: tuple,
                   k: int = 16, mode: str = "phase"):
     """One block a query, in `mode` "empty", "load" (every byte of the
-    slots' windows through a shared-memory tile ring: doc, freq and mask
-    a slot, doc length for slot 0) or "phase" (load, BM25 over the pivot
-    window and a top-k by k rounds of a block-wide arg-max); see
-    `variant_plain`.  T = len(Ws) slots, 1 to 4."""
+    slots' windows through a TMA ring of 8-row tiles: doc, freq and mask
+    a slot, doc length for slot 0, three or four bulk copies a tile on
+    one mbarrier; a producer warp, four consumer warps) or "phase"
+    (load, and BM25 over each pivot tile as it arrives into a running
+    top-k: each consumer warp appends the lanes that beat its k-th to a
+    shared-memory buffer and keeps its best k by rank when it fills, the
+    warps' buffers ranked together at the end); see `variant_plain`.
+    T = len(Ws) slots, 1 to 4; k at most 128.  Nothing of the pivot
+    outlives its tile, so its width is bounded only by the array."""
     global VARIANT_LAUNCHES
     if mode not in VARIANT_MODES:
         raise ValueError(f"mode {mode!r}: one of {tuple(VARIANT_MODES)}")
@@ -386,9 +396,6 @@ def probe_variant(meta, fmeta, doc_ids, freqs, masks, dl, *, Ws: tuple,
     if max(rows) > n_rows:
         raise ValueError(f"a window of {max(rows)} rows exceeds the arrays "
                          f"({n_rows} rows)")
-    if rows[0] > VARIANT_MAX_PIVOT_ROWS:
-        raise ValueError(f"pivot window of {rows[0]} rows: at most "
-                         f"{VARIANT_MAX_PIVOT_ROWS} fit in shared memory")
     if not _dispatch(meta, "probe_variant"):
         return variant_plain(meta, fmeta, doc_ids, freqs, masks, dl, Ws=Ws,
                              k=k, mode=mode)
@@ -415,6 +422,22 @@ def probe_variant(meta, fmeta, doc_ids, freqs, masks, dl, *, Ws: tuple,
     return outs
 
 
+def ring_info(kernel: str, blocks: int, k: int = 0) -> dict:
+    """The TMA ring a launch of `blocks` blocks gets on the current card
+    (`kernel` "probe_gwin", the staged arm: B / G blocks;
+    "probe_variant": B blocks, the load mode, or with k > 0 the phase
+    mode, whose candidate buffers share the block's shared memory):
+    stages, tile rows, dynamic and static shared bytes a block, resident
+    blocks an SM, registers and local (spill) bytes a thread."""
+    from ..ops import _build
+    out = (ctypes.c_int * 7)()
+    rc = _build.load("probes").rs_probe_ring_info(RING_KERNELS[kernel],
+                                                  blocks, k, out)
+    _raise_on(rc, f"{kernel} ring_info")
+    return dict(zip(("stages", "tile_rows", "smem_dynamic", "smem_static",
+                     "blocks_per_sm", "registers", "local_bytes"), out))
+
+
 # ------------------------------------------------------------- the runner
 @dataclasses.dataclass
 class Arm:
@@ -422,7 +445,8 @@ class Arm:
     `plain(meta)` its plain version, on the same inputs; `n_bytes` is
     what the arm moves for B queries (each query's windows read once,
     meta read, outputs written); `tol` the |kernel - plain| a lane may
-    differ by (0: exact)."""
+    differ by (0: exact); `ring` the arguments of `ring_info` for an
+    arm that runs a TMA ring."""
     name: str
     kernel: str
     run: Callable
@@ -430,6 +454,7 @@ class Arm:
     n_bytes: int
     B: int
     tol: int = 0
+    ring: tuple = ()
 
 
 def _outs(x) -> tuple:

@@ -73,7 +73,9 @@ _LAUNCH = {
         ("rs_probe_variant_launch", [
             _vp, _vp, _vp, _vp, _vp, _vp, _i64,    # meta, fmeta, windows
             _i32, ctypes.POINTER(_i32), _i32, _i32,  # T, rows (host), k, mode
-            _vp, _vp, _vp, _i32, _vp])],           # outputs, B, stream
+            _vp, _vp, _vp, _i32, _vp]),            # outputs, B, stream
+        ("rs_probe_ring_info", [
+            _i32, _i32, _i32, ctypes.POINTER(_i32)])],  # kernel, blocks, k, out
 }
 
 _lock = threading.Lock()

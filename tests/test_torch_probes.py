@@ -37,6 +37,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from redisearch_tpu.ops import intersect as JIK
+from redisearch_tpu_torch.bench import grid_floor_probe as GF
 from redisearch_tpu_torch.bench import probes as P
 
 SCRIPTS = ("gstep_probe", "gstep_probe2", "grid_floor_probe",
@@ -278,6 +279,63 @@ def test_variant_short_pivots_and_offsets(captured):
     assert (g_scores[~held] == neg).all()
     assert (w_scores[~held] == neg).all()
     assert (got[2] == 0).all()
+
+
+#: grid_floor_probe's calls and the port's arm that stands for each (the
+#: gdma rows (24, 72) are (Wp, Wm) = (2048, 8192), (72, 264) (8192, 32768))
+GRID_FLOOR_ARMS = (
+    [(("grid_floor_probe", n, ()), a) for n, a in (
+        ("cur_kernel", "cur"), ("curany_kernel", "curany"),
+        ("fused_kernel", "fused"))]
+    + [(("grid_floor_probe", "g_kernel", (("G", G),)), f"g{G}")
+       for G in (4, 8, 16)]
+    + [(("grid_floor_probe", "gdma_kernel", (("G", G), ("rows", r))),
+        f"g{G}dma Wp={Wp} Wm={Wm} {arm}")
+       for (Wp, Wm), r in zip(VARIANT_WS, ((24, 72), (72, 264)))
+       for G in (4, 8) for arm in ("staged", "direct")])
+
+
+@pytest.mark.parametrize("case,arm", GRID_FLOOR_ARMS,
+                         ids=[f"{_case_id(c)}-{a.split()[-1]}"
+                              for c, a in GRID_FLOOR_ARMS])
+def test_grid_floor_port_reads_probe_b(captured, case, arm, monkeypatch):
+    """The port's grid_floor script reads PROBE_B as the TPU script does:
+    with PROBE_B = 16 set (G = 4, 8 and 16 a block), its meta is the one
+    the TPU script drew (which its timing loop rolls by a row or more
+    before the recorded call), and each arm's plain version gives what
+    the TPU kernel gave on the recorded meta."""
+    monkeypatch.setenv("PROBE_B", str(PROBE_B))
+    rec = captured[case]
+    (meta, arms), = GF.arms("cpu")
+    want = rec["inputs"][0]
+    assert meta.shape == want.shape == (PROBE_B, 8)
+    assert any(np.array_equal(np.roll(meta.numpy(), i, 0), want)
+               for i in range(PROBE_B)), "not the TPU script's meta"
+    if case[1] == "gdma_kernel":        # the script's arrays: zeros
+        assert not rec["inputs"][1].any() and not rec["inputs"][2].any()
+    got = {a.name: a for a in arms}[arm]
+    assert got.B == PROBE_B
+    _assert_matches(case, _outs(got.plain(torch.from_numpy(want))),
+                    rec["outputs"])
+
+
+@pytest.mark.parametrize("B", [64, 512, 8192])
+def test_grid_floor_b_argument_equals_probe_b(B, monkeypatch):
+    """`B=` gives what PROBE_B gives, and wins over it; without either
+    the TPU script's 512."""
+    monkeypatch.delenv("PROBE_B", raising=False)
+    assert GF.probe_b() == 512
+    monkeypatch.setenv("PROBE_B", str(B))
+    env = GF.inputs("cpu")
+    arg = GF.inputs("cpu", B=B)
+    monkeypatch.setenv("PROBE_B", "32")
+    won = GF.inputs("cpu", B=B)
+    assert env[0].shape == (B, 8)
+    for x, y, z in zip(env, arg, won):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    names = [[a.name for a in arms] for _m, arms in GF.arms("cpu", B=B)]
+    monkeypatch.setenv("PROBE_B", str(B))
+    assert names == [[a.name for a in arms] for _m, arms in GF.arms("cpu")]
 
 
 @pytest.mark.parametrize("which", ["gwin", "gwin2", "gcols", "floor",
