@@ -51,20 +51,23 @@ script exits non-zero:
    `probe_floor`, `probe_gwin`, `probe_gcols`, `probe_variant`), every
    arm of the port's four scripts (`redisearch_tpu_torch/bench/`) at
    their own B and shapes, on seeded random inputs (grid_floor's d and
-   f drawn from seed 1, not its zeros), and grid_floor's arms again at
-   B1's batch of 8,192 (8,192 / G blocks, above the card's 132 SMs),
-   each held lane for lane against its plain version: exact, but
-   gstep's truncated f32 sums within 2; kernel_probe's `full` arm (B1)
-   exact too.  Then edge cases the scripts' inputs miss: kernel_probe's
-   windows with random, tying scores, unaligned starts, short pivots
-   and qmasks no mask meets at k = 1, 16 and 128, and gstep's live
-   offsets past, at and before its windows.  The launch counts are
-   zeroed just before that run and read just after: every probe kernel
-   must have launched.  Printed: the TMA ring each ring arm gets
-   (stages, tile rows, shared bytes, blocks an SM, registers), each
-   arm's device and wall us a query beside its bytes bound; each
-   kernel's record in the `kernels` line is its arm named in
-   PROBE_RECORDS.
+   f drawn from seed 1, not its zeros), and grid_floor's and gstep2's
+   arms again at B1's batch of 8,192 (8,192 / G groups, above the
+   card's 132 SMs), each held lane for lane against its plain version:
+   exact, but gstep's truncated f32 sums within 2; kernel_probe's
+   `full` arm (B1) exact too.  Then edge cases the scripts' inputs
+   miss: kernel_probe's windows with random, tying scores, unaligned
+   starts, short pivots and qmasks no mask meets at k = 1, 16 and 128,
+   gstep's live offsets past, at and before its windows, and the
+   persistent kernels (probe_floor, probe_gcols) at B = 3, 4,613 and
+   65,536 (clamped gcols starts).  The launch counts are zeroed just
+   before that run and read just after: every probe kernel must have
+   launched.  Printed: the TMA ring each ring arm gets (stages, tile
+   rows, shared bytes, blocks an SM, registers), each arm's device and
+   wall us a query beside its bytes bound; each kernel's record in the
+   `kernels` line is its arm named in PROBE_RECORDS (probe_floor's and
+   probe_gcols' at B = 8,192), with the library call its arms name
+   (`Arm.library`) and that call's distance from the plain version.
 4. main path: `Client.ft_create` with bench.py's BM25 schema, a 1M-doc
    FTSB-enwiki-shaped corpus (4+20 zipf(1.25) tokens over a 200k vocab,
    seed 0) through `add_documents`, then `ft_search_many` at batch 8192,
@@ -1236,29 +1239,29 @@ def phase_signed_zero_groups(dev):
 
 # --------------------------------------------------------------- phase 3b
 PROBES_SRC = "redisearch_tpu_torch/csrc/probes.cu"
+#: grid_floor's and gstep2's arms also run at B1's batch, where 8,192 /
+#: G groups (G up to 16) outnumber the card's 132 SMs
+PROBE_B_WIDE = 8192
 #: per probe kernel: the TPU functions it replaces, and the script and
-#: arm whose times stand in its `kernels` record
+#: arm whose times stand in its `kernels` record (probe_floor's and
+#: probe_gcols' at B1's batch: at the scripts' B one call is a launch)
 PROBE_RECORDS = {
     "probe_floor": ("benchmarks/grid_floor_probe.py:48,76,92,191",
-                    "grid_floor", "fused"),
+                    f"grid_floor B={PROBE_B_WIDE}", "fused"),
     "probe_gwin": ("benchmarks/gstep_probe.py:32, "
                    "benchmarks/grid_floor_probe.py:111", "gstep",
                    "G=1 staged"),
-    "probe_gcols": ("benchmarks/gstep_probe2.py:33", "gstep2", "G=1"),
+    "probe_gcols": ("benchmarks/gstep_probe2.py:33",
+                    f"gstep2 B={PROBE_B_WIDE}", "G=1"),
     "probe_variant": ("benchmarks/kernel_probe.py:68", "kernel",
                       "Wp= 2048 Wm= 8192 phase"),
 }
 
 
-#: grid_floor's arms also run at B1's batch, where 8,192 / G blocks (G
-#: up to 16) outnumber the card's 132 SMs
-PROBE_B_WIDE = 8192
-
-
 def probe_groups(dev) -> list:
     """(script, meta, arms) of every arm of the four probe scripts at
     their own B, grid_floor's windows random (seed 1), and grid_floor's
-    arms again at B = PROBE_B_WIDE."""
+    and gstep2's arms again at B = PROBE_B_WIDE."""
     out = []
     for name, mod_name in PB.SCRIPTS.items():
         mod = importlib.import_module(f"redisearch_tpu_torch.bench.{mod_name}")
@@ -1268,6 +1271,9 @@ def probe_groups(dev) -> list:
     gf = importlib.import_module("redisearch_tpu_torch.bench.grid_floor_probe")
     out += [(f"grid_floor B={PROBE_B_WIDE}", meta, arms)
             for meta, arms in gf.arms(dev, seed=1, B=PROBE_B_WIDE)]
+    g2 = importlib.import_module("redisearch_tpu_torch.bench.gstep_probe2")
+    out += [(f"gstep2 B={PROBE_B_WIDE}", meta, arms)
+            for meta, arms in g2.arms(dev, B=PROBE_B_WIDE)]
     return out
 
 
@@ -1283,7 +1289,12 @@ def probe_edge_groups(dev) -> list:
     past the last (clamped): probe_variant with three slots of 15, 31
     and 13 rows (no multiple of its 8-row tile) at k = 5, 40 and 128;
     probe_gwin's staged arm with 37-row windows and with 5 + 131-row
-    pairs, a few blocks (its widest tiles, short last ones)."""
+    pairs, a few blocks (its widest tiles, short last ones).  The
+    persistent kernels at B = 3 (fewer groups than blocks) and 4,613
+    (blocks of 2 and 3 groups, curany's of 34 and 35) on random meta:
+    probe_floor's cur, curany and fused, probe_gcols with starts from
+    before the first row to past the last; and at B = 65,536, G = 4
+    (16,384 groups: every block walks several)."""
     rng = np.random.default_rng(5)
     kp = importlib.import_module("redisearch_tpu_torch.bench.kernel_probe")
     gs = importlib.import_module("redisearch_tpu_torch.bench.gstep_probe")
@@ -1329,6 +1340,13 @@ def probe_edge_groups(dev) -> list:
     def t(x):
         return torch.from_numpy(x).to(dev)
 
+    def gcols_meta(B):
+        """gstep2's meta for B queries: starts from before the first row
+        to past the last (clamped), weights' bits from [0.5, 2)."""
+        return np.stack([
+            rng.integers(-300, n_rows * PB.BLK + 300, B).astype(np.int32),
+            rng.uniform(0.5, 2.0, B).astype(np.float32).view(np.int32)], 1)
+
     starts = rng.integers(-300, n_rows * PB.BLK + 300, (64, 3), dtype=np.int32)
     meta = t(np.concatenate([
         starts, rng.integers(0, 1200, (64, 3), dtype=np.int32),
@@ -1368,6 +1386,35 @@ def probe_edge_groups(dev) -> list:
                lambda m, G=G: PB.probe_gwin(m, d, f, rows=(5, 131), G=G),
                lambda m, G=G: PB.gwin_plain(m, d, f, rows=(5, 131), G=G),
                0, 24) for G in (1, 2, 4)]))
+    d100 = t(rng.integers(0, 100, (n_rows, PB.BLK), dtype=np.int32))
+    for B in (3, 4613):
+        meta = t(rng.integers(-2**31, 2**31 - 1, (B, 8), dtype=np.int32))
+        fm = t(rng.normal(size=(B, 1, 3)).astype(np.float32))
+        out.append((f"floor B={B}", meta, [
+            PB.Arm(name, "probe_floor",
+                   lambda m, kw=kw: PB.probe_floor(m, **kw),
+                   lambda m, kw=kw: PB.floor_plain(m, layout=kw["layout"]),
+                   0, B)
+            for name, kw in (
+                ("cur", dict(layout="cur", fmeta=fm)),
+                ("curany", dict(layout="cur", fmeta=fm,
+                                anys=(d, f, d, f))),
+                ("fused", dict(layout="fused")))]))
+        gm = gcols_meta(B)
+        gm[:2, 0] = (-1, n_rows * PB.BLK)   # before the first row, past the last
+        out.append((f"gcols B={B}, starts clamped", t(gm), [
+            PB.Arm("G=1", "probe_gcols",
+                   lambda m: PB.probe_gcols(m, d100),
+                   lambda m: PB.gcols_plain(m, d100), 0, B)]))
+    # more groups than resident blocks, G > 1: blocks walk several groups
+    meta = t(gcols_meta(65536))
+    out.append(("walks of several groups, B=65536", meta, [
+        PB.Arm("floor fused G=4", "probe_floor",
+               lambda m: PB.probe_floor(m, G=4),
+               lambda m: PB.floor_plain(m, G=4), 0, 65536),
+        PB.Arm("gcols G=4", "probe_gcols",
+               lambda m: PB.probe_gcols(m, d100, G=4),
+               lambda m: PB.gcols_plain(m, d100, G=4), 0, 65536)]))
     return out
 
 
@@ -1427,15 +1474,23 @@ def phase_probes(dev, smi: str) -> list:
     for kern, (replaces, script, arm_name) in PROBE_RECORDS.items():
         arm, meta, k_ms = times[(script, arm_name)]
         p_ms = time_ms(lambda: arm.plain(meta))
-        lib_ms = None
-        if kern == "probe_floor":
-            lib_ms = time_ms(
-                lambda: meta[:, :1].expand(-1, 3 * PB.BLK).contiguous())
+        lib_ms, lib_d = None, ""
+        if arm.library is not None:
+            lib = arm.library(meta)
+            lib_ms = time_ms(lib)
+            ref = arm.plain(meta)
+            ref = ref[0] if isinstance(ref, tuple) else ref
+            got = lib().reshape(ref.shape).to(torch.float64)
+            diff = (got - ref.to(torch.float64)).abs()
+            rel = diff / ref.to(torch.float64).abs().clamp_min(1e-30)
+            lib_d = (f" (its max |d| from the plain version "
+                     f"{float(diff.max()):.6g}, relative "
+                     f"{float(rel.max()):.3g})")
         b_ms = bound_ms(arm.n_bytes)
         log(f"phase probes: {kern} ({script} {arm_name}, B={arm.B}): "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.6f} "
             f"ms, library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}{lib_d}")
         recs.append({"name": kern, "route": "cuda", "source": PROBES_SRC,
                      "replaces": replaces, "launches": counts[kern],
                      "max_abs_err": errs[kern], "ms": k_ms,

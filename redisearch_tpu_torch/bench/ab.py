@@ -24,11 +24,14 @@ route, batch, window buckets, bytes bound, each SPEC's ms) and the sum a
 family.
 
 `probes`: every arm of the port's four probe scripts
-(`bench/probes.py`), and grid_floor's again at B = 8,192 where the tree
-takes a B, through each SPEC's `csrc/probes.cu` (a DIR#NAME=VALUE SPEC
-defines one of the macros that source leaves open, as
-`PROBE_GW_TILE_MAX=32`); each arm is held against its plain version and
-timed.  Prints a line an arm: each SPEC's device us a query.
+(`bench/probes.py`), and grid_floor's and gstep2's again at B1's batch
+of 8,192 (`wide_groups`), through each SPEC's `csrc/probes.cu` (a
+DIR#NAME=VALUE SPEC defines one of the macros that source leaves open,
+as `PROBE_GW_TILE_MAX=32`); each arm is held against its plain version
+and timed, and so is the library call of each group's kernels, where
+the tree's arms name one ("library (kernel)"); gstep2's kernel also
+runs at 8,192 on windows that do not repeat (`gcols_spread_groups`).
+Prints a line an arm: each SPEC's device us a query.
 
 `groupby`: the per-request program that `agg/pipeline.py` `_make_fused`
 builds in each DIR, its window program replaced by a fixed window, so
@@ -143,9 +146,63 @@ def intersect_child(groups_path: str, define: str) -> None:
         print(json.dumps({"group": gi, "ms": ms}), flush=True)
 
 
+#: the probe scripts that run again at B1's batch, and that batch
+WIDE_SCRIPTS = ("grid_floor", "gstep2")
+WIDE_B = 8192
+
+
+def wide_groups(mod, dev) -> list:
+    """A probe script's [(meta, arms)] at B = WIDE_B: through its `B=`
+    argument or, in a tree whose script takes none, with its module's
+    B set for the call (the batch such a script draws its inputs for);
+    [] where it has neither."""
+    try:
+        return mod.arms(dev, B=WIDE_B)
+    except TypeError:
+        if not hasattr(mod, "B"):
+            return []
+    saved, mod.B = mod.B, WIDE_B
+    try:
+        return mod.arms(dev)
+    finally:
+        mod.B = saved
+
+
+#: probe_gcols at B1's batch on windows that do not repeat: d of 65,536
+#: rows (32 MB, stays in L2) and of 262,144 (128 MB, does not)
+SPREAD_ROWS = (65536, 262144)
+
+
+def gcols_spread_groups(PB, dev) -> list:
+    """[(tag, (meta, arms))]: probe_gcols at B = WIDE_B, G = 1 and 4, on
+    a d of each SPREAD_ROWS rows (ints in [0, 100)) with window starts
+    drawn over all of it (seed 0): against the scripts' 2,048-row d,
+    whose 8,192 windows start at 252 rows and repeat, no window is read
+    again from L1 or from the ring.  Built from `PB` (a tree's
+    `bench/probes.py`), so every tree times the same inputs."""
+    out = []
+    for n in SPREAD_ROWS:
+        rng = np.random.default_rng(0)
+        d = torch.from_numpy(rng.integers(0, 100, (n, 128),
+                                          dtype=np.int32)).to(dev)
+        meta = np.zeros((WIDE_B, 2), np.int32)
+        meta[:, 0] = rng.integers(0, n - 32, WIDE_B) * 128
+        meta[:, 1] = rng.uniform(0.5, 2.0, WIDE_B).astype(
+            np.float32).view(np.int32)
+        meta = torch.from_numpy(meta).to(dev)
+        n_bytes = (PB.rows_touched(meta, [(0, 32)], n) * 512
+                   + WIDE_B * (8 + 512))
+        arms = [PB.Arm(f"G={G}", "probe_gcols",
+                       lambda m, G=G, d=d: PB.probe_gcols(m, d, G=G),
+                       lambda m, G=G, d=d: PB.gcols_plain(m, d, G=G),
+                       n_bytes, WIDE_B) for G in (1, 4)]
+        out.append((f" B={WIDE_B} spread over {n} rows", (meta, arms)))
+    return out
+
+
 def probes_child(define: str) -> None:
     """Every probe arm through this process's tree: one JSON line an
-    arm."""
+    arm, and one a library call."""
     import importlib
     if define:
         use_define(define, "probes")
@@ -155,12 +212,12 @@ def probes_child(define: str) -> None:
     for script, mod_name in PB.SCRIPTS.items():
         mod = importlib.import_module(f"redisearch_tpu_torch.bench.{mod_name}")
         groups = [("", g) for g in mod.arms(dev)]
-        if script == "grid_floor":
-            try:
-                groups += [(" B=8192", g) for g in mod.arms(dev, B=8192)]
-            except TypeError:     # a tree whose grid_floor takes no B
-                pass
+        if script in WIDE_SCRIPTS:
+            groups += [(f" B={WIDE_B}", g) for g in wide_groups(mod, dev)]
+        if script == "gstep2":
+            groups += gcols_spread_groups(PB, dev)
         for tag, (meta, arms) in groups:
+            libs = {}
             for arm in arms:
                 bad, _err = PB.compare(arm.run(meta), arm.plain(meta),
                                        arm.tol)
@@ -170,6 +227,12 @@ def probes_child(define: str) -> None:
                                          f"version")
                 us = device_ms(lambda: arm.run(meta)) * 1e3 / arm.B
                 print(json.dumps({"arm": f"{script}{tag} {arm.name}",
+                                  "us_q": us}), flush=True)
+                if getattr(arm, "library", None) is not None:
+                    libs.setdefault(arm.kernel, arm)
+            for kernel, arm in libs.items():
+                us = device_ms(arm.library(meta)) * 1e3 / arm.B
+                print(json.dumps({"arm": f"{script}{tag} library ({kernel})",
                                   "us_q": us}), flush=True)
 
 
@@ -252,7 +315,7 @@ def main(argv) -> None:
                for s in argv[1:]]
         for arm in dict.fromkeys(a for r in res for a in r):
             print(f"{arm}: " + ", ".join(
-                f"{s} " + (f"{r[arm]:.4f}" if arm in r else "absent")
+                f"{s} " + (f"{r[arm]:.6f}" if arm in r else "absent")
                 for s, r in zip(argv[1:], res)) + " us/q", flush=True)
         return
     groups_path, specs = os.path.abspath(argv[1]), argv[2:]

@@ -1,7 +1,7 @@
 """The port's counterpart of `benchmarks/grid_floor_probe.py`: the
 fixed cost of B1's step, in five arms of the TPU script.
 
-    python3 -m redisearch_tpu_torch.bench.probes grid_floor
+    python3 -m redisearch_tpu_torch.bench.probes grid_floor [B]
 
   cur      one query a block: meta[q, 0] across the doc lanes, zero
            scores and counts, in B1's three [B, 1, 128] outputs, B1's
@@ -21,7 +21,8 @@ ones, d and f [16406, 128] of zeros); `inputs`, `arms` and `main` also
 take B as an argument, which wins over PROBE_B.  Against zeros a wrong
 column max passes, so the gdma arms are held against their plain
 version on random d and f too (seed 1).  Kernels `probe_floor` (cur,
-curany, fused, g) and `probe_gwin` (gdma); all exact.
+curany, fused, g) and `probe_gwin` (gdma); all exact.  The floor arms'
+library call is `meta[:, :1].expand(-1, 384).contiguous()`.
 """
 
 from __future__ import annotations
@@ -97,16 +98,20 @@ def arms(dev, seed=None, B=None) -> list:
     floor = [
         P.Arm("cur", "probe_floor",
               lambda m: P.probe_floor(m, layout="cur", fmeta=fmeta),
-              lambda m: P.floor_plain(m, layout="cur"), cur_b, B),
+              lambda m: P.floor_plain(m, layout="cur"), cur_b, B,
+              library=P.floor_library),
         P.Arm("curany", "probe_floor",
               lambda m: P.probe_floor(m, layout="cur", fmeta=fmeta,
                                       anys=(d2, f2, d2, f2)),
-              lambda m: P.floor_plain(m, layout="cur"), cur_b, B),
+              lambda m: P.floor_plain(m, layout="cur"), cur_b, B,
+              library=P.floor_library),
         P.Arm("fused", "probe_floor", lambda m: P.probe_floor(m),
-              lambda m: P.floor_plain(m), fused_b, B)]
+              lambda m: P.floor_plain(m), fused_b, B,
+              library=P.floor_library)]
     floor += [P.Arm(f"g{G}", "probe_floor",
                     lambda m, G=G: P.probe_floor(m, G=G),
-                    lambda m, G=G: P.floor_plain(m, G=G), fused_b, B)
+                    lambda m, G=G: P.floor_plain(m, G=G), fused_b, B,
+                    library=P.floor_library)
               for G in GS]
     return [(meta, floor + gdma_arms(meta, d2, f2))]
 

@@ -5,12 +5,14 @@ grid step on the TPU into its floor, its window copies, its phase work
 and G queries a step.  `benchmarks/` stays the TPU reference.
 
     python3 -m redisearch_tpu_torch.bench.probes [gstep|gstep2|kernel|grid_floor|all]
+    python3 -m redisearch_tpu_torch.bench.probes gstep2|grid_floor B
 
 runs the port's scripts (`bench/gstep_probe.py`, `gstep_probe2.py`,
 `kernel_probe.py`, `grid_floor_probe.py`) on the card: each arm's
 output against its plain version (`bad=`), its device us a query (CUDA
 events around 20 calls enqueued while the card sleeps) and its wall us
 a query (host clock around 8 calls ending in a synchronize, best of 3).
+gstep2 and grid_floor also run at another batch B (as B1's 8,192).
 Without a card it raises; from Python, `main(device="cpu")` of a script
 runs the plain versions and times nothing.
 
@@ -23,7 +25,11 @@ adds one to the kernel's count (`FLOOR_LAUNCHES`, `GWIN_LAUNCHES`,
 `GCOLS_LAUNCHES`, `VARIANT_LAUNCHES`: plain ints, callers reset them).
 Where the TPU grid assumes B % G == 0, the wrapper raises otherwise.
 Window starts are row offsets `start // 128`, clamped into the array, in
-both versions.
+both versions.  `probe_floor` and `probe_gcols` launch persistent
+blocks: `persistent_grid` sizes the grid from what the card holds at
+once (`resident`), and each block walks its share of the B / G query
+groups (`walk_queries`), as a TPU core walks its grid's steps one after
+another over scratch allocated once.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import time
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from .ab import device_ms
 
@@ -51,7 +58,9 @@ CURANY_SMEM = 196_608
 GCOLS_ROWS = 32             # gstep_probe2.py's ROWS
 VARIANT_MODES = {"empty": 0, "load": 1, "phase": 2}
 #: the ring kernels of `ring_info`
-RING_KERNELS = {"probe_gwin": 0, "probe_variant": 1}
+RING_KERNELS = {"probe_gwin": 0, "probe_variant": 1, "probe_gcols": 2}
+#: the persistent kernels of `resident` ("probe_floor_any": the curany arm)
+RESIDENT_KERNELS = {"probe_floor": 0, "probe_floor_any": 1, "probe_gcols": 2}
 
 FLOOR_LAUNCHES = 0
 GWIN_LAUNCHES = 0
@@ -143,6 +152,47 @@ def rows_touched(meta, wins, n_rows: int) -> int:
     return covered(starts, lens, n_rows)
 
 
+def persistent_grid(B: int, G: int, sms: int, per_sm: int) -> int:
+    """Blocks of a persistent launch of B queries, G a group: one a
+    group up to what the card holds at once, min(B / G, sms x per_sm);
+    0 for B = 0.  Block b walks the groups b, b + grid, ...
+    (`walk_queries`).  The TPU runs its grid's steps one after another
+    on a core over scratch allocated once; on the card each block pays
+    its launch and first load round trip, so these launches start no
+    more blocks than run at once and let each walk many groups."""
+    _check_g(B, G)
+    if sms < 1 or per_sm < 1:
+        raise ValueError(f"sms={sms}, per_sm={per_sm}: one at least")
+    return min(B // G, sms * per_sm)
+
+
+def walk_queries(b: int, grid: int, B: int, G: int) -> list:
+    """The queries block b of a persistent grid of `grid` blocks writes:
+    query j of its walk is query j % G of group b + (j // G) grid."""
+    return [g * G + i for g in range(b, B // G, grid) for i in range(G)]
+
+
+_RESIDENT: dict = {}
+
+
+def resident(kernel: str, n_groups: int, smem: int = 0) -> tuple:
+    """(SMs, blocks of `kernel` an SM holds at once) on the current card:
+    "probe_floor", "probe_floor_any" at `smem` dynamic bytes, or
+    "probe_gcols" at the ring a launch of n_groups groups gets (its
+    stages depend on how many blocks share an SM).  Cached a card."""
+    key = (torch.cuda.current_device(), kernel,
+           n_groups if kernel == "probe_gcols" else 0, smem)
+    got = _RESIDENT.get(key)
+    if got is None:
+        from ..ops import _build
+        out = (ctypes.c_int * 2)()
+        rc = _build.load("probes").rs_probe_resident(
+            RESIDENT_KERNELS[kernel], n_groups, smem, out)
+        _raise_on(rc, f"{kernel} resident")
+        got = _RESIDENT[key] = (out[0], out[1])
+    return got
+
+
 def _windows(a, srow, rows: int):
     """a [n_rows, 128] -> [B, rows, 128], the rows from each srow."""
     return a[srow[:, None] + torch.arange(rows, device=a.device)]
@@ -166,13 +216,22 @@ def floor_plain(meta, *, layout: str = "fused", G: int = 1):
     return v.expand(B, 3, BLK).contiguous()
 
 
+def floor_library(meta):
+    """One PyTorch call for the floor's function, meta[q, 0] across 384
+    lanes (timed beside the kernel, used nowhere else): a thunk."""
+    return lambda: meta[:, :1].expand(-1, 3 * BLK).contiguous()
+
+
 def probe_floor(meta, *, layout: str = "fused", G: int = 1, fmeta=None,
                 anys: tuple = ()):
-    """The step floor: G queries a block write meta[q, 0] (int32 [B, C])
-    in `layout` (see `floor_plain`).  Layout "cur" takes B1's fmeta
-    block (f32 [B, 1, 3]), which the kernel reads as B1's spec copies
-    it; with `anys` (B1's four window arrays, unused) it is the curany
-    arm, launched with CURANY_SMEM bytes of dynamic shared memory."""
+    """The step floor: B queries write meta[q, 0] (int32 [B, C]) in
+    `layout` (see `floor_plain`), on persistent blocks of 128 threads
+    that walk their groups of G queries, each warp reading the meta of
+    its next 32 queries at once before it stores (16 bytes a lane).  Layout
+    "cur" takes B1's fmeta block (f32 [B, 1, 3]), which the kernel reads
+    as B1's spec copies it; with `anys` (B1's four window arrays,
+    unused) it is the curany arm, launched with CURANY_SMEM bytes of
+    dynamic shared memory: one block an SM."""
     global FLOOR_LAUNCHES
     if layout not in ("cur", "fused"):
         raise ValueError(f"layout {layout!r}: 'cur' or 'fused'")
@@ -201,11 +260,14 @@ def probe_floor(meta, *, layout: str = "fused", G: int = 1, fmeta=None,
         ptrs = [outs.data_ptr(), None, None]
     any_p = ((ctypes.c_void_p * 4)(*[a.data_ptr() for a in anys])
              if anys else None)
+    smem = CURANY_SMEM if anys else 0
+    grid = persistent_grid(B, G, *resident(
+        "probe_floor_any" if anys else "probe_floor", B // G, smem)) \
+        if B else 0
     rc = lib.rs_probe_floor_launch(
         meta.data_ptr(), meta.shape[1],
         fmeta.data_ptr() if layout == "cur" else None, *ptrs,
-        int(layout == "fused"), G, B, any_p, CURANY_SMEM if anys else 0,
-        _stream(dev))
+        int(layout == "fused"), G, B, any_p, smem, grid, _stream(dev))
     _raise_on(rc, "probe_floor")
     FLOOR_LAUNCHES += 1
     return outs
@@ -301,9 +363,28 @@ def gcols_plain(meta, d, *, G: int = 1):
     return (acc * w[:, None]).view(B, 1, BLK)
 
 
+def gcols_library(meta, d):
+    """One PyTorch call for gcols' function (timed beside the kernel,
+    used nowhere else): `embedding_bag` sums each query's 32 rows of a
+    float32 copy of d, each row times the query's weight.  The row
+    numbers, the copy and the weights are made here, outside the thunk
+    it returns.  It rounds weight x row before the sum, so it may differ
+    from `gcols_plain` by a few units in the last place."""
+    srow = _win_rows(meta[:, 0], GCOLS_ROWS, d.shape[0])
+    idx = srow[:, None] + torch.arange(GCOLS_ROWS, device=d.device)
+    d32 = d.to(torch.float32)
+    w = meta[:, 1].contiguous().view(torch.float32)[:, None].expand(
+        -1, GCOLS_ROWS).contiguous()
+    return lambda: F.embedding_bag(idx, d32, mode="sum",
+                                   per_sample_weights=w)
+
+
 def probe_gcols(meta, d, *, G: int = 1):
-    """G queries a block; see `gcols_plain`.  meta int32 [B, 2] (start,
-    weight bits), d int32 [n, 128]."""
+    """See `gcols_plain`; meta int32 [B, 2] (start, weight bits), d int32
+    [n, 128].  Persistent blocks walk their groups of G queries through a
+    TMA ring: a stage holds one query's 16 KB window (one bulk copy), a
+    producer warp runs the ring's S stages ahead across queries and
+    groups, four consumer warps sum a column a thread (`ring_info`)."""
     global GCOLS_LAUNCHES
     B, n_rows = meta.shape[0], d.shape[0]
     _check_g(B, G)
@@ -315,10 +396,12 @@ def probe_gcols(meta, d, *, G: int = 1):
     lib = _build.load("probes")
     dev = meta.device
     _check(meta, "meta", torch.int32, dev, (B, 2))
-    _check(d, "d", torch.int32, dev, (None, BLK))
+    _check(d, "d", torch.int32, dev, (None, BLK), aligned=True)
     out = torch.empty((B, 1, BLK), dtype=torch.float32, device=dev)
+    grid = persistent_grid(B, G, *resident("probe_gcols", B // G)) if B \
+        else 0
     rc = lib.rs_probe_gcols_launch(meta.data_ptr(), d.data_ptr(), n_rows,
-                                   out.data_ptr(), B, G, _stream(dev))
+                                   out.data_ptr(), B, G, grid, _stream(dev))
     _raise_on(rc, "probe_gcols")
     GCOLS_LAUNCHES += 1
     return out
@@ -426,7 +509,8 @@ def ring_info(kernel: str, blocks: int, k: int = 0) -> dict:
     """The TMA ring a launch of `blocks` blocks gets on the current card
     (`kernel` "probe_gwin", the staged arm: B / G blocks;
     "probe_variant": B blocks, the load mode, or with k > 0 the phase
-    mode, whose candidate buffers share the block's shared memory):
+    mode, whose candidate buffers share the block's shared memory;
+    "probe_gcols": `blocks` its B / G groups, which size its ring):
     stages, tile rows, dynamic and static shared bytes a block, resident
     blocks an SM, registers and local (spill) bytes a thread."""
     from ..ops import _build
@@ -446,7 +530,9 @@ class Arm:
     what the arm moves for B queries (each query's windows read once,
     meta read, outputs written); `tol` the |kernel - plain| a lane may
     differ by (0: exact); `ring` the arguments of `ring_info` for an
-    arm that runs a TMA ring."""
+    arm that runs a TMA ring; `library(meta)`, where one PyTorch call
+    computes the arm's function, returns that call as a thunk (its
+    inputs made outside it), to be timed beside the kernel."""
     name: str
     kernel: str
     run: Callable
@@ -455,6 +541,7 @@ class Arm:
     B: int
     tol: int = 0
     ring: tuple = ()
+    library: Callable | None = None
 
 
 def _outs(x) -> tuple:
@@ -522,6 +609,9 @@ def run_arms(arms, meta, dev, timed: bool = True) -> list:
             r["wall_us_q"] = wall_s(arm.run, metas) * 1e6 / arm.B
             times = (f"device {r['device_us_q']:9.4f} us/q  "
                      f"wall {r['wall_us_q']:9.4f} us/q")
+            if arm.library is not None:
+                r["library_us_q"] = device_ms(arm.library(meta)) * 1e3 / arm.B
+                times += f"  library {r['library_us_q']:9.4f} us/q"
         else:
             times = "device not measured, wall not measured"
         print(f"{arm.name:32s}: bad={bad}  {times}  bound "
@@ -555,13 +645,18 @@ def card_line() -> str:
 
 SCRIPTS = {"gstep": "gstep_probe", "gstep2": "gstep_probe2",
            "kernel": "kernel_probe", "grid_floor": "grid_floor_probe"}
+#: the scripts whose batch B is an argument
+B_SCRIPTS = ("gstep2", "grid_floor")
 
 
 def main(argv=None, device=None) -> list:
     argv = sys.argv[1:] if argv is None else argv
     which = argv[0] if argv else "all"
-    if which not in SCRIPTS and which != "all" or len(argv) > 1:
+    if which not in SCRIPTS and which != "all" or len(argv) > 2 or (
+            len(argv) == 2 and (which not in B_SCRIPTS
+                                or not argv[1].isdigit())):
         raise SystemExit(__doc__)
+    kw = {"B": int(argv[1])} if len(argv) == 2 else {}
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -571,7 +666,7 @@ def main(argv=None, device=None) -> list:
         print(f"--- {name}", flush=True)
         mod = importlib.import_module(
             f"redisearch_tpu_torch.bench.{SCRIPTS[name]}")
-        res += mod.main(device=dev)
+        res += mod.main(device=dev, **kw)
     bad = [r["name"] for r in res if r["bad"]]
     if bad:
         raise SystemExit(f"arms that disagree with their plain version: "

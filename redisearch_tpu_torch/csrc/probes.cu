@@ -20,9 +20,12 @@
 //
 // What a TPU grid step is, a block is here: a block reads its own meta
 // row (there is no scalar prefetch), and a loop over G queries inside
-// the block stands for the TPU's G queries a step.  Window starts are
-// row offsets `meta // 128`, clamped into the array (the plain versions
-// clamp the same way), so no start reads outside its array.
+// the block stands for the TPU's G queries a step; probe_floor and
+// probe_gcols run persistent blocks that walk many such groups (see
+// "Persistent blocks" below), as a TPU core walks its grid.  Window
+// starts are row offsets `meta // 128`, clamped into the array (the
+// plain versions clamp the same way), so no start reads outside its
+// array.
 //
 // Bound: bytes, for all four.  Each does a few integer or f32
 // operations a byte it moves, far below the card's rates.  Their source
@@ -40,6 +43,7 @@ namespace {
 
 constexpr int BLK = 128;
 constexpr float NEG_INF = -3.4e38f;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // A sink the compiler cannot see through.  Values folded into it stay
 // live, so the loads that feed them are issued; it is written only when
@@ -47,13 +51,15 @@ constexpr float NEG_INF = -3.4e38f;
 __device__ int g_sink_flag = 0;
 __device__ unsigned g_sink[1024];
 
+__device__ __forceinline__ int sink_flag() {
+  return *reinterpret_cast<volatile int*>(&g_sink_flag);
+}
 __device__ __forceinline__ void sink(unsigned v) {
-  if (*reinterpret_cast<volatile int*>(&g_sink_flag))
-    g_sink[blockIdx.x & 1023] = v;
+  if (sink_flag()) g_sink[blockIdx.x & 1023] = v;
 }
 
-// The TMA ring of the `staged` gwin arm and of probe_variant's load and
-// phase modes: S stages in dynamic shared memory, each with a `full` and
+// The TMA ring of the `staged` gwin arm, of probe_variant's load and
+// phase modes and of probe_gcols: S stages in dynamic shared memory, each with a `full` and
 // an `empty` mbarrier.  One producer thread (lane 0 of the block's last
 // warp) waits on `empty`, arms `full` with the tile's bytes
 // (arrive.expect_tx) and issues one cp.async.bulk a tile of each array;
@@ -161,55 +167,113 @@ __device__ __forceinline__ float warp_sum_f(float v) {
 }
 
 // ---------------------------------------------------------------------
-// probe_floor: the step floor.  A block serves G queries; each writes
-// meta[q, 0] across 128 lanes, in B1's layout (three [1, 128] outputs,
-// doc lanes, zero scores, zero counts, with the fmeta row read as B1's
-// spec copies it) or in one fused [3, 128] int32 output.  Bound: the
-// output bytes (384 lanes a query); the design is one store a lane, 128
-// threads, nothing staged.  The `any` kernel adds B1's four window
-// arrays as unused arguments and is launched with the 196,608 bytes of
-// dynamic shared memory that curany_kernel's VMEM scratch takes, which
-// leaves one block an SM: the probe shows what that occupancy costs.
+// Persistent blocks (probe_floor, probe_gcols).  The TPU runs a grid's
+// steps one after another on a core, over scratch allocated once; on
+// this card every block pays its own launch, shared memory and first
+// load round trip.  So these launches put on the card only the blocks
+// it holds at once, at most one a group of G queries (the grid comes
+// from `persistent_grid` in bench/probes.py: min(B / G, SMs x resident
+// blocks an SM)), and block b walks the groups b, b + grid, b + 2 grid,
+// ...: query j of its walk is query j % G of group b + (j / G) grid.
 
-__device__ __forceinline__ void floor_body(const int* __restrict__ meta,
-                                           int meta_cols,
-                                           const float* __restrict__ fmeta,
-                                           int* __restrict__ out0,
-                                           float* __restrict__ out_s,
-                                           int* __restrict__ out_c,
-                                           int fused, int G) {
-  const int lane = threadIdx.x;
-  for (int g = 0; g < G; ++g) {
-    const long long q = (long long)blockIdx.x * G + g;
-    const int v = meta[q * meta_cols];
-    if (fused) {
-      int* o = out0 + q * 3 * BLK;
-      o[lane] = v;
-      o[BLK + lane] = v;
-      o[2 * BLK + lane] = v;
-    } else {
-      out0[q * BLK + lane] = v;
-      out_s[q * BLK + lane] = 0.0f;
-      out_c[q * BLK + lane] = 0;
-      if (lane < 3) sink(__float_as_uint(fmeta[q * 3 + lane]));
-    }
+// How many queries block blockIdx.x walks.
+__device__ __forceinline__ int walk_len(int n_groups, int G) {
+  return G * ((n_groups - (int)blockIdx.x + (int)gridDim.x - 1) /
+              (int)gridDim.x);
+}
+// Query j of block blockIdx.x's walk.
+__device__ __forceinline__ long long walk_query(int j, int G) {
+  return ((long long)blockIdx.x + (long long)(j / G) * gridDim.x) * G +
+         j % G;
+}
+
+// ---------------------------------------------------------------------
+// probe_floor: the step floor.  Each query writes meta[q, 0] across 128
+// lanes, in B1's layout (three [1, 128] outputs: doc lanes, zero scores,
+// zero counts, with the fmeta row read as B1's spec copies it) or in one
+// fused [3, 128] int32 output.  Bound: the output bytes (384 lanes a
+// query).  Persistent blocks of 128 threads, read ahead a warp at a
+// time: warp w takes queries w, w + 4, w + 8, ... of its block's walk,
+// 32 at once; lane l loads meta[q, 0] (and the fmeta row) of the
+// batch's query l, so a load's round trip is paid once for 32 queries,
+// not once a query, and the warp then stores each query's three rows,
+// 3 x 512 B in 16-byte stores, its value passed by shuffles.  No block
+// barrier.  The sink's flag is read at the start and only in B1's
+// layout: a load at a block's tail costs every block its round trip
+// (it made the fused arm 0.0009 us a query at B = 8,192 against 0.0007
+// without it).  The `any` kernel adds B1's four window arrays as unused
+// arguments and is launched with the 196,608 bytes of dynamic shared
+// memory that curany_kernel's VMEM scratch takes: one block an SM, as
+// the TPU's scratch is one allocation a core, each walking B / 132
+// queries.
+
+struct FloorArgs {
+  const int* meta;
+  int meta_cols;
+  const float* fmeta;
+  int* out0;
+  float* out_s;
+  int* out_c;
+  int fused, G, n_groups;
+};
+
+// 16-byte store p (0-95) of query q's three rows.
+__device__ __forceinline__ void floor_store16(const FloorArgs& a, long long q,
+                                              int x, int p) {
+  if (a.fused) {
+    reinterpret_cast<int4*>(a.out0 + q * 3 * BLK)[p] = make_int4(x, x, x, x);
+  } else if (p < 32) {
+    reinterpret_cast<int4*>(a.out0 + q * BLK)[p] = make_int4(x, x, x, x);
+  } else if (p < 64) {
+    reinterpret_cast<float4*>(a.out_s + q * BLK)[p - 32] =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    reinterpret_cast<int4*>(a.out_c + q * BLK)[p - 64] = make_int4(0, 0, 0, 0);
   }
 }
 
-__global__ void __launch_bounds__(BLK)
-    probe_floor_kernel(const int* __restrict__ meta, int meta_cols,
-                       const float* __restrict__ fmeta, int* out0,
-                       float* out_s, int* out_c, int fused, int G) {
-  floor_body(meta, meta_cols, fmeta, out0, out_s, out_c, fused, G);
+__device__ __forceinline__ void floor_body(const FloorArgs& a) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int NW = BLK / 32;
+  const int flag = a.fused ? 0 : sink_flag();  // read early: off the tail
+  unsigned snk = 0;
+  for (int k0 = 0;; k0 += 32) {
+    // this lane's query of the walk, and its group (no division at G = 1)
+    const int j = warp + NW * (k0 + lane);
+    const int jg = a.G == 1 ? j : j / a.G;
+    const long long g = blockIdx.x + (long long)jg * gridDim.x;
+    const bool live = g < a.n_groups;  // the live lanes are a prefix
+    const unsigned m = __ballot_sync(FULL_MASK, live);
+    if (!m) break;
+    int q = 0, v = 0;
+    if (live) {
+      q = (int)(g * a.G + (j - jg * a.G));
+      v = a.meta[(long long)q * a.meta_cols];
+      if (!a.fused)
+        snk ^= __float_as_uint(a.fmeta[q * 3LL]) ^
+               __float_as_uint(a.fmeta[q * 3LL + 1]) ^
+               __float_as_uint(a.fmeta[q * 3LL + 2]);
+    }
+    const int n = __popc(m);
+    for (int i = 0; i < n; ++i) {
+      const long long qq = __shfl_sync(FULL_MASK, q, i);
+      const int x = __shfl_sync(FULL_MASK, v, i);
+      floor_store16(a, qq, x, lane);
+      floor_store16(a, qq, x, 32 + lane);
+      floor_store16(a, qq, x, 64 + lane);
+    }
+  }
+  if (flag) g_sink[blockIdx.x & 1023] = snk;
+}
+
+__global__ void __launch_bounds__(BLK) probe_floor_kernel(FloorArgs a) {
+  floor_body(a);
 }
 
 __global__ void __launch_bounds__(BLK)
-    probe_floor_any_kernel(const int* __restrict__ meta, int meta_cols,
-                           const float* __restrict__ fmeta, int* out0,
-                           float* out_s, int* out_c, int fused, int G,
-                           const void* a0, const void* a1, const void* a2,
-                           const void* a3) {
-  floor_body(meta, meta_cols, fmeta, out0, out_s, out_c, fused, G);
+    probe_floor_any_kernel(FloorArgs a, const void* a0, const void* a1,
+                           const void* a2, const void* a3) {
+  floor_body(a);
 }
 
 // ---------------------------------------------------------------------
@@ -539,40 +603,102 @@ __global__ void __launch_bounds__(GW_THREADS) probe_gwin_direct(GwinArgs a) {
 }
 
 // ---------------------------------------------------------------------
-// probe_gcols: G queries a block, one 32-row int32 window each (at
-// meta[q, 0]); out [1, 128] f32 = the window's column sums, taken in
-// f32 over 8-row tiles (each tile's rows in order, then the tiles in
-// order, as the TPU kernel's loop adds them), times the f32 weight whose
-// bits are meta[q, 1].  Bound: the window bytes (16 KB a query); the
-// design is one thread a column, all 32 of a thread's loads issued
-// before the first add.  With integer values below 2^24 / 32 every sum
-// is exact in any order, so the output equals the plain version's and
-// the TPU's bit for bit.
+// probe_gcols: one 32-row int32 window a query (at meta[q, 0]); out
+// [1, 128] f32 = the window's column sums, taken in f32 over 8-row
+// tiles (each tile's rows in order, then the tiles in order, as the TPU
+// kernel's loop adds them), times the f32 weight whose bits are
+// meta[q, 1].  With integer values below 2^24 / 32 every sum is exact
+// in any order, so the output equals the plain version's and the TPU's
+// bit for bit.
+//
+// Bound: the window bytes (16 KB a query).  The TPU kernel
+// double-buffers each query's window (make_async_copy, two DMA
+// semaphores); here persistent blocks run the TMA ring of probe_gwin: a
+// stage holds one query's window, one cp.async.bulk of 32 x 512 B from
+// row win_row(meta[q, 0]), its `full` barrier armed with exactly those
+// bytes.  The producer warp runs S windows ahead across query and group
+// boundaries: its 32 lanes read the starts of the next 32 queries of
+// the walk at once, and lane 0 issues their copies.  Each of the 128
+// consumer threads sums its column from the stage and multiplies by the
+// weight, which its warp read ahead the same way; then the warp
+// releases the stage.  S comes from ring_plan (the SM's shared memory
+// split among the blocks the grid puts there).  A bulk copy reads L2
+// and never L1, so where windows repeat (gstep2's 8,192 windows over
+// 2,040 rows) loads that hit L1 beat the ring; on windows that do not
+// repeat the two read at the same rate (PERF.md §5).
 
 constexpr int GC_ROWS = 32;
 constexpr int GC_TILE = 8;
+constexpr int GC_STAGE_BYTES = GC_ROWS * BLK * 4;  // a stage: one window
 
-__global__ void __launch_bounds__(BLK)
-    probe_gcols_kernel(const int* __restrict__ meta,
-                       const int* __restrict__ d, long long n_rows,
-                       float* __restrict__ out, int G) {
-  const int c = threadIdx.x;
-  for (int g = 0; g < G; ++g) {
-    const long long q = (long long)blockIdx.x * G + g;
-    const long long srow = win_row(meta[2 * q], GC_ROWS, n_rows);
-    const float w = __int_as_float(meta[2 * q + 1]);
-    int v[GC_ROWS];
-#pragma unroll
-    for (int r = 0; r < GC_ROWS; ++r) v[r] = __ldg(d + (srow + r) * BLK + c);
-    float acc = 0.0f;
-#pragma unroll
-    for (int t = 0; t < GC_ROWS / GC_TILE; ++t) {
-      float s = 0.0f;
-#pragma unroll
-      for (int r = 0; r < GC_TILE; ++r) s += (float)v[t * GC_TILE + r];
-      acc += s;
+struct GcolsArgs {
+  const int* meta;  // [B, 2]: window start, weight bits
+  const int* d;
+  long long n_rows;
+  float* out;
+  int G, n_groups, stages;
+};
+
+__global__ void __launch_bounds__(RING_THREADS, 4)
+    probe_gcols_ring(GcolsArgs a) {
+  extern __shared__ __align__(128) unsigned char gc_ring[];
+  __shared__ __align__(8) unsigned long long full[RING_MAX_STAGES];
+  __shared__ __align__(8) unsigned long long empty[RING_MAX_STAGES];
+  const int tid = threadIdx.x, lane = tid & 31, S = a.stages;
+  const int nq = walk_len(a.n_groups, a.G);
+  ring_init(full, empty, S);
+  __syncthreads();
+  int s = 0;
+  unsigned par = 0;
+
+  if (tid >= RING_CTHREADS) {  // the producer warp; lane 0 issues
+    for (int j0 = 0; j0 < nq; j0 += 32) {
+      const int start =
+          j0 + lane < nq ? a.meta[2 * walk_query(j0 + lane, a.G)] : 0;
+      const int n = min(32, nq - j0);
+      for (int i = 0; i < n; ++i) {
+        const int st = __shfl_sync(FULL_MASK, start, i);
+        if (lane == 0) {
+          if (j0 + i >= S) mbar_wait(&empty[s], par ^ 1u);
+          mbar_expect_tx(&full[s], GC_STAGE_BYTES);
+          bulk_g2s(gc_ring + (size_t)s * GC_STAGE_BYTES,
+                   a.d + win_row(st, GC_ROWS, a.n_rows) * BLK,
+                   GC_STAGE_BYTES, &full[s]);
+        }
+        if (++s == S) {
+          s = 0;
+          par ^= 1u;
+        }
+      }
     }
-    out[q * BLK + c] = acc * w;
+    return;
+  }
+
+  for (int j0 = 0; j0 < nq; j0 += 32) {
+    const int wbits =
+        j0 + lane < nq ? a.meta[2 * walk_query(j0 + lane, a.G) + 1] : 0;
+    const int n = min(32, nq - j0);
+    for (int i = 0; i < n; ++i) {
+      const float w = __int_as_float(__shfl_sync(FULL_MASK, wbits, i));
+      mbar_wait(&full[s], par);
+      const int* st =
+          reinterpret_cast<const int*>(gc_ring + (size_t)s * GC_STAGE_BYTES);
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < GC_ROWS / GC_TILE; ++t) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int r = 0; r < GC_TILE; ++r)
+          sum += (float)st[(t * GC_TILE + r) * BLK + tid];
+        acc += sum;
+      }
+      ring_release(&empty[s]);
+      a.out[walk_query(j0 + i, a.G) * BLK + tid] = acc * w;
+      if (++s == S) {
+        s = 0;
+        par ^= 1u;
+      }
+    }
   }
 }
 
@@ -614,7 +740,6 @@ constexpr int VA_ARRAYS = 4;
 constexpr int VA_ARRAY_BYTES = VA_TILE * BLK * 4;
 constexpr int VA_STAGE_BYTES = VA_ARRAYS * VA_ARRAY_BYTES;
 constexpr int VA_MAX_K = BLK;
-constexpr unsigned FULL_MASK = 0xffffffffu;
 
 struct VariantArgs {
   const int* meta;     // [B, 3T]: starts, lens, qmasks
@@ -946,30 +1071,35 @@ extern "C" {
 // launched).  Every pointer is a device pointer but `rows` (host).
 
 // With `anys` (four pointers, host array) the `any` kernel, launched
-// with `smem` bytes of dynamic shared memory.
+// with `smem` bytes of dynamic shared memory; `grid` persistent blocks,
+// 1 to B / G.
 int rs_probe_floor_launch(const void* meta, int meta_cols, const void* fmeta,
                           void* out0, void* out_s, void* out_c, int fused,
                           int G, int B, const void* const* anys, int smem,
-                          void* stream) {
+                          int grid, void* stream) {
   if (G < 1 || B % G != 0 || meta_cols < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* m = static_cast<const int*>(meta);
-  const float* fm = static_cast<const float*>(fmeta);
-  int* o0 = static_cast<int*>(out0);
-  float* os = static_cast<float*>(out_s);
-  int* oc = static_cast<int*>(out_c);
   if (B == 0) return (int)cudaGetLastError();
+  if (grid < 1 || grid > B / G) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FloorArgs a;
+  a.meta = static_cast<const int*>(meta);
+  a.meta_cols = meta_cols;
+  a.fmeta = static_cast<const float*>(fmeta);
+  a.out0 = static_cast<int*>(out0);
+  a.out_s = static_cast<float*>(out_s);
+  a.out_c = static_cast<int*>(out_c);
+  a.fused = fused;
+  a.G = G;
+  a.n_groups = B / G;
   if (anys) {
     const cudaError_t e = cudaFuncSetAttribute(
         probe_floor_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
-    probe_floor_any_kernel<<<B / G, BLK, smem, st>>>(
-        m, meta_cols, fm, o0, os, oc, fused, G, anys[0], anys[1], anys[2],
-        anys[3]);
+    probe_floor_any_kernel<<<grid, BLK, smem, st>>>(a, anys[0], anys[1],
+                                                    anys[2], anys[3]);
   } else {
-    probe_floor_kernel<<<B / G, BLK, 0, st>>>(m, meta_cols, fm, o0, os, oc,
-                                              fused, G);
+    probe_floor_kernel<<<grid, BLK, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -1012,14 +1142,29 @@ int rs_probe_gwin_launch(const void* meta, int meta_cols, const void* d,
   return (int)cudaGetLastError();
 }
 
+// The TMA ring (see ring_plan; its stages from the B / G groups), on
+// `grid` persistent blocks, 1 to B / G.  d 16-byte aligned.
 int rs_probe_gcols_launch(const void* meta, const void* d, long long n_rows,
-                          void* out, int B, int G, void* stream) {
+                          void* out, int B, int G, int grid, void* stream) {
   if (G < 1 || B % G != 0 || n_rows < GC_ROWS)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
-  probe_gcols_kernel<<<B / G, BLK, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(meta), static_cast<const int*>(d), n_rows,
-      static_cast<float*>(out), G);
+  if (grid < 1 || grid > B / G) return (int)cudaErrorInvalidValue;
+  int plan[3];
+  cudaError_t e =
+      ring_plan(probe_gcols_ring, B / G, &GC_STAGE_BYTES, 1, 0, 4, plan);
+  if (e == cudaSuccess) e = ring_attrs(probe_gcols_ring, plan[1]);
+  if (e != cudaSuccess) return (int)e;
+  GcolsArgs a;
+  a.meta = static_cast<const int*>(meta);
+  a.d = static_cast<const int*>(d);
+  a.n_rows = n_rows;
+  a.out = static_cast<float*>(out);
+  a.G = G;
+  a.n_groups = B / G;
+  a.stages = plan[0];
+  probe_gcols_ring<<<grid, RING_THREADS, plan[1],
+                     static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1071,11 +1216,12 @@ int rs_probe_variant_launch(const void* meta, const void* fmeta,
 
 // The ring of a launch of `blocks` blocks (kernel 0: the staged gwin
 // arm, B / G blocks; 1: probe_variant's load mode (k = 0) or phase mode
-// at k, B blocks): `out` = [stages, tile rows, dynamic shared bytes,
-// static shared bytes, resident blocks an SM, registers a thread, local
-// (spill) bytes a thread].  Returns a CUDA error.
+// at k, B blocks; 2: probe_gcols, `blocks` = its B / G groups): `out` =
+// [stages, tile rows, dynamic shared bytes, static shared bytes,
+// resident blocks an SM, registers a thread, local (spill) bytes a
+// thread].  Returns a CUDA error.
 int rs_probe_ring_info(int kernel, int blocks, int k, int* out) {
-  if (kernel < 0 || kernel > 1 || blocks < 1 || k < 0 || k > VA_MAX_K)
+  if (kernel < 0 || kernel > 2 || blocks < 1 || k < 0 || k > VA_MAX_K)
     return (int)cudaErrorInvalidValue;
   int plan[3], sizes[3], tile;
   cudaFuncAttributes fa;
@@ -1090,7 +1236,7 @@ int rs_probe_ring_info(int kernel, int blocks, int k, int* out) {
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, probe_gwin_staged, RING_THREADS, plan[1]);
-  } else {
+  } else if (kernel == 1) {
     e = ring_plan(probe_variant_ring, blocks, &VA_STAGE_BYTES, 1,
                   va_buf_bytes(k, k ? 2 : 1), 4, plan);
     tile = VA_TILE;
@@ -1099,6 +1245,14 @@ int rs_probe_ring_info(int kernel, int blocks, int k, int* out) {
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, probe_variant_ring, RING_THREADS, plan[1]);
+  } else {
+    e = ring_plan(probe_gcols_ring, blocks, &GC_STAGE_BYTES, 1, 0, 4, plan);
+    tile = GC_ROWS;
+    if (e == cudaSuccess) e = ring_attrs(probe_gcols_ring, plan[1]);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, probe_gcols_ring);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, probe_gcols_ring, RING_THREADS, plan[1]);
   }
   if (e != cudaSuccess) return (int)e;
   out[0] = plan[0];
@@ -1108,6 +1262,42 @@ int rs_probe_ring_info(int kernel, int blocks, int k, int* out) {
   out[4] = per_sm;
   out[5] = fa.numRegs;
   out[6] = (int)fa.localSizeBytes;
+  return (int)cudaSuccess;
+}
+
+// What a persistent grid is sized from (kernel 0: probe_floor; 1: its
+// `any` kernel at `smem` dynamic bytes; 2: probe_gcols, at the ring a
+// launch of `n_groups` groups gets): `out` = [SMs, blocks of the kernel
+// an SM holds at once].  Returns a CUDA error.
+int rs_probe_resident(int kernel, int n_groups, int smem, int* out) {
+  if (kernel < 0 || kernel > 2 || n_groups < 1 || smem < 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (kernel == 0) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, probe_floor_kernel, BLK, 0);
+  } else if (kernel == 1) {
+    e = cudaFuncSetAttribute(probe_floor_any_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, probe_floor_any_kernel, BLK, smem);
+  } else {
+    int plan[3];
+    e = ring_plan(probe_gcols_ring, n_groups, &GC_STAGE_BYTES, 1, 0, 4, plan);
+    if (e == cudaSuccess) e = ring_attrs(probe_gcols_ring, plan[1]);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, probe_gcols_ring, RING_THREADS, plan[1]);
+  }
+  if (e != cudaSuccess) return (int)e;
+  out[0] = n_sm;
+  out[1] = per_sm;
   return (int)cudaSuccess;
 }
 

@@ -63,19 +63,23 @@ _LAUNCH = {
         _vp, _i32, _vp,                            # meta, its columns, fmeta
         _vp, _vp, _vp, _i32,                       # outputs, fused
         _i32, _i32,                                # G, B
-        ctypes.POINTER(_vp), _i32, _vp]),          # anys (host), smem, stream
+        ctypes.POINTER(_vp), _i32,                 # anys (host), smem
+        _i32, _vp]),                               # grid, stream
         ("rs_probe_gwin_launch", [
             _vp, _i32, _vp, _vp, _i64,             # meta, its columns, d, f
             _vp, _i32, _i32,                       # out, B, G
             _i32, _i32, _i32, _i32, _vp]),         # colmax, rows, staged
         ("rs_probe_gcols_launch", [
-            _vp, _vp, _i64, _vp, _i32, _i32, _vp]),  # meta, d, out, B, G
+            _vp, _vp, _i64, _vp, _i32, _i32,       # meta, d, out, B, G
+            _i32, _vp]),                           # grid, stream
         ("rs_probe_variant_launch", [
             _vp, _vp, _vp, _vp, _vp, _vp, _i64,    # meta, fmeta, windows
             _i32, ctypes.POINTER(_i32), _i32, _i32,  # T, rows (host), k, mode
             _vp, _vp, _vp, _i32, _vp]),            # outputs, B, stream
         ("rs_probe_ring_info", [
-            _i32, _i32, _i32, ctypes.POINTER(_i32)])],  # kernel, blocks, k, out
+            _i32, _i32, _i32, ctypes.POINTER(_i32)]),  # kernel, blocks, k, out
+        ("rs_probe_resident", [
+            _i32, _i32, _i32, ctypes.POINTER(_i32)])],  # kernel, groups, smem
 }
 
 _lock = threading.Lock()

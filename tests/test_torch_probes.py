@@ -37,7 +37,9 @@ import torch
 from jax.experimental import pallas as pl
 
 from redisearch_tpu.ops import intersect as JIK
+from redisearch_tpu_torch.bench import ab as AB
 from redisearch_tpu_torch.bench import grid_floor_probe as GF
+from redisearch_tpu_torch.bench import gstep_probe2 as G2
 from redisearch_tpu_torch.bench import probes as P
 
 SCRIPTS = ("gstep_probe", "gstep_probe2", "grid_floor_probe",
@@ -418,3 +420,196 @@ def test_bounds_count_distinct_rows(seed):
     assert P.rows_touched(same, [(0, 24)], n_rows) == 24
     lanes = torch.tensor([5, 10, 100]), torch.tensor([10, 0, 7])
     assert P.covered(*lanes, 106) == 10 + 6
+
+
+#: gstep_probe2's batches other than its 64, and its G
+GSTEP2_BS = (16, 48)
+
+
+@pytest.fixture(scope="module")
+def gstep2_at_b():
+    """{B: {"calls": {G: (inputs, outputs)}, "report": str}}: the TPU
+    gstep_probe2's own main() with its module-level B set to each of
+    GSTEP2_BS, every pallas_call in interpret mode."""
+    real = pl.pallas_call
+    mod = importlib.import_module("benchmarks.gstep_probe2")
+    out = {}
+    for B in GSTEP2_BS:
+        calls = {}
+
+        def patched(kernel, *a, **kw):
+            kw = dict(kw, interpret=True)
+
+            def call(*args):
+                res = real(kernel, *a, **kw)(*args)
+                calls[kernel.keywords["G"]] = (
+                    [np.asarray(x) for x in args],
+                    [np.asarray(o) for o in res])
+                return res
+            return call
+        buf = io.StringIO()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pl, "pallas_call", patched)
+            mp.setattr(mod, "B", B)
+            jax.clear_caches()
+            try:
+                with jax.disable_jit(), contextlib.redirect_stdout(buf):
+                    mod.main()
+            finally:
+                jax.clear_caches()
+        out[B] = {"calls": calls, "report": buf.getvalue()}
+    return out
+
+
+@pytest.mark.parametrize("B,G", [(B, G) for B in GSTEP2_BS for G in G2.GS])
+def test_gstep2_kern_at_other_b(gstep2_at_b, B, G):
+    """The TPU gstep_probe2 at B = 16 and 48 (its module's B set): it
+    checks itself (bad=0); its inputs are the port script's `B=` draw,
+    and the port's plain version and arm give its output exactly."""
+    got = gstep2_at_b[B]
+    assert f"G={G}: bad=0" in got["report"]
+    (meta, d), (want,) = got["calls"][G]
+    assert meta.shape == (B, 2) and want.shape == (B, 1, P.BLK)
+    pmeta, pd = G2.inputs("cpu", B=B)
+    np.testing.assert_array_equal(pmeta.numpy(), meta)
+    np.testing.assert_array_equal(pd.numpy(), d)
+    np.testing.assert_array_equal(
+        P.gcols_plain(pmeta, pd, G=G).numpy(), want)
+    (ameta, arms), = G2.arms("cpu", B=B)
+    arm = {a.name: a for a in arms}[f"G={G}"]
+    assert arm.B == B and arm.ring == ("probe_gcols", B // G)
+    assert torch.equal(ameta, pmeta)
+    for out in (arm.run(ameta), arm.plain(ameta)):
+        np.testing.assert_array_equal(out.numpy(), want)
+
+
+#: (SMs, resident blocks an SM): the H100's probe_floor (132 x 16), its
+#: curany (132 x 1), probe_gcols at B1's batch (132 x 4), a small card
+GRID_SHAPES = ((132, 16), (132, 1), (132, 4), (2, 3))
+GRID_CASES = [(B, G) for B in (0, 3, 512, 4613, 8192) for G in (1, 4, 16)
+              if B % G == 0]
+
+
+@pytest.mark.parametrize("sms,per_sm", GRID_SHAPES)
+@pytest.mark.parametrize("B,G", GRID_CASES)
+def test_persistent_grid_covers_each_group_once(B, G, sms, per_sm):
+    """min(B / G, sms x per_sm) blocks (B smaller than the grid too), and
+    the blocks' walks write every query exactly once, a group's G
+    queries together."""
+    grid = P.persistent_grid(B, G, sms, per_sm)
+    assert grid == min(B // G, sms * per_sm)
+    seen = np.zeros(B, np.int64)
+    for b in range(grid):
+        qs = P.walk_queries(b, grid, B, G)
+        assert len(qs) % G == 0 and qs[:G] == list(range(b * G, b * G + G))
+        np.add.at(seen, qs, 1)
+    assert (seen == 1).all()
+
+
+def test_persistent_grid_refuses():
+    with pytest.raises(ValueError):
+        P.persistent_grid(10, 4, 132, 16)       # B % G != 0
+    with pytest.raises(ValueError):
+        P.persistent_grid(8, 4, 132, 0)         # nothing resident
+
+
+@pytest.mark.parametrize("which", ["floor-fused", "floor-cur", "gcols"])
+def test_plain_versions_exact_at_b_4613(which):
+    """At B = 4,613 (prime to every G but 1 and 7) the plain versions
+    equal numpy's exact arithmetic: meta[q, 0] across the lanes; the
+    32-row window's integer column sums (exact in float32, below 2^24)
+    times the weight, one float32 rounding."""
+    B = 4613
+    if which == "gcols":
+        meta, d = G2.inputs("cpu", B=B)
+        m, dn = meta.numpy(), d.numpy()
+        srow = np.clip(m[:, 0] // P.BLK, 0, dn.shape[0] - P.GCOLS_ROWS)
+        win = dn[srow[:, None] + np.arange(P.GCOLS_ROWS)]
+        want = (win.astype(np.int64).sum(1).astype(np.float32)
+                * m[:, 1].view(np.float32)[:, None])[:, None]
+        got = P.gcols_plain(meta, d).numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+        return
+    meta = GF.inputs("cpu", B=B)[0]
+    col = np.broadcast_to(meta.numpy()[:, :1, None], (B, 1, P.BLK))
+    if which == "floor-fused":
+        np.testing.assert_array_equal(
+            P.floor_plain(meta).numpy(), np.repeat(col, 3, 1))
+    else:
+        v, s, c = P.floor_plain(meta, layout="cur")
+        np.testing.assert_array_equal(v.numpy(), col)
+        assert not s.numpy().any() and not c.numpy().any()
+
+
+def test_gcols_library_call_within_rounding():
+    """`gcols_library` (embedding_bag with per-sample weights) computes
+    gcols' function but rounds weight x row before summing: within
+    32 x 2^-24 relative of the plain version, per lane."""
+    meta, d = G2.inputs("cpu", B=48)
+    want = P.gcols_plain(meta, d).reshape(48, P.BLK)
+    got = P.gcols_library(meta, d)()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=32 * 2.0**-24, atol=0)
+    lib = P.floor_library(meta)()
+    assert torch.equal(lib.view(48, 3, P.BLK), P.floor_plain(meta))
+
+
+def test_probes_main_takes_b(capsys):
+    """`probes gstep2 B` and `probes grid_floor B` run at that batch;
+    the other scripts take no B."""
+    res = P.main(["gstep2", "16"], device="cpu")
+    assert [r["name"] for r in res] == ["G=1", "G=4"]
+    assert all(r["bad"] == 0 for r in res)
+    assert P.main(["grid_floor", "16"], device="cpu")
+    for argv in (["gstep", "16"], ["all", "16"], ["gstep2", "x"]):
+        with pytest.raises(SystemExit):
+            P.main(argv, device="cpu")
+
+
+def test_ab_wide_groups_old_and_new_scripts():
+    """ab.py's probes at B1's batch: a script that takes `B=` and, for a
+    tree whose script takes none, its module-level B set for the call
+    (and put back); a script with neither gives no groups."""
+    class Old:
+        B = 64
+
+        @staticmethod
+        def arms(dev):
+            return G2.arms(dev, B=Old.B)
+
+    class Neither:
+        @staticmethod
+        def arms(dev):
+            raise AssertionError("not called at another B")
+    old_b = AB.WIDE_B
+    try:
+        AB.WIDE_B = 24
+        (m_new, a_new), = AB.wide_groups(G2, "cpu")
+        (m_old, a_old), = AB.wide_groups(Old, "cpu")
+        assert Old.B == 64
+        assert AB.wide_groups(Neither, "cpu") == []
+    finally:
+        AB.WIDE_B = old_b
+    assert m_new.shape == (24, 2) and torch.equal(m_new, m_old)
+    assert [a.B for a in a_new] == [a.B for a in a_old] == [24, 24]
+
+
+def test_ab_gcols_spread_groups(monkeypatch):
+    """ab.py's probe_gcols on windows that do not repeat: one group a
+    SPREAD_ROWS size at B = WIDE_B, G = 1 and 4, starts over the whole
+    array, each arm equal to its plain version, its bytes the distinct
+    rows touched with meta and outputs."""
+    monkeypatch.setattr(AB, "WIDE_B", 32)
+    groups = AB.gcols_spread_groups(P, torch.device("cpu"))
+    assert [t for t, _g in groups] == [
+        f" B=32 spread over {n} rows" for n in AB.SPREAD_ROWS]
+    for (_tag, (meta, arms)), n in zip(groups, AB.SPREAD_ROWS):
+        assert meta.shape == (32, 2) and [a.name for a in arms] == [
+            "G=1", "G=4"]
+        assert int(meta[:, 0].max()) // P.BLK < n - P.GCOLS_ROWS + 1
+        rows = P.rows_touched(meta, [(0, P.GCOLS_ROWS)], n)
+        assert rows > 16 * P.GCOLS_ROWS          # the windows barely meet
+        for a in arms:
+            assert a.n_bytes == rows * 512 + 32 * (8 + 512)
+            assert P.compare(a.run(meta), a.plain(meta)) == (0, 0.0)
