@@ -315,6 +315,14 @@ script exits non-zero:
    served (256 and2 totals equal numpy over the live docs, 256 title
    phrases), `ft_get` and `ft_mget` return the new fields.  QPS on the
    dirty and the compacted index are printed.
+16. the port's bench (run after 11, before 12; at most about a minute):
+   `redisearch_tpu_torch/bench/run.py`'s four sections (text, fknn,
+   knn, ann: bench.py's sections) in this process at bench.py's
+   BENCH_SMOKE shapes (20,000 docs, 100,000 vectors), one measurement of
+   each number; every section must pass, every number carry its parity
+   check (FT.SEARCH, FT.AGGREGATE and FT.HYBRID against their plain
+   recomputation, KNN and IVF recall against float64 on the card) and
+   every FT.SEARCH family ride a kernel.
 12. the module check (no jax, no module file under `redisearch_tpu/` or
    `benchmarks/`),
    then the last three lines: nvidia-smi's name and power limit, the
@@ -347,6 +355,15 @@ from redisearch_tpu_torch.bench import probes as PB
 # device time of one call of fn, in ms: CUDA events around 20 calls
 # enqueued while the card spins in `torch.cuda._sleep`
 from redisearch_tpu_torch.bench.ab import device_ms as time_ms
+# bench.py's data, query families and the checks against plain, shared
+# with the port's bench (`python3 -m redisearch_tpu_torch.bench.run`)
+from redisearch_tpu_torch.bench.workloads import (
+    ANN_D, ANN_K, ANN_N, ANN_NLIST, ANN_NPROBES, ANN_Q, ANN_REPS, FAMILIES,
+    FKNN_D, FKNN_K, FKNN_N, HYB_B, HYB_LIMIT, HYB_ROUNDS, HYB_W,
+    K, SCORE_RTOL, agg_request_fn, ann_corpus, ann_truth, bm25_fields,
+    check_against_plain, check_fknn, fknn_corpus, fknn_families,
+    fknn_fields, hybrid_queries, make_corpus, plain_results,
+    plain_versions, recall_of, same_fusion, same_knn_hits, star_request)
 from redisearch_tpu_torch.ops import _build
 from redisearch_tpu_torch.ops import groupby as GB
 from redisearch_tpu_torch.ops import intersect as IK
@@ -358,8 +375,6 @@ from redisearch_tpu_torch.query import engine as E
 
 N_DOCS = 1_000_000
 BATCH = 8192
-K = 10
-SCORE_RTOL = 1e-6
 KERNEL_SRC = "redisearch_tpu_torch/csrc/intersect.cu"
 KERNEL_REPLACES = "redisearch_tpu/ops/intersect.py:295"
 PHRASE_SRC = "redisearch_tpu_torch/csrc/phrase.cu"
@@ -373,23 +388,6 @@ HBM_BYTES_PER_S = 3.35e12
 STAR_BATCH = 64
 AGG_BATCH = 1024
 AGG_BATCHES = 4
-
-# bench.py's eight families: phrase rides the phrase kernel, the other
-# seven the intersection kernel
-FAMILIES = {
-    "and2": lambda qt, i: f"{qt[(2*i) % 500]} {qt[(2*i+1) % 500]}",
-    "phrase": lambda qt, i: f'"{qt[(2*i) % 500]} {qt[(2*i+1) % 500]}"',
-    "and2_tag": lambda qt, i: (f"{qt[(2*i) % 500]} {qt[(2*i+1) % 500]} "
-                               f"@cat:{{cat{i % 16:02d}}}"),
-    "and3": lambda qt, i: (f"{qt[(3*i) % 500]} {qt[(3*i+1) % 500]} "
-                           f"{qt[(3*i+2) % 500]}"),
-    "or2": lambda qt, i: f"{qt[(2*i) % 500]}|{qt[(2*i+1) % 500]}",
-    "not2": lambda qt, i: f"{qt[(2*i) % 500]} -{qt[(2*i+1) % 500]}",
-    "opt2": lambda qt, i: f"{qt[(2*i) % 500]} ~{qt[(2*i+1) % 500]}",
-    "fields2": lambda qt, i: (f"@title:{qt[(2*i) % 500]} "
-                              f"@body:{qt[(2*i+1) % 500]}"),
-}
-
 
 _T0 = time.perf_counter()
 
@@ -1501,34 +1499,6 @@ def phase_probes(dev, smi: str) -> list:
 
 
 # ---------------------------------------------------------------- phase 4
-def make_corpus(n_docs: int, seed: int = 0):
-    """bench.py's corpus: 4+20 zipf(1.25) tokens over a 200k vocab.
-    Returns (docs, query terms, token ids int32 [n_docs, 24]: title
-    then body)."""
-    rng = np.random.default_rng(seed)
-    vocab = 200_000
-    words = np.array(["w%06d" % i for i in range(vocab)])
-    zipf = np.clip(rng.zipf(1.25, size=(n_docs, 24)) - 1, 0, vocab - 1)
-    cats = np.array(["cat%02d" % i for i in range(16)])
-    cat2 = np.array(["g%04d" % i for i in range(1000)])
-    price = rng.integers(1, 10_000, n_docs)
-    docs = [(f"d{i}", {"title": " ".join(words[zipf[i, :4]]),
-                       "body": " ".join(words[zipf[i, 4:]]),
-                       "cat": cats[i % 16],
-                       "grp": cat2[i % 1000],
-                       "price": float(price[i])})
-            for i in range(n_docs)]
-    qt = ["w%06d" % i for i in rng.integers(20, 5000, size=512)]
-    return docs, qt, zipf.astype(np.int32)
-
-
-def bm25_fields():
-    F, T = rt.Field, rt.FieldType
-    return [F("title", T.TEXT, weight=2.0), F("body", T.TEXT),
-            F("cat", T.TAG), F("grp", T.TAG, sortable=True),
-            F("price", T.NUMERIC, sortable=True)]
-
-
 def query_route(ix, seg, q: str, opts=None) -> str:
     """The executor the engine's router gives `q`, in `_rows_executor`'s
     order: the intersection kernel's route ("kernel" or "kernel-wide",
@@ -1561,39 +1531,6 @@ class window_program:
 
     def __exit__(self, *exc):
         E._kernel_route, E._kernel_plan_phrase = self.saved
-
-
-def plain_results(ix, seg, queries, opts=None):
-    """The engine's results for `queries` with each kernel's plain
-    version in its place (`plain_versions`): ([SegmentResult], the size
-    of the largest group)."""
-    cqs = [ix.prepare(q, None, opts or E.QueryOptions(k=K), 2)
-           for q in queries]
-    largest = max(len(s[0]) for s in E._prep_subs(cqs, seg, K))
-    with plain_versions():
-        return E.execute_batch(cqs, seg, K), largest
-
-
-def check_against_plain(kres, pres, what):
-    """Served results against their plain recomputation: counts and the
-    live lanes' docs equal, scores within SCORE_RTOL.  Returns the max
-    abs score difference."""
-    err = 0.0
-    for i, (kr, pr) in enumerate(zip(kres, pres)):
-        live = pr.scores > -3.3e38
-        if kr.count != pr.count or not np.array_equal(
-                kr.local_idx[live], pr.local_idx[live]) or not np.array_equal(
-                kr.scores <= -3.3e38, ~live):
-            raise AssertionError(f"{what} query {i}: kernel {kr.count} "
-                                 f"{kr.local_idx} vs plain {pr.count} "
-                                 f"{pr.local_idx}")
-        np.testing.assert_allclose(kr.scores[live], pr.scores[live],
-                                   rtol=SCORE_RTOL, atol=0,
-                                   err_msg=f"{what} query {i}")
-        if live.any():
-            err = max(err, float(np.abs(kr.scores[live]
-                                        - pr.scores[live]).max()))
-    return err
 
 
 def numpy_and2_count(seg, ix, q: str) -> int:
@@ -2236,51 +2173,6 @@ def phase_profile(client, ix, seg, batches, dev):
 
 
 # ---------------------------------------------------------------- phase 6
-def agg_request_fn():
-    """bench.py's FT.AGGREGATE request (bench_agg): 2-term text match
-    with terms drawn from ranks 20..2000 -> GROUPBY @grp (1,000 values)
-    COUNT / SUM / AVG(@price) -> SORTBY @s DESC -> LIMIT 0 10."""
-    rng = np.random.default_rng(3)
-    qt = ["w%06d" % i for i in rng.integers(20, 2000, size=256)]
-
-    def query(i):
-        return f"{qt[(2 * i) % 256]} {qt[(2 * i + 1) % 256]}"
-
-    def mk(i):
-        return (rt.AggregateRequest(query(i))
-                .group_by("@grp", ("COUNT", [], "n"),
-                          ("SUM", ["@price"], "s"),
-                          ("AVG", ["@price"], "a"))
-                .sort_by(("@s", rt.DESC)).limit(0, 10))
-
-    def mk_sd(i):
-        return (rt.AggregateRequest(query(i))
-                .group_by("@grp", ("COUNT", [], "n"),
-                          ("STDDEV", ["@price"], "sd"),
-                          ("AVG", ["@price"], "a"))
-                .sort_by("@grp"))
-
-    def mk_mm(i):
-        """bench_agg with MIN and MAX of the price added."""
-        return (rt.AggregateRequest(query(i))
-                .group_by("@grp", ("COUNT", [], "n"),
-                          ("SUM", ["@price"], "s"),
-                          ("AVG", ["@price"], "a"),
-                          ("MIN", ["@price"], "lo"),
-                          ("MAX", ["@price"], "hi"))
-                .sort_by(("@s", rt.DESC)).limit(0, 10))
-    return mk, mk_sd, mk_mm
-
-
-def star_request(now: int):
-    """bench.py's bench_agg_star request: '*' -> GROUPBY @grp -> COUNT /
-    SUM(@price) -> SORTBY @s DESC -> LIMIT 0 10 over all 1M rows; the TTL
-    clock varies per request, as bench.py varies it."""
-    return (rt.AggregateRequest("*", now=now)
-            .group_by("@grp", ("COUNT", [], "n"), ("SUM", ["@price"], "s"))
-            .sort_by(("@s", rt.DESC)).limit(0, 10))
-
-
 def agg_eligible(ix, seg, req) -> bool:
     """Whether the request rides the kernel-raw branch: a device plan
     without MIN/MAX, and an intersection-kernel plan whose pivots are
@@ -2292,24 +2184,6 @@ def agg_eligible(ix, seg, req) -> bool:
     kp = E._kernel_plan(cq, seg, cq.bind_row(seg)[1][4], 16)
     return kp is not None and all(kp[0][p][0] == "t"
                                   for p in kp[2][kp[3]][1])
-
-
-class plain_versions:
-    """Within the block the engine's and the pipeline's ops run their
-    plain torch versions on the card (for the recomputation the kernels
-    are held against)."""
-
-    def __enter__(self):
-        self.saved = (IK.intersect_batch, IK.phrase_batch,
-                      GB.groupby_aggregate_batch, GB.groupby_aggregate_multi)
-        IK.intersect_batch = IK.intersect_plain
-        IK.phrase_batch = IK.phrase_plain
-        GB.groupby_aggregate_batch = GB.groupby_plain
-        GB.groupby_aggregate_multi = GB.groupby_aggregate_multi_plain
-
-    def __exit__(self, *exc):
-        (IK.intersect_batch, IK.phrase_batch, GB.groupby_aggregate_batch,
-         GB.groupby_aggregate_multi) = self.saved
 
 
 class capture_shapes:
@@ -3709,13 +3583,11 @@ def phase_surface(main, dev) -> None:
 KNN_N, KNN_D, KNN_K, KNN_B = 1_000_000, 128, 10, 2048
 #: query chunks scanned (bench.py scans 48; 4 hold the checks and times)
 KNN_CHUNKS = 4
-#: bench.py's filtered-KNN section: 500k x 384 unit vectors, COSINE
-FKNN_N, FKNN_D, FKNN_B, FKNN_K = 500_000, 384, 2048, 25
+#: the filtered-KNN section's batch here (bench.py's is 512)
+FKNN_B = 2048
 #: batches of the pipelined QPS loop (the hoisted and knn-row families
 #: take about 5 s a batch on the host)
 FKNN_PIPE = 2
-FKNN_WORDS = ["algebra", "graph", "neural", "quantum", "protein", "market",
-              "vision", "speech", "logic", "random"]
 #: H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside them
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -3834,114 +3706,6 @@ def phase_knn_ops(dev) -> list:
     return parts
 
 
-def fknn_corpus(n: int, dim: int, seed: int = 0):
-    """bench.py's arxiv-shaped filtered-KNN corpus (bench_filtered_knn):
-    titles of 3 of 10 words, year 1990 + i % 35, cat c{i % 20}, unit
-    normal vectors, from `seed`, drawn in bulk; and 512 query vectors."""
-    rng = np.random.default_rng(seed)
-    words = np.array(FKNN_WORDS)
-    vecs = rng.normal(size=(n, dim)).astype(np.float32)
-    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
-    tidx = rng.integers(0, 10, size=(n, 3))
-    titles = [" ".join(t) for t in words[tidx]]
-    docs = [(f"p{i}", {"title": titles[i], "year": int(1990 + i % 35),
-                       "cat": f"c{i % 20}", "emb": vecs[i]})
-            for i in range(n)]
-    qvecs = rng.normal(size=(512, dim)).astype(np.float32)
-    return docs, vecs, tidx, qvecs
-
-
-def fknn_families():
-    """(query fn, route, host filter fn) per family: bench.py's fulltext,
-    numeric and tag families, pure KNN, and a check-only narrow family.
-    At 500k docs every leaf of the narrow family has a 32,768-lane
-    window, which the planner sends to BATCHES; HYBRID_POLICY ADHOC_BF
-    keeps it on the knn-row executor."""
-    W = FKNN_WORDS
-    return {
-        "fulltext": (lambda i: f"(@title:{W[i % 10]})"
-                     "=>[KNN 25 @emb $b EF_RUNTIME 64]", "knn-batches",
-                     lambda i, tidx, year, cat: (tidx == i % 10).any(1)),
-        "numeric": (lambda i: f"(@year:[{1990 + i % 30} {1995 + i % 30}])"
-                    "=>[KNN 25 @emb $b EF_RUNTIME 64]", "knn-dense",
-                    lambda i, tidx, year, cat: (year >= 1990 + i % 30)
-                    & (year <= 1995 + i % 30)),
-        "tag": (lambda i: f"(@cat:{{c{i % 20}}})"
-                "=>[KNN 25 @emb $b EF_RUNTIME 64]", "knn-dense",
-                lambda i, tidx, year, cat: cat == i % 20),
-        "pure": (lambda i: "*=>[KNN 25 @emb $b]", "knn-pure",
-                 lambda i, tidx, year, cat: np.ones(len(year), bool)),
-        "narrow": (lambda i: f"(@title:{W[i % 10]} "
-                   f"@year:[{1990 + i % 35} {1990 + i % 35}])"
-                   "=>[KNN 25 @emb $b HYBRID_POLICY ADHOC_BF]", "knn-row",
-                   lambda i, tidx, year, cat: (tidx == i % 10).any(1)
-                   & (year == 1990 + i % 35)),
-    }
-
-
-def check_fknn(res, qs, qvecs, v64, ffn, what) -> float:
-    """Every hit passes its filter, each distance within 1e-5 of its
-    float64 value, and recall@25 of the batch against an exact float64
-    top-25 over the filter's docs, computed on the card.  The filters are
-    evaluated on the host from the corpus's own arrays, once per query
-    string.  Returns the recall."""
-    masks_by_q: dict = {}
-
-    def fmask(r):
-        m = masks_by_q.get(qs[r])
-        if m is None:
-            m = masks_by_q[qs[r]] = ffn(r)
-        return m
-
-    hit_sum = live_sum = 0
-    for c0 in range(0, len(res), 256):
-        rows = range(c0, min(len(res), c0 + 256))
-        q = torch.from_numpy(qvecs[[r % 512 for r in rows]]).to(
-            v64.device).double()
-        qn = q / q.norm(dim=1, keepdim=True)
-        d64 = 1.0 - qn @ v64.t()                       # unit rows
-        masks = torch.from_numpy(np.stack([fmask(r) for r in rows])).to(
-            v64.device)
-        d64 = torch.where(masks, d64, float("inf"))
-        n_valid = masks.sum(1)
-        truth = torch.topk(d64, FKNN_K, dim=1, largest=False).indices.cpu()
-        d64 = d64.cpu().numpy()
-        for j, r in enumerate(rows):
-            keys = [int(h.key[1:]) for h in res[r].hits]
-            m = fmask(r)
-            if not all(m[i] for i in keys):
-                raise AssertionError(f"{what}: query {r} returned a doc "
-                                     "that fails its filter")
-            got = np.array([h.vector_distance for h in res[r].hits])
-            err = np.abs(got - d64[j, keys]).max() if keys else 0.0
-            if not err <= 1e-5:
-                raise AssertionError(f"{what}: query {r} distance error "
-                                     f"{err}")
-            want = set(truth[j, :min(FKNN_K, int(n_valid[j]))].tolist())
-            hit_sum += len(set(keys) & want)
-            live_sum += len(want)
-    return hit_sum / max(live_sum, 1)
-
-
-def same_knn_hits(a, b, what, tol=1e-5):
-    """Two KNN results agree: as many hits, distances within tol lane
-    for lane, and equal keys wherever neighbouring distances differ by
-    more than tol.  (Totals differ by design: a pure KNN batch counts
-    every live vector, a single search at most k, in both packages.)"""
-    if len(a.hits) != len(b.hits):
-        raise AssertionError(f"{what}: hits {len(a.hits)} / "
-                             f"{len(b.hits)}")
-    da = np.array([h.vector_distance for h in a.hits])
-    db = np.array([h.vector_distance for h in b.hits])
-    if len(da) and not np.abs(da - db).max() <= tol:
-        raise AssertionError(f"{what}: distances differ")
-    for j in range(len(da)):
-        near = ((j > 0 and da[j] - da[j - 1] <= tol)
-                or (j + 1 < len(da) and da[j + 1] - da[j] <= tol))
-        if not near and a.hits[j].key != b.hits[j].key:
-            raise AssertionError(f"{what}: lane {j} key differs")
-
-
 def phase_fknn(dev) -> dict:
     """bench.py's filtered-KNN corpus end to end (see the docstring's
     phase 7)."""
@@ -3952,12 +3716,7 @@ def phase_fknn(dev) -> dict:
     cat = np.arange(FKNN_N) % 20
     t1 = time.perf_counter()
     client = rt.Client(device=dev)
-    ix = client.ft_create("arxivb", [
-        rt.Field("title", rt.FieldType.TEXT),
-        rt.Field("year", rt.FieldType.NUMERIC, sortable=True),
-        rt.Field("cat", rt.FieldType.TAG),
-        rt.Field("emb", rt.FieldType.VECTOR, vector=rt.VectorParams(
-            dim=FKNN_D, metric="COSINE"))])
+    ix = client.ft_create("arxivb", fknn_fields(FKNN_D))
     ix.add_documents(docs)
     torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
@@ -4115,35 +3874,6 @@ def phase_vector(dev) -> dict:
 
 
 # --------------------------------------------------------------- phase 7b
-#: bench.py's bench_hybrid: batch 1024, window 20, limit 10, 4 rounds
-HYB_B, HYB_W, HYB_LIMIT, HYB_ROUNDS = 1024, 20, 10, 4
-
-
-def hybrid_queries(it: int, combine: str) -> list:
-    """bench.py's bench_hybrid round `it`: a single title word and one of
-    512 query vectors (seed 5) per query."""
-    qvecs = np.random.default_rng(5).normal(size=(512, FKNN_D)).astype(
-        np.float32)
-    return [rt.HybridQuery(
-        search=FKNN_WORDS[(it * HYB_B + i) % 10], vsim_field="emb",
-        vsim_vector=qvecs[(it * HYB_B + i) % 512], combine=combine,
-        window=HYB_W, limit=HYB_LIMIT) for i in range(HYB_B)]
-
-
-def same_fusion(a, b, what):
-    """Two fused row lists: equal keys, order and fields, floats within
-    1e-6 (the vectorized fusion takes 1/(1+dist) in f32, the hit-list
-    fusion in Python floats)."""
-    if [r["__key"] for r in a] != [r["__key"] for r in b]:
-        raise AssertionError(f"{what}: keys differ")
-    for ra, rb in zip(a, b):
-        if list(ra) != list(rb):
-            raise AssertionError(f"{what}: fields differ")
-        for k, v in rb.items():
-            if isinstance(v, float) and not abs(ra[k] - v) <= 1e-6:
-                raise AssertionError(f"{what}: {k} {ra[k]} vs {v}")
-
-
 def phase_hybrid(dev, ctx) -> dict:
     """FT.HYBRID and the rounds API on the 500k x 384 index (see the
     docstring's phase 7b)."""
@@ -4612,44 +4342,8 @@ def phase_dist(main, vctx, dev, smi) -> dict:
 
 
 # --------------------------------------------------------------- phase 8
-#: bench.py's ann section (bench_ann): 1M x 100 clustered COSINE, nlist
-#: 1024, 256 queries x 4 reps, k 10, nprobe 8 / 32 / 128
-ANN_N, ANN_D, ANN_NLIST, ANN_K = 1_000_000, 100, 1024, 10
-ANN_Q, ANN_REPS = 256, 4
-ANN_NPROBES = (8, 32, 128)
 #: PCIe Gen5 x16 (the H100 SXM's host link), bytes a second each way
 PCIE_BYTES_PER_S = 64e9
-
-
-def ann_corpus():
-    """bench.py's bench_ann corpus and queries (seed 7): 256 centers,
-    each vector a center plus 0.3 noise."""
-    rng = np.random.default_rng(7)
-    n, d, nq = ANN_N, ANN_D, ANN_Q * ANN_REPS
-    centers = rng.normal(size=(256, d)).astype(np.float32)
-    vecs = (centers[rng.integers(0, 256, size=n)]
-            + 0.3 * rng.normal(size=(n, d))).astype(np.float32)
-    queries = (centers[rng.integers(0, 256, size=nq)]
-               + 0.3 * rng.normal(size=(nq, d))).astype(np.float32)
-    return vecs, queries.reshape(ANN_REPS, ANN_Q, d)
-
-
-def ann_truth(vecs_dev, q0):
-    """Exact float64 cosine top-k of the first rep's queries, on the
-    card."""
-    v64 = vecs_dev.double()
-    v64 = v64 / v64.norm(dim=1, keepdim=True).clamp(min=1e-30)
-    q = torch.from_numpy(q0).to(vecs_dev.device).double()
-    q = q / q.norm(dim=1, keepdim=True)
-    truth = torch.topk(q @ v64.t(), ANN_K, dim=1).indices.cpu().numpy()
-    del v64
-    return [set(t.tolist()) for t in truth]
-
-
-def recall_of(ids, truth) -> float:
-    ids = np.asarray(ids)
-    return float(np.mean([len(set(ids[i].tolist()) & truth[i]) / ANN_K
-                          for i in range(len(truth))]))
 
 
 def timed_qps(fn, reps) -> float:
@@ -5733,6 +5427,37 @@ def phase_lifecycle(dev, main) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 16
+#: the bench's progress keys that carry a parity check
+BENCH_CHECKED = ([f"bm25__{f}" for f in FAMILIES]
+                 + ["agg_groupby_qps", "agg_star_qps", "flat_knn_qps",
+                    "ann_sweep"]
+                 + [f"fknn__{f}" for f in ("fulltext", "numeric", "tag")]
+                 + ["hybrid__rrf", "hybrid__linear"])
+
+
+def phase_bench(dev) -> dict:
+    """Phase 16 (see the docstring)."""
+    from redisearch_tpu_torch.bench import run as BR
+    t0 = time.perf_counter()
+    board, rc = BR.run(BR.SECTIONS, dev, BR.SMOKE, reps=1)
+    ex = board["extra"]
+    log(f"phase bench: BENCH_SMOKE shapes, sections "
+        f"{ {k: round(v, 1) for k, v in ex['section_s'].items()} } s, "
+        f"rc {rc}, kernel_hit_pct {ex.get('kernel_hit_pct')}, and2 "
+        f"{board['value']:.1f} qps (one measurement, not a cell)")
+    log("phase bench: parity " + json.dumps(ex["parity"]))
+    missing = [k for k in BENCH_CHECKED if k not in ex["parity"]]
+    if rc or ex.get("section_rc") or missing:
+        raise AssertionError(f"bench: rc {rc}, {ex.get('section_rc')}, "
+                             f"numbers without a parity check {missing}")
+    if ex.get("kernel_hit_pct") != 100.0:
+        raise AssertionError(f"bench: FT.SEARCH families off the kernels: "
+                             f"{ex['routes'].get('kernel_hit_pct')}")
+    log(f"phase bench: done in {time.perf_counter() - t0:.1f}s")
+    return board
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -5762,6 +5487,8 @@ def main():
     phase_geo(dev)
     phase_cold(dev, main)
     life_err = phase_lifecycle(dev, main)["served"]["err"]
+    torch.cuda.empty_cache()
+    phase_bench(dev)
     k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
     wk_ms, wp_ms, wk_err, wk_b = main["times"]["intersect_wide"]
     pk_ms, pp_ms, pk_err, pk_b = main["times"]["phrase"]

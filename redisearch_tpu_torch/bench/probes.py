@@ -626,8 +626,8 @@ def resolve_device(device=None) -> torch.device:
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
-        raise RuntimeError("the probes run on a CUDA card: none is "
-                           "available (pass device='cpu' for the plain "
+        raise RuntimeError("the bench scripts run on a CUDA card: none "
+                           "is available (pass device='cpu' for the plain "
                            "versions)")
     return torch.device("cuda", 0)
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -320,7 +321,10 @@ def bf16_scan_copy(mat):
     """bf16 copy of an f32 vector matrix for the two-phase KNN candidate
     scan (`VectorColumn.scan_vecs`): half the scan's memory reads, at
     +50% vector memory; the f32 matrix stays the source of truth for the
-    rescore.  None for other storage types."""
+    rescore.  None for other storage types or under RS_TPU_NO_BF16_SCAN=1
+    (as in the JAX package)."""
+    if os.environ.get("RS_TPU_NO_BF16_SCAN"):
+        return None
     if mat.dtype != torch.float32:
         return None
     return mat.to(torch.bfloat16)

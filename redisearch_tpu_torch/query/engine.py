@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time as _time
 from typing import Any, Optional
 
@@ -904,7 +905,11 @@ def _kernel_plan(cq0: CompiledQuery, seg: Segment, bk: dict, k_pad: int,
     MAX_W_PIVOT, the 12 MB window budget), so that both packages route
     the same queries to the kernel.  `wide=True` lifts those two, which
     are the TPU kernel's VMEM limits: pivots up to MAX_W_MEMBER, no
-    budget; every other gate stays (`_kernel_route`)."""
+    budget; every other gate stays (`_kernel_route`).
+    RS_TPU_NO_INTERSECT_KERNEL=1 turns the kernel off, as in the JAX
+    planner: every query then takes the window program."""
+    if os.environ.get("RS_TPU_NO_INTERSECT_KERNEL"):
+        return None
     if not _kernel_seg_ok(cq0, seg, k_pad):
         return None
 
@@ -1099,10 +1104,11 @@ def _kernel_plan_phrase(cq0: CompiledQuery, seg: Segment, bk: dict,
     """Eligibility for the phrase kernel (ops/intersect.py phrase_batch):
     a single exact / in-order-slop phrase leaf on a clean segment, with
     in-window (non-overflow) position lists.  Returns (slots, Ws, PWs,
-    stride, slop) or None.  A copy of the JAX planner's, gates and budget
-    included, so that both packages route the same phrases to the kernel;
-    only its RS_TPU_NO_INTERSECT_KERNEL switch is left out, as in
-    `_kernel_plan`."""
+    stride, slop) or None.  A copy of the JAX planner's, gates, budget
+    and RS_TPU_NO_INTERSECT_KERNEL switch included, so that both packages
+    route the same phrases to the kernel."""
+    if os.environ.get("RS_TPU_NO_INTERSECT_KERNEL"):
+        return None
     if not _kernel_seg_ok(cq0, seg, k_pad):
         return None
     tree = cq0.tree
@@ -1214,8 +1220,10 @@ def _knn_dense_plan(cq0: CompiledQuery, seg: Segment, bk: dict):
     with a dense code column (at most 4 live values), single-valued
     NUMERIC, MISSING, ALL, alone or under AND, with NOT/OPT wrapping.
     Returns a tuple of ("tagc"|"num"|"missing"|"all", params, leaf_idx,
-    flag) specs, flag "req"/"not"/"opt", or None.  The JAX planner's,
-    without its RS_TPU_NO_DENSE_KNN switch."""
+    flag) specs, flag "req"/"not"/"opt", or None (also under
+    RS_TPU_NO_DENSE_KNN=1).  The JAX planner's."""
+    if os.environ.get("RS_TPU_NO_DENSE_KNN"):
+        return None
     if cq0.knn is None or cq0.opts.sort_field is not None:
         return None
     if not _knn_exact_scan(cq0, seg):

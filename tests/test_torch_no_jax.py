@@ -371,7 +371,7 @@ if BLOCK:
 
 from redisearch_tpu_torch.bench import probes as P
 mods = [importlib.import_module("redisearch_tpu_torch.bench." + m)
-        for m in P.SCRIPTS.values()]
+        for m in list(P.SCRIPTS.values()) + ["run", "workloads"]]
 res = P.main(["gstep2"], device="cpu")
 repo = os.path.dirname(os.path.dirname(os.path.abspath(P.__file__)))
 repo = os.path.dirname(repo)
@@ -385,7 +385,8 @@ print(json.dumps({
                         tuple(dirs))),
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
-                                            "redisearch_tpu", "benchmarks")),
+                                            "redisearch_tpu", "benchmarks",
+                                            "bench")),
 }))
 """
 
@@ -393,10 +394,11 @@ print(json.dumps({
 @pytest.mark.parametrize("block", [True, False],
                          ids=["jax-blocked", "jax-installed"])
 def test_probes_load_without_jax(block):
-    """`bench/probes.py` and the four probe scripts load (and gstep2's
-    plain versions run) without jax, and load no module file under
-    `redisearch_tpu/` or `benchmarks/`: the port keeps its own copies
-    of the TPU scripts' constants."""
+    """`bench/probes.py`, the four probe scripts and the bench runner
+    (`bench/run.py`, `bench/workloads.py`) load (and gstep2's plain
+    versions run) without jax, and load no module file under
+    `redisearch_tpu/` or `benchmarks/` (nor bench.py): the port keeps its
+    own copies of the TPU scripts' and bench.py's constants."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
@@ -407,7 +409,7 @@ def test_probes_load_without_jax(block):
     assert out["scripts"] == sorted(
         "redisearch_tpu_torch.bench." + m for m in (
             "gstep_probe", "gstep_probe2", "kernel_probe",
-            "grid_floor_probe"))
+            "grid_floor_probe", "run", "workloads"))
     assert out["bad"] == [0, 0]
     assert out["files"] == [], out["files"]
     assert out["loaded"] == [], out["loaded"]
