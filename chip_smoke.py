@@ -17,7 +17,11 @@ script exits non-zero:
    seconds are printed) at the serving buckets (pivot 2048/8192/32768,
    members up to 131072), the AND/NOT/OPT/OR families,
    tag-aux and dense-tag plans, k = 1/16/64, multi-phase ORs, and
-   batches larger than the kernel's grid; the wide route's pivots
+   batches larger than the kernel's grid; the cases of
+   benchmarks/intersect_crosscheck.py the others miss (one slot; NOT,
+   union and OPT over tag aux slots; a 3-value dense predicate, one
+   under a union pivot, two beside an OPT member); the wide route's
+   pivots
    (65,536 and 131,072 lanes: or2, and2 with both slots wide, a NOT
    member, a batch past the grid); score ties across a tile boundary
    of the narrow, mid and wide block shapes (batches of 1,200, 320 and
@@ -27,7 +31,7 @@ script exits non-zero:
    where the pivot is within 32,768 lanes, in raw mode (`raw=True`).
    Then the phrase kernel against `phrase_plain`, top-k and raw, on
    random posting and position-key windows (drawn on the card too;
-   W0/PW 2048..131072, T = 2..4, slop 0/1/3, k = 1/16/64, repeated
+   W0/PW 2048..131072, T = 2..4, slop 0-3, k = 1/16/64, repeated
    terms, clamped keys, a 1024 stride, batches larger than its grid):
    lane for lane equal, scores bit-identical.  Then the group-by kernel against
    `groupby_plain` on random
@@ -142,7 +146,9 @@ script exits non-zero:
    and the batch's host-pipeline requests per second are printed.
 13. the wire (run after 6b, before phase 7), on the same 1M-doc index:
    the port's RESP server (`server.Server` on phase 4's client, its
-   event loop on a thread of this process); 64 asyncio connections send
+   event loop on a thread of this process; the RESP client is
+   `bench/workloads.py`'s, which the bench's wire section uses too); 64
+   asyncio connections send
    8,192 `FT.SEARCH ... NOCONTENT WITHSCORES` (the first 1,024 queries
    of each of the eight families, interleaved), three timed passes:
    every reply's total, ids, order and scores must equal phase 4's
@@ -312,17 +318,27 @@ script exits non-zero:
    (`same_hits`).  (f) `hset` of 1,000 live keys with new text and of
    1,000 new keys, one query seals the second segment: 256 queries a
    family find each new doc by its own tokens, no overwritten version is
-   served (256 and2 totals equal numpy over the live docs, 256 title
-   phrases), `ft_get` and `ft_mget` return the new fields.  QPS on the
+   served (in 256 and2 queries, 16 of them with totals equal to numpy
+   over the live docs, and 256 title phrases of its old text), `ft_get`
+   and `ft_mget` return the new fields.  QPS on the
    dirty and the compacted index are printed.
 16. the port's bench (run after 11, before 12; at most about a minute):
-   `redisearch_tpu_torch/bench/run.py`'s four sections (text, fknn,
-   knn, ann: bench.py's sections) in this process at bench.py's
+   `redisearch_tpu_torch/bench/run.py`'s six sections (text, fknn,
+   knn, ann: bench.py's sections; wire and cold: benchmarks/
+   wire_bench.py's and cold_bench.py's) in this process at bench.py's
    BENCH_SMOKE shapes (20,000 docs, 100,000 vectors), one measurement of
    each number; every section must pass, every number carry its parity
    check (FT.SEARCH, FT.AGGREGATE and FT.HYBRID against their plain
-   recomputation, KNN and IVF recall against float64 on the card) and
-   every FT.SEARCH family ride a kernel.
+   recomputation, KNN and IVF recall against float64 on the card, every
+   wire reply against `ft_search_many`, every cold result against the
+   hot index) and every FT.SEARCH family ride a kernel.
+17. the bench scripts' checks (after 16): `bench/device_smoke.py
+   --compare`'s comparison (benchmarks/tpu_smoke.py's 64-doc digest on
+   the card and on the CPU: keys, order and totals equal, numbers within
+   1e-4), `bench/intersect_micro.py` at one point (B = 512, (2048,
+   8192), k 16 and 1) and `bench/phrase_ab.py` at one shape ((2048,
+   2048), fill 0.5, tf 2: B2 top-k and raw, B1's matched and2), each
+   kernel held lane for lane against its plain version, then timed.
 12. the module check (no jax, no module file under `redisearch_tpu/` or
    `benchmarks/`),
    then the last three lines: nvidia-smi's name and power limit, the
@@ -360,10 +376,12 @@ from redisearch_tpu_torch.bench.ab import device_ms as time_ms
 from redisearch_tpu_torch.bench.workloads import (
     ANN_D, ANN_K, ANN_N, ANN_NLIST, ANN_NPROBES, ANN_Q, ANN_REPS, FAMILIES,
     FKNN_D, FKNN_K, FKNN_N, HYB_B, HYB_LIMIT, HYB_ROUNDS, HYB_W,
-    K, SCORE_RTOL, agg_request_fn, ann_corpus, ann_truth, bm25_fields,
-    check_against_plain, check_fknn, fknn_corpus, fknn_families,
-    fknn_fields, hybrid_queries, make_corpus, plain_results,
-    plain_versions, recall_of, same_fusion, same_knn_hits, star_request)
+    K, SCORE_RTOL, agg_request_fn, ann_corpus, ann_truth,
+    bm25_fields, check_against_plain, check_fknn, device_busy_us,
+    fknn_corpus, fknn_families, fknn_fields, hybrid_queries,
+    intersect_bytes, make_corpus, nbytes, phrase_bytes, plain_results,
+    plain_versions, recall_of, same_fusion, same_knn_hits, star_request,
+    start_server, wire_run)
 from redisearch_tpu_torch.ops import _build
 from redisearch_tpu_torch.ops import groupby as GB
 from redisearch_tpu_torch.ops import intersect as IK
@@ -553,34 +571,90 @@ def kernel_cases(gen, B=48):
             ("or2-gridstride", (2048, 2048), ((R, (0, 1)),))):
         args = make_windows(gen, B_big, Ws)
         out.append((label, args, dict(T=2, Ws=Ws, groups=groups, k=16)))
-    # TAG member slots streamed from an aux doc-window array: per query
-    # the distinct docs of 4,096-8,192 draws, 8,193 lanes apart
+    # a TAG member slot streamed from an aux doc-window array, and dense
+    # posting-aligned code predicates (REQ with 2 values, NOT)
     Ws = (2048, 8192)
-    dev = gen.device
-    meta, fmeta, d, f, m, dl = make_windows(gen, B, Ws)
-    aux = torch.full((B * 8193 + 4096,), INT32_MAX, dtype=torch.int32,
-                     device=dev)
-    col = torch.arange(8192, device=dev)[None, :]
-    draws = rand_ints(gen, 0, 2_000_000, (B, 8192)).masked_fill(
-        col >= rand_ints(gen, 4096, 8193, (B, 1)), INT32_MAX)
-    docs, n = sorted_unique_rows(draws, 8192)
-    first = torch.arange(B, device=dev) * 8193
-    aux[first[:, None] + col] = docs
-    meta[:, 1], meta[:, 3] = first, n
-    out.append(("tag-aux", (meta, fmeta, d, f, m, dl, aux),
+    out.append(("tag-aux", with_aux(gen, make_windows(gen, B, Ws), Ws, (1,)),
                 dict(T=2, Ws=Ws, groups=((R, (0,), -1), (R, (1,), 0)),
                      k=16)))
-    # dense posting-aligned code predicates (REQ with 2 values, NOT)
-    meta, fmeta, d, f, m, dl = make_windows(gen, B, Ws)
-    codes = rand_ints(gen, 0, 8, (d.shape[0],))
-    q = rand_ints(gen, -1, 10, (B, 3))
-    q[rand_unit(gen, B) < 0.3, 1] = -2       # unbound value slots
-    meta = torch.cat([meta, q], dim=1)
-    fmeta = torch.cat([fmeta, 0.5 + 3.5 * rand_unit(gen, (B, 2))], dim=1)
-    out.append(("dense-tag", (meta, fmeta, d, f, m, dl, codes),
+    dense = ((R, 0, 2), (N, 1, 1))
+    out.append(("dense-tag", with_dense(gen, make_windows(gen, B, Ws),
+                                        dense),
                 dict(T=2, Ws=Ws, groups=((R, (0,), -1), (R, (1,), -1)),
-                     k=16, dense=((R, 0, 2), (N, 0, 1)))))
-    return out + wide_kernel_cases(gen) + tile_kernel_cases(gen)
+                     k=16, dense=dense)))
+    return (out + crosscheck_cases(gen, B) + wide_kernel_cases(gen)
+            + tile_kernel_cases(gen))
+
+
+def with_aux(gen, args, Ws, aux_slots):
+    """`args` with the slots `aux_slots` moved to one aux doc-window
+    array (tag postings: docs only), each window the distinct docs of
+    W/2..W draws, one lane apart."""
+    meta, fmeta, d, f, m, dl = args
+    meta, dev = meta.clone(), meta.device
+    B, T = meta.shape[0], len(Ws)
+    aux = torch.full((B * sum(Ws[t] + 1 for t in aux_slots) + 4096,),
+                     INT32_MAX, dtype=torch.int32, device=dev)
+    at = 0
+    for t in aux_slots:
+        W = Ws[t]
+        col = torch.arange(W, device=dev)[None, :]
+        draws = rand_ints(gen, 0, 2_000_000, (B, W)).masked_fill(
+            col >= rand_ints(gen, max(1, W // 2), W + 1, (B, 1)), INT32_MAX)
+        docs, n = sorted_unique_rows(draws, W)
+        first = at + torch.arange(B, device=dev) * (W + 1)
+        aux[first[:, None] + col] = docs
+        meta[:, t], meta[:, T + t] = first, n
+        at += B * (W + 1)
+    return meta, fmeta, d, f, m, dl, aux
+
+
+def with_dense(gen, args, dense):
+    """`args` with a posting-aligned int32 code column (codes 0..7) and
+    its query values (-1..9; -2, unbound, in a third of the last slots of
+    a multi-value predicate) and leaf constant per dense predicate."""
+    meta, fmeta, d, f, m, dl = args
+    B = meta.shape[0]
+    cols, qs, fs = [], [meta], [fmeta]
+    for _flag, _src, nv in dense:
+        cols.append(rand_ints(gen, 0, 8, (d.shape[0],)))
+        q = rand_ints(gen, -1, 10, (B, nv))
+        if nv > 1:
+            q[rand_unit(gen, B) < 0.3, nv - 1] = -2
+        qs.append(q)
+        fs.append(0.5 + 3.5 * rand_unit(gen, (B, 1)))
+    return (torch.cat(qs, 1), torch.cat(fs, 1), d, f, m, dl, *cols)
+
+
+def crosscheck_cases(gen, B=48):
+    """benchmarks/intersect_crosscheck.py's cases that the serving-bucket
+    cases above miss: one slot; NOT, union and OPT over tag aux slots
+    (its AUX_CASES); a 3-value dense predicate, a dense predicate under a
+    union pivot and two beside an OPT member (its DENSE_CASES)."""
+    R, N, O = IK.REQ, IK.NOT, IK.OPT
+    out = [(label, make_windows(gen, B, Ws),
+            dict(T=1, Ws=Ws, groups=((R, (0,)),), k=k))
+           for label, Ws, k in (("one-slot", (2048,), 16),
+                                ("one-slot-k1", (8192,), 1))]
+    for label, Ws, groups, aux_slots in (
+            ("and-nottag", (2048, 8192), ((R, (0,), -1), (N, (1,), 0)),
+             (1,)),
+            ("and+tagor", (2048, 4096, 4096),
+             ((R, (0,), -1), (R, (1, 2), 0)), (1, 2)),
+            ("and2+opttag", (2048, 8192, 8192),
+             ((R, (0,), -1), (R, (1,), -1), (O, (2,), 0)), (2,))):
+        out.append((label, with_aux(gen, make_windows(gen, B, Ws), Ws,
+                                    aux_slots),
+                    dict(T=len(Ws), Ws=Ws, groups=groups, k=16)))
+    for label, Ws, groups, dense in (
+            ("and2+dor3", (2048, 8192), ((R, (0,)), (R, (1,))),
+             ((R, 0, 3),)),
+            ("or2+dense", (2048, 2048), ((R, (0, 1)),), ((R, 0, 1),)),
+            ("opt+2dense", (2048, 8192), ((R, (0,)), (O, (1,))),
+             ((R, 0, 1), (N, 1, 1)))):
+        out.append((label, with_dense(gen, make_windows(gen, B, Ws), dense),
+                    dict(T=2, Ws=Ws, groups=groups, k=16, dense=dense)))
+    return out
 
 
 def wide_kernel_cases(gen):
@@ -871,6 +945,8 @@ def make_phrase_windows(gen, B, Ws, PWs, stride=64, n_docs=2_000_000,
 # that it outgrows the kernel's grid (4096 blocks; 512 at W0 = 131072)
 PHRASE_CASES = [
     ("t2-exact", (2048, 2048), (4096, 4096), 0, 16, None, 64, 48, 48),
+    ("t2-slop2", (2048, 2048), (4096, 4096), 2, 16, None, 64, 48, 48),
+    ("t2-bigpos", (2048, 2048), (4096, 131072), 0, 16, None, 64, 48, 48),
     ("t2-slop1-k1", (2048, 8192), (4096, 16384), 1, 1, None, 64, 48, 48),
     ("t3-slop3", (8192,) * 3, (16384,) * 3, 3, 16, None, 64, 32, 32),
     ("t4-exact-k64", (2048, 2048, 8192, 2048), (4096, 4096, 16384, 4096),
@@ -1558,49 +1634,12 @@ def numpy_and2_docs(seg, ix, q: str) -> np.ndarray:
     return np.intersect1d(sets[0], sets[1])
 
 
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 def bound_ms(n_bytes: float) -> float:
     """The least time the card could take to move n_bytes at its memory
     rate.  Every kernel here does a handful of integer or f32 operations
     per byte it reads, far below the 67 TFLOP/s f32 rate, so bytes bound
     them all."""
     return n_bytes / HBM_BYTES_PER_S * 1e3
-
-
-def intersect_bytes(meta, fmeta, T, groups, pivot_g, outs) -> int:
-    """Bytes this batch needs the intersection kernel to move: every live
-    posting of the pivot slots (doc, freq, mask and doc length), one
-    probe of each other slot per pivot posting, at most its live length
-    (doc, freq and mask for a text slot, the doc for an aux tag slot),
-    the per-query meta and the outputs."""
-    srcs = IK._slot_srcs(T, groups)
-    lens = meta[:, T:2 * T].to(torch.int64)
-    piv = list(groups[pivot_g][1])
-    plen = lens[:, piv].sum(1)
-    n = 16 * int(plen.sum())
-    for t in range(T):
-        if t not in piv:
-            n += (12 if srcs[t] < 0 else 4) * int(
-                torch.minimum(lens[:, t], plen).sum())
-    return n + nbytes(meta, fmeta, *outs)
-
-
-def phrase_bytes(meta, fmeta, T, outs) -> int:
-    """Bytes this batch needs the phrase kernel to move: term 0's live
-    position keys, one probe of each later term's keys per term-0 key
-    (at most its live length), and for the queries that match, term 0's
-    postings (16 bytes each) and one probe of each later slot's postings
-    per term-0 posting (12 bytes); then the meta and the outputs."""
-    pl = meta[:, 4 * T:5 * T].to(torch.int64)
-    tl = meta[:, T:2 * T].to(torch.int64)[outs[2] > 0]
-    n = 4 * int(pl[:, 0].sum()) + 16 * int(tl[:, 0].sum())
-    for t in range(1, T):
-        n += 4 * int(torch.minimum(pl[:, t], pl[:, 0]).sum())
-        n += 12 * int(torch.minimum(tl[:, t], tl[:, 0]).sum())
-    return n + nbytes(meta, fmeta, *outs)
 
 
 def phase_main_path(dev, n_docs: int, batch: int) -> dict:
@@ -2106,26 +2145,6 @@ def save_b1_groups(path: str) -> None:
 
 
 # ---------------------------------------------------------------- phase 5
-def device_busy_us(prof, names=("intersect_kernel", "phrase_kernel")
-                   ) -> tuple:
-    """(busy us, {name: us}) from a torch.profiler trace: the union of
-    the device-side (kernel and memcpy) intervals, and per kernel name
-    the sum of its intervals."""
-    spans, kern = [], dict.fromkeys(names, 0.0)
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((ev.time_range.start, ev.time_range.end))
-            for nm in names:
-                if nm in ev.name:
-                    kern[nm] += ev.time_range.elapsed_us()
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(spans):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy, kern
-
-
 def phase_profile(client, ix, seg, batches, dev):
     """Information only: where one batch's time goes, per family.  The
     host stages of `ft_search_many`, each by the host clock over steady
@@ -2982,107 +3001,6 @@ def same_agg_row(x: dict, y: dict, tail: bool) -> bool:
 # --------------------------------------------------------------- phase 13
 #: the wire: connections, queries of each family, timed passes
 WIRE_CONNS, WIRE_EACH, WIRE_PASSES = 64, 1024, 3
-
-
-class WireConn:
-    """A minimal RESP2 client over one asyncio connection."""
-
-    def __init__(self, reader, writer):
-        self.r, self.w = reader, writer
-
-    @classmethod
-    async def open(cls, port: int):
-        import asyncio
-        return cls(*await asyncio.open_connection("127.0.0.1", port))
-
-    async def cmd(self, *argv):
-        out = [f"*{len(argv)}\r\n".encode()]
-        for a in argv:
-            b = str(a).encode()
-            out.append(b"$%d\r\n%s\r\n" % (len(b), b))
-        self.w.write(b"".join(out))
-        await self.w.drain()
-        return await self.read()
-
-    async def read(self):
-        line = (await self.r.readline()).rstrip(b"\r\n")
-        t, rest = line[:1], line[1:]
-        if t == b"+":
-            return rest.decode()
-        if t == b"-":
-            raise AssertionError(f"wire error reply: {rest.decode()}")
-        if t == b":":
-            return int(rest)
-        if t == b"$":
-            n = int(rest)
-            return None if n < 0 else (await self.r.readexactly(n + 2)
-                                       )[:-2].decode()
-        if t == b"*":
-            return [await self.read() for _ in range(int(rest))]
-        raise AssertionError(f"bad RESP line {line!r}")
-
-
-def start_server(client):
-    """The port's RESP server on `client`, in this process, with its own
-    event loop on a thread.  Returns (server, port, stop)."""
-    import asyncio
-    import threading
-    from redisearch_tpu_torch.server import Server
-    srv = Server(client=client, port=0)
-    loop = asyncio.new_event_loop()
-    box, ready = {}, threading.Event()
-
-    def run():
-        asyncio.set_event_loop(loop)
-        box["tcp"] = loop.run_until_complete(srv.serve())
-        ready.set()
-        loop.run_forever()
-
-    th = threading.Thread(target=run, daemon=True, name="wire-server")
-    th.start()
-    if not ready.wait(60):
-        raise AssertionError("wire: the server did not start")
-
-    def stop():
-        async def close():
-            box["tcp"].close()
-            await box["tcp"].wait_closed()
-            await srv.aclose()
-        asyncio.run_coroutine_threadsafe(close(), loop).result(60)
-        loop.call_soon_threadsafe(loop.stop)
-        th.join(60)
-        loop.close()
-        srv._pool.shutdown(wait=True)
-
-    return srv, box["tcp"].sockets[0].getsockname()[1], stop
-
-
-def wire_run(port: int, cmds: list, n_conns: int) -> tuple:
-    """Send `cmds` over `n_conns` connections, each connection one
-    command at a time (command i on connection i % n_conns).  Returns
-    (replies in command order, seconds from the first send to the last
-    reply)."""
-    import asyncio
-
-    async def go():
-        conns = [await WireConn.open(port) for _ in range(n_conns)]
-        replies = [None] * len(cmds)
-
-        async def worker(j):
-            for i in range(j, len(cmds), n_conns):
-                replies[i] = await conns[j].cmd(*cmds[i])
-
-        t0 = time.perf_counter()
-        try:
-            await asyncio.gather(*[worker(j) for j in range(n_conns)])
-            dt = time.perf_counter() - t0
-        finally:
-            for c in conns:
-                c.w.close()
-                await c.w.wait_closed()
-        return replies, dt
-
-    return asyncio.run(go())
 
 
 class _Reply:
@@ -5433,7 +5351,7 @@ BENCH_CHECKED = ([f"bm25__{f}" for f in FAMILIES]
                  + ["agg_groupby_qps", "agg_star_qps", "flat_knn_qps",
                     "ann_sweep"]
                  + [f"fknn__{f}" for f in ("fulltext", "numeric", "tag")]
-                 + ["hybrid__rrf", "hybrid__linear"])
+                 + ["hybrid__rrf", "hybrid__linear", "wire_qps", "cold"])
 
 
 def phase_bench(dev) -> dict:
@@ -5454,8 +5372,47 @@ def phase_bench(dev) -> dict:
     if ex.get("kernel_hit_pct") != 100.0:
         raise AssertionError(f"bench: FT.SEARCH families off the kernels: "
                              f"{ex['routes'].get('kernel_hit_pct')}")
+    log(f"phase bench: wire {ex['wire_qps']:.1f} qps, micro-batches "
+        f"{ex['wire_batch_sizes'][-1]}; cold and2 "
+        f"{ex['cold']['hbm']['and2_qps']:.1f} / "
+        f"{ex['cold']['host']['and2_qps']:.1f} qps hot / cold, routes "
+        f"{ex['routes']['cold']}")
     log(f"phase bench: done in {time.perf_counter() - t0:.1f}s")
     return board
+
+
+# -------------------------------------------------------------- phase 17
+def phase_bench_scripts(dev) -> None:
+    """Phase 17 (see the docstring)."""
+    from redisearch_tpu_torch.bench import device_smoke as DS
+    from redisearch_tpu_torch.bench import intersect_micro as IM
+    from redisearch_tpu_torch.bench import phrase_ab as PA
+    t0 = time.perf_counter()
+    checked, diffs = DS.compare(DS.digest(dev), DS.digest("cpu"))
+    if diffs:
+        raise AssertionError(f"device_smoke: the card's digest differs "
+                             f"from the CPU's: {diffs}")
+    log(f"phase bench-scripts: device_smoke --compare: {checked} values "
+        f"of the card's digest == the CPU's (keys, order and totals "
+        f"equal, numbers within {DS.TOL})")
+    rng = np.random.default_rng(0)
+    args = tuple(torch.from_numpy(a).to(dev)
+                 for a in IM.make_windows(rng, 512, 2048, 8192))
+    for k in (16, 1):
+        r = IM.point(args, 2048, 8192, k, dev)
+        log(f"phase bench-scripts: intersect_micro B=512 Wp=2048 Wm=8192 "
+            f"k={k}: == intersect_plain lane for lane ({r['matches']} "
+            f"matches); device {r['device_us_q']:.4f} us/q, wall "
+            f"{r['wall_us_q']:.4f} us/q, bound {r['bound_us_q']:.6f}")
+    npargs, Ws, PWs = PA.build(rng, 2048, 2048, 0.5, 2)
+    r = PA.shape(tuple(torch.from_numpy(a).to(dev) for a in npargs), Ws,
+                 PWs, dev)
+    log(f"phase bench-scripts: phrase_ab W=(2048, 2048) fill 0.5 tf 2: "
+        f"phrase, phrase raw and and2 == their plain versions; device "
+        f"{r['phrase']['device_us_q']:.4f} / "
+        f"{r['phrase_raw']['device_us_q']:.4f} / "
+        f"{r['and2']['device_us_q']:.4f} us/q (ratio {r['ratio']:.2f})")
+    log(f"phase bench-scripts: done in {time.perf_counter() - t0:.1f}s")
 
 
 def main():
@@ -5489,6 +5446,7 @@ def main():
     life_err = phase_lifecycle(dev, main)["served"]["err"]
     torch.cuda.empty_cache()
     phase_bench(dev)
+    phase_bench_scripts(dev)
     k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
     wk_ms, wp_ms, wk_err, wk_b = main["times"]["intersect_wide"]
     pk_ms, pp_ms, pk_err, pk_b = main["times"]["phrase"]

@@ -1,12 +1,13 @@
-"""The port's bench: bench.py's four sections on one CUDA card, one JSON
-scoreboard.
+"""The port's bench: bench.py's four sections and the wire and cold
+benches of `benchmarks/` on one CUDA card, one JSON scoreboard.
 
-    python3 -m redisearch_tpu_torch.bench.run [--section text|fknn|knn|ann]...
-        [--reps N] [--text-batch B] [--text-iters N]
+    python3 -m redisearch_tpu_torch.bench.run
+        [--section text|fknn|knn|ann|wire|cold]... [--reps N]
+        [--text-batch B] [--text-iters N]
     BENCH_SMOKE=1 python3 -m redisearch_tpu_torch.bench.run   # tiny shapes
 
-Sections, in bench.py's order (`SECTIONS`), all four by default, run one
-after another in this process:
+Sections (`SECTIONS`: bench.py's four in its order, then wire and
+cold), all six by default, run one after another in this process:
 * text: bench.py's 1M-doc FTSB enwiki-abstract corpus (`bench_bm25`),
   built once for the section: the build rate, the eight FT.SEARCH
   families at batch 8,192 and k 10 through `execute_batch` (warmed,
@@ -23,6 +24,17 @@ after another in this process:
   (`bench_knn`).
 * ann: 1M x 100 clustered COSINE, the FLAT scan and IVF (nlist 1,024)
   at nprobe 8 / 32 / 128 (`bench_ann`).
+* wire: benchmarks/wire_bench.py's shape (`bench/wire_bench.py`): the
+  RESP server on a 200k-doc index, 32 connections, timed passes of 60
+  FT.SEARCH a connection, each after its own warm pass and on queries
+  of its own; every reply equal to `ft_search_many`'s result in total
+  and keys.  `extra.wire_qps`, `extra.wire_batch_sizes`
+  (the micro-batch sizes of each pass).
+* cold: benchmarks/cold_bench.py's shape (`bench/cold_bench.py`): 500k
+  docs built hot and cold (`storage="host"`), 128 and2 queries and 128
+  exact phrases through `search_many`, each sample passes repeated for
+  a second at least (one pass at BENCH_SMOKE shapes); every cold result
+  equal to the hot one.  `extra.cold`: the script's keys.
 
 Every number is measured `--reps` times (default 3): its value is the
 median, `extra.spread` holds its median, min, max and count.  No number
@@ -42,9 +54,11 @@ for key.  `extra` adds `device` (the card, nvidia-smi's name and power
 limit), `spread`, `parity` (both keyed by bench.py's progress keys),
 `batch`, `routes`, `section_s`, `switches` (the route switches set) and
 `reps`, and the keys of the second batches (`agg_groupby_qps_b1024`,
-`filtered_knn_qps_b2048`).  A section that raises is recorded as
-`<section>_error` and the run exits 1 after the scoreboard.  Progress
-lines go to stderr.
+`filtered_knn_qps_b2048`), and the wire and cold sections' keys (their
+spreads under `wire_qps` and `cold__<storage>__<family>_qps`; the
+parity of every cold number under `cold`).  A section that raises is
+recorded as `<section>_error` and the run exits 1 after the scoreboard.
+Progress lines go to stderr.
 
 It runs on `cuda:0` and raises where there is no card; `run(...,
 device="cpu")` runs the same code on the CPU at the caller's `Shapes`
@@ -59,7 +73,6 @@ import dataclasses
 import gc
 import json
 import os
-import statistics
 import sys
 import time
 import traceback
@@ -71,8 +84,13 @@ import torch
 import redisearch_tpu_torch as rt
 from redisearch_tpu_torch.agg import pipeline as AP
 from redisearch_tpu_torch.aux import hybrid as H
+from redisearch_tpu_torch.bench import cold_bench as CB
+from redisearch_tpu_torch.bench import wire_bench as WB
 from redisearch_tpu_torch.bench import workloads as W
-from redisearch_tpu_torch.bench.probes import card_line, resolve_device
+from redisearch_tpu_torch.bench.probes import resolve_device
+from redisearch_tpu_torch.bench.workloads import (device_entry, log,
+                                                   pipelined, route_delta,
+                                                   spread, sync)
 from redisearch_tpu_torch.index.segment import bf16_scan_copy
 from redisearch_tpu_torch.ops import ivf as IVF
 from redisearch_tpu_torch.ops import vector as V
@@ -86,8 +104,9 @@ AGG_STAR_BASELINE_QPS = 20.0
 FKNN_BASELINE_QPS = 4_000.0
 HYBRID_BASELINE_QPS = 2_000.0
 
-#: bench.py's section order
-SECTIONS = ("text", "fknn", "knn", "ann")
+#: bench.py's sections in its order, then benchmarks/wire_bench.py's and
+#: cold_bench.py's
+SECTIONS = ("text", "fknn", "knn", "ann", "wire", "cold")
 #: route switches the engine reads (they are reported, never set here)
 SWITCHES = ("RS_TPU_NO_INTERSECT_KERNEL", "RS_TPU_NO_DENSE_KNN",
             "RS_TPU_NO_BF16_SCAN")
@@ -124,28 +143,22 @@ class Shapes:
     ann_n: int = 1_000_000
     ann_nlist: int = W.ANN_NLIST
     ann_queries: int = W.ANN_Q
+    wire_n: int = W.WIRE_N
+    wire_conns: int = W.WIRE_CONNS
+    wire_warm: int = W.WIRE_WARM
+    wire_each: int = W.WIRE_EACH
+    cold_n: int = W.COLD_N
+    cold_min_s: float = CB.MIN_S
 
 
-#: bench.py's BENCH_SMOKE shapes (bench.py:73-78 and `_child`)
+#: bench.py's BENCH_SMOKE shapes (bench.py:73-78 and `_child`); the
+#: wire and cold sections at its 20,000 docs, a cold sample one pass
 SMOKE = Shapes(n_docs=20_000, text_batch=512, text_iters=2,
                agg_batches=(64,), star_batch=8, fknn_n=20_000,
                fknn_batches=(64,), fknn_iters=2, hybrid_batch=64,
                hybrid_iters=2, knn_n=100_000, knn_batch=256, knn_iters=4,
-               ann_n=100_000)
-
-
-def log(*a):
-    print("bench:", *a, file=sys.stderr, flush=True)
-
-
-def sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def spread(samples) -> dict:
-    return {"median": statistics.median(samples), "min": min(samples),
-            "max": max(samples), "n": len(samples)}
+               ann_n=100_000, wire_n=20_000, cold_n=20_000,
+               cold_min_s=0.0)
 
 
 def sample_rows(n: int, want: int) -> list:
@@ -187,27 +200,6 @@ class uncounted:
             live.update(saved)
 
 
-def pipelined(submit, make, n: int, dev):
-    """bench.py's serving loop at depth 2: submit batch `it`, build batch
-    it + 1 while the card runs it, collect two behind.  Returns (seconds,
-    the results of batch 0)."""
-    t0 = time.perf_counter()
-    pending, first = [], []
-    nxt = make(0)
-    for it in range(n):
-        pending.append(submit(nxt))
-        if it + 1 < n:
-            nxt = make(it + 1)
-        if len(pending) > 2:
-            r = pending.pop(0).result()
-            first = first or [r]
-    for h in pending:
-        r = h.result()
-        first = first or [r]
-    sync(dev)
-    return time.perf_counter() - t0, first[0]
-
-
 def timed_reps(run, reps: int) -> tuple:
     """run() -> (seconds, queries, results) `reps` times: (the QPS of
     each, the last results)."""
@@ -233,11 +225,6 @@ def knn_hits(ix, seg, r, k: int):
                 gid=gid))
     return types.SimpleNamespace(hits=sorted(
         hits, key=lambda h: (h.vector_distance, h.gid)))
-
-
-def route_delta(before: dict, after: dict) -> dict:
-    return {k: v - before.get(k, 0) for k, v in after.items()
-            if v - before.get(k, 0)}
 
 
 # ------------------------------------------------------------------ text
@@ -616,8 +603,33 @@ def section_ann(board, shapes, reps, dev):
     board.batch["ann_sweep"] = nq
 
 
+# ------------------------------------------------------------ wire, cold
+def section_wire(board, shapes, reps, dev):
+    """benchmarks/wire_bench.py (`bench/wire_bench.py`): `reps` timed
+    passes of 32 connections x 60 FT.SEARCH over the RESP server."""
+    r = WB.measure(dev, shapes.wire_n, shapes.wire_conns, shapes.wire_warm,
+                   shapes.wire_each, reps)
+    board.emit("wire_qps", r["passes_qps"], r["parity"])
+    board.progress["wire_batch_sizes"] = r["batch_sizes"]
+    board.routes["wire_qps"] = r["routes"]
+
+
+def section_cold(board, shapes, reps, dev):
+    """benchmarks/cold_bench.py (`bench/cold_bench.py`): and2 and phrase
+    QPS on the hot and the cold index, medians of `reps` samples of at
+    least `shapes.cold_min_s` seconds each."""
+    r = CB.measure_all(dev, shapes.cold_n, reps, shapes.cold_min_s)
+    board.progress["cold"] = {k: r[k] for k in
+                              CB.STORAGES + ("paging_tax_and2",)}
+    board.parity["cold"] = r["parity"]
+    board.routes["cold"] = r["routes"]
+    for k, v in r["spread"].items():
+        board.spread["cold__" + k] = v
+
+
 SECTION_FNS = {"text": section_text, "fknn": section_fknn,
-               "knn": section_knn, "ann": section_ann}
+               "knn": section_knn, "ann": section_ann,
+               "wire": section_wire, "cold": section_cold}
 
 
 # -------------------------------------------------------------- assemble
@@ -675,6 +687,9 @@ def assemble(p, section_rc, added=None) -> dict:
         extra["hybrid_qps"] = hy
         extra["hybrid_vs_baseline"] = {
             k: round(v / HYBRID_BASELINE_QPS, 2) for k, v in hy.items()}
+    put("wire_qps", "wire_qps")
+    put("wire_batch_sizes", "wire_batch_sizes")
+    put("cold", "cold")
     for k, v in p.items():   # surface any leftover sub-bench errors
         if k.endswith("_error") and k not in extra \
                 and not k.startswith(("bm25__", "fknn__", "hybrid__")):
@@ -692,13 +707,6 @@ def assemble(p, section_rc, added=None) -> dict:
         "vs_baseline": round((and2 or 0.0) / BM25_BASELINE_QPS, 2),
         "extra": extra,
     }
-
-
-def device_entry(dev) -> dict:
-    if dev.type != "cuda":
-        return {"platform": "cpu"}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
-            "count": torch.cuda.device_count(), "nvidia_smi": card_line()}
 
 
 def run(sections=SECTIONS, device=None, shapes: Shapes = Shapes(),
@@ -754,8 +762,8 @@ def main(argv=None) -> int:
         prog="python3 -m redisearch_tpu_torch.bench.run",
         description=__doc__.split("\n\n")[0])
     ap.add_argument("--section", action="append", choices=SECTIONS,
-                    help="a section to run (repeatable; default: all four "
-                         "in bench.py's order)")
+                    help="a section to run (repeatable; default: all six "
+                         "in `SECTIONS` order)")
     ap.add_argument("--reps", type=int, default=3,
                     help="measurements of each number (default 3)")
     ap.add_argument("--text-batch", type=int,

@@ -17,17 +17,110 @@ version within a block, `plain_results` recomputes FT.SEARCH results so,
 against exact float64 distances on the results' device,
 `same_knn_hits` and `same_fusion` compare two KNN and two FT.HYBRID
 results.
+
+The wire and cold benches' data (`wire_corpus`, `wire_cmds`,
+`cold_corpus`, `cold_queries`: benchmarks/wire_bench.py's and
+cold_bench.py's draws), the RESP client that the wire section and
+`chip_smoke.py` phase 13 share (`WireConn`, `wire_pass`, `wire_run`,
+`start_server`), `same_keys` (a wire reply against a served result),
+and what the kernel records count: `intersect_bytes` and
+`phrase_bytes` (the bytes a batch needs B1 and B2 to move) and
+`device_busy_us` (a torch.profiler trace's busy device time).  The
+bench scripts' common steps: `open_device` (the card or, for tests, the
+CPU), `pipelined` (bench.py's serving loop), `spread`, `route_delta`,
+`log` (stderr) and `emit` (the record as the last stdout line).
 """
 
 from __future__ import annotations
+
+import asyncio
+import json
+import statistics
+import sys
+import time
 
 import numpy as np
 import torch
 
 import redisearch_tpu_torch as rt
+from redisearch_tpu_torch.bench.probes import card_line, resolve_device
 from redisearch_tpu_torch.ops import groupby as GB
 from redisearch_tpu_torch.ops import intersect as IK
 from redisearch_tpu_torch.query import engine as E
+
+def log(*a):
+    """A progress line, on stderr (stdout ends with the JSON record)."""
+    print("bench:", *a, file=sys.stderr, flush=True)
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def spread(samples) -> dict:
+    return {"median": statistics.median(samples), "min": min(samples),
+            "max": max(samples), "n": len(samples)}
+
+
+def device_entry(dev) -> dict:
+    """The device a record was taken on: the card with nvidia-smi's name
+    and power limit, or {"platform": "cpu"} (the tests' runs: no number
+    taken there is a device number)."""
+    if dev.type != "cuda":
+        return {"platform": "cpu"}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
+            "count": torch.cuda.device_count(), "nvidia_smi": card_line()}
+
+
+def pipelined(submit, make, n: int, dev, depth: int = 2):
+    """bench.py's serving loop: submit batch `it`, build batch it + 1
+    while the card runs it, collect `depth` behind (bench.py: 2; the
+    `benchmarks/` decompositions: 1).  Returns (seconds, the results of
+    batch 0)."""
+    t0 = time.perf_counter()
+    pending, first = [], []
+    nxt = make(0)
+    for it in range(n):
+        pending.append(submit(nxt))
+        if it + 1 < n:
+            nxt = make(it + 1)
+        if len(pending) > depth:
+            r = pending.pop(0).result()
+            first = first or [r]
+    for h in pending:
+        r = h.result()
+        first = first or [r]
+    sync(dev)
+    return time.perf_counter() - t0, first[0]
+
+
+def emit(out: dict, dev) -> dict:
+    """Print a bench script's record, with its `device` and without its
+    `served` results, as the last stdout line; return it whole."""
+    out["device"] = device_entry(dev)
+    print(json.dumps({k: v for k, v in out.items() if k != "served"}),
+          flush=True)
+    return out
+
+
+def route_delta(before: dict, after: dict) -> dict:
+    """The path counts (`QUERY_PATH_STATS`, `AGG_PATH_STATS`) added since
+    `before`."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
+def open_device(device=None) -> torch.device:
+    """The bench scripts' device: `cuda:0` unless the caller names one
+    (no card raises, `probes.resolve_device`); on the card, nvidia-smi's
+    name and power limit are printed first."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        print(f"card: {card_line()}", flush=True)
+    return dev
+
 
 #: FT.SEARCH's k
 K = 10
@@ -68,15 +161,17 @@ def make_corpus(n_docs: int, seed: int = 0):
     vocab = 200_000
     words = np.array(["w%06d" % i for i in range(vocab)])
     zipf = np.clip(rng.zipf(1.25, size=(n_docs, 24)) - 1, 0, vocab - 1)
-    cats = np.array(["cat%02d" % i for i in range(16)])
-    cat2 = np.array(["g%04d" % i for i in range(1000)])
-    price = rng.integers(1, 10_000, n_docs)
-    docs = [(f"d{i}", {"title": " ".join(words[zipf[i, :4]]),
-                       "body": " ".join(words[zipf[i, 4:]]),
+    cats = ["cat%02d" % i for i in range(16)]
+    cat2 = ["g%04d" % i for i in range(1000)]
+    price = rng.integers(1, 10_000, n_docs).tolist()
+    # built from Python lists: a numpy index a doc costs twice the time
+    wl = words.tolist()
+    docs = [(f"d{i}", {"title": " ".join([wl[j] for j in row[:4]]),
+                       "body": " ".join([wl[j] for j in row[4:]]),
                        "cat": cats[i % 16],
                        "grp": cat2[i % 1000],
                        "price": float(price[i])})
-            for i in range(n_docs)]
+            for i, row in enumerate(zipf.tolist())]
     qt = ["w%06d" % i for i in rng.integers(20, 5000, size=512)]
     return docs, qt, zipf.astype(np.int32)
 
@@ -375,3 +470,271 @@ def recall_of(ids, truth) -> float:
     ids = np.asarray(ids)
     return float(np.mean([len(set(ids[i].tolist()) & truth[i]) / ANN_K
                           for i in range(len(truth))]))
+
+
+# ------------------------------------------------------------------ wire
+#: benchmarks/wire_bench.py's shape: 200,000 docs of a 4-word `t` and an
+#: 8-word `b` over a 5,000-word vocabulary, 32 connections, a warm pass
+#: of 20 queries a connection, then timed passes of 60
+WIRE_N, WIRE_VOCAB, WIRE_CONNS, WIRE_WARM, WIRE_EACH = (200_000, 5000, 32,
+                                                        20, 60)
+
+
+def wire_corpus(n: int):
+    """wire_bench.py's docs (seed 0, drawn doc by doc as the script draws
+    them) and its vocabulary."""
+    rng = np.random.default_rng(0)
+    words = ["w%05d" % i for i in range(WIRE_VOCAB)]
+    docs = [(f"d{i}", {"t": " ".join(words[j] for j in
+                                     rng.integers(0, WIRE_VOCAB, 4)),
+                       "b": " ".join(words[j] for j in
+                                     rng.integers(0, WIRE_VOCAB, 8))})
+            for i in range(n)]
+    return docs, words
+
+
+def wire_cmds(words, n_conns: int, n_each: int, start: int = 0) -> list:
+    """wire_bench.py's FT.SEARCH of connection `idx`'s query i, for i in
+    [start, start + n_each), in `wire_pass` order (command
+    (i - start) * n_conns + idx on connection idx)."""
+    return [("FT.SEARCH", "bench",
+             f"{words[(idx * 37 + i * 11) % 4000]} "
+             f"{words[(idx * 53 + i * 7 + 1) % 4000]}",
+             "NOCONTENT", "DIALECT", "2")
+            for i in range(start, start + n_each) for idx in range(n_conns)]
+
+
+#: scores closer than this (relative) count as tied in `same_keys`
+TIE_RTOL = 1e-5
+
+
+def same_keys(reply, res, what, wide=None) -> bool:
+    """A NOCONTENT FT.SEARCH reply ([total, key, ...]) against a served
+    result of the same query: equal totals and hit counts, distinct
+    keys, and equal keys lane by lane except within a group of lanes
+    whose scores in the result tie within TIE_RTOL (a micro-batch of one
+    runs the window program, whose tied scores may order differently
+    at the last bit).  There the reply's keys must be the result's keys
+    of that group, as a set.  Where the group reaches the result's last
+    lane and more docs match than it holds, the tie may go on past it:
+    a reply key outside the result must then be a doc of `wide()` (the
+    same query served with a larger k) whose score ties the group's.
+    Returns whether every key was equal."""
+    keys, want = reply[1:], [h.key for h in res.hits]
+    if reply[0] != res.total or len(keys) != len(want):
+        raise AssertionError(f"{what}: total {reply[0]} with {len(keys)} "
+                             f"keys, served {res.total} with {len(want)}")
+    if len(set(keys)) != len(keys):
+        raise AssertionError(f"{what}: a key repeats in {keys}")
+    if keys == want:
+        return True
+    sc = np.array([h.score for h in res.hits])
+    wide_sc = None
+    for i in range(len(want)):
+        if keys[i] == want[i]:
+            continue
+        tie = np.flatnonzero(np.abs(sc - sc[i]) <= TIE_RTOL * abs(sc[i]))
+        got = {keys[j] for j in tie}
+        extra = got - {want[j] for j in tie}
+        if not extra:
+            continue
+        if tie[-1] == len(want) - 1 and res.total > len(want) and wide:
+            if wide_sc is None:
+                wide_sc = {h.key: h.score for h in wide().hits}
+            if all(k in wide_sc and abs(wide_sc[k] - sc[i])
+                   <= TIE_RTOL * abs(sc[i]) for k in extra):
+                continue
+        raise AssertionError(f"{what}: hit {i} {keys[i]} vs {want[i]}: "
+                             f"{sorted(extra)} not in the served tie "
+                             f"at score {sc[i]}")
+    return False
+
+
+# ------------------------------------------------------------------ cold
+#: benchmarks/cold_bench.py's shape: 500,000 docs of one TEXT field of 16
+#: zipf(1.25) tokens over a 100k vocabulary; 128 and2 queries and 128
+#: exact phrases, k 10, after 32 single warm-up searches
+COLD_N, COLD_VOCAB, COLD_K, COLD_WARM = 500_000, 100_000, 10, 32
+
+
+def cold_corpus(n: int) -> list:
+    """cold_bench.py's `build` docs (seed 0)."""
+    rng = np.random.default_rng(0)
+    words = np.array(["w%06d" % i for i in range(COLD_VOCAB)])
+    zipf = np.clip(rng.zipf(1.25, size=(n, 16)) - 1, 0, COLD_VOCAB - 1)
+    return [(f"d{i}", {"t": " ".join(words[zipf[i]])}) for i in range(n)]
+
+
+def cold_queries() -> dict:
+    """cold_bench.py's 128 and2 queries and 128 exact phrases (seed 7)."""
+    rng = np.random.default_rng(7)
+    qt = ["w%06d" % i for i in rng.integers(20, 3000, size=256)]
+    pairs = [(qt[2 * i % 250], qt[(2 * i + 1) % 250]) for i in range(128)]
+    return {"and2": [f"{a} {b}" for a, b in pairs],
+            "phrase": [f'"{a} {b}"' for a, b in pairs]}
+
+
+# ------------------------------------------------------- the RESP client
+class WireConn:
+    """A minimal RESP2 client over one asyncio connection."""
+
+    def __init__(self, reader, writer):
+        self.r, self.w = reader, writer
+
+    @classmethod
+    async def open(cls, port: int):
+            return cls(*await asyncio.open_connection("127.0.0.1", port))
+
+    async def cmd(self, *argv):
+        out = [f"*{len(argv)}\r\n".encode()]
+        for a in argv:
+            b = str(a).encode()
+            out.append(b"$%d\r\n%s\r\n" % (len(b), b))
+        self.w.write(b"".join(out))
+        await self.w.drain()
+        return await self.read()
+
+    async def read(self):
+        line = (await self.r.readline()).rstrip(b"\r\n")
+        t, rest = line[:1], line[1:]
+        if t == b"+":
+            return rest.decode()
+        if t == b"-":
+            raise AssertionError(f"wire error reply: {rest.decode()}")
+        if t == b":":
+            return int(rest)
+        if t == b"$":
+            n = int(rest)
+            return None if n < 0 else (await self.r.readexactly(n + 2)
+                                       )[:-2].decode()
+        if t == b"*":
+            return [await self.read() for _ in range(int(rest))]
+        raise AssertionError(f"bad RESP line {line!r}")
+
+
+def start_server(client):
+    """The port's RESP server on `client`, in this process, with its own
+    event loop on a thread.  Returns (server, port, stop)."""
+    import threading
+    from redisearch_tpu_torch.server import Server
+    srv = Server(client=client, port=0)
+    loop = asyncio.new_event_loop()
+    box, ready = {}, threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        box["tcp"] = loop.run_until_complete(srv.serve())
+        ready.set()
+        loop.run_forever()
+
+    th = threading.Thread(target=run, daemon=True, name="wire-server")
+    th.start()
+    if not ready.wait(60):
+        raise AssertionError("wire: the server did not start")
+
+    def stop():
+        async def close():
+            box["tcp"].close()
+            await box["tcp"].wait_closed()
+            await srv.aclose()
+        asyncio.run_coroutine_threadsafe(close(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(60)
+        loop.close()
+        srv._pool.shutdown(wait=True)
+
+    return srv, box["tcp"].sockets[0].getsockname()[1], stop
+
+
+async def wire_pass(conns: list, cmds: list) -> tuple:
+    """Send `cmds` over the open connections `conns`, each connection one
+    command at a time (command i on connection i % len(conns)).  Returns
+    (replies in command order, seconds from the first send to the last
+    reply)."""
+    replies = [None] * len(cmds)
+
+    async def worker(j):
+        for i in range(j, len(cmds), len(conns)):
+            replies[i] = await conns[j].cmd(*cmds[i])
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*[worker(j) for j in range(len(conns))])
+    return replies, time.perf_counter() - t0
+
+
+async def close_conns(conns: list) -> None:
+    for c in conns:
+        c.w.close()
+        await c.w.wait_closed()
+
+
+def wire_run(port: int, cmds: list, n_conns: int) -> tuple:
+    """`wire_pass` over `n_conns` new connections to a server on another
+    thread's event loop (`start_server`), in an event loop of its own."""
+
+    async def go():
+        conns = [await WireConn.open(port) for _ in range(n_conns)]
+        try:
+            return await wire_pass(conns, cmds)
+        finally:
+            await close_conns(conns)
+
+    return asyncio.run(go())
+
+
+# ------------------------------------------------- kernel records, traces
+def device_busy_us(prof, names=("intersect_kernel", "phrase_kernel")
+                   ) -> tuple:
+    """(busy us, {name: us}) from a torch.profiler trace: the union of
+    the device-side (kernel and memcpy) intervals, and per kernel name
+    the sum of its intervals."""
+    spans, kern = [], dict.fromkeys(names, 0.0)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((ev.time_range.start, ev.time_range.end))
+            for nm in names:
+                if nm in ev.name:
+                    kern[nm] += ev.time_range.elapsed_us()
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy, kern
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def intersect_bytes(meta, fmeta, T, groups, pivot_g, outs) -> int:
+    """Bytes this batch needs the intersection kernel to move: every live
+    posting of the pivot slots (doc, freq, mask and doc length), one
+    probe of each other slot per pivot posting, at most its live length
+    (doc, freq and mask for a text slot, the doc for an aux tag slot),
+    the per-query meta and the outputs."""
+    srcs = IK._slot_srcs(T, groups)
+    lens = meta[:, T:2 * T].to(torch.int64)
+    piv = list(groups[pivot_g][1])
+    plen = lens[:, piv].sum(1)
+    n = 16 * int(plen.sum())
+    for t in range(T):
+        if t not in piv:
+            n += (12 if srcs[t] < 0 else 4) * int(
+                torch.minimum(lens[:, t], plen).sum())
+    return n + nbytes(meta, fmeta, *outs)
+
+
+def phrase_bytes(meta, fmeta, T, outs) -> int:
+    """Bytes this batch needs the phrase kernel to move: term 0's live
+    position keys, one probe of each later term's keys per term-0 key
+    (at most its live length), and for the queries that match, term 0's
+    postings (16 bytes each) and one probe of each later slot's postings
+    per term-0 posting (12 bytes); then the meta and the outputs."""
+    pl = meta[:, 4 * T:5 * T].to(torch.int64)
+    tl = meta[:, T:2 * T].to(torch.int64)[outs[2] > 0]
+    n = 4 * int(pl[:, 0].sum()) + 16 * int(tl[:, 0].sum())
+    for t in range(1, T):
+        n += 4 * int(torch.minimum(pl[:, t], pl[:, 0]).sum())
+        n += 12 * int(torch.minimum(tl[:, t], tl[:, 0]).sum())
+    return n + nbytes(meta, fmeta, *outs)

@@ -1,5 +1,5 @@
 """The port's bench runner (`redisearch_tpu_torch/bench/run.py`) on the
-CPU: its scoreboard against bench.py's `_assemble`, each of its four
+CPU: its scoreboard against bench.py's `_assemble`, each of its six
 sections at shapes below BENCH_SMOKE's through the command line's path
 (`main` with `--device cpu`), and its refusals: no card without
 `--device cpu`, a section that raises exits 1 after the scoreboard, a
@@ -17,12 +17,15 @@ from redisearch_tpu_torch.bench import run as R
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: below BENCH_SMOKE's shapes: 2,000 docs, batches of 16-64
+#: below BENCH_SMOKE's shapes: 2,000 docs, batches of 16-64, the wire at
+#: 4 connections x 8 queries
 TINY = R.Shapes(n_docs=2000, text_batch=64, text_iters=2,
                 agg_batches=(32, 16), star_batch=4, fknn_n=2000,
                 fknn_batches=(32, 64), fknn_iters=2, hybrid_batch=16,
                 hybrid_iters=2, knn_n=5000, knn_batch=32, knn_iters=2,
-                ann_n=4000, ann_nlist=32, ann_queries=32)
+                ann_n=4000, ann_nlist=32, ann_queries=32, wire_n=2000,
+                wire_conns=4, wire_warm=2, wire_each=8, cold_n=2000,
+                cold_min_s=0.0)
 
 
 def _bench_py():
@@ -99,6 +102,8 @@ SECTION_KEYS = {
                                "flat_knn_recall"]),
     "ann": (["ann_sweep", "ann_qps_at_r95"], ["ann_qps_at_r95",
                                               "ann_sweep"]),
+    "wire": (["wire_qps"], ["wire_qps", "wire_batch_sizes"]),
+    "cold": (["cold"], ["cold"]),
 }
 
 
@@ -118,11 +123,13 @@ def test_section_on_the_cpu(section, monkeypatch, capsys):
     assert ex["section_s"].keys() == {section}
     assert "section_rc" not in ex and not any(k.endswith("_error")
                                               for k in ex)
-    for key in checked:
-        if key != "ann_sweep":
-            assert ex["spread"][key]["n"] == 2, key
-            assert ex["spread"][key]["min"] <= ex["spread"][key]["median"] \
-                <= ex["spread"][key]["max"], key
+    spreads = ([f"cold__{s}__{f}_qps" for s in ("hbm", "host")
+                for f in ("and2", "phrase")] if section == "cold" else
+               [k for k in checked if k != "ann_sweep"])
+    for key in spreads:
+        assert ex["spread"][key]["n"] == 2, key
+        assert ex["spread"][key]["min"] <= ex["spread"][key]["median"] \
+            <= ex["spread"][key]["max"], key
     if section == "text":
         assert board["value"] == ex["spread"]["bm25__and2"]["median"] > 0
         assert ex["kernel_hit_pct"] == 100.0
@@ -131,6 +138,13 @@ def test_section_on_the_cpu(section, monkeypatch, capsys):
     if section == "knn":
         p = ex["parity"]["flat_knn_qps"]
         assert p["recall_at_10"] >= 0.99 and p["max_rel_dist_err"] <= 1e-5
+    if section == "wire":
+        assert ex["parity"]["wire_qps"]["checked"] == 2 * 32
+        assert len(ex["wire_batch_sizes"]) == 2
+    if section == "cold":
+        assert set(ex["cold"]) == {"hbm", "host", "paging_tax_and2"}
+        assert ex["routes"]["cold"]["host"] == {"and2": {"cold": 256},
+                                                "phrase": {"cold": 256}}
     if section == "ann":
         assert [pt["op"] for pt in ex["ann_sweep"]] == [
             "flat", "ivf8", "ivf32", "ivf128"]

@@ -358,6 +358,11 @@ def test_port_serves_without_jax(block, tmp_path):
         assert rows == [{"g": g, "n": n, "s": s} for g, (n, s) in top]
 
 
+#: the counterparts of the other `benchmarks/` scripts
+NEW_SCRIPTS = ["wire_bench", "cold_bench", "device_smoke", "bm25_decomp",
+               "agg_profile", "fknn_profile", "intersect_micro",
+               "phrase_ab"]
+
 PROBES_SCRIPT = r"""
 import importlib.abc, json, os, sys
 
@@ -371,7 +376,7 @@ if BLOCK:
 
 from redisearch_tpu_torch.bench import probes as P
 mods = [importlib.import_module("redisearch_tpu_torch.bench." + m)
-        for m in list(P.SCRIPTS.values()) + ["run", "workloads"]]
+        for m in list(P.SCRIPTS.values()) + ["run", "workloads"] + NEW]
 res = P.main(["gstep2"], device="cpu")
 repo = os.path.dirname(os.path.dirname(os.path.abspath(P.__file__)))
 repo = os.path.dirname(repo)
@@ -394,22 +399,24 @@ print(json.dumps({
 @pytest.mark.parametrize("block", [True, False],
                          ids=["jax-blocked", "jax-installed"])
 def test_probes_load_without_jax(block):
-    """`bench/probes.py`, the four probe scripts and the bench runner
-    (`bench/run.py`, `bench/workloads.py`) load (and gstep2's plain
+    """`bench/probes.py`, the four probe scripts, the bench runner
+    (`bench/run.py`, `bench/workloads.py`) and the counterparts of the
+    other `benchmarks/` scripts (`NEW_SCRIPTS`) load (and gstep2's plain
     versions run) without jax, and load no module file under
     `redisearch_tpu/` or `benchmarks/` (nor bench.py): the port keeps its
     own copies of the TPU scripts' and bench.py's constants."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
-        [sys.executable, "-c", f"BLOCK = {block}\n" + PROBES_SCRIPT],
+        [sys.executable, "-c",
+         f"BLOCK = {block}\nNEW = {NEW_SCRIPTS!r}\n" + PROBES_SCRIPT],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["scripts"] == sorted(
         "redisearch_tpu_torch.bench." + m for m in (
             "gstep_probe", "gstep_probe2", "kernel_probe",
-            "grid_floor_probe", "run", "workloads"))
+            "grid_floor_probe", "run", "workloads", *NEW_SCRIPTS))
     assert out["bad"] == [0, 0]
     assert out["files"] == [], out["files"]
     assert out["loaded"] == [], out["loaded"]
