@@ -33,6 +33,7 @@ from ..query.parser import QueryParser
 from ..ops.ivf import HostIVF, IVFIndex
 from ..schema import FieldType, Schema, VectorAlgo
 from ..utils import log as _log
+from ..utils import trace as _trace
 from ..utils.errors import IndexError_, TimeoutError_
 from ..query.engine import (CompiledQuery, QueryOptions, execute,
                             execute_batch)
@@ -394,6 +395,11 @@ class SearchIndex:
         KNN node and vector blobs over the shared compiled structure and
         its row/bind caches, so that a batch of one KNN query string with
         a different blob per row never collapses to one blob."""
+        with _trace.span("plan.prepare"):
+            return self._prepare(query, params, opts, dialect)
+
+    def _prepare(self, query: str, params: Optional[dict],
+                 opts: QueryOptions, dialect: int) -> CompiledQuery:
         scalar_items = []
         vec_params = {}
         for k, v in (params or {}).items():
@@ -415,9 +421,10 @@ class SearchIndex:
                self.doctable.num_docs)  # stats change -> new idf
         cq = self._prepared.get(key)
         if cq is None:
-            root = self.parse_query(query, params, dialect,
-                                    nostopwords=opts.nostopwords)
-            cq = self.compile(root, opts)
+            with _trace.span("plan.compile"):
+                root = self.parse_query(query, params, dialect,
+                                        nostopwords=opts.nostopwords)
+                cq = self.compile(root, opts)
             if len(self._prepared) >= 32768:
                 self._prepared.clear()
             self._prepared[key] = cq
@@ -721,23 +728,32 @@ class SearchIndex:
         """Batched FT.SEARCH: every group of same-shaped queries is one
         executor call; all groups are collected together.  opts_list
         overrides QueryOptions per query.  KNN hits carry their vector
-        distance and merge across segments by (distance, doc id)."""
-        self.commit()
-        oom = self._check_oom()
-        if oom is not None:
-            return [oom for _ in queries]
-        cqs = []
-        for i, q in enumerate(queries):
-            p = params[i] if params else None
-            o = (opts_list[i] if opts_list
-                 else QueryOptions(scorer=scorer, k=k))
-            # a per-call view owns its vector payloads (see prepare)
-            cqs.append(self.prepare(q, p, o, dialect))
+        distance and merge across segments by (distance, doc id).  The
+        batch is the root span `search` of `utils/trace.py`."""
+        with _trace.root("search"):
+            self.commit()
+            oom = self._check_oom()
+            if oom is not None:
+                return [oom for _ in queries]
+            cqs = []
+            for i, q in enumerate(queries):
+                p = params[i] if params else None
+                o = (opts_list[i] if opts_list
+                     else QueryOptions(scorer=scorer, k=k))
+                # a per-call view owns its vector payloads (see prepare)
+                cqs.append(self.prepare(q, p, o, dialect))
+            per_seg = [(seg, execute_batch(cqs, seg, k))
+                       for seg in self.segments]
+            with _trace.span("front.merge"):
+                return self._merge_hits(cqs, per_seg, k)
+
+    def _merge_hits(self, cqs: list, per_seg: list, k: int) -> list:
+        """Each query's hits over the segments' results, as `Hit`s with
+        their documents, sorted."""
         all_hits: list = [[] for _ in cqs]
         totals = [0] * len(cqs)
         knn_q = [False] * len(cqs)
-        for seg in self.segments:
-            results = execute_batch(cqs, seg, k)
+        for seg, results in per_seg:
             gids = seg.gids_host
             for i, res in enumerate(results):
                 is_knn = res.knn_dists is not None

@@ -20,7 +20,8 @@ Executors:
 
 * batched, `execute_batch` -> pure KNN batches (`*=>[KNN ...]`, one
   product for the batch: `_PureKnnExecutor`, path "knn-pure"), else
-  `_prep_subs` (bind rows, group by structure and buckets) ->
+  `_bind_rows` (bind rows, group by structure and buckets), then for
+  each group `_group_sub` (stack and patch its rows) ->
   `_rows_executor`: the intersection kernel (`_KernelExecutor`), else the
   phrase kernel (`_PhraseExecutor`), else for KNN queries the
   dense-filter executor (`_DenseKnnExecutor`, "knn-dense"), the hoisted
@@ -29,6 +30,9 @@ Executors:
   "knn-row"), else the general window program once per query
   (`_WindowExecutor`, "window") -> `_BatchHandle.result`, which re-runs
   underfilled hoisted queries through `execute` on the same device;
+  inside a recorded batch (`utils/trace.py`) a row-cache miss is the
+  span `engine.bind`, each group's set-up and launches `engine.launch`,
+  and the handle's wait and collection `engine.wait`, `engine.collect`;
 * rounds, `execute_batch_rounds`: R batches, each one `execute_batch`,
   all launched before any is collected;
 * single, `execute` -> the general window program (`_build_fn`, a plain
@@ -62,6 +66,7 @@ import torch
 from ..analysis.stemmer import Stemmer
 from ..query import ast, expand
 from ..schema import FieldType, Schema, VectorAlgo
+from ..utils import trace as _trace
 from ..utils import wkt
 from ..utils.errors import FieldNotFound, QuerySyntaxError, WrongFieldType
 from ..index.builder import decode_vector_bytes
@@ -1492,6 +1497,16 @@ class _BatchHandle:
         self._k = k
 
     def result(self) -> list:
+        with _trace.span("engine.wait"):
+            if _trace.recording():
+                # the wait the first copy would block on, timed apart
+                dev = next(iter(self._parts[0][1].values())).device
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+        with _trace.span("engine.collect"):
+            return self._collect()
+
+    def _collect(self) -> list:
         out_all: list = [None] * self._n
         refire = []
         for idxs, out in self._parts:
@@ -1545,11 +1560,17 @@ def execute_batch(cqs: list, seg: Segment, k: int, async_: bool = False):
     if _pure_knn_eligible(cqs, seg):
         QUERY_PATH_STATS["knn-pure"] = (
             QUERY_PATH_STATS.get("knn-pure", 0) + len(cqs))
-        parts = [(list(range(len(cqs))),
-                  _PureKnnExecutor(cqs, seg, k).run())]
+        with _trace.span("engine.launch"):
+            parts = [(list(range(len(cqs))),
+                      _PureKnnExecutor(cqs, seg, k).run())]
     else:
-        parts = [(idxs, entry.run(seg_args, rows))
-                 for idxs, entry, seg_args, rows in _prep_subs(cqs, seg, k)]
+        ents, groups = _bind_rows(cqs, seg)
+        parts = []
+        for idxs in groups:
+            with _trace.span("engine.launch"):
+                _, entry, seg_args, rows = _group_sub(cqs, ents, idxs, seg,
+                                                      k)
+                parts.append((idxs, entry.run(seg_args, rows)))
     handle = _BatchHandle(parts, len(cqs), cqs=cqs, seg=seg, k=k)
     return handle if async_ else handle.result()
 
@@ -1582,50 +1603,61 @@ def execute_batch_rounds(rounds: list, seg: Segment, k: int,
 
 def _prep_subs(cqs: list, seg: Segment, k: int) -> list:
     """Bind + group + stack a batch: [(query indices, executor,
-    segment args, stacked rows)].
+    segment args, stacked rows)] (`_bind_rows`, then `_group_sub` for
+    each group)."""
+    ents, groups = _bind_rows(cqs, seg)
+    return [_group_sub(cqs, ents, idxs, seg, k) for idxs in groups]
 
-    Every query binds as a packed transport row (memoized per segment),
-    then groups by group_sig (tree structure + window buckets) and the
-    layout fingerprint: the group's rows are patched at offsets taken
-    from its first query's layout, the clock and each query's own vector
-    payloads (KNN blob, VECTOR_RANGE blobs and radii) one column each."""
+
+def _bind_rows(cqs: list, seg: Segment) -> tuple:
+    """Every query bound as a packed transport row (memoized per
+    segment; a miss is the span `engine.bind`), and the batch's groups by
+    group_sig (tree structure + window buckets) and the layout
+    fingerprint: (each query's row template, [query indices of a group])."""
     groups: dict[tuple, list[int]] = {}
     ents = []
     for i, cq in enumerate(cqs):
         ent = cq._row_cache.get(seg.uid)
         if ent is None:
-            _, ent = cq.bind_row(seg)
+            with _trace.span("engine.bind"):
+                _, ent = cq.bind_row(seg)
         ents.append(ent)
         groups.setdefault((ent[6], ent[7]), []).append(i)
-    subs = []
-    for idxs in groups.values():
-        gr = np.stack([ents[i][0] for i in idxs])
-        for key, o, n, _shape, dt in ents[idxs[0]][1]:
-            if key == "now":
-                gr[:, o] = np.fromiter((cqs[i].opts.now for i in idxs),
-                                       np.int32, len(idxs))
-                continue
-            if key == "knn_blob":
-                cq0g = cqs[idxs[0]]
-                fld = cq0g.schema.field(cq0g.knn.field)
-                vals = [decode_blob(cqs[i].knn.blob, fld) for i in idxs]
-            elif key.startswith("vblob"):
-                j = int(key[5:])
-                vals = [cqs[i].vec_blobs[j] for i in idxs]
-            else:                                   # vrad{j}
-                j = int(key[4:])
-                vals = [np.float32(cqs[i].vec_radii[j]) for i in idxs]
-            M = np.stack([np.asarray(v).reshape(-1) for v in vals])
-            if dt.startswith("float") or dt == "bfloat16":
-                M = M.astype(np.float32, copy=False).view(np.int32)
-            elif dt != "int32":
-                M = M.astype(np.int32)
-            gr[:, o:o + n] = M
-        entry = _rows_executor(cqs[idxs[0]], ents[idxs[0]], seg, k)
-        QUERY_PATH_STATS[entry.path] = (
-            QUERY_PATH_STATS.get(entry.path, 0) + len(idxs))
-        subs.append((idxs, entry, _segment_args(cqs[idxs[0]], seg), gr))
-    return subs
+    return ents, list(groups.values())
+
+
+def _group_sub(cqs: list, ents: list, idxs: list, seg: Segment,
+               k: int) -> tuple:
+    """One group's (query indices, executor, segment args, stacked rows):
+    the group's rows are patched at offsets taken from its first query's
+    layout, the clock and each query's own vector payloads (KNN blob,
+    VECTOR_RANGE blobs and radii) one column each."""
+    gr = np.stack([ents[i][0] for i in idxs])
+    for key, o, n, _shape, dt in ents[idxs[0]][1]:
+        if key == "now":
+            gr[:, o] = np.fromiter((cqs[i].opts.now for i in idxs),
+                                   np.int32, len(idxs))
+            continue
+        if key == "knn_blob":
+            cq0g = cqs[idxs[0]]
+            fld = cq0g.schema.field(cq0g.knn.field)
+            vals = [decode_blob(cqs[i].knn.blob, fld) for i in idxs]
+        elif key.startswith("vblob"):
+            j = int(key[5:])
+            vals = [cqs[i].vec_blobs[j] for i in idxs]
+        else:                                   # vrad{j}
+            j = int(key[4:])
+            vals = [np.float32(cqs[i].vec_radii[j]) for i in idxs]
+        M = np.stack([np.asarray(v).reshape(-1) for v in vals])
+        if dt.startswith("float") or dt == "bfloat16":
+            M = M.astype(np.float32, copy=False).view(np.int32)
+        elif dt != "int32":
+            M = M.astype(np.int32)
+        gr[:, o:o + n] = M
+    entry = _rows_executor(cqs[idxs[0]], ents[idxs[0]], seg, k)
+    QUERY_PATH_STATS[entry.path] = (
+        QUERY_PATH_STATS.get(entry.path, 0) + len(idxs))
+    return idxs, entry, _segment_args(cqs[idxs[0]], seg), gr
 
 
 class _KernelExecutor:

@@ -1,6 +1,6 @@
 """The port's counterparts of the `benchmarks/` scripts (`bench/
-wire_bench.py`, `cold_bench.py`, `bm25_decomp.py`, `agg_profile.py`,
-`fknn_profile.py`, `intersect_micro.py`, `phrase_ab.py`) on the CPU,
+wire_bench.py`, `cold_bench.py`, `agg_profile.py`, `intersect_micro.py`,
+`phrase_ab.py`) on the CPU,
 each through its `main` with `--device cpu` at a tiny shape, held
 against the JAX side:
 
@@ -11,10 +11,9 @@ against the JAX side:
 * cold: cold_bench.py's own `build` (loaded with importlib) at 2,000
   docs on both storages; totals, ids and order equal the port's, scores
   within rtol 1e-6;
-* the decompositions at 2,000 docs and B = 16: the last JSON line has
-  every phase key, the served results equal the JAX package's
-  `execute_batch` (BM25: counts, docs, scores within rtol 1e-6; KNN:
-  ids, distances within 1e-5) and `run_aggregate_many` (rows, totals);
+* agg_profile's decomposition at 2,000 docs and B = 16: the last JSON
+  line has every phase key, the served results equal the JAX package's
+  `run_aggregate_many` (rows, totals);
 * intersect_micro and phrase_ab: the scripts' nested window builders
   (taken from their source) at B = 8 give the port's builders' arrays,
   and feed the JAX `intersect_batch` / `phrase_batch` (their XLA
@@ -44,10 +43,8 @@ import jax.numpy as jnp
 import redisearch_tpu as rs
 from redisearch_tpu.agg import pipeline as JP
 from redisearch_tpu.ops import intersect as JIK
-from redisearch_tpu.query import engine as JE
 from redisearch_tpu.server import Server as JServer
-from redisearch_tpu_torch.bench import (agg_profile, bm25_decomp,
-                                        cold_bench, fknn_profile,
+from redisearch_tpu_torch.bench import (agg_profile, cold_bench,
                                         intersect_micro, phrase_ab,
                                         wire_bench)
 from redisearch_tpu_torch.bench import workloads as W
@@ -292,39 +289,6 @@ def test_cold_sample_lasts_min_seconds():
 
 
 # -------------------------------------------------------- decompositions
-def _same_segment_results(t_res, j_res, rtol=1e-6):
-    for t, j in zip(t_res, j_res):
-        assert t.count == j.count
-        live = np.asarray(j.scores) > -3.3e38
-        np.testing.assert_array_equal(t.scores > -3.3e38, live)
-        np.testing.assert_array_equal(np.asarray(t.local_idx)[live],
-                                      np.asarray(j.local_idx)[live])
-        np.testing.assert_allclose(t.scores[live],
-                                   np.asarray(j.scores)[live], rtol=rtol,
-                                   atol=0)
-
-
-def test_bm25_decomp_against_jax_execute_batch(capsys):
-    out = bm25_decomp.main(["--docs", "2000", "--batch", "16", "--iters",
-                            "2", "--reps", "2", "--device", "cpu"])
-    last = _last_json(capsys)
-    for p in bm25_decomp.PHASES:
-        assert p + "_us_q" in last and last["spread"][p + "_us_q"]["n"] == 2
-    assert {"submit_collect_qps", "premade_pipelined_qps",
-            "full_pipelined_qps", "busy_share", "routes"} <= set(last)
-    assert last["busy_share"] is None and last["routes"] == {"kernel": 192}
-    docs, _qt = bm25_decomp.corpus(2000)
-    F, T = rs.Field, rs.FieldType
-    jix = rs.SearchIndex(rs.Schema(name="bm25", fields=[
-        F("title", T.TEXT, weight=2.0), F("body", T.TEXT),
-        F("cat", T.TAG)]))
-    jix.add_documents(docs)
-    qs = out["served"]["queries"]
-    cqs = [jix.prepare(q, None, JE.QueryOptions(k=10), 2) for q in qs]
-    _same_segment_results(out["served"]["results"],
-                          JE.execute_batch(cqs, jix.segments[0], 10))
-
-
 def _jax_request(q):
     return (JP.AggregateRequest(q)
             .group_by("@grp", ("COUNT", [], "n"), ("SUM", ["@price"], "s"),
@@ -420,44 +384,6 @@ def test_agg_profile_copies_run_aggregate_many():
         assert g.total == w.total and g.rows == w.rows
 
 
-def test_fknn_profile_against_jax_execute_batch(capsys):
-    out = fknn_profile.main(["--docs", "2000", "--batch", "16", "--iters",
-                             "2", "--reps", "1", "--device", "cpu"])
-    last = _last_json(capsys)
-    fam_keys = {"prepare_ms", "bind_submit_ms", "device_collect_ms",
-                "seq_qps", "pipelined_qps", "routes", "recall_at_25"}
-    assert set(last["families"]) == set(fknn_profile.FAMILIES)
-    for name, rec in last["families"].items():
-        assert set(rec) == fam_keys, name
-        assert rec["recall_at_25"] >= 0.99
-    assert last["families"]["pure"]["routes"] == {"knn-pure": 32}
-    assert last["families"]["numeric"]["routes"] == {"knn-dense": 32}
-    docs, _v, _t, _q = W.fknn_corpus(2000, W.FKNN_D)
-    F, T = rs.Field, rs.FieldType
-    jix = rs.SearchIndex(rs.Schema(name="arxivb", fields=[
-        F("title", T.TEXT), F("year", T.NUMERIC, sortable=True),
-        F("cat", T.TAG),
-        F("emb", T.VECTOR, vector=rs.VectorParams(dim=W.FKNN_D,
-                                                  metric="COSINE"))]))
-    jix.add_documents(docs)
-    jseg = jix.segments[0]
-    for name, sv in out["served"].items():
-        cqs = [jix.prepare(q, {"b": v}, JE.QueryOptions(k=W.FKNN_K), 2)
-               for q, v in zip(sv["queries"], sv["vectors"])]
-        for i, (t, j) in enumerate(zip(sv["results"],
-                                       JE.execute_batch(cqs, jseg,
-                                                        W.FKNN_K))):
-            hits = []
-            for r in (t, j):
-                d = np.asarray(r.knn_dists)
-                live = np.flatnonzero(d < 3.3e38)[:W.FKNN_K]
-                hits.append(types.SimpleNamespace(hits=[
-                    types.SimpleNamespace(key=int(np.asarray(r.local_idx)[x]),
-                                          vector_distance=float(d[x]))
-                    for x in live]))
-            W.same_knn_hits(*hits, f"fknn {name} {i}")
-
-
 # ---------------------------------------------------------- micro-benches
 def test_intersect_micro_windows_against_jax():
     """The script's `make_windows` at B = 8 (its smallest window pair)
@@ -551,8 +477,7 @@ def test_phrase_ab_main_on_the_cpu(capsys):
 
 
 # -------------------------------------------------------------- refusals
-MODULES = [wire_bench, cold_bench, bm25_decomp, agg_profile, fknn_profile,
-           intersect_micro, phrase_ab]
+MODULES = [wire_bench, cold_bench, agg_profile, intersect_micro, phrase_ab]
 
 
 @pytest.mark.parametrize("mod", MODULES, ids=lambda m: m.__name__.split(

@@ -8,7 +8,8 @@ of exact and in-order slop phrases (the phrase op), an
 group-by op), a single-query `ft_search` and a single `ft_aggregate`
 with MIN/MAX (the general window program and the single-query
 group-by), a batch of KNN queries with PARAMS blobs (pure and
-TAG-filtered), a single KNN `ft_search` with a bytes blob, an
+TAG-filtered), a KNN batch under `torch.profiler` (the spans of
+`utils/trace.py`), a single KNN `ft_search` with a bytes blob, an
 `ft_hybrid` (text and KNN branches fused by RRF) and an FT.AGGREGATE
 WITHCURSOR drained by `ft_cursor_read` (the host pipeline, streaming),
 then starts the port's RESP server (`server.Server`) on that client and
@@ -96,6 +97,12 @@ knn = client.ft_search_many("idx", ["*=>[KNN 3 @v $b]",
                                     "(@c:{y})=>[KNN 3 @v $b]"],
                             params=[{"b": vecs[5]}, {"b": vecs[9]}], k=3)
 knn_paths = dict(engine.QUERY_PATH_STATS)
+import torch
+from redisearch_tpu_torch.utils import trace
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+    client.ft_search_many("idx", ["(@c:{x})=>[KNN 3 @v $b]"],
+                          params=[{"b": vecs[3]}], k=3)
+spans = sorted({r.name for r in trace.records()})
 knn1 = client.ft_search("idx", "(@p:[0 3])=>[KNN 2 @v $b]",
                         params={"b": vecs[13].tobytes()})
 hyb = client.ft_hybrid("idx", rt.HybridQuery(
@@ -207,6 +214,7 @@ print(json.dumps({
     "knn": [[h.key for h in r.hits] for r in knn] + [
         [h.key for h in knn1.hits]],
     "knn_paths": knn_paths,
+    "spans": spans,
     "hybrid": [r["__key"] for r in hyb],
     "cursor": [cur.total, [len(p) for p in pages],
                sorted({r["p"] for p in pages for r in p})],
@@ -287,6 +295,11 @@ def test_port_serves_without_jax(block, tmp_path):
     assert [len(r) for r in out["knn"]] == [3, 3, 2]
     # a mixed batch is not pure: both queries ride the dense executor
     assert out["knn_paths"] == {"knn-dense": 2}
+    # utils/trace.py records a profiled batch's spans (a new string: a
+    # compile and a bind)
+    assert out["spans"] == sorted(
+        ["search", "plan.prepare", "plan.compile", "engine.bind",
+         "engine.launch", "engine.wait", "engine.collect", "front.merge"])
     # d7 is first in both branches (an odd doc matches "beta")
     assert out["hybrid"][0] == "d7" and len(out["hybrid"]) == 3
     # the cold index: GEO points 0.01 deg (0.74 km) apart from lon 2.0,
@@ -359,9 +372,8 @@ def test_port_serves_without_jax(block, tmp_path):
 
 
 #: the counterparts of the other `benchmarks/` scripts
-NEW_SCRIPTS = ["wire_bench", "cold_bench", "device_smoke", "bm25_decomp",
-               "agg_profile", "fknn_profile", "intersect_micro",
-               "phrase_ab"]
+NEW_SCRIPTS = ["wire_bench", "cold_bench", "device_smoke", "agg_profile",
+               "intersect_micro", "phrase_ab"]
 
 PROBES_SCRIPT = r"""
 import importlib.abc, json, os, sys
