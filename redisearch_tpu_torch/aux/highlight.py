@@ -1,4 +1,5 @@
 # Copy of redisearch_tpu/aux/highlight.py: the port imports nothing of the JAX package.
+# It takes the planner's stemmer of the index's language (`stemmer_for`).
 """Highlighting & summarization (HIGHLIGHT / SUMMARIZE).
 
 Reference: src/fragmenter.c (fragment scoring by term hits, design comment
@@ -18,6 +19,7 @@ from typing import Optional
 
 from ..analysis.stemmer import Stemmer
 from ..analysis.tokenizer import Tokenizer
+from ..query.engine import stemmer_for
 
 
 @dataclasses.dataclass
@@ -36,7 +38,7 @@ class SummarizeOptions:
 def _query_term_set(index, query_ast) -> set[str]:
     """All concrete match terms: tokens + their stems."""
     from ..query import ast as A
-    stemmer = Stemmer(index.schema.language)
+    stemmer = stemmer_for(index.schema.language)
     out: set[str] = set()
     for node in A.walk(query_ast):
         if isinstance(node, A.TokenNode):
@@ -70,7 +72,7 @@ def highlight_field(index, text: str, query_ast,
     """Wrap matched tokens in tags (byte-accurate via token offsets)."""
     opts = opts or HighlightOptions()
     terms = _query_term_set(index, query_ast)
-    stemmer = Stemmer(index.schema.language)
+    stemmer = stemmer_for(index.schema.language)
     tk = Tokenizer(index.stopwords)
     out = []
     last = 0
@@ -96,7 +98,7 @@ def summarize_field(index, text: str, query_ast,
     """
     s_opts = s_opts or SummarizeOptions()
     terms = _query_term_set(index, query_ast)
-    stemmer = Stemmer(index.schema.language)
+    stemmer = stemmer_for(index.schema.language)
     tk = Tokenizer(index.stopwords)
     toks = list(tk.tokenize(text))
     if not toks:

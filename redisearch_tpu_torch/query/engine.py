@@ -11,10 +11,12 @@ in both packages (a test pins the rows byte for byte):
   `_knn_dense_plan`, `_knn_hoist_info`, `_layout_of` and `_pack_into`,
   and the slop-scorer helpers `bind` consults.
 
-Two spots differ: the BM25 avgdl fallback reads the segment's host
-mirror of the doc lengths, and `decode_blob` returns bf16 query vectors
+Three spots differ: the BM25 avgdl fallback reads the segment's host
+mirror of the doc lengths, `decode_blob` returns bf16 query vectors
 as f32 arrays of bf16 values (the JAX function's `ml_dtypes.bfloat16`
-comes with jax).
+comes with jax), and a `CompiledQuery` takes the process's stemmer of
+its language (`stemmer_for`) instead of building one: a `Stemmer` tries
+to import nltk each time it is built where nltk is missing.
 
 Executors:
 
@@ -186,6 +188,31 @@ class QueryOptions:
     tanh_factor: float = 4.0
 
 
+#: the process's stemmer of each language (`stemmer_for`)
+_STEMMERS: dict = {}
+
+
+def stemmer_for(language: Optional[str]) -> Stemmer:
+    """The process's `Stemmer` of `language`, named as `Stemmer` names
+    it (None or "" is english, any case), built the first time the
+    language is asked for (inside a recorded batch, the span
+    `plan.stemmer`).  A stemmer holds no state a query changes, so every
+    query of a language shares one.  Threads that race on a first build
+    may each build one; `setdefault` hands all of them the first kept."""
+    lang = (language or "english").lower()
+    st = _STEMMERS.get(lang)
+    if st is None:
+        with _trace.span("plan.stemmer"):
+            st = _STEMMERS.setdefault(lang, Stemmer(lang))
+    return st
+
+
+def clear_stemmers() -> None:
+    """Forget every language's stemmer: the next query of each builds
+    its own again."""
+    _STEMMERS.clear()
+
+
 @dataclasses.dataclass
 class SegmentBinding:
     """Dynamic argument pack for one segment."""
@@ -223,7 +250,8 @@ class CompiledQuery:
         # KNN (top-level only)
         self.knn: Optional[ast.VectorNode] = None
 
-        self._stemmer = None if opts.verbatim else Stemmer(opts.language)
+        self._stemmer = (None if opts.verbatim
+                         else stemmer_for(opts.language))
         # Index-level stats (set by the Index layer for multi-segment
         # correctness; falls back to per-segment stats).
         self.global_N: Optional[int] = None

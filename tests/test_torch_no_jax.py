@@ -99,6 +99,7 @@ knn = client.ft_search_many("idx", ["*=>[KNN 3 @v $b]",
 knn_paths = dict(engine.QUERY_PATH_STATS)
 import torch
 from redisearch_tpu_torch.utils import trace
+engine.clear_stemmers()     # the profiled batch builds the stemmer again
 with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
     client.ft_search_many("idx", ["(@c:{x})=>[KNN 3 @v $b]"],
                           params=[{"b": vecs[3]}], k=3)
@@ -296,10 +297,11 @@ def test_port_serves_without_jax(block, tmp_path):
     # a mixed batch is not pure: both queries ride the dense executor
     assert out["knn_paths"] == {"knn-dense": 2}
     # utils/trace.py records a profiled batch's spans (a new string: a
-    # compile and a bind)
+    # compile, its language's stemmer, and a bind)
     assert out["spans"] == sorted(
-        ["search", "plan.prepare", "plan.compile", "engine.bind",
-         "engine.launch", "engine.wait", "engine.collect", "front.merge"])
+        ["search", "plan.prepare", "plan.compile", "plan.stemmer",
+         "engine.bind", "engine.launch", "engine.wait", "engine.collect",
+         "front.merge"])
     # d7 is first in both branches (an odd doc matches "beta")
     assert out["hybrid"][0] == "d7" and len(out["hybrid"]) == 3
     # the cold index: GEO points 0.01 deg (0.74 km) apart from lon 2.0,

@@ -7,7 +7,8 @@ half under a date range never sent before (two window buckets), half
 under a label.  Outside a profiler nothing is recorded.  Under
 `torch.profiler` (CPU activity) each batch records one `search` root
 and, inside it, `plan.prepare` per query, `plan.compile` per
-prepared-query cache miss, `engine.bind` per row-cache miss,
+prepared-query cache miss, `plan.stemmer` inside the compile that first
+asks for a language's stemmer, `engine.bind` per row-cache miss,
 `engine.launch` per executor group, `engine.wait` and `engine.collect`
 per segment's handle and one `front.merge`, all with the batch's id and
 their parent's name; self time is duration less child cover, the
@@ -26,13 +27,14 @@ import pytest
 import torch
 
 import redisearch_tpu_torch as rt
+from redisearch_tpu_torch.query import engine
 from redisearch_tpu_torch.utils import trace
 
 N_DOCS = 3000
 K = 5
-PROGRAM_SPANS = ("search", "plan.prepare", "plan.compile", "engine.bind",
-                 "engine.launch", "engine.wait", "engine.collect",
-                 "front.merge")
+PROGRAM_SPANS = ("search", "plan.prepare", "plan.compile", "plan.stemmer",
+                 "engine.bind", "engine.launch", "engine.wait",
+                 "engine.collect", "front.merge")
 
 
 class _Corpus:
@@ -123,12 +125,15 @@ def test_nothing_is_recorded_outside_a_profiler(corpus):
 
 def test_one_batch_records_each_span_as_often_as_its_work(corpus):
     qs, ps = corpus.batch()
+    engine.clear_stemmers()
     _res, _prof, new = corpus.serve(qs, ps)
     recs = trace.records()
     n = _counts(recs)
     assert n["search"] == 1
     assert n["plan.prepare"] == len(qs)
-    assert n["plan.compile"] == len(new) > 0
+    assert n["plan.compile"] == len(new) > 1
+    # one stemmer for the batch's one language, in its first compile
+    assert n["plan.stemmer"] == 1
     # the views of one string share its row cache: one bind a new string
     assert n["engine.bind"] == len(new)
     assert n["engine.launch"] == _groups(corpus.ix, qs, ps) >= 2
@@ -145,12 +150,13 @@ def test_a_repeated_batch_compiles_and_binds_nothing(corpus):
     _res, _prof, new = corpus.serve(qs, ps)
     n = _counts(trace.records())
     assert not new
-    assert n["plan.compile"] == n["engine.bind"] == 0
+    assert n["plan.compile"] == n["plan.stemmer"] == n["engine.bind"] == 0
     assert n["plan.prepare"] == len(qs)
     assert n["engine.launch"] == _groups(corpus.ix, qs, ps)
 
 
 def test_every_record_has_its_batch_and_parent(corpus):
+    engine.clear_stemmers()
     for _ in range(2):
         qs, ps = corpus.batch()
         corpus.serve(qs, ps)
@@ -158,10 +164,13 @@ def test_every_record_has_its_batch_and_parent(corpus):
     roots = [r for r in recs if r.parent is None]
     assert [r.name for r in roots] == ["search", "search"]
     assert len({r.batch for r in roots}) == 2
+    # the first batch builds the stemmer, the second takes it
+    assert [r.batch for r in recs if r.name == "plan.stemmer"] == [
+        roots[0].batch]
     parent_of = {"plan.prepare": "search", "plan.compile": "plan.prepare",
-                 "engine.bind": "search", "engine.launch": "search",
-                 "engine.wait": "search", "engine.collect": "search",
-                 "front.merge": "search"}
+                 "plan.stemmer": "plan.compile", "engine.bind": "search",
+                 "engine.launch": "search", "engine.wait": "search",
+                 "engine.collect": "search", "front.merge": "search"}
     for root in roots:
         mine = [r for r in recs if r.batch == root.batch]
         assert len(mine) > 1
@@ -192,8 +201,10 @@ def _cover_by_containment(recs) -> dict:
 
 def test_self_time_is_duration_less_child_cover(corpus):
     qs, ps = corpus.batch()
+    engine.clear_stemmers()     # three levels: the compile holds a child
     corpus.serve(qs, ps)
     recs = trace.records()
+    assert _counts(recs)["plan.stemmer"] == 1
     cover = _cover_by_containment(recs)
     for r in recs:
         assert r.child_ns == cover[r], r
