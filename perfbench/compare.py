@@ -1,17 +1,23 @@
 """The comparison that decides `correct`: served answers against the
 plain reference's, one query at a time, and the numbers it yields.
 
-Per query, for a ranked list of hits by distance (nearest first):
+Per query, for a ranked list of hits: by distance, nearest first (a
+KNN query, lower is better), or by score, highest first (any other
+query, higher is better):
 
-* `rank_gap`: at each rank j, how far the reference's distance of the
-  served document lies behind the reference's own j-th distance.  A
-  served document that does not pass the filter, or a rank that one side
-  has and the other lacks, reads 1.
+* `rank_gap`: at each rank j, how far the reference's value of the
+  served document lies behind the reference's own j-th value: for
+  distances the difference, for scores the difference over the
+  reference's j-th score.  A served document that does not match, or a
+  rank that one side has and the other lacks, reads 1.
 * `tie_order_err`: ranks whose served document differs from the
-  reference's although the two documents' reference distances are equal
+  reference's although the two documents' reference values are equal
   (a tie broken otherwise than by ascending document id).
-* `dist_err`: the served distance of each hit against the reference's
-  distance of the same document.
+* `dist_err`: the largest gap between a hit's served distance and the
+  reference's distance of the same document.
+* `score_err`: the largest relative error of a hit's served score
+  against the reference's score of the same document, |served - ref| /
+  |ref|.
 * `total_err`: 1 where the served total differs from the reference's.
 
 Across the sample each number is the largest, or for counts the sum.
@@ -24,14 +30,32 @@ import numpy as np
 WORST = 1.0
 #: how the numbers of one query combine over the sample
 COMBINE = {"total_err": "sum", "tie_order_err": "sum", "rank_gap": "max",
-           "dist_err": "max"}
+           "dist_err": "max", "score_err": "max"}
 
 
-def ranked(ref, value_of, ranked_rows: list, served: list) -> dict:
+def ranked(ref, value_of, ranked_rows: list, served: list,
+           better: str = "lower") -> dict:
     """Judge one ranked answer.  `value_of(row)` is the reference's
-    distance of a row that passes the filter (None for another row),
-    `ranked_rows` the reference's answer, `served` [(key, served
-    distance)] in served order."""
+    value (distance or score) of a row that matches (None for another
+    row), `ranked_rows` the reference's answer, `served` [(key, served
+    value)] in served order, `better` "lower" (distances: `dist_err`) or
+    "higher" (scores: `score_err`)."""
+    if better == "lower":
+        err_name = "dist_err"
+
+        def behind(w, r):
+            return r - w
+
+        def off(v, r):
+            return abs(v - r)
+    else:
+        err_name = "score_err"
+
+        def behind(w, r):
+            return (w - r) / (abs(w) or 1.0)
+
+        def off(v, r):
+            return abs(v - r) / (abs(r) or 1.0)
     want = [value_of(r) for r in ranked_rows]
     gap, ties, err = 0.0, 0, 0.0
     for j in range(max(len(served), len(ranked_rows))):
@@ -44,11 +68,11 @@ def ranked(ref, value_of, ranked_rows: list, served: list) -> dict:
         if r is None or v is None:
             gap = WORST
             continue
-        gap = max(gap, r - want[j])
+        gap = max(gap, behind(want[j], r))
         if row != ranked_rows[j] and r == want[j]:
             ties += 1
-        err = max(err, abs(v - r))
-    return {"rank_gap": gap, "tie_order_err": ties, "dist_err": err}
+        err = max(err, off(v, r))
+    return {"rank_gap": gap, "tie_order_err": ties, err_name: err}
 
 
 def combine(per_query: list) -> dict:

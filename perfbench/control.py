@@ -1,7 +1,9 @@
 """The control of `correct`: the plain reference computed in bfloat16,
 the precision below the configurations' float32, put in the program's
 place and judged by the float64 reference exactly as a run judges the
-program.  A sound limit fails it.
+program: for KNN the distances computed in bfloat16, for text the
+float64 BM25STD scores rounded to bfloat16 and ranked so.  A sound limit
+fails it.
 
     python3 -m perfbench.control --workload <cell> --seed <n> [--seed <n>]...
 
@@ -42,6 +44,12 @@ def control_numbers(bench: dict, cell: str, seed: int, dev,
     if scale:
         cfg = {**cfg, **{k: v for k, v in scale.items() if k in cfg}}
         mix = {**mix, **{k: v for k, v in scale.items() if k in mix}}
+    return control_of(cfg, mix, seed, dev)
+
+
+def control_of(cfg: dict, mix: dict, seed: int, dev) -> dict:
+    """The control's numbers and the reference's own for one
+    configuration and mix."""
     ds = corpus.draw(cfg, seed, dev)
     entry = H.load_module("entries", mix["entry"])
     items = sample_items(Traffic(mix, ds, seed), mix["check"], seed)

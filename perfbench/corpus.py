@@ -6,7 +6,12 @@ says how its values are drawn:
 * TAG: `zipf`, one of `n_values` labels a document (named by `format`),
   label i with probability proportional to (i + 1) ** -a;
 * NUMERIC: `uniform_int`, a whole number uniform in [lo, hi);
-* VECTOR: `unit_normal` rows of `dim` float32 values, normalised.
+* VECTOR: `unit_normal` rows of `dim` float32 values, normalised;
+* TEXT: `zipf_words`, `tokens` words a document (a whole number, or
+  `{"min": a, "max": b, "median": m, "sigma": s}` for a lognormal length
+  of median m and shape s, rounded and clipped to [a, b]), each word of rank i among the `vocab` words (named by `format`, rank i
+  the word `format % i`) with probability proportional to (i + 1) ** -a.
+  A TEXT field's `weight` and `nostem` are the schema's, not the draw's.
 
 Everything random is drawn on the given device with `torch.Generator`s
 seeded from (seed, field), in a few large calls, so the same seed gives
@@ -59,6 +64,25 @@ def zipf_weights(n: int, a: float) -> np.ndarray:
 
 
 @dataclasses.dataclass
+class Text:
+    """A TEXT field's words: document r holds the words
+    `words[ids[offsets[r]:offsets[r + 1]]]`, in order."""
+    ids: np.ndarray      # int32 [tokens of all documents]
+    lens: np.ndarray     # int32 [n]: tokens of each document
+    words: np.ndarray    # object [vocabulary]: the word of each id
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return np.concatenate([[0], np.cumsum(self.lens, dtype=np.int64)])
+
+    def joined(self) -> list:
+        """Each document's text: its words joined by single spaces."""
+        toks = self.words[self.ids].tolist()
+        off = self.offsets.tolist()
+        return [" ".join(toks[a:b]) for a, b in zip(off[:-1], off[1:])]
+
+
+@dataclasses.dataclass
 class Dataset:
     """A configuration's drawn data: row r is document r, of key
     `keys[r]`, in the order of the bulk load."""
@@ -69,6 +93,7 @@ class Dataset:
     vectors: dict       # field -> float32 [n, dim] tensor on `dev`
     keys: list
     dev: torch.device
+    texts: dict = dataclasses.field(default_factory=dict)  # field -> Text
 
     def field(self, name: str) -> dict:
         return next(f for f in self.cfg["fields"] if f["name"] == name)
@@ -95,6 +120,8 @@ class Dataset:
                 cols.append(self.numeric[nm].tolist())
             elif ty == "VECTOR":
                 cols.append(list(self.vectors[nm].cpu().numpy()))
+            elif ty == "TEXT":
+                cols.append(self.texts[nm].joined())
         return [(k, dict(zip(names, vals)))
                 for k, *vals in zip(self.keys, *cols)]
 
@@ -102,7 +129,7 @@ class Dataset:
 def draw(cfg: dict, seed: int, dev: torch.device) -> Dataset:
     """The configuration's bulk load, `cfg["n_docs"]` documents."""
     n = cfg["n_docs"]
-    out = {"tags": {}, "numeric": {}, "vectors": {}}
+    out = {"tags": {}, "numeric": {}, "vectors": {}, "texts": {}}
     for j, f in enumerate(cfg["fields"]):
         g = generator(dev, seed, j)
         nm, ty, how = f["name"], f["type"], f.get("draw")
@@ -121,7 +148,32 @@ def draw(cfg: dict, seed: int, dev: torch.device) -> Dataset:
             v = torch.randn(n, f["dim"], generator=g, device=dev,
                             dtype=torch.float32)
             out["vectors"][nm] = v / v.norm(dim=1, keepdim=True)
+        elif ty == "TEXT" and how == "zipf_words":
+            out["texts"][nm] = _zipf_words(f, n, g, dev)
         else:
             raise ValueError(f"field {nm}: no draw {how!r} for {ty}")
     return Dataset(cfg=cfg, n=n, keys=[cfg["key_format"] % i
                                        for i in range(n)], dev=dev, **out)
+
+
+def _zipf_words(f: dict, n: int, g: torch.Generator,
+                dev: torch.device) -> Text:
+    """A `zipf_words` TEXT field: each document's length, then all its
+    words, from the field's own stream."""
+    t = f["tokens"]
+    if isinstance(t, int):
+        lens = torch.full((n,), t, dtype=torch.int64, device=dev)
+    else:
+        z = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+        lens = torch.exp(np.log(t["median"]) + t["sigma"] * z).round_(
+            ).clamp_(t["min"], t["max"]).to(torch.int64)
+    total = int(lens.sum())
+    cdf = torch.from_numpy(np.cumsum(zipf_weights(f["vocab"], f["a"]))).to(
+        dev)
+    u = torch.rand(total, generator=g, device=dev, dtype=torch.float64)
+    ids = torch.searchsorted(cdf, u, right=True).clamp_(max=f["vocab"] - 1)
+    fmt = f["format"]
+    return Text(ids=ids.to(torch.int32).cpu().numpy(),
+                lens=lens.to(torch.int32).cpu().numpy(),
+                words=np.array([fmt % i for i in range(f["vocab"])],
+                               dtype=object))

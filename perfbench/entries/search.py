@@ -5,6 +5,7 @@ and the merge of hits with their documents."""
 from __future__ import annotations
 
 from .. import compare
+from ..reference import parse
 
 
 def submit(run, batch) -> list:
@@ -12,18 +13,20 @@ def submit(run, batch) -> list:
                                      params=batch.params, k=run.mix["k"])
 
 
-def answer(res) -> tuple:
-    """What is judged of one result: total and (key, distance) of each
-    hit."""
-    return (res.total, [(h.key, h.vector_distance) for h in res.hits])
+def answer(res, item: dict) -> tuple:
+    """What is judged of one result: total and (key, value) of each hit,
+    the value a KNN query's distance or any other query's score."""
+    if parse(item["query"])[1] is not None:
+        return (res.total, [(h.key, h.vector_distance) for h in res.hits])
+    return (res.total, [(h.key, h.score) for h in res.hits])
 
 
 def expected(ref, item: dict, mix: dict) -> tuple:
     """The reference's answer in `answer`'s form (for the control: the
     reference in its lower precision, put in the program's place)."""
     exp = ref.search(item["query"], item["params"], mix["k"])
-    dist = compare.lookup(exp["rows"], exp["values"])
-    return (exp["total"], [(ref.ds.keys[r], dist(r))
+    value = compare.lookup(exp["rows"], exp["values"])
+    return (exp["total"], [(ref.ds.keys[r], value(r))
                            for r in exp["ranked"].tolist()])
 
 
@@ -31,6 +34,6 @@ def judge(ref, item: dict, ans: tuple, mix: dict) -> dict:
     exp = ref.search(item["query"], item["params"], mix["k"])
     total, hits = ans
     out = compare.ranked(ref, compare.lookup(exp["rows"], exp["values"]),
-                         exp["ranked"].tolist(), hits)
+                         exp["ranked"].tolist(), hits, exp["better"])
     out["total_err"] = int(total != exp["total"])
     return out

@@ -91,6 +91,9 @@ def schema_fields(cfg: dict) -> list:
         kw = {"sortable": f.get("sortable", False)}
         if ty == FieldType.VECTOR:
             kw["vector"] = VectorParams(dim=f["dim"], metric=f["metric"])
+        elif ty == FieldType.TEXT:
+            kw["weight"] = float(f.get("weight", 1.0))
+            kw["nostem"] = bool(f.get("nostem", False))
         out.append(Field(f["name"], ty, **kw))
     return out
 
@@ -167,8 +170,8 @@ class Sample:
         early = g < self.size
         slot[early] = g[early]
         for j in np.flatnonzero(slot < self.size).tolist():
-            self.items[slot[j]] = (_item(batch, j),
-                                   entry.answer(results[j]))
+            item = _item(batch, j)
+            self.items[slot[j]] = (item, entry.answer(results[j], item))
         self.seen += n
 
     def kept(self) -> list:
@@ -327,6 +330,12 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
         f"median {q[2]:.4f} p90 {q[3]:.4f} max {q[4]:.4f}; "
         f"repeated query strings "
         f"{100.0 * (1 - len(run.distinct) / max(run.requests, 1)):.2f}%")
+    # the host's speed through the window: batches of each fifth of it
+    ends = np.cumsum(run.latencies)
+    fifth = np.minimum((5 * ends / max(ends[-1], 1e-9)).astype(int), 4)
+    log("batch s median by fifth of the window: " + " ".join(
+        f"{np.median(np.asarray(run.latencies)[fifth == i]):.4f}"
+        if (fifth == i).any() else "-" for i in range(5)))
     log("collector in the window: " + ", ".join(
         f"generation {g} {n} runs {t:.3f}s" for g, (t, n) in
         sorted(run.gc.items())))

@@ -10,7 +10,12 @@ takes a value drawn from the mix's `slots`, fresh for every query:
   document drawn at random);
 * `{"draw": "int_range", "lo": a, "hi": b, "min_width": w0,
   "max_width": w1}`: "x x+w" with the width w uniform in [w0, w1] and x
-  uniform in [a, b - w], so every range lies inside [a, b].
+  uniform in [a, b - w], so every range lies inside [a, b];
+* `{"draw": "term", "field": F, "lo": r0, "hi": r1}`: a word of TEXT
+  field F's vocabulary of a rank in [r0, r1), uniform over the ranks, or
+  with `"by": "share"` by the words' shares of F's drawn tokens inside
+  that range.  Where a template uses one term slot more than once, the
+  words of one query differ.
 
 A family's `vector` (`{"field": F, "param": "b"}`) gives each query a
 fresh query vector of F's dimension, unit normal entries, as the PARAMS
@@ -53,14 +58,17 @@ class Traffic:
         w = np.array([f.get("weight", 1.0) for f in self.fams], float)
         self.p = w / w.sum()
         self.parts = [_SLOT.split(f["query"]) for f in self.fams]
-        # each tag slot's labels and their shares, built once: not
-        # inside the window
+        # each tag or term slot's values and their shares, built once:
+        # not inside the window
         self.values = {}
         for name, spec in mix.get("slots", {}).items():
             if spec["draw"] == "tag":
                 self.values[name] = (
                     np.array(ds.tag_values(spec["field"]), dtype=object),
                     ds.tag_weights(spec["field"]))
+            elif spec["draw"] == "term":
+                self.values[name] = _term_values(ds.texts[spec["field"]],
+                                                 spec)
 
     def batch(self, b: int, warm: bool = False) -> Batch:
         stream = WARM_STREAM if warm else BATCH_STREAM
@@ -98,7 +106,7 @@ class Traffic:
     def _fill(self, parts: list, m: int, rng) -> list:
         slots = parts[1::2]
         values = {}
-        for name in set(slots):
+        for name in dict.fromkeys(slots):
             k = slots.count(name)
             values[name] = self._draw(name, m, k, rng)
         used = dict.fromkeys(values, 0)
@@ -123,4 +131,39 @@ class Traffic:
             return np.array([f"{a} {a + b}" for a, b in zip(x.tolist(),
                                                           w.tolist())],
                             dtype=object).reshape(m, k)
+        if draw == "term":
+            vals, p = self.values[name]
+            return vals[_distinct_rows(rng, len(vals), p, m, k)]
         raise ValueError(f"unknown slot draw {draw!r}")
+
+
+def _term_values(text, spec: dict) -> tuple:
+    """(words of ranks [lo, hi), their probabilities or None: uniform)."""
+    lo, hi = spec["lo"], spec["hi"]
+    words = text.words[lo:hi]
+    by = spec.get("by", "rank")
+    if by == "rank":
+        return words, None
+    if by != "share":
+        raise ValueError(f"term slot: unknown 'by' {by!r}")
+    counts = np.bincount(text.ids, minlength=len(text.words))[lo:hi]
+    return words, counts / counts.sum()
+
+
+def _distinct_rows(rng, n: int, p, m: int, k: int) -> np.ndarray:
+    """[m, k] indices into n values, drawn with probabilities p (None:
+    uniform), the k of a row all different: a value that repeats one
+    earlier in its row is drawn again."""
+    if k > n:
+        raise ValueError(f"{k} distinct values asked of {n}")
+
+    def draw(size):
+        return rng.choice(n, size=size, p=p)
+    idx = draw((m, k))
+    while True:
+        dup = np.zeros((m, k), bool)
+        for j in range(1, k):
+            dup[:, j] = (idx[:, :j] == idx[:, j:j + 1]).any(axis=1)
+        if not dup.any():
+            return idx
+        idx[dup] = draw(int(dup.sum()))
