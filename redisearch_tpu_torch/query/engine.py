@@ -1497,6 +1497,14 @@ QUERY_PATH_STATS: dict[str, int] = {
     "knn-host": 0, "cold": 0}
 
 
+def _served(path: str, n: int) -> None:
+    """n batched queries rode executor family `path`: counted in
+    QUERY_PATH_STATS and, in a recorded batch, as its count
+    `engine.queries.<path>`."""
+    QUERY_PATH_STATS[path] = QUERY_PATH_STATS.get(path, 0) + n
+    _trace.count("engine.queries." + path, n)
+
+
 @dataclasses.dataclass
 class SegmentResult:
     """One query's outputs for one segment, on the host."""
@@ -1582,12 +1590,11 @@ def execute_batch(cqs: list, seg: Segment, k: int, async_: bool = False):
         else:
             path, results = "knn-host", _execute_batch_host_knn(cqs, seg,
                                                                 k)
-        QUERY_PATH_STATS[path] = QUERY_PATH_STATS.get(path, 0) + len(cqs)
+        _served(path, len(cqs))
         handle = Deferred(lambda: results)
         return handle if async_ else handle.result()
     if _pure_knn_eligible(cqs, seg):
-        QUERY_PATH_STATS["knn-pure"] = (
-            QUERY_PATH_STATS.get("knn-pure", 0) + len(cqs))
+        _served("knn-pure", len(cqs))
         with _trace.span("engine.launch"):
             parts = [(list(range(len(cqs))),
                       _PureKnnExecutor(cqs, seg, k).run())]
@@ -1683,8 +1690,7 @@ def _group_sub(cqs: list, ents: list, idxs: list, seg: Segment,
             M = M.astype(np.int32)
         gr[:, o:o + n] = M
     entry = _rows_executor(cqs[idxs[0]], ents[idxs[0]], seg, k)
-    QUERY_PATH_STATS[entry.path] = (
-        QUERY_PATH_STATS.get(entry.path, 0) + len(idxs))
+    _served(entry.path, len(idxs))
     return idxs, entry, _segment_args(cqs[idxs[0]], seg), gr
 
 
@@ -1721,16 +1727,14 @@ class _KernelExecutor:
             # one phase: the kernel's lanes are already the exact top-k
             return {"idx": docs[:, :ke], "scores": scores[:, :ke],
                     "count": count}
-        if self.path == "kernel-wide":
-            # the window program breaks ties by the lowest doc, and each
-            # phase's lanes are doc-ascending within a score: order the
-            # lanes by doc, then stably by score
-            order = torch.argsort(docs, dim=1, stable=True)
-            docs = torch.gather(docs, 1, order)
-            scores = torch.gather(scores, 1, order)
-        # per-phase top-k lanes merge by score, lowest lane on ties (the
-        # JAX kernel branch's order); exhausted lanes keep the INT32_MAX
-        # doc filler
+        # both routes serve the window program's order, ties by the
+        # lowest doc: each phase's lanes are doc-ascending within a
+        # score, so order the lanes by doc, then merge stably by score
+        # (the JAX kernel branch merges in phase order); exhausted lanes
+        # keep the INT32_MAX doc filler
+        order = torch.argsort(docs, dim=1, stable=True)
+        docs = torch.gather(docs, 1, order)
+        scores = torch.gather(scores, 1, order)
         vals, sel = IK.iter_topk(scores, docs, ke)
         idx = torch.gather(docs, 1, sel)
         idx = torch.where(vals > -3e38, idx, IK.INT32_MAX)

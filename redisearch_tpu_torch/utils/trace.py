@@ -2,12 +2,13 @@
 
 `root(name)` opens the root span of a batch (one per
 `SearchIndex.search_many` call) and `span(name)` a span inside it, each
-a context manager.  They record only while a `torch.profiler` session
-records on the calling thread (`torch.autograd._profiler_enabled()`),
-checked once when the root opens and held for that batch: the program's
-window is the device trace's by construction, and there is no switch of
-its own.  When its batch does not record, a span costs one global check
-and returns a shared no-op object.
+a context manager; `count(name, n)` adds n to a counter of the open
+batch.  They record only while a `torch.profiler` session records on the
+calling thread (`torch.autograd._profiler_enabled()`), checked once when
+the root opens and held for that batch: the program's window is the
+device trace's by construction, and there is no switch of its own.  When
+its batch does not record, a span costs one global check and returns a
+shared no-op object, and a count costs one global check.
 
 A record (`Record`) holds the span's name, its parent's name (None for a
 root), the batch id every span of one root shares, its start and end on
@@ -17,6 +18,12 @@ go into one buffer of `MAX_RECORDS`, the oldest dropped first and
 counted (`dropped()`).  Each thread keeps its own stack of open spans
 (the RESP server serves batches from a pool of threads), so a span's
 parent is of its own thread and batch.
+
+A count (`Count`) goes into the same buffer: its name, the innermost
+open span's name as its parent, its batch id and n.  It has no duration
+and adds nothing to any span's child cover, so no span's self time
+changes with it.  `records()` returns the spans and `counts()` the
+counts, each oldest first.
 
 No span opens a profiler range: the profiler marks a range that encloses
 a launch or a copy as an annotation on the device's timeline, which a
@@ -47,6 +54,7 @@ CLOCK_MARKER = "rs.trace.clock"
 
 Record = collections.namedtuple(
     "Record", "name parent batch start_ns end_ns child_ns")
+Count = collections.namedtuple("Count", "name parent batch n")
 
 _records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
 _dropped = 0
@@ -56,6 +64,14 @@ _clock = None          # perf_counter_ns at the newest clock marker
 _batch_ids = itertools.count(1)
 _lock = threading.Lock()
 _local = threading.local()   # .stack: this thread's open spans, or None
+
+
+def _append(rec: tuple) -> None:
+    global _dropped
+    with _lock:
+        if len(_records) == _records.maxlen:
+            _dropped += 1
+        _records.append(rec)
 
 
 class _Noop:
@@ -87,18 +103,13 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
-        global _dropped
         end = time.perf_counter_ns()
         stack = self.stack
         stack.pop()
         if stack:
             stack[-1].child_ns += end - self.start_ns
-        rec = (self.name, self.parent, self.batch, self.start_ns, end,
-               self.child_ns)
-        with _lock:
-            if len(_records) == _records.maxlen:
-                _dropped += 1
-            _records.append(rec)
+        _append((self.name, self.parent, self.batch, self.start_ns, end,
+                 self.child_ns))
         return False
 
 
@@ -156,16 +167,34 @@ def span(name: str):
     return _Span(name, top.name, top.batch, stack)
 
 
+def count(name: str, n: int) -> None:
+    """Add n to the counter `name` of the open batch of this thread,
+    where that batch records."""
+    if not _open:
+        return
+    stack = getattr(_local, "stack", None)
+    if stack:
+        top = stack[-1]
+        _append((name, top.name, top.batch, n))
+
+
 def recording() -> bool:
     """Whether this thread is inside a recorded batch."""
     return bool(_open and getattr(_local, "stack", None))
 
 
 def records() -> list:
-    """The kept records (`Record`), oldest first."""
+    """The kept span records (`Record`), oldest first."""
     with _lock:
         kept = list(_records)
-    return [Record._make(r) for r in kept]
+    return [Record._make(r) for r in kept if len(r) == len(Record._fields)]
+
+
+def counts() -> list:
+    """The kept counts (`Count`), oldest first."""
+    with _lock:
+        kept = list(_records)
+    return [Count._make(r) for r in kept if len(r) == len(Count._fields)]
 
 
 def dropped() -> int:
