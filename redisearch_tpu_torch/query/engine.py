@@ -11,12 +11,15 @@ in both packages (a test pins the rows byte for byte):
   `_knn_dense_plan`, `_knn_hoist_info`, `_layout_of` and `_pack_into`,
   and the slop-scorer helpers `bind` consults.
 
-Three spots differ: the BM25 avgdl fallback reads the segment's host
+Four spots differ: the BM25 avgdl fallback reads the segment's host
 mirror of the doc lengths, `decode_blob` returns bf16 query vectors
 as f32 arrays of bf16 values (the JAX function's `ml_dtypes.bfloat16`
-comes with jax), and a `CompiledQuery` takes the process's stemmer of
+comes with jax), a `CompiledQuery` takes the process's stemmer of
 its language (`stemmer_for`) instead of building one: a `Stemmer` tries
-to import nltk each time it is built where nltk is missing.
+to import nltk each time it is built where nltk is missing, and a
+numeric range finds its window with bounds rounded to the sorted
+column's dtype (`window_key`: the same window, without casting the
+whole column to float64 on every bind).
 
 Executors:
 
@@ -211,6 +214,26 @@ def clear_stemmers() -> None:
     """Forget every language's stemmer: the next query of each builds
     its own again."""
     _STEMMERS.clear()
+
+
+def window_key(sv: np.ndarray, x: float, side: str):
+    """`x` as a search key of `sv`'s own dtype that finds the same index
+    as `np.searchsorted(sv.astype(np.float64), x, side)`, without the
+    O(n) float64 copy of `sv` that a Python-float key makes numpy take.
+    For a value `s` of that dtype, `s >= x` exactly when `s >=` the least
+    such value >= x, and `s > x` exactly when `s >` the greatest such
+    value <= x: so side "left" rounds `x` up and side "right" rounds it
+    down.  A bound past the dtype's range becomes +-inf, stepped back to
+    the largest finite value where the side needs it; NaN stays NaN."""
+    x = float(x)
+    t = sv.dtype.type
+    with np.errstate(over="ignore"):
+        key = t(x)
+        if side == "left" and float(key) < x:
+            key = np.nextafter(key, t(np.inf))
+        elif side == "right" and float(key) > x:
+            key = np.nextafter(key, t(-np.inf))
+    return key
 
 
 @dataclasses.dataclass
@@ -763,10 +786,12 @@ class CompiledQuery:
                 if col is not None and col.sorted_vals_np is not None:
                     lo_v, hi_v = self.num_bounds[leaf.ord]
                     sv = col.sorted_vals_np
+                    lo_side = "right" if leaf.lo_excl else "left"
+                    hi_side = "left" if leaf.hi_excl else "right"
                     a = np.searchsorted(
-                        sv, lo_v, side="right" if leaf.lo_excl else "left")
+                        sv, window_key(sv, lo_v, lo_side), side=lo_side)
                     b = np.searchsorted(
-                        sv, hi_v, side="left" if leaf.hi_excl else "right")
+                        sv, window_key(sv, hi_v, hi_side), side=hi_side)
                     length = max(int(b - a), 0)
                     numw_start[leaf.ord] = a
                     numw_len[leaf.ord] = length
