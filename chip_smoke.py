@@ -89,13 +89,12 @@ script exits non-zero:
    slop-1 in-order phrases of 2-4 terms cut from the corpus's own token
    runs: each must ride the phrase kernel, match its source doc and
    agree with its plain recomputation, and 16 must equal the in-order
-   proximity model over the host-copied tokens.  QPS (sequential
-   batches, and bench.py's pipelined loop at depth 2), memory and the
+   proximity model over the host-copied tokens.  Memory and the
    kernels' times against the plain versions' (the largest and2 group,
    the largest kernel-wide group beside the window program's time for
    the same queries, every phrase group) are printed for information.
-5. profile, for information: per family, the host stages of one batch
-   and the device's busy share from torch.profiler.
+   The served batch's QPS and stage times are the benchmark's
+   (`perfbench/`, the cell `enwiki-search-mix`), not this script's.
 6. aggregate path: on the same 1M-doc index, `Client.ft_aggregate_many`
    with bench.py's FT.AGGREGATE request (2-term match, GROUPBY @grp with
    COUNT/SUM/AVG(@price), SORTBY @s DESC, LIMIT 0 10) at batch 1024 for
@@ -147,7 +146,7 @@ script exits non-zero:
 13. the wire (run after 6b, before phase 7), on the same 1M-doc index:
    the port's RESP server (`server.Server` on phase 4's client, its
    event loop on a thread of this process; the RESP client is
-   `bench/workloads.py`'s, which the bench's wire section uses too); 64
+   `bench/workloads.py`'s, which `bench/wire_bench.py` uses too); 64
    asyncio connections send
    8,192 `FT.SEARCH ... NOCONTENT WITHSCORES` (the first 1,024 queries
    of each of the eight families, interleaved), three timed passes:
@@ -322,17 +321,7 @@ script exits non-zero:
    over the live docs, and 256 title phrases of its old text), `ft_get`
    and `ft_mget` return the new fields.  QPS on the
    dirty and the compacted index are printed.
-16. the port's bench (run after 11, before 12; at most about a minute):
-   `redisearch_tpu_torch/bench/run.py`'s six sections (text, fknn,
-   knn, ann: bench.py's sections; wire and cold: benchmarks/
-   wire_bench.py's and cold_bench.py's) in this process at bench.py's
-   BENCH_SMOKE shapes (20,000 docs, 100,000 vectors), one measurement of
-   each number; every section must pass, every number carry its parity
-   check (FT.SEARCH, FT.AGGREGATE and FT.HYBRID against their plain
-   recomputation, KNN and IVF recall against float64 on the card, every
-   wire reply against `ft_search_many`, every cold result against the
-   hot index) and every FT.SEARCH family ride a kernel.
-17. the bench scripts' checks (after 16): `bench/device_smoke.py
+17. the bench scripts' checks (after 11, before 12): `bench/device_smoke.py
    --compare`'s comparison (benchmarks/tpu_smoke.py's 64-doc digest on
    the card and on the CPU: keys, order and totals equal, numbers within
    1e-4), `bench/intersect_micro.py` at one point (B = 512, (2048,
@@ -372,11 +361,11 @@ from redisearch_tpu_torch.bench import probes as PB
 # enqueued while the card spins in `torch.cuda._sleep`
 from redisearch_tpu_torch.bench.ab import device_ms as time_ms
 # bench.py's data, query families and the checks against plain, shared
-# with the port's bench (`python3 -m redisearch_tpu_torch.bench.run`)
+# with the bench scripts (`redisearch_tpu_torch/bench/`)
 from redisearch_tpu_torch.bench.workloads import (
     ANN_D, ANN_K, ANN_N, ANN_NLIST, ANN_NPROBES, ANN_Q, ANN_REPS, FAMILIES,
     FKNN_D, FKNN_K, FKNN_N, HYB_B, HYB_LIMIT, HYB_ROUNDS, HYB_W,
-    K, SCORE_RTOL, agg_request_fn, ann_corpus, ann_truth,
+    K, SCORE_RTOL, agg_request_fn, ann_corpus, ann_truth, batch_groups,
     bm25_fields, check_against_plain, check_fknn, device_busy_us,
     fknn_corpus, fknn_families, fknn_fields, hybrid_queries,
     intersect_bytes, make_corpus, nbytes, phrase_bytes, plain_results,
@@ -1645,9 +1634,9 @@ def bound_ms(n_bytes: float) -> float:
 def phase_main_path(dev, n_docs: int, batch: int) -> dict:
     """Ingest, serve the eight families once with the launch counters
     zeroed just before and read just after, hold every query against its
-    plain recomputation, then the check-only phrase runs, QPS, kernel
-    times and the profile.  Returns the numbers of the kernels' JSON
-    line, the client and the index."""
+    plain recomputation, then the check-only phrase runs and the kernel
+    times.  Returns the numbers of the kernels' JSON line, the client and
+    the index."""
     t0 = time.perf_counter()
     docs, qt, toks = make_corpus(n_docs)
     log(f"phase main-path: corpus {n_docs} docs generated in "
@@ -1747,11 +1736,9 @@ def phase_main_path(dev, n_docs: int, batch: int) -> dict:
     err["phrase"] = max(err["phrase"], phase_phrase_runs(ix, seg, toks))
     del toks
 
-    phase_qps(client, ix, seg, batches, dev)
     log(f"phase main-path: max_memory_allocated="
         f"{torch.cuda.max_memory_allocated(dev)}")
     times = phase_kernel_times(ix, seg, batches, dev)
-    phase_profile(client, ix, seg, batches, dev)
     # the corpus stays for phase 10 (the same documents, cold)
     return dict(launches=launches - w_launches, w_launches=w_launches,
                 p_launches=p_launches, err=err, times=times, client=client,
@@ -1941,41 +1928,6 @@ def warm_qps(client, batches, dev) -> dict:
     return out
 
 
-def phase_qps(client, ix, seg, batches, dev, iters: int = 4):
-    """Information only: QPS per family, host clock, ending in a sync:
-    sequential `ft_search_many` batches (best of 2), then bench.py's
-    pipelined loop over `execute_batch(async_=True)` at depth 2, which
-    prepares the next batch while the card runs this one (best of 2)."""
-    for fam, qps in warm_qps(client, batches, dev).items():
-        log(f"phase main-path: qps {fam}: {qps:.1f} "
-            f"(batch {len(batches[fam])}, best of 2, host clock)")
-    opts = E.QueryOptions(k=K)
-    total_q = total_s = 0.0
-    for fam, qs in batches.items():
-        best = None
-        for _ in range(2):
-            t0 = time.perf_counter()
-            pending = []
-            nxt = [ix.prepare(q, None, opts, 2) for q in qs]
-            for it in range(iters):
-                pending.append(E.execute_batch(nxt, seg, K, async_=True))
-                if it + 1 < iters:
-                    nxt = [ix.prepare(q, None, opts, 2) for q in qs]
-                if len(pending) > 2:
-                    pending.pop(0).result()
-            for h in pending:
-                h.result()
-            dt = time.perf_counter() - t0
-            best = dt if best is None else min(best, dt)
-        total_q += iters * len(qs)
-        total_s += best
-        log(f"phase main-path: pipelined qps {fam}: "
-            f"{iters * len(qs) / best:.1f} ({iters} batches of {len(qs)}, "
-            f"depth 2, best of 2, host clock)")
-    log(f"phase main-path: pipelined qps, {len(batches)} families: "
-        f"{total_q / total_s:.1f}")
-
-
 def intersect_group_args(entry, seg_args, rows, dev) -> tuple:
     """(args, kwargs) of the intersection kernel's call for one batch
     group on its executor."""
@@ -2022,7 +1974,7 @@ def phase_kernel_times(ix, seg, batches, dev) -> dict:
     out = {}
     cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
            for q in batches["and2"]]
-    subs = [s_ for s_ in E._prep_subs(cqs, seg, K)
+    subs = [s_ for s_ in batch_groups(cqs, seg, K)
             if isinstance(s_[1], E._KernelExecutor)]
     idxs, entry, seg_args, rows = max(subs, key=lambda s: len(s[0]))
     out["intersect"] = time_intersect_group(
@@ -2030,7 +1982,7 @@ def phase_kernel_times(ix, seg, batches, dev) -> dict:
 
     cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
            for q in batches["or2"]]
-    subs = [s_ for s_ in E._prep_subs(cqs, seg, K)
+    subs = [s_ for s_ in batch_groups(cqs, seg, K)
             if s_[1].path == "kernel-wide"]
     idxs, entry, seg_args, rows = max(subs, key=lambda s: len(s[0]))
     out["intersect_wide"] = time_intersect_group(
@@ -2041,7 +1993,7 @@ def phase_kernel_times(ix, seg, batches, dev) -> dict:
     # (its ops are many and small), and the host clock of that run
     from torch.profiler import ProfilerActivity, profile
     with window_program():
-        wsub = E._prep_subs([cqs[i] for i in idxs], seg, K)
+        wsub = batch_groups([cqs[i] for i in idxs], seg, K)
     (_wi, wentry, wargs, wrows), = wsub
     wentry.run(wargs, wrows)
     torch.cuda.synchronize()
@@ -2059,7 +2011,7 @@ def phase_kernel_times(ix, seg, batches, dev) -> dict:
 
     cqs = [ix.prepare(q, None, E.QueryOptions(k=K), 2)
            for q in batches["phrase"]]
-    subs = sorted((s_ for s_ in E._prep_subs(cqs, seg, K)
+    subs = sorted((s_ for s_ in batch_groups(cqs, seg, K)
                    if isinstance(s_[1], E._PhraseExecutor)),
                   key=lambda s: -len(s[0]))
     for gi, (idxs, entry, seg_args, rows) in enumerate(subs):
@@ -2125,7 +2077,7 @@ def save_b1_groups(path: str) -> None:
             continue
         cqs = [ix.prepare(FAMILIES[fam](qt, i), None, E.QueryOptions(k=K), 2)
                for i in range(BATCH)]
-        subs = [s_ for s_ in E._prep_subs(cqs, seg, K)
+        subs = [s_ for s_ in batch_groups(cqs, seg, K)
                 if isinstance(s_[1], E._KernelExecutor)]
         for idxs, entry, seg_args, rows in sorted(subs,
                                                   key=lambda s: -len(s[0])):
@@ -2142,53 +2094,6 @@ def save_b1_groups(path: str) -> None:
     torch.save({"arrays": {k: v.cpu() for k, v in arrays.items()},
                 "groups": groups}, path)
     log(f"saved {len(groups)} intersection-kernel groups to {path}")
-
-
-# ---------------------------------------------------------------- phase 5
-def phase_profile(client, ix, seg, batches, dev):
-    """Information only: where one batch's time goes, per family.  The
-    host stages of `ft_search_many`, each by the host clock over steady
-    (already prepared) queries: prepare, bind (`_prep_subs`: rows,
-    grouping, plans), launch (each group's upload, unpack and kernel
-    launch), wait (`synchronize`), d2h (`_BatchHandle.result`); then the
-    whole `ft_search_many` (rest = whole - the stages: hits and merge),
-    and the device's busy time over one `ft_search_many` traced by
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    for fam, qs in batches.items():
-        opts = E.QueryOptions(k=K)
-        t = [time.perf_counter()]
-        cqs = [ix.prepare(q, None, opts, 2) for q in qs]
-        t.append(time.perf_counter())
-        subs = E._prep_subs(cqs, seg, K)
-        t.append(time.perf_counter())
-        parts = [(idxs, entry.run(sa, rows))
-                 for idxs, entry, sa, rows in subs]
-        t.append(time.perf_counter())
-        torch.cuda.synchronize(dev)
-        t.append(time.perf_counter())
-        E._BatchHandle(parts, len(cqs)).result()
-        t.append(time.perf_counter())
-        client.ft_search_many("bm25", qs, k=K)
-        torch.cuda.synchronize(dev)
-        t.append(time.perf_counter())
-        ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
-        whole = ms[5]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            client.ft_search_many("bm25", qs, k=K)
-            torch.cuda.synchronize(dev)
-            traced = (time.perf_counter() - t0) * 1e3
-        busy, kerns = device_busy_us(prof)
-        kern = sum(kerns.values())
-        log(f"phase profile: {fam} (batch {len(qs)}, {len(subs)} groups) "
-            f"host ms: prepare {ms[0]:.3f}, bind {ms[1]:.3f}, launch "
-            f"{ms[2]:.3f}, wait {ms[3]:.3f}, d2h {ms[4]:.3f}, whole "
-            f"ft_search_many {whole:.3f}, rest {whole - sum(ms[:5]):.3f}; "
-            f"traced ft_search_many {traced:.3f} ms with device busy "
-            f"{busy:.1f} us (kernels {kern:.1f} us), idle share "
-            f"{1.0 - busy / (traced * 1e3):.4f}")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -3829,7 +3734,7 @@ def phase_hybrid(dev, ctx) -> dict:
     t = [time.perf_counter()]
     cqs = H._branch_queries(ix, hqs)
     t.append(time.perf_counter())
-    subs = E._prep_subs(cqs, seg, HYB_W)
+    subs = batch_groups(cqs, seg, HYB_W)
     t.append(time.perf_counter())
     parts, branch_ms = [], {}
     for idxs, entry, sa, rows in subs:
@@ -5345,42 +5250,6 @@ def phase_lifecycle(dev, main) -> dict:
     return out
 
 
-# -------------------------------------------------------------- phase 16
-#: the bench's progress keys that carry a parity check
-BENCH_CHECKED = ([f"bm25__{f}" for f in FAMILIES]
-                 + ["agg_groupby_qps", "agg_star_qps", "flat_knn_qps",
-                    "ann_sweep"]
-                 + [f"fknn__{f}" for f in ("fulltext", "numeric", "tag")]
-                 + ["hybrid__rrf", "hybrid__linear", "wire_qps", "cold"])
-
-
-def phase_bench(dev) -> dict:
-    """Phase 16 (see the docstring)."""
-    from redisearch_tpu_torch.bench import run as BR
-    t0 = time.perf_counter()
-    board, rc = BR.run(BR.SECTIONS, dev, BR.SMOKE, reps=1)
-    ex = board["extra"]
-    log(f"phase bench: BENCH_SMOKE shapes, sections "
-        f"{ {k: round(v, 1) for k, v in ex['section_s'].items()} } s, "
-        f"rc {rc}, kernel_hit_pct {ex.get('kernel_hit_pct')}, and2 "
-        f"{board['value']:.1f} qps (one measurement, not a cell)")
-    log("phase bench: parity " + json.dumps(ex["parity"]))
-    missing = [k for k in BENCH_CHECKED if k not in ex["parity"]]
-    if rc or ex.get("section_rc") or missing:
-        raise AssertionError(f"bench: rc {rc}, {ex.get('section_rc')}, "
-                             f"numbers without a parity check {missing}")
-    if ex.get("kernel_hit_pct") != 100.0:
-        raise AssertionError(f"bench: FT.SEARCH families off the kernels: "
-                             f"{ex['routes'].get('kernel_hit_pct')}")
-    log(f"phase bench: wire {ex['wire_qps']:.1f} qps, micro-batches "
-        f"{ex['wire_batch_sizes'][-1]}; cold and2 "
-        f"{ex['cold']['hbm']['and2_qps']:.1f} / "
-        f"{ex['cold']['host']['and2_qps']:.1f} qps hot / cold, routes "
-        f"{ex['routes']['cold']}")
-    log(f"phase bench: done in {time.perf_counter() - t0:.1f}s")
-    return board
-
-
 # -------------------------------------------------------------- phase 17
 def phase_bench_scripts(dev) -> None:
     """Phase 17 (see the docstring)."""
@@ -5445,7 +5314,6 @@ def main():
     phase_cold(dev, main)
     life_err = phase_lifecycle(dev, main)["served"]["err"]
     torch.cuda.empty_cache()
-    phase_bench(dev)
     phase_bench_scripts(dev)
     k_ms, p_ms, k_err, k_b = main["times"]["intersect"]
     wk_ms, wp_ms, wk_err, wk_b = main["times"]["intersect_wide"]

@@ -1,6 +1,6 @@
 """bench.py's data and query families, and the checks that hold served
-results against their plain recomputation: shared by the port's bench
-(`bench/run.py`) and `chip_smoke.py`, so both draw the same data from
+results against their plain recomputation: shared by `chip_smoke.py`
+and the bench scripts of this directory, so all draw the same data from
 the same seed.
 
 Every corpus is synthetic and seeded:
@@ -16,19 +16,20 @@ version within a block, `plain_results` recomputes FT.SEARCH results so,
 `check_against_plain` compares them, `check_fknn` holds filtered KNN
 against exact float64 distances on the results' device,
 `same_knn_hits` and `same_fusion` compare two KNN and two FT.HYBRID
-results.
+results.  `batch_groups` binds and groups a batch as `execute_batch`
+does, for the checks and timings of one executor group.
 
 The wire and cold benches' data (`wire_corpus`, `wire_cmds`,
 `cold_corpus`, `cold_queries`: benchmarks/wire_bench.py's and
-cold_bench.py's draws), the RESP client that the wire section and
-`chip_smoke.py` phase 13 share (`WireConn`, `wire_pass`, `wire_run`,
+cold_bench.py's draws), the RESP client that `bench/wire_bench.py`
+and `chip_smoke.py` phase 13 share (`WireConn`, `wire_pass`, `wire_run`,
 `start_server`), `same_keys` (a wire reply against a served result),
 and what the kernel records count: `intersect_bytes` and
 `phrase_bytes` (the bytes a batch needs B1 and B2 to move) and
 `device_busy_us` (a torch.profiler trace's busy device time).  The
 bench scripts' common steps: `open_device` (the card or, for tests, the
-CPU), `pipelined` (bench.py's serving loop), `spread`, `route_delta`,
-`log` (stderr) and `emit` (the record as the last stdout line).
+CPU), `spread`, `route_delta`, `log` (stderr) and `emit` (the record as
+the last stdout line).
 """
 
 from __future__ import annotations
@@ -71,28 +72,6 @@ def device_entry(dev) -> dict:
         return {"platform": "cpu"}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
             "count": torch.cuda.device_count(), "nvidia_smi": card_line()}
-
-
-def pipelined(submit, make, n: int, dev, depth: int = 2):
-    """bench.py's serving loop: submit batch `it`, build batch it + 1
-    while the card runs it, collect `depth` behind (bench.py: 2; the
-    `benchmarks/` decompositions: 1).  Returns (seconds, the results of
-    batch 0)."""
-    t0 = time.perf_counter()
-    pending, first = [], []
-    nxt = make(0)
-    for it in range(n):
-        pending.append(submit(nxt))
-        if it + 1 < n:
-            nxt = make(it + 1)
-        if len(pending) > depth:
-            r = pending.pop(0).result()
-            first = first or [r]
-    for h in pending:
-        r = h.result()
-        first = first or [r]
-    sync(dev)
-    return time.perf_counter() - t0, first[0]
 
 
 def emit(out: dict, dev) -> dict:
@@ -149,8 +128,6 @@ FAMILIES = {
     "fields2": lambda qt, i, it=0:
         f"@title:{qt[(2*i+it) % 500]} @body:{qt[(2*i+it+1) % 500]}",
 }
-#: bench.py's headline families (more rounds and repeats there)
-HEADLINE = ("and2", "phrase", "and2_tag")
 
 
 def make_corpus(n_docs: int, seed: int = 0):
@@ -246,13 +223,21 @@ class plain_versions:
          GB.groupby_aggregate_multi) = self.saved
 
 
+def batch_groups(cqs: list, seg, k: int) -> list:
+    """Bind + group + stack a batch as `execute_batch` does: [(query
+    indices, executor, segment args, stacked rows)] (`_bind_rows`, then
+    `_group_sub` for each group)."""
+    ents, groups = E._bind_rows(cqs, seg)
+    return [E._group_sub(cqs, ents, idxs, seg, k) for idxs in groups]
+
+
 def plain_results(ix, seg, queries, opts=None):
     """The engine's results for `queries` with each kernel's plain
     version in its place (`plain_versions`): ([SegmentResult], the size
     of the largest group)."""
     cqs = [ix.prepare(q, None, opts or E.QueryOptions(k=K), 2)
            for q in queries]
-    largest = max(len(s[0]) for s in E._prep_subs(cqs, seg, K))
+    largest = max(len(s[0]) for s in batch_groups(cqs, seg, K))
     with plain_versions():
         return E.execute_batch(cqs, seg, K), largest
 

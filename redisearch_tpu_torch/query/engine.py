@@ -1661,14 +1661,6 @@ def execute_batch_rounds(rounds: list, seg: Segment, k: int,
     return h if async_ else h.result()
 
 
-def _prep_subs(cqs: list, seg: Segment, k: int) -> list:
-    """Bind + group + stack a batch: [(query indices, executor,
-    segment args, stacked rows)] (`_bind_rows`, then `_group_sub` for
-    each group)."""
-    ents, groups = _bind_rows(cqs, seg)
-    return [_group_sub(cqs, ents, idxs, seg, k) for idxs in groups]
-
-
 def _bind_rows(cqs: list, seg: Segment) -> tuple:
     """Every query bound as a packed transport row (memoized per
     segment; a miss is the span `engine.bind`), and the batch's groups by

@@ -390,7 +390,7 @@ if BLOCK:
 
 from redisearch_tpu_torch.bench import probes as P
 mods = [importlib.import_module("redisearch_tpu_torch.bench." + m)
-        for m in list(P.SCRIPTS.values()) + ["run", "workloads"] + NEW]
+        for m in list(P.SCRIPTS.values()) + ["workloads"] + NEW]
 res = P.main(["gstep2"], device="cpu")
 repo = os.path.dirname(os.path.dirname(os.path.abspath(P.__file__)))
 repo = os.path.dirname(repo)
@@ -413,8 +413,8 @@ print(json.dumps({
 @pytest.mark.parametrize("block", [True, False],
                          ids=["jax-blocked", "jax-installed"])
 def test_probes_load_without_jax(block):
-    """`bench/probes.py`, the four probe scripts, the bench runner
-    (`bench/run.py`, `bench/workloads.py`) and the counterparts of the
+    """`bench/probes.py`, the four probe scripts, the shared data and
+    checks (`bench/workloads.py`) and the counterparts of the
     other `benchmarks/` scripts (`NEW_SCRIPTS`) load (and gstep2's plain
     versions run) without jax, and load no module file under
     `redisearch_tpu/` or `benchmarks/` (nor bench.py): the port keeps its
@@ -430,7 +430,7 @@ def test_probes_load_without_jax(block):
     assert out["scripts"] == sorted(
         "redisearch_tpu_torch.bench." + m for m in (
             "gstep_probe", "gstep_probe2", "kernel_probe",
-            "grid_floor_probe", "run", "workloads", *NEW_SCRIPTS))
+            "grid_floor_probe", "workloads", *NEW_SCRIPTS))
     assert out["bad"] == [0, 0]
     assert out["files"] == [], out["files"]
     assert out["loaded"] == [], out["loaded"]
